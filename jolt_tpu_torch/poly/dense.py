@@ -1,0 +1,44 @@
+"""Dense multilinear polynomials as field limb tensors.
+
+Torch counterpart of the JAX package's `poly/dense.py` (analog of the
+reference's `DensePolynomial`, `crates/jolt-prover-legacy/src/poly/
+dense_mlpoly.rs`).  An n-variable MLE over Fr is a tensor (8, 2**n) of
+evaluations over the boolean hypercube, index bits big-endian: variable 0 is
+the MSB of the index.  HighToLow binding: P'[i] = P[i] + r*(P[i+T/2]-P[i]).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from ..field import ops
+
+
+def bind_high(P: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Bind the MSB variable to challenge r (Montgomery scalar (L, 1))."""
+    half = P.shape[-1] // 2
+    lo, hi = P[..., :half], P[..., half:]
+    return ops.add(lo, ops.mont_mul(ops.sub(hi, lo), r))
+
+
+def sumcheck_eval_points_high(P: torch.Tensor, degree: int) -> torch.Tensor:
+    """Per-index univariate evals at X in {0, 2, 3, ..., degree} for the MSB
+    variable: (L, degree, T/2); entry [:, 0] is X=0, entry [:, j>=1] is
+    X=j+1 (eval(X) = lo + X*(hi-lo), by repeated addition of the slope)."""
+    half = P.shape[-1] // 2
+    lo, hi = P[..., :half], P[..., half:]
+    outs = [lo]
+    if degree >= 2:
+        m = ops.sub(hi, lo)
+        cur = ops.add(hi, m)             # X=2
+        outs.append(cur)
+        for _ in range(3, degree + 1):
+            cur = ops.add(cur, m)
+            outs.append(cur)
+    return torch.stack(outs, dim=1)
+
+
+def from_ints(vals: Sequence[int], device="cuda") -> torch.Tensor:
+    return ops.pack_ints(vals, device)

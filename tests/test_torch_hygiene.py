@@ -1,0 +1,84 @@
+"""Import hygiene and the device rule of the torch port.
+
+The port imports torch and numpy, never JAX and nothing of the JAX package
+(whose `field/__init__.py` imports JAX): the machine with the card has no
+JAX.  Its entry points run on the card unless the caller asks for the CPU.
+"""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import jolt_tpu_torch
+
+PKG = pathlib.Path(jolt_tpu_torch.__file__).resolve().parent
+ROOT = PKG.parent
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import jolt_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(jolt_tpu_torch.__path__,
+                                                "jolt_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "jolt_tpu"))
+print(len(names), bad)
+"""
+
+
+def test_import_pulls_in_no_jax_and_no_jax_package():
+    res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    n_modules, bad = res.stdout.strip().split(" ", 1)
+    assert int(n_modules) >= 30
+    assert bad == "[]"
+
+
+def _sources():
+    """The package's sources; `_build/` holds build output, not source."""
+    return [p for p in PKG.rglob("*")
+            if p.suffix in (".py", ".cu", ".cuh", ".cpp", ".h")
+            and "_build" not in p.relative_to(PKG).parts]
+
+
+@pytest.mark.parametrize("pattern", [
+    r"(?<![\w./])jolt_tpu/",              # a path under the JAX package
+    r"(?<![\w./])native/",                # the JAX package's native dir
+    r"^\s*(import|from)\s+jax",           # an import of JAX
+    r"^\s*(import|from)\s+jolt_tpu(\.|\s)",   # of the JAX package
+])
+def test_sources_name_nothing_of_the_jax_package(pattern):
+    hits = []
+    for path in _sources():
+        for i, line in enumerate(path.read_text().splitlines(), 1):
+            if re.search(pattern, line):
+                hits.append(f"{path.relative_to(ROOT)}:{i}: {line.strip()}")
+    assert not hits, "\n".join(hits)
+
+
+def test_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from jolt_tpu_torch.riscv.emulator import MemoryLayout
+    from jolt_tpu_torch.tracer import trace_program
+    layout = MemoryLayout(max_input_size=64, max_output_size=64)
+    trace = trace_program(f"""
+        li t1, {layout.termination}
+        li t2, 1
+        sd t2, 0(t1)
+    """, layout=layout)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        jolt_tpu_torch.prove_stage1(trace)
+
+
+def test_kernel_wrapper_refuses_mixed_devices():
+    from jolt_tpu_torch.field import kernels
+    a = torch.zeros((8, 4), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        kernels.mont_mul(a, a.to("meta"))
