@@ -6,17 +6,26 @@ version, drives the port's main path once at full size, and checks it.
 
 Phases:
   1. the card (nvidia-smi name and power limit);
-  2. build K1 (`jolt_tpu_torch/csrc/mont_mul.cu`, nvcc for sm_90a);
+  2. build K1 (`jolt_tpu_torch/csrc/mont_mul.cu`) and K2
+     (`jolt_tpu_torch/csrc/product_round.cu`), one nvcc for sm_90a each, both
+     at once;
   3. K1 vs `mont_mul_plain` on the card, bit for bit: seeded random inputs
      at N = 2^20, the values 0, 1 and r-1, a sample against Python ints;
-  4. the main path: the sha2-chain guest (chain=114, ~2^18 cycles) traced
-     by the port's native tracer, `prove_stage1(trace, device="cuda")` with
-     K1's launch count read around it, then `verify_stage1`; then K1 vs
-     plain again at the largest launch shape of that run and at the shape
-     with the most work (launches x elements), with times and bounds;
-  5. card vs CPU: `prove_stage1` on the small fib trace gives identical
+  4. the round-step path (`sumcheck.product.round_step`, the counterpart of
+     the JAX package's round-step entry point): 18 chained rounds from
+     T = 2^18 down to 2 with seeded challenges, K2's launch count read
+     around them; then every round held against `product_round_deg3_plain`
+     bit for bit, K2 vs plain at T = 2^14 (the entry point's size) and
+     2^18, one small case against Python ints, and K2's times and bound;
+  5. the main path: the sha2-chain guest (chain=114, ~2^18 cycles) traced
+     by the port's native tracer, `prove_prefix(trace, device="cuda")`
+     (stages 1-5) with K1's launch count read around it, then
+     `verify_prefix`; then K1 vs plain again at the largest launch shape of
+     that run and at the shape with the most work (launches x elements),
+     with times and bounds;
+  6. card vs CPU: `prove_prefix` on the small fib trace gives identical
      proofs on "cuda" and on "cpu";
-  6. one JSON line with every ported kernel, the card line, and the final
+  7. one JSON line with every ported kernel, the card line, and the final
      `{"ok": true, "device": ...}` line.
 
 Any failure raises and exits nonzero; with no CUDA device it exits 2
@@ -43,6 +52,11 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_MAD_PER_S = 132 * 64 * 1.98e9
 # K1 per element: 136 32x32->64 multiplies = 272 32-bit multiply-adds
 K1_MADS_PER_ELEM = 272
+# K2 per pair: 3 binds + 6 products = 9 Montgomery products
+K2_MADS_PER_PAIR = 9 * K1_MADS_PER_ELEM
+K2_CHAIN_LOG_T = 18          # the chained round-step run: 2^18 down to 2
+PREFIX_STAGES = {"witness-extraction", "stage1-spartan", "stage1s-shift",
+                 "stage2-reg-rw", "stage3-reg-val", "stage4-5-ram"}
 
 FIB_LAYOUT = dict(max_input_size=64, max_output_size=64)
 FIB = """
@@ -143,14 +157,52 @@ def time_k1(kernels, a, b, reps=20):
     return ms, plain_ms, bound, by
 
 
+def k2_bound_ms(T, blocks):
+    """Least time for one K2 launch at T entries per factor: the three
+    factors and r read once, the three bound factors (T/2 each) and the
+    (blocks, 8, 3) uint64 partial sums written once, vs 9 Montgomery
+    products (272 int32 multiply-adds each) per pair."""
+    pairs = T // 2
+    bytes_ = 32 * (3 * T + 1 + 3 * pairs) + 8 * 24 * blocks
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = pairs * K2_MADS_PER_PAIR / INT32_MAD_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def k2_error(got, want, where):
+    """Max |difference| over the words of K2's four outputs vs plain; fails
+    unless they are identical."""
+    err = 0
+    for g, w in zip(got, want):
+        check(g.shape == w.shape, f"K2 shape {g.shape} vs {w.shape} {where}")
+        err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
+                           .abs().max()))
+        check(torch.equal(g, w), f"K2 disagrees with plain {where}")
+    return err
+
+
+def time_k2(kernels, polys, r, reps=20):
+    """K2's launch alone, the wrapper (launch + the mod-p finish of the
+    block sums) and the plain version, in ms; with the bound."""
+    ms = cuda_ms(lambda: kernels.launch_product_round(*polys, r), reps)
+    wrapper_ms = cuda_ms(lambda: kernels.product_round_deg3(*polys, r), reps)
+    plain_ms = cuda_ms(lambda: kernels.product_round_deg3_plain(*polys, r), 3)
+    blocks = kernels.launch_product_round(*polys, r)[0].shape[0]
+    bound, by = k2_bound_ms(polys[0].shape[-1], blocks)
+    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(2)
     sys.path.insert(0, str(ROOT))
-    from jolt_tpu_torch import PublicIO, prove_stage1, verify_stage1
+    from jolt_tpu_torch import PublicIO, prove_prefix, verify_prefix
     from jolt_tpu_torch.field import kernels, ops
     from jolt_tpu_torch.riscv.emulator import MemoryLayout
+    from jolt_tpu_torch.sumcheck.product import round_step
     from jolt_tpu_torch.tracer import trace_program
     from jolt_tpu_torch.workload import (SHA2_CHAIN, card_line,
                                          sha2_chain_trace, timed_stages)
@@ -162,13 +214,15 @@ def main():
     print(f"[card] {card}  torch {torch.__version__} cuda {torch.version.cuda}"
           f"  {torch.cuda.get_device_name(0)}", flush=True)
 
-    # ---- 2. build K1 ----------------------------------------------------
+    # ---- 2. build K1 and K2 ---------------------------------------------
     t0 = time.perf_counter()
-    report = kernels.build()
-    print(f"[build] K1 built in {time.perf_counter() - t0:.2f}s", flush=True)
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    reports = kernels.build()
+    print(f"[build] K1 and K2 built in {time.perf_counter() - t0:.2f}s",
+          flush=True)
+    for name, report in reports.items():
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}")
 
     # ---- 3. K1 vs plain at N = 2^20, edge values, Python ints ------------
     gen = torch.Generator(device=dev)
@@ -200,7 +254,70 @@ def main():
           "sample == Python ints", flush=True)
     del a, b
 
-    # ---- 4. main path: sha2-chain through prove_stage1 on the card -------
+    # ---- 4. round-step path: 18 chained rounds through K2 ----------------
+    T = 1 << K2_CHAIN_LOG_T
+    chain = [tuple(rand_field((8, T), gen, dev) for _ in range(3))]
+    rs = [rand_field((8, 1), gen, dev) for _ in range(K2_CHAIN_LOG_T)]
+    msgs = []
+    torch.cuda.synchronize()
+    kernels.mont_mul.launches = 0
+    kernels.product_round_deg3.launches = 0
+    t0 = time.perf_counter()
+    for r in rs:
+        msg, bound = round_step(chain[-1], r)
+        msgs.append(msg)
+        chain.append(bound)
+    torch.cuda.synchronize()
+    t_chain = time.perf_counter() - t0
+    k2_launches = kernels.product_round_deg3.launches
+    k1_round_launches = kernels.mont_mul.launches
+    check(k2_launches == K2_CHAIN_LOG_T,
+          f"round_step launched K2 {k2_launches} times in "
+          f"{K2_CHAIN_LOG_T} rounds")
+    check(chain[-1][0].shape == (8, 1), "chained run did not end at T = 1")
+    k2_err = 0
+    for i, r in enumerate(rs):
+        want = kernels.product_round_deg3_plain(*chain[i], r)
+        k2_err = max(k2_err, k2_error((msgs[i], *chain[i + 1]), want,
+                                      f"in chained round {i}"))
+    print(f"[path] round_step 2^{K2_CHAIN_LOG_T} -> 2: {K2_CHAIN_LOG_T} "
+          f"rounds in {t_chain:.4f}s, K2 launches {k2_launches}, K1 "
+          f"launches {k1_round_launches} (the mod-p finish of the sums); "
+          "every round == product_round_deg3_plain bit for bit", flush=True)
+    del chain, msgs
+    k2_times = {}
+    for log_t in (14, K2_CHAIN_LOG_T):
+        polys = tuple(rand_field((8, 1 << log_t), gen, dev)
+                      for _ in range(3))
+        r = rand_field((8, 1), gen, dev)
+        k2_err = max(k2_err, k2_error(kernels.product_round_deg3(*polys, r),
+                                      kernels.product_round_deg3_plain(
+                                          *polys, r), f"at T = 2^{log_t}"))
+        k2_times[log_t] = t = time_k2(kernels, polys, r)
+        print(f"[kernel] product_round_deg3 T=2^{log_t}: {t['ms']:.4f} ms "
+              f"(wrapper {t['wrapper_ms']:.4f} ms), plain "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']})", flush=True)
+        del polys
+    small = tuple(rand_field((8, 8), gen, dev) for _ in range(3))
+    r = rand_field((8, 1), gen, dev)
+    msg, *bound = kernels.product_round_deg3(*small, r)
+    vals = [ops.unpack_ints(p) for p in small]
+    rv = ops.unpack_ints(r)[0]
+    def ev(v, i, x):                 # factor v's eval at X = x, pair i
+        return (v[i] + x * (v[i + 4] - v[i])) % P
+    want = [sum(ev(vals[0], i, x) * ev(vals[1], i, x) % P * ev(vals[2], i, x)
+                for i in range(4)) % P for x in (0, 2, 3)]
+    check(ops.unpack_ints(msg.reshape(8, -1)) == want,
+          "K2 message disagrees with Python ints")
+    check([ops.unpack_ints(b) for b in bound]
+          == [[(v[i] + rv * (v[i + 4] - v[i])) % P for i in range(4)]
+              for v in vals], "K2 binds disagree with Python ints")
+    print("[kernel] K2 == product_round_deg3_plain bit for bit (T=2^14, "
+          f"2^{K2_CHAIN_LOG_T}, every chained round); T=8 == Python ints",
+          flush=True)
+
+    # ---- 5. main path: sha2-chain through prove_prefix on the card -------
     t0 = time.perf_counter()
     tr = sha2_chain_trace()          # raises if the chain's output is wrong
     t_trace = time.perf_counter() - t0
@@ -220,10 +337,11 @@ def main():
     torch.cuda.reset_peak_memory_stats(dev)
     ops.mont_mul = recording
     kernels.mont_mul.launches = 0
+    kernels.product_round_deg3.launches = 0
     try:
         t0 = time.perf_counter()
         proof, stage_s, stage_lines = timed_stages(
-            lambda: prove_stage1(tr, device="cuda"))
+            lambda: prove_prefix(tr, device="cuda"))
         t_prove = time.perf_counter() - t0
     finally:
         launches = kernels.mont_mul.launches
@@ -231,19 +349,21 @@ def main():
     peak = torch.cuda.max_memory_allocated(dev)
     print(stage_lines, end="")
     check(launches > 0, "K1 was not launched on the main path")
-    check(set(stage_s) == {"witness-extraction", "stage1-spartan",
-                           "stage1s-shift"}, f"stage lines: {stage_s}")
+    check(kernels.product_round_deg3.launches == 0,
+          "K2 launched on the prefix path (it serves no live round)")
+    check(set(stage_s) == PREFIX_STAGES, f"stage lines: {stage_s}")
+    check([e["stage"] for e in proof.fs_tape]
+          == [k for k in stage_s if k != "witness-extraction"],
+          f"FS tape: {proof.fs_tape}")
     t0 = time.perf_counter()
-    ok = verify_stage1(proof, PublicIO.from_trace(tr))
+    ok = verify_prefix(proof, PublicIO.from_trace(tr))
     t_verify = time.perf_counter() - t0
-    check(ok is True, "verify_stage1 did not accept")
-    print(f"[path] prove_stage1 {t_prove:.3f}s (witness "
-          f"{stage_s['witness-extraction']:.3f}s, s1 "
-          f"{stage_s['stage1-spartan']:.3f}s, s1s "
-          f"{stage_s['stage1s-shift']:.3f}s), peak allocated "
-          f"{peak / 2**30:.3f} GiB, K1 launches {launches}, "
-          f"{len(shapes)} launch shapes; verify_stage1 accepted in "
-          f"{t_verify:.3f}s", flush=True)
+    check(ok is True, "verify_prefix did not accept")
+    print(f"[path] prove_prefix {t_prove:.3f}s ("
+          + ", ".join(f"{k} {v:.3f}s" for k, v in stage_s.items())
+          + f"), peak allocated {peak / 2**30:.3f} GiB, K1 launches "
+          f"{launches}, {len(shapes)} launch shapes; verify_prefix accepted "
+          f"in {t_verify:.3f}s", flush=True)
 
     # K1 vs plain at the main path's largest shape and its heaviest one
     def numel(sh):
@@ -267,23 +387,24 @@ def main():
         del a, b
     ms, plain_ms, bound, by = main_times[largest]
 
-    # ---- 5. card vs CPU on the fib trace ---------------------------------
+    # ---- 6. card vs CPU on the fib trace ---------------------------------
     fib_layout = MemoryLayout(**FIB_LAYOUT)
     fib = trace_program(FIB.format(output_start=fib_layout.output_start,
                                    termination=fib_layout.termination),
                         layout=fib_layout)
-    on_card = prove_stage1(fib, device="cuda")
-    on_cpu = prove_stage1(fib, device="cpu")
+    on_card = prove_prefix(fib, device="cuda")
+    on_cpu = prove_prefix(fib, device="cpu")
     check(dataclasses.asdict(on_card) == dataclasses.asdict(on_cpu),
-          "prove_stage1 differs between cuda and cpu on the fib trace")
-    check(verify_stage1(on_card, PublicIO.from_trace(fib)) is True,
-          "verify_stage1 rejected the fib proof")
-    print(f"[card-vs-cpu] fib ({fib.length} cycles): identical Stage1Proof; "
+          "prove_prefix differs between cuda and cpu on the fib trace")
+    check(verify_prefix(on_card, PublicIO.from_trace(fib)) is True,
+          "verify_prefix rejected the fib proof")
+    print(f"[card-vs-cpu] fib ({fib.length} cycles): identical PrefixProof; "
           f"states {[e['state'][:16] for e in on_card.fs_tape]}", flush=True)
 
-    # ---- 6. results -------------------------------------------------------
+    # ---- 7. results -------------------------------------------------------
     print(f"[total] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(card)
+    k2 = k2_times[K2_CHAIN_LOG_T]
     print(json.dumps({"kernels": [{
         "name": "mont_mul", "route": "cuda",
         "source": "jolt_tpu_torch/csrc/mont_mul.cu",
@@ -291,7 +412,14 @@ def main():
         "launches": launches, "max_abs_err": max_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
         "bound_by": by, "library_ms": None,
-        "shape": [list(largest[0]), list(largest[1])]}]}))
+        "shape": [list(largest[0]), list(largest[1])]}, {
+        "name": "product_round_deg3", "route": "cuda",
+        "source": "jolt_tpu_torch/csrc/product_round.cu",
+        "replaces": "jolt_tpu/field/pallas_ops.py:97",
+        "launches": k2_launches, "max_abs_err": k2_err,
+        **k2, "library_ms": None,
+        "shape": [[8, T]] * 3 + [[8, 1]],
+        "at_t14": k2_times[14]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,5 +5,5 @@ byte for byte.  It imports torch and numpy only.  Entry points run on the
 card (`device="cuda"`) unless the caller asks for the CPU.
 """
 
-from .prover import Stage1Proof, prove_stage1
-from .verifier import PublicIO, VerificationError, verify_stage1
+from .prover import PrefixProof, prove_prefix
+from .verifier import PublicIO, VerificationError, verify_prefix

@@ -22,68 +22,16 @@
 // 28.7 ps and multiplies 16.3 ps per element: the kernel is bound by bytes
 // when both operands stream, and close to balanced when one is a scalar.
 //
+// The CIOS product itself (`fr::mont_mul8`) lives in `fr.cuh`, shared
+// with K2 (`product_round.cu`).
+//
 // Left for later: the reduction is not interleaved with the schoolbook
 // across warps, no PTX carry chains (mad.lo.cc / madc.hi) are used, and
-// nothing is fused around the product (bind, eval points, lazy sums: the
-// Pallas `product_round_deg3`, K2, is the model for that).
+// nothing is fused around the product.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fr.cuh"
 
 namespace {
-
-__constant__ uint32_t kP[8] = {
-    0xf0000001u, 0x43e1f593u, 0x79b97091u, 0x2833e848u,
-    0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u};
-// -p^-1 mod 2^32
-constexpr uint32_t kN0 = 0xefffffffu;
-
-__device__ __forceinline__ void mont_mul8(const uint32_t a[8],
-                                          const uint32_t b[8],
-                                          uint32_t out[8]) {
-  uint32_t t[10];
-#pragma unroll
-  for (int j = 0; j < 10; ++j) t[j] = 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    // t += a[i] * b
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      uint64_t s = (uint64_t)t[j] + (uint64_t)a[i] * b[j] + c;
-      t[j] = (uint32_t)s;
-      c = s >> 32;
-    }
-    uint64_t s = (uint64_t)t[8] + c;
-    t[8] = (uint32_t)s;
-    t[9] = (uint32_t)(s >> 32);
-    // t = (t + m p) / 2^32 with m = t[0] * (-p^-1) mod 2^32
-    uint32_t m = t[0] * kN0;
-    s = (uint64_t)t[0] + (uint64_t)m * kP[0];
-    c = s >> 32;
-#pragma unroll
-    for (int j = 1; j < 8; ++j) {
-      s = (uint64_t)t[j] + (uint64_t)m * kP[j] + c;
-      t[j - 1] = (uint32_t)s;
-      c = s >> 32;
-    }
-    s = (uint64_t)t[8] + c;
-    t[7] = (uint32_t)s;
-    t[8] = t[9] + (uint32_t)(s >> 32);
-  }
-  // t < 2p: subtract p unless that borrows
-  uint32_t d[8];
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    uint64_t v = (uint64_t)t[j] - kP[j] - borrow;
-    d[j] = (uint32_t)v;
-    borrow = (uint32_t)(v >> 63);
-  }
-  bool keep = borrow && t[8] == 0;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) out[j] = keep ? t[j] : d[j];
-}
 
 __global__ void mont_mul_kernel(uint32_t* __restrict__ out,
                                 const uint32_t* __restrict__ a,
@@ -103,7 +51,7 @@ __global__ void mont_mul_kernel(uint32_t* __restrict__ out,
     x[l] = pa[l * a_l];
     y[l] = pb[l * b_l];
   }
-  mont_mul8(x, y, z);
+  fr::mont_mul8(x, y, z);
 #pragma unroll
   for (int l = 0; l < 8; ++l) out[(uint64_t)l * total + idx] = z[l];
 }

@@ -34,6 +34,7 @@ Overflow bounds of the plain path (int64 working words):
 
 from __future__ import annotations
 
+import functools
 from typing import List, Sequence
 
 import numpy as np
@@ -56,8 +57,23 @@ def _limbs_of(x: int) -> List[int]:
     return out
 
 
+@functools.lru_cache(maxsize=4096)
+def _limbs_on(x: int, device: torch.device) -> torch.Tensor:
+    """The 8 limbs of x as an int32 tensor on `device`, uploaded once per
+    (value, device): a host-to-device copy per call was one pageable copy
+    and one host round trip for every constant of every round.  Callers
+    never write into the result (every op here returns a new tensor)."""
+    return torch.tensor(_limbs_of(x), dtype=_I32, device=device)
+
+
+@functools.lru_cache(maxsize=16)
+def _p_words(device: torch.device) -> torch.Tensor:
+    """p's 8 words as int64 on `device` (the addend of `sub`), made once."""
+    return torch.tensor(P_LIMBS, dtype=torch.int64, device=device)
+
+
 def _const(x: int, device, ndim: int = 1) -> torch.Tensor:
-    return torch.tensor(_limbs_of(x), dtype=_I32, device=device).reshape(
+    return _limbs_on(x, torch.device(device)).reshape(
         (N_LIMBS,) + (1,) * ndim)
 
 
@@ -91,8 +107,7 @@ def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(a - b) mod p, as a + (p - b) with one conditional subtract."""
     a, b = torch.broadcast_tensors(a, b)
-    p = torch.tensor(P_LIMBS, dtype=torch.int64, device=a.device).reshape(
-        (N_LIMBS,) + (1,) * (a.dim() - 1))
+    p = _p_words(a.device).reshape((N_LIMBS,) + (1,) * (a.dim() - 1))
     # p - b in [1, p]; a + (p - b) < 2p; the cond-subtract maps p to 0
     return _pack_limbs(_sub_p_select(_carry(u64_words(a) + p - u64_words(b))))
 
@@ -109,6 +124,19 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def const_mont(c: int, batch_shape=(), device="cuda") -> torch.Tensor:
     """Constant c in Montgomery form, broadcastable over `batch_shape`."""
     return _const((c % P) * R % P, device, max(len(batch_shape), 1))
+
+
+def zeros(batch_shape, device="cuda") -> torch.Tensor:
+    """The field zero over `batch_shape`: (8, *batch_shape)."""
+    return torch.zeros((N_LIMBS,) + tuple(batch_shape), dtype=_I32,
+                       device=device)
+
+
+def ones(batch_shape, device="cuda") -> torch.Tensor:
+    """The field one (Montgomery form) broadcast over `batch_shape`, a
+    read-only expanded view: (8, *batch_shape)."""
+    one = _const(R_MOD_P, device, len(batch_shape))
+    return one.expand((N_LIMBS,) + tuple(batch_shape))
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,9 @@ Torch counterpart of the JAX package's `poly/dense.py` (analog of the
 reference's `DensePolynomial`, `crates/jolt-prover-legacy/src/poly/
 dense_mlpoly.rs`).  An n-variable MLE over Fr is a tensor (8, 2**n) of
 evaluations over the boolean hypercube, index bits big-endian: variable 0 is
-the MSB of the index.  HighToLow binding: P'[i] = P[i] + r*(P[i+T/2]-P[i]).
+the MSB of the index.  Binding orders:
+  * HighToLow: bind the MSB variable; P'[i] = P[i] + r*(P[i+T/2]-P[i]);
+  * LowToHigh: bind the LSB variable; P'[i] = P[2i] + r*(P[2i+1]-P[2i]).
 """
 
 from __future__ import annotations
@@ -21,6 +23,23 @@ def bind_high(P: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     half = P.shape[-1] // 2
     lo, hi = P[..., :half], P[..., half:]
     return ops.add(lo, ops.mont_mul(ops.sub(hi, lo), r))
+
+
+def bind_low(P: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Bind the LSB variable to challenge r (Montgomery scalar (L, 1))."""
+    pairs = P.reshape(P.shape[:-1] + (P.shape[-1] // 2, 2))
+    lo, hi = pairs[..., 0], pairs[..., 1]
+    return ops.add(lo, ops.mont_mul(ops.sub(hi, lo), r))
+
+
+def evaluate(P: torch.Tensor, point: Sequence[int]) -> int:
+    """Evaluate the MLE at a host-side point (list of ints, point[0] = MSB
+    variable): a host loop of device binds, for tests and small
+    verifier-side work."""
+    assert P.shape[-1] == 1 << len(point)
+    for r in point:          # bind MSB first -> HighToLow over the point
+        P = bind_high(P, ops.pack_ints([r], P.device))
+    return ops.unpack_ints(P)[0]
 
 
 def sumcheck_eval_points_high(P: torch.Tensor, degree: int) -> torch.Tensor:

@@ -1,9 +1,9 @@
-"""Where `prove_stage1` spends its time on one CUDA device.
+"""Where `prove_prefix` spends its time on one CUDA device.
 
-    python3 -m jolt_tpu_torch.profile_stage1
+    python3 -m jolt_tpu_torch.profile_prefix
 
 Traces the main path's workload (`workload.sha2_chain_trace`: the
-sha2-chain guest at chain=114, ~2^18 cycles), runs `prove_stage1` once to
+sha2-chain guest at chain=114, ~2^18 cycles), runs `prove_prefix` once to
 warm up (K1 build, allocator), then once under `torch.profiler`, and prints
 one JSON line: the wall time of each stage (inflated by the profiler's own
 cost), the summed device time of all kernels and copies, the device's busy
@@ -20,20 +20,20 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from . import prove_stage1
+from . import prove_prefix
 from .field import kernels
 from .workload import card_line, sha2_chain_trace, timed_stages
 
 
 def main() -> None:
     if not torch.cuda.is_available():
-        raise SystemExit("profile_stage1 needs a CUDA device")
+        raise SystemExit("profile_prefix needs a CUDA device")
     trace = sha2_chain_trace()
-    prove_stage1(trace, device="cuda")                 # warm-up
+    prove_prefix(trace, device="cuda")                 # warm-up
     torch.cuda.synchronize()
 
     def run():
-        prove_stage1(trace, device="cuda")
+        prove_prefix(trace, device="cuda")
         torch.cuda.synchronize()
 
     kernels.mont_mul.launches = 0

@@ -1,1 +1,1 @@
-from .prover import Stage1Proof, fiat_shamir_preamble, prove_stage1
+from .prover import PrefixProof, fiat_shamir_preamble, prove_prefix

@@ -1,12 +1,17 @@
 """The Jolt prover pipeline on torch, as far as the port reaches.
 
-Torch counterpart of the JAX package's `prover/prover.py`.  `prove_stage1`
-is the prefix of its `prove` in the same order: witness extraction (what
-stage 1 needs), the Fiat-Shamir preamble, no commitments (the
-sumcheck-only configuration, `setup=None`), then
+Torch counterpart of the JAX package's `prover/prover.py`.  `prove_prefix`
+is the prefix of its `prove` in the same order, with the same transcript
+draws: witness extraction (what these stages need), the Fiat-Shamir
+preamble, no commitments (the sumcheck-only configuration, `setup=None`;
+no zk, no committed program image), then
 
   1   Spartan outer (R1CS, uni-skip first round + 1 + log T rounds)
   1s  Spartan shift sumcheck (PC chaining via EqPlusOne)
+  2   registers read/write checking       (sparse Twist)
+  3   registers Val evaluation            (Twist prefix-sum via LT)
+  4   RAM read/write checking + raf       (sparse Twist, batched)
+  5   RAM Val evaluation + output check   (batched)
 
 Later stages extend this function into the port's full `prove`.
 """
@@ -22,6 +27,12 @@ from typing import Dict, List
 import torch
 
 from ..config import ProofConfig
+from ..relations.ram_sparse import (RamPairSchedule, SparseRamOutputCheck,
+                                    SparseRamRafEvaluation,
+                                    SparseRamReadWriteChecking,
+                                    SparseRamValEvaluation,
+                                    SparseRegistersReadWriteChecking,
+                                    SparseRegistersValEvaluation)
 from ..relations.shift import ShiftSumcheck, shift_column_values
 from ..relations.spartan_outer import (SpartanOuterProver, num_stage1_rounds,
                                        prove_uniskip)
@@ -31,12 +42,13 @@ from ..transcript import Blake2bTranscript
 from ..witness.bytecode import extract_bytecode_witness
 from ..witness.r1cs_inputs import extract_r1cs_inputs
 from ..witness.ram import extract_ram_log
+from ..witness.registers import extract_register_log
 
 
 @dataclasses.dataclass
-class Stage1Proof:
-    """The stage-1 / 1s parts of the wire-format proof, named as in the
-    JAX package's `JoltProof`, plus the transcript checkpoints."""
+class PrefixProof:
+    """The stage 1-5 parts of the wire-format proof, named as in the JAX
+    package's `JoltProof`, plus the transcript checkpoints."""
 
     trace_length: int          # unpadded
     padded_length: int
@@ -45,12 +57,21 @@ class Stage1Proof:
     r1cs_input_openings: List[int]     # 38 openings at r_cycle
     shift_polys: List[List[int]]       # PC-chaining shift sumcheck
     shift_opening: int                 # combined current-row cols at rho
+    stage2_polys: List[List[int]]      # registers read/write checking
+    stage2_openings: Dict[str, int]    # wa/ra1/ra2/val/inc at bound point
+    stage3_polys: List[List[int]]      # registers Val evaluation
+    stage3_openings: Dict[str, int]    # wa/inc at new bound point
+    stage4_polys: List[List[int]]      # RAM rw-checking + raf (batched)
+    stage4_openings: Dict[str, int]    # rw_ra/rw_val/rw_inc + raf_ra
+    stage5_polys: List[List[int]]      # RAM Val evaluation + output check
+    stage5_openings: Dict[str, int]    # ra/inc + oc_ra/oc_inc
     ram_log_K: int
     bytecode_log_K: int
     # prover-chosen protocol configuration (config.ProofConfig wire dict)
     config: Dict[str, int]
-    # Fiat-Shamir tape: {"stage", "n_rounds", "state" (hex)} after
-    # stage1-spartan and after stage1s-shift
+    # Fiat-Shamir tape: {"stage", "n_rounds", "state" (hex)} after each of
+    # stage1-spartan, stage1s-shift, stage2-reg-rw, stage3-reg-val and
+    # stage4-5-ram
     fs_tape: List[dict]
 
 
@@ -119,6 +140,18 @@ def fiat_shamir_preamble(transcript: Blake2bTranscript, trace_length: int,
                           config.committed_program_image)
 
 
+def require_no_advice(layout) -> None:
+    """The ported prefix has no advice regions (the bench's and fib's
+    `MemoryLayout(64, 64)` have none): their Init contribution needs the
+    committed advice polynomials and the stage-8 reduction."""
+    kinds = [k for k in ("trusted", "untrusted")
+             if layout.advice_region(k)[1] > 0]
+    if kinds:
+        raise NotImplementedError(
+            f"{' and '.join(kinds)} advice regions need the advice openings "
+            "and the stage-8 joint reduction (ROADMAP A11), not ported yet")
+
+
 def resolve_device(device) -> torch.device:
     """The device a caller asked for; a CUDA device must exist (no silent
     fall-back to the CPU)."""
@@ -156,13 +189,15 @@ class _StageTimer:
         self.t0 = now
 
 
-def prove_stage1(trace: Trace, device="cuda") -> Stage1Proof:
-    """Prove stages 1 and 1s of the trace on `device` (the card unless the
-    caller asks for the CPU)."""
+def prove_prefix(trace: Trace, device="cuda") -> PrefixProof:
+    """Prove stages 1 through 5 of the trace on `device` (the card unless
+    the caller asks for the CPU)."""
     device = resolve_device(device)
+    require_no_advice(trace.memory_layout)
     timer = _StageTimer(device)
-    # ---- witness extraction (host), as far as stage 1 needs it ----------
+    # ---- witness extraction (host), as far as stages 1-5 need it --------
     inputs = extract_r1cs_inputs(trace)
+    reg_wit = extract_register_log(trace)
     ram_wit = extract_ram_log(trace)
     bc_wit = extract_bytecode_witness(trace)
     log_T = trace.log_T
@@ -177,6 +212,12 @@ def prove_stage1(trace: Trace, device="cuda") -> Stage1Proof:
         trace.memory_layout, ram_wit.log_K, bc_wit.log_K,
         config=proof_config)
     accumulator = OpeningAccumulator()
+    fs_tape: List[dict] = []
+
+    def finish(label: str) -> None:
+        fs_tape.append(_tape_entry(label, transcript))
+        timer.mark(label)
+
     # ---- Stage 0: no commitments in the sumcheck-only configuration -----
 
     # ---- Stage 1: Spartan outer (uni-skip + remaining sumcheck) ---------
@@ -189,9 +230,8 @@ def prove_stage1(trace: Trace, device="cuda") -> Stage1Proof:
     del cols_dev
     stage1_polys, _ = BatchedSumcheck.prove([outer], accumulator, transcript)
     input_openings = list(outer.input_openings)
-    del outer          # release the stage's device tensors
-    fs_tape = [_tape_entry("stage1-spartan", transcript)]
-    timer.mark("stage1-spartan")
+    del outer          # release each finished stage's device tensors
+    finish("stage1-spartan")
 
     # ---- Stage 1s: Spartan shift (PC chaining) --------------------------
     r_cycle = list(accumulator.get_point(("r1cs_input", "rs1_value")))
@@ -200,17 +240,90 @@ def prove_stage1(trace: Trace, device="cuda") -> Stage1Proof:
     shift_inst = ShiftSumcheck(shift_cols, r_cycle, gamma_sh, device)
     shift_polys, _ = BatchedSumcheck.prove([shift_inst], accumulator,
                                            transcript)
-    fs_tape.append(_tape_entry("stage1s-shift", transcript))
-    timer.mark("stage1s-shift")
+    shift_opening = shift_inst.final_openings["cols"]
+    del shift_inst
+    finish("stage1s-shift")
 
-    return Stage1Proof(
+    # ---- Stage 2: registers read/write checking ------------------------
+    # r_cycle and the rd/rs1/rs2 claims are the stage-1 openings.
+    claims = [accumulator.get_claim(("r1cs_input", "rd_write_value")),
+              accumulator.get_claim(("r1cs_input", "rs1_value")),
+              accumulator.get_claim(("r1cs_input", "rs2_value"))]
+    gamma = transcript.challenge_scalar()
+    rw = SparseRegistersReadWriteChecking(reg_wit, gamma, r_cycle, claims,
+                                          device)
+    stage2_polys, _ = BatchedSumcheck.prove([rw], accumulator, transcript)
+    stage2_openings = dict(rw.final_openings)
+    del rw
+    finish("stage2-reg-rw")
+
+    # ---- Stage 3: registers Val evaluation -----------------------------
+    val_pt2 = accumulator.get_point(("registers", "val"))
+    r2_cyc, r2_addr = list(val_pt2[:log_T]), list(val_pt2[log_T:])
+    val_claim = accumulator.get_claim(("registers", "val"))
+    ve = SparseRegistersValEvaluation(reg_wit, r2_addr, r2_cyc, val_claim,
+                                      device)
+    stage3_polys, _ = BatchedSumcheck.prove([ve], accumulator, transcript)
+    stage3_openings = dict(ve.final_openings)
+    del ve
+    finish("stage3-reg-val")
+
+    # ---- Stage 4: RAM read/write checking + raf evaluation (batched) ----
+    gamma_ram = transcript.challenge_scalar()
+    rv_claim = accumulator.get_claim(("r1cs_input", "ram_read_value"))
+    wv_claim = accumulator.get_claim(("r1cs_input", "ram_write_value"))
+    addr_claim = accumulator.get_claim(("r1cs_input", "ram_address"))
+    ram_sched = RamPairSchedule(ram_wit.cols, ram_wit.pre, ram_wit.post,
+                                ram_wit.K, device=device)
+    ram_rw = SparseRamReadWriteChecking(
+        ram_sched, ram_wit.log_K, ram_wit.init_vals, ram_wit.inc, gamma_ram,
+        r_cycle, rv_claim, wv_claim)
+    ram_raf = SparseRamRafEvaluation(ram_sched, ram_wit.log_K,
+                                     ram_wit.witness_base, r_cycle,
+                                     addr_claim)
+    stage4_polys, _ = BatchedSumcheck.prove([ram_rw, ram_raf], accumulator,
+                                            transcript)
+    stage4_openings = {
+        **{f"rw_{k}": v for k, v in ram_rw.final_openings.items()},
+        **{f"raf_{k}": v for k, v in ram_raf.final_openings.items()}}
+    del ram_rw, ram_raf
+
+    # ---- Stage 5: RAM Val evaluation + output check (batched) ------------
+    val_pt = accumulator.get_point(("ram", "val"))  # normalized (cyc, addr)
+    r4_cyc, r4_addr = list(val_pt[:log_T]), list(val_pt[log_T:])
+    ram_val_claim = accumulator.get_claim(("ram", "val"))
+    ram_ve = SparseRamValEvaluation(ram_sched, ram_wit.log_K,
+                                    ram_wit.init_vals, ram_wit.inc,
+                                    r4_addr, r4_cyc, ram_val_claim)
+    z_out = transcript.challenge_scalar()
+    ram_oc = SparseRamOutputCheck(ram_sched, ram_wit.log_K,
+                                  ram_wit.init_vals, ram_wit.inc,
+                                  trace.memory_layout, ram_wit.witness_base,
+                                  z_out, bytes(trace.device.outputs))
+    stage5_polys, _ = BatchedSumcheck.prove([ram_ve, ram_oc], accumulator,
+                                            transcript)
+    stage5_openings = {
+        **dict(ram_ve.final_openings),
+        **{f"oc_{k}": v for k, v in ram_oc.final_openings.items()}}
+    del ram_ve, ram_oc, ram_sched
+    finish("stage4-5-ram")
+
+    return PrefixProof(
         trace_length=trace.length,
         padded_length=trace.padded_length,
         stage1_uniskip=list(s1_coeffs),
         stage1_polys=stage1_polys,
         r1cs_input_openings=input_openings,
         shift_polys=shift_polys,
-        shift_opening=shift_inst.final_openings["cols"],
+        shift_opening=shift_opening,
+        stage2_polys=stage2_polys,
+        stage2_openings=stage2_openings,
+        stage3_polys=stage3_polys,
+        stage3_openings=stage3_openings,
+        stage4_polys=stage4_polys,
+        stage4_openings=stage4_openings,
+        stage5_polys=stage5_polys,
+        stage5_openings=stage5_openings,
         ram_log_K=ram_wit.log_K,
         bytecode_log_K=bc_wit.log_K,
         config=proof_config.as_dict(),

@@ -1,1 +1,1 @@
-from .verifier import PublicIO, VerificationError, verify_stage1
+from .verifier import PublicIO, VerificationError, verify_prefix

@@ -1,17 +1,26 @@
 """The Jolt verifier, as far as the port's prover reaches.
 
 Torch-package counterpart of the JAX package's `verifier/verifier.py`:
-`verify_stage1` validates the proof-carried config, replays the preamble
-and checks stage 1 (Spartan uni-skip + outer) and stage 1s (shift) exactly
-as the full verifier does in the sumcheck-only configuration.  All of it is
-host work on Python ints.
+`verify_prefix` validates the proof-carried config, replays the preamble
+and checks stage 1 (Spartan uni-skip + outer), stage 1s (shift), stages 2
+and 3 (registers read/write checking and Val evaluation) and stages 4 and 5
+(RAM read/write + raf, then Val evaluation + output check) exactly as the
+full verifier does in the sumcheck-only configuration.  All of it is host
+work on Python ints.
 """
 
 from __future__ import annotations
 
 from ..config import ConfigError, ProofConfig
 from ..field.params import FR
-from ..prover.prover import Stage1Proof, fiat_shamir_preamble
+from ..prover.prover import (PrefixProof, fiat_shamir_preamble,
+                             require_no_advice)
+from ..relations.ram_sparse import (SparseRamOutputCheckVerifier,
+                                    SparseRamRafEvaluationVerifier,
+                                    SparseRamReadWriteCheckingVerifier,
+                                    SparseRamValEvaluationVerifier,
+                                    SparseRegistersReadWriteCheckingVerifier,
+                                    SparseRegistersValEvaluationVerifier)
 from ..relations.shift import ShiftVerifier
 from ..relations.spartan_outer import (SpartanOuterVerifier,
                                        num_stage1_rounds, verify_uniskip)
@@ -21,7 +30,11 @@ from ..sumcheck.engine import BatchedSumcheck, OpeningAccumulator, SumcheckError
 from ..tracer.trace import Trace
 from ..transcript import Blake2bTranscript
 from ..witness.bytecode import bytecode_K
-from ..witness.r1cs_inputs import NUM_VARS, VAR_NAMES
+from ..witness.r1cs_inputs import (NUM_VARS, V_RAM_ADDRESS,
+                                   V_RAM_READ_VALUE, V_RAM_WRITE_VALUE,
+                                   V_RD_WRITE_VALUE, V_RS1_VALUE, V_RS2_VALUE,
+                                   VAR_NAMES)
+from ..witness.ram import initial_memory_vals
 
 P = FR.modulus
 
@@ -55,9 +68,10 @@ class PublicIO:
                    trace.code, trace.entry, trace.program.start)
 
 
-def verify_stage1(proof: Stage1Proof, io: PublicIO) -> bool:
-    """Check stages 1 and 1s of `proof` against the public statement;
+def verify_prefix(proof: PrefixProof, io: PublicIO) -> bool:
+    """Check stages 1 through 5 of `proof` against the public statement;
     returns True or raises VerificationError."""
+    require_no_advice(io.memory_layout)
     program = expand_program(io.code, io.entry, io.start)
     if proof.bytecode_log_K != bytecode_K(program).bit_length() - 1:
         raise VerificationError("bytecode_log_K inconsistent with program")
@@ -67,6 +81,10 @@ def verify_stage1(proof: Stage1Proof, io: PublicIO) -> bool:
         proof_config.validate(log_T, proof.ram_log_K)
     except ConfigError as e:
         raise VerificationError(f"invalid proof config: {e}") from e
+    if proof_config.committed_program_image:
+        raise NotImplementedError(
+            "the committed program image needs the program-image claim "
+            "reduction (ROADMAP A13), not ported yet")
     transcript = Blake2bTranscript(b"Jolt")
     fiat_shamir_preamble(transcript, io.trace_length, io.padded_length,
                          io.inputs, io.outputs, io.panic, io.code, io.entry,
@@ -111,5 +129,95 @@ def verify_stage1(proof: Stage1Proof, io: PublicIO) -> bool:
     except SumcheckError as e:
         raise VerificationError(f"shift: {e}") from e
     accumulator.insert(("shift", "cols"), r_sh, proof.shift_opening)
+    accumulator.flush_to_transcript(transcript)
+
+    # ---- Stage 2: registers read/write checking ------------------------
+    gamma = transcript.challenge_scalar()
+    claims = [proof.r1cs_input_openings[V_RD_WRITE_VALUE],
+              proof.r1cs_input_openings[V_RS1_VALUE],
+              proof.r1cs_input_openings[V_RS2_VALUE]]
+    inst2 = SparseRegistersReadWriteCheckingVerifier(
+        log_T, gamma, r_cycle, claims, proof.stage2_openings)
+    try:
+        r2 = BatchedSumcheck.verify(proof.stage2_polys, [inst2], accumulator,
+                                    transcript)
+    except SumcheckError as e:
+        raise VerificationError(f"stage2: {e}") from e
+    r2_cyc, r2_addr = inst2._split(r2)
+    r2n = r2_cyc + r2_addr
+    for name in ("wa", "ra1", "ra2", "val"):
+        accumulator.insert(("registers", name), r2n,
+                           proof.stage2_openings[name])
+    accumulator.insert(("registers", "inc"), r2_cyc,
+                       proof.stage2_openings["inc"])
+    accumulator.flush_to_transcript(transcript)
+
+    # ---- Stage 3: registers Val evaluation -----------------------------
+    val_claim = proof.stage2_openings["val"]
+    inst3 = SparseRegistersValEvaluationVerifier(
+        log_T, r2_addr, r2_cyc, val_claim, proof.stage3_openings)
+    try:
+        r3 = BatchedSumcheck.verify(proof.stage3_polys, [inst3], accumulator,
+                                    transcript)
+    except SumcheckError as e:
+        raise VerificationError(f"stage3: {e}") from e
+    r3_cyc, r3_addr = inst3._split(r3)
+    accumulator.insert(("registers_val_eval", "wa"), r3_cyc + r3_addr,
+                       proof.stage3_openings["wa"])
+    accumulator.insert(("registers_val_eval", "inc"), r3_cyc,
+                       proof.stage3_openings["inc"])
+    accumulator.flush_to_transcript(transcript)
+
+    # ---- Stage 4: RAM read/write checking + raf evaluation (batched) ----
+    gamma_ram = transcript.challenge_scalar()
+    rv_claim = proof.r1cs_input_openings[V_RAM_READ_VALUE]
+    wv_claim = proof.r1cs_input_openings[V_RAM_WRITE_VALUE]
+    addr_claim = proof.r1cs_input_openings[V_RAM_ADDRESS]
+    o4 = proof.stage4_openings
+    inst4a = SparseRamReadWriteCheckingVerifier(
+        log_T, proof.ram_log_K, gamma_ram, r_cycle, rv_claim, wv_claim,
+        {"ra": o4["rw_ra"], "val": o4["rw_val"], "inc": o4["rw_inc"]})
+    inst4b = SparseRamRafEvaluationVerifier(
+        log_T, proof.ram_log_K, r_cycle, addr_claim,
+        io.memory_layout.witness_base, {"ra": o4["raf_ra"]})
+    try:
+        r4 = BatchedSumcheck.verify(proof.stage4_polys, [inst4a, inst4b],
+                                    accumulator, transcript)
+    except SumcheckError as e:
+        raise VerificationError(f"stage4: {e}") from e
+    # sparse tier: cycle vars bound LSB-first -> normalize to big-endian
+    r4_cyc, r4_addr = inst4a._split(r4)
+    r4n = r4_cyc + r4_addr
+    for name in ("ra", "val"):
+        accumulator.insert(("ram", name), r4n, o4[f"rw_{name}"])
+    accumulator.insert(("ram", "inc"), r4_cyc, o4["rw_inc"])
+    accumulator.insert(("ram_raf", "ra"), r4n, o4["raf_ra"])
+    accumulator.flush_to_transcript(transcript)
+
+    # ---- Stage 5: RAM Val evaluation + output check ----------------------
+    # public initial image = inputs region + program image, restricted to
+    # the proof's RAM address space (same rule as the prover witness)
+    init_vals = initial_memory_vals(io.inputs, io.memory_layout, io.code,
+                                    io.entry, K=1 << proof.ram_log_K)
+    o5 = proof.stage5_openings
+    inst5 = SparseRamValEvaluationVerifier(
+        log_T, proof.ram_log_K, r4_addr, r4_cyc, o4["rw_val"], init_vals,
+        {"ra": o5["ra"], "inc": o5["inc"]})
+    z_out = transcript.challenge_scalar()
+    inst5b = SparseRamOutputCheckVerifier(
+        log_T, proof.ram_log_K, z_out, io.outputs, io.memory_layout,
+        io.memory_layout.witness_base, init_vals,
+        {"ra": o5["oc_ra"], "inc": o5["oc_inc"]})
+    try:
+        r5 = BatchedSumcheck.verify(proof.stage5_polys, [inst5, inst5b],
+                                    accumulator, transcript)
+    except SumcheckError as e:
+        raise VerificationError(f"stage5: {e}") from e
+    r5_cyc, r5_addr = inst5._split(r5)
+    r5n = r5_cyc + r5_addr
+    accumulator.insert(("ram_val_eval", "ra"), r5n, o5["ra"])
+    accumulator.insert(("ram_val_eval", "inc"), r5_cyc, o5["inc"])
+    accumulator.insert(("ram_output", "ra"), r5n, o5["oc_ra"])
+    accumulator.insert(("ram_output", "inc"), r5_cyc, o5["oc_inc"])
     accumulator.flush_to_transcript(transcript)
     return True

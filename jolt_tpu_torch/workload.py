@@ -3,7 +3,7 @@
 The workload is `bench.py`'s: the sha2-chain guest
 (`examples/gen_sha256.py:emit_inline`, ~2.3k cycles per SHA-256
 compression), hashing `SHA2_INPUT` `SHA2_CHAIN` times, which lands the trace
-at ~2^18 cycles.  `chip_smoke.py` and `profile_stage1.py` run it at that
+at ~2^18 cycles.  `chip_smoke.py` and `profile_prefix.py` run it at that
 size; the tests run it at chain=1.
 """
 

@@ -1,5 +1,5 @@
-"""The torch port on the card: K1 against its plain version, and the
-prover on "cuda" against the prover on "cpu".
+"""The torch port on the card: K1 and K2 against their plain versions,
+and the prover on "cuda" against the prover on "cpu".
 
 These tests need an NVIDIA GPU; without one they skip.  The machine with
 the card has no JAX, so this module imports none, and there it runs
@@ -14,9 +14,10 @@ import dataclasses
 import pytest
 import torch
 
-from jolt_tpu_torch import PublicIO, prove_stage1, verify_stage1
+from jolt_tpu_torch import PublicIO, prove_prefix, verify_prefix
 from jolt_tpu_torch.field import kernels
 from jolt_tpu_torch.riscv.emulator import MemoryLayout
+from jolt_tpu_torch.sumcheck.product import round_step
 from jolt_tpu_torch.tracer import trace_program
 
 pytestmark = pytest.mark.cuda
@@ -47,6 +48,47 @@ def test_k1_matches_plain_on_card(card):
     assert kernels.mont_mul.launches == before + 3
 
 
+def _rand_field(gen, shape, card):
+    w = torch.randint(0, 1 << 32, shape, generator=gen, device=card,
+                      dtype=torch.int64)
+    w[7] %= 0x30644E72
+    return (w - ((w >> 31) << 32)).to(torch.int32)
+
+
+@pytest.mark.parametrize("log_t", [12, 18])
+def test_k2_matches_plain_on_card(card, log_t):
+    """K2 equals product_round_deg3_plain bit for bit (message and the
+    three bound factors) and counts one launch."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(log_t)
+    polys = [_rand_field(gen, (8, 1 << log_t), card) for _ in range(3)]
+    r = _rand_field(gen, (8, 1), card)
+    before = kernels.product_round_deg3.launches
+    got = kernels.product_round_deg3(*polys, r)
+    want = kernels.product_round_deg3_plain(*polys, r)
+    torch.cuda.synchronize()
+    assert kernels.product_round_deg3.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+
+
+def test_round_step_chained_on_card(card):
+    """Twelve chained round_step calls (2^12 down to 2) with seeded
+    challenges: every round's message and bound factors equal the plain
+    version's."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(12)
+    polys = tuple(_rand_field(gen, (8, 1 << 12), card) for _ in range(3))
+    for _ in range(12):
+        r = _rand_field(gen, (8, 1), card)
+        msg, bound = round_step(polys, r)
+        want = kernels.product_round_deg3_plain(*polys, r)
+        assert torch.equal(msg, want[0])
+        assert all(torch.equal(b, w) for b, w in zip(bound, want[1:]))
+        polys = bound
+    assert polys[0].shape == (8, 1)
+
+
 def test_prove_stage1_card_equals_cpu(card):
     layout = MemoryLayout(max_input_size=64, max_output_size=64)
     trace = trace_program(f"""
@@ -67,7 +109,7 @@ def test_prove_stage1_card_equals_cpu(card):
         li   t2, 1
         sd   t2, 0(t1)
     """, layout=layout)
-    on_card = prove_stage1(trace, device=card)
-    on_cpu = prove_stage1(trace, device="cpu")
+    on_card = prove_prefix(trace, device=card)
+    on_cpu = prove_prefix(trace, device="cpu")
     assert dataclasses.asdict(on_card) == dataclasses.asdict(on_cpu)
-    assert verify_stage1(on_card, PublicIO.from_trace(trace))
+    assert verify_prefix(on_card, PublicIO.from_trace(trace))

@@ -159,3 +159,19 @@ def test_wrapper_takes_plain_on_cpu_without_launching():
     ta = tops.pack_ints(_vals(8, 12), CPU)
     assert torch.equal(kernels.mont_mul(ta, ta), kernels.mont_mul_plain(ta, ta))
     assert kernels.mont_mul.launches == before
+
+
+def test_constants_upload_once_per_value_and_device():
+    """Field constants (a scalar `pack_ints`, `_const`, `sub`'s p words)
+    are made once per (value, device) and reused, and reuse changes no
+    result."""
+    s = _vals(1, 13)[0]
+    a, b = tops.pack_ints([s], CPU), tops.pack_ints([s], CPU)
+    assert a.data_ptr() == b.data_ptr()
+    assert tops.unpack_ints(a) == [s]
+    assert tops.ones((3,), CPU).data_ptr() == tops.const_mont(1, (1,),
+                                                            CPU).data_ptr()
+    xs, ys = _vals(5, 14), _vals(5, 15)
+    for _ in range(2):
+        got = tops.sub(tops.pack_ints(xs, CPU), tops.pack_ints(ys, CPU))
+        assert tops.unpack_ints(got) == [(x - y) % P for x, y in zip(xs, ys)]

@@ -74,7 +74,7 @@ def test_default_device_raises_without_cuda():
         sd t2, 0(t1)
     """, layout=layout)
     with pytest.raises(RuntimeError, match="CUDA"):
-        jolt_tpu_torch.prove_stage1(trace)
+        jolt_tpu_torch.prove_prefix(trace)
 
 
 def test_kernel_wrapper_refuses_mixed_devices():
