@@ -8,24 +8,34 @@ Phases:
   1. the card (nvidia-smi name and power limit);
   2. build K1 (`jolt_tpu_torch/csrc/mont_mul.cu`) and K2
      (`jolt_tpu_torch/csrc/product_round.cu`), one nvcc for sm_90a each, both
-     at once;
+     at once; ptxas's registers and spills;
   3. K1 vs `mont_mul_plain` on the card, bit for bit: seeded random inputs
      at N = 2^20, the values 0, 1 and r-1, a sample against Python ints;
-  4. the round-step path (`sumcheck.product.round_step`, the counterpart of
+  4. K2 vs `product_round_plain` on the card, bit for bit, for 2 and 3
+     factors in each pass order (message then bind, message alone, bind
+     then message, bind alone): seeded inputs at T = 2^14 and 2^18, the
+     values 0, 1 and r-1 (factors and challenge), and T = 8 against Python
+     ints; then per order at 2^18 the kernel-only times (torch.profiler) of
+     the pass kernel and of the on-card finish of the message, the time of
+     the wrapper that launches both (CUDA events, host cost included), and
+     that of the plain version, with the bound;
+  5. the round-step path (`sumcheck.product.round_step`, the counterpart of
      the JAX package's round-step entry point): 18 chained rounds from
      T = 2^18 down to 2 with seeded challenges, K2's launch count read
-     around them; then every round held against `product_round_deg3_plain`
-     bit for bit, K2 vs plain at T = 2^14 (the entry point's size) and
-     2^18, one small case against Python ints, and K2's times and bound;
-  5. the main path: the sha2-chain guest (chain=114, ~2^18 cycles) traced
+     around them, every round held against the plain version; then a
+     chained `ProductSumcheck` of three factors at 2^18 through the batched
+     engine (K2's live-round orders), every message and the final claims
+     held against the plain chain;
+  6. the main path: the sha2-chain guest (chain=114, ~2^18 cycles) traced
      by the port's native tracer, `prove_prefix(trace, device="cuda")`
-     (stages 1-5) with K1's launch count read around it, then
+     (stages 1-5) with K1's and K2's launch counts read around it (K2
+     carries the shift sumcheck, stage 1s: log2 T + 1 calls), then
      `verify_prefix`; then K1 vs plain again at the largest launch shape of
      that run and at the shape with the most work (launches x elements),
      with times and bounds;
-  6. card vs CPU: `prove_prefix` on the small fib trace gives identical
+  7. card vs CPU: `prove_prefix` on the small fib trace gives identical
      proofs on "cuda" and on "cpu";
-  7. one JSON line with every ported kernel, the card line, and the final
+  8. one JSON line with every ported kernel, the card line, and the final
      `{"ok": true, "device": ...}` line.
 
 Any failure raises and exits nonzero; with no CUDA device it exits 2
@@ -36,25 +46,20 @@ import collections
 import dataclasses
 import json
 import pathlib
+import re
 import sys
 import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SEED = 1234
 
-# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 3.35 TB/s;
-# 32-bit integer multiply-adds on the CUDA cores: 132 SMs x 64 per clock x
-# 1.98 GHz = 16.7 T/s (half of the 67 TFLOP/s float32 rate's FMA count)
-HBM_BYTES_PER_S = 3.35e12
-INT32_MAD_PER_S = 132 * 64 * 1.98e9
-# K1 per element: 136 32x32->64 multiplies = 272 32-bit multiply-adds
-K1_MADS_PER_ELEM = 272
-# K2 per pair: 3 binds + 6 products = 9 Montgomery products
-K2_MADS_PER_PAIR = 9 * K1_MADS_PER_ELEM
-K2_CHAIN_LOG_T = 18          # the chained round-step run: 2^18 down to 2
+K2_LOG_T = 18                # K2's full size: the main path's 2^18
+K2_SMALL_LOG_T = 14          # the round-step entry point's own size
 PREFIX_STAGES = {"witness-extraction", "stage1-spartan", "stage1s-shift",
                  "stage2-reg-rw", "stage3-reg-val", "stage4-5-ram"}
 
@@ -123,20 +128,6 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def k1_bound_ms(a_shape, b_shape):
-    """Least time for one K1 call: each input read once, the output written
-    once (32 B per element each), vs 272 int32 multiply-adds per element."""
-    full = torch.broadcast_shapes(a_shape, b_shape)
-    n = int(np.prod(full[1:]))
-    n_a = int(np.prod(a_shape[1:]))
-    n_b = int(np.prod(b_shape[1:]))
-    bytes_ = 32 * (n_a + n_b + n)
-    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = n * K1_MADS_PER_ELEM / INT32_MAD_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
-                                 "operations")
-
-
 def compare_k1(kernels, a, b):
     """K1 vs plain on the card; returns max |difference| over the words."""
     got = kernels.mont_mul(a, b)
@@ -151,30 +142,28 @@ def compare_k1(kernels, a, b):
 
 
 def time_k1(kernels, a, b, reps=20):
-    ms = cuda_ms(lambda: kernels.mont_mul(a, b), reps)
+    """K1 in ms: kernel-only, with the wrapper (CUDA events over
+    back-to-back calls), the plain version; the bound."""
+    from jolt_tpu_torch.workload import k1_bound_ms
+    ms = kernel_ms(lambda: kernels.mont_mul(a, b), ("mont_mul_kernel",),
+                   reps)["mont_mul_kernel"]
+    events_ms = cuda_ms(lambda: kernels.mont_mul(a, b), reps)
     plain_ms = cuda_ms(lambda: kernels.mont_mul_plain(a, b), 3)
     bound, by = k1_bound_ms(tuple(a.shape), tuple(b.shape))
-    return ms, plain_ms, bound, by
-
-
-def k2_bound_ms(T, blocks):
-    """Least time for one K2 launch at T entries per factor: the three
-    factors and r read once, the three bound factors (T/2 each) and the
-    (blocks, 8, 3) uint64 partial sums written once, vs 9 Montgomery
-    products (272 int32 multiply-adds each) per pair."""
-    pairs = T // 2
-    bytes_ = 32 * (3 * T + 1 + 3 * pairs) + 8 * 24 * blocks
-    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = pairs * K2_MADS_PER_PAIR / INT32_MAD_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
-                                 "operations")
+    return ms, events_ms, plain_ms, bound, by
 
 
 def k2_error(got, want, where):
-    """Max |difference| over the words of K2's four outputs vs plain; fails
-    unless they are identical."""
+    """Max |difference| over the words of K2's outputs (msg, bound) vs the
+    plain version's; fails unless they are identical."""
+    (msg, bound), (want_msg, want_bound) = got, want
+    pairs = [(msg, want_msg)] if want_msg is not None else []
+    check((msg is None) == (want_msg is None)
+          and (bound is None) == (want_bound is None),
+          f"K2 outputs {where}")
+    pairs += list(zip(bound or (), want_bound or ()))
     err = 0
-    for g, w in zip(got, want):
+    for g, w in pairs:
         check(g.shape == w.shape, f"K2 shape {g.shape} vs {w.shape} {where}")
         err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
                            .abs().max()))
@@ -182,16 +171,91 @@ def k2_error(got, want, where):
     return err
 
 
-def time_k2(kernels, polys, r, reps=20):
-    """K2's launch alone, the wrapper (launch + the mod-p finish of the
-    block sums) and the plain version, in ms; with the bound."""
-    ms = cuda_ms(lambda: kernels.launch_product_round(*polys, r), reps)
-    wrapper_ms = cuda_ms(lambda: kernels.product_round_deg3(*polys, r), reps)
-    plain_ms = cuda_ms(lambda: kernels.product_round_deg3_plain(*polys, r), 3)
-    blocks = kernels.launch_product_round(*polys, r)[0].shape[0]
-    bound, by = k2_bound_ms(polys[0].shape[-1], blocks)
-    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by}
+def k2_python_ints(kernels, ops, polys, r, order):
+    """K2's function on Python ints: (message evals, bound factors)."""
+    P = kernels.P
+    vals = [ops.unpack_ints(p) for p in polys]
+    rv = ops.unpack_ints(r)[0]
+    nf = len(polys)
+
+    def bind(v):
+        h = len(v) // 2
+        return [(v[i] + rv * (v[i + h] - v[i])) % P for i in range(h)]
+
+    def message(vs):
+        h = len(vs[0]) // 2
+        out = []
+        for x in [0] + list(range(2, nf + 1)):
+            total = 0
+            for i in range(h):
+                prod = 1
+                for v in vs:
+                    prod = prod * (v[i] + x * (v[i + h] - v[i])) % P
+                total += prod
+            out.append(total % P)
+        return out
+
+    bound = [bind(v) for v in vals] if order != "message" else None
+    if order == "bind":
+        return None, bound
+    return message(bound if order == "bind_message" else vals), bound
+
+
+def kernel_ms(fn, names, reps=20, tries=3):
+    """Mean device time of each kernel whose name holds one of `names`
+    (each launched once a call), kernel-only: torch.profiler over `reps`
+    calls after a warm-up, so the host's cost of the calls is not in it.
+    The mean is over the launches the trace holds (it may miss one of a
+    run of long kernels); a trace with fewer than half is taken again."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        seen = {name: [] for name in names}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                for name in names:
+                    if name in e.name:
+                        seen[name].append(e.time_range.elapsed_us())
+        if all(2 * len(us) >= reps for us in seen.values()):
+            return {name: sum(us) / len(us) / 1e3
+                    for name, us in seen.items()}
+    raise SmokeFailure(f"the profiler lost launches of {names}: "
+                       f"{ {n: len(us) for n, us in seen.items()} }")
+
+
+def time_k2(kernels, ops, polys, r, order):
+    """K2 in ms: its pass kernel and its finish kernel alone (kernel-only
+    device time), the wrapper with both as a live round calls it
+    (CUDA events over back-to-back calls with r a Python int, so the
+    wrapper's host cost counts), and the plain version; with the bound."""
+    from jolt_tpu_torch.workload import k2_bound_ms
+    r_int = ops.unpack_ints(r)[0]
+    names = ("round_kernel",) + (("finish_kernel",) if order != "bind"
+                                 else ())
+    dev_ms = kernel_ms(lambda: kernels.product_round(polys, r_int, order),
+                       names)
+    wrapper = cuda_ms(lambda: kernels.product_round(polys, r_int, order), 20)
+    plain = cuda_ms(lambda: kernels.product_round_plain(polys, r, order), 3)
+    partial, _ = kernels.launch_product_round(polys, r_int, order,
+                                              finish=False)
+    blocks = 0 if partial is None else partial.shape[1]
+    bound, by = k2_bound_ms(len(polys), order, polys[0].shape[-1], blocks)
+    pass_ms, finish_ms = dev_ms["round_kernel"], dev_ms.get("finish_kernel",
+                                                            0.0)
+    return {"ms": pass_ms + finish_ms, "pass_ms": pass_ms,
+            "finish_ms": finish_ms, "wrapper_ms": wrapper,
+            "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "blocks": blocks}
+
+
+def spill_bytes(report):
+    """Sum of ptxas's spill stores and loads over a build report."""
+    return sum(int(n) for n in re.findall(r"(\d+) bytes spill", report))
 
 
 def main():
@@ -202,8 +266,13 @@ def main():
     from jolt_tpu_torch import PublicIO, prove_prefix, verify_prefix
     from jolt_tpu_torch.field import kernels, ops
     from jolt_tpu_torch.riscv.emulator import MemoryLayout
-    from jolt_tpu_torch.sumcheck.product import round_step
+    from jolt_tpu_torch.sumcheck.engine import (BatchedSumcheck,
+                                                OpeningAccumulator)
+    from jolt_tpu_torch.sumcheck.product import (ProductSumcheck,
+                                                 VerifierProductSumcheck,
+                                                 round_step)
     from jolt_tpu_torch.tracer import trace_program
+    from jolt_tpu_torch.transcript import Blake2bTranscript
     from jolt_tpu_torch.workload import (SHA2_CHAIN, card_line,
                                          sha2_chain_trace, timed_stages)
 
@@ -223,6 +292,9 @@ def main():
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
+    k2_spills = spill_bytes(reports["K2"])
+    print(f"[build] K2 spill bytes (stores + loads, all kernels): "
+          f"{k2_spills}", flush=True)
 
     # ---- 3. K1 vs plain at N = 2^20, edge values, Python ints ------------
     gen = torch.Generator(device=dev)
@@ -231,9 +303,10 @@ def main():
     a = rand_field((8, n), gen, dev)
     b = rand_field((8, n), gen, dev)
     max_err = compare_k1(kernels, a, b)
-    ms, plain_ms, bound, by = time_k1(kernels, a, b)
-    print(f"[kernel] mont_mul N=2^20: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bound:.4f} ms ({by})", flush=True)
+    ms, events_ms, plain_ms, bound, by = time_k1(kernels, a, b)
+    print(f"[kernel] mont_mul N=2^20: {ms:.4f} ms (with the wrapper "
+          f"{events_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+          f"{bound:.4f} ms ({by})", flush=True)
     P = kernels.P
     edge = [0, 1, P - 1]
     ea = [x for x in edge for _ in edge]
@@ -254,14 +327,73 @@ def main():
           "sample == Python ints", flush=True)
     del a, b
 
-    # ---- 4. round-step path: 18 chained rounds through K2 ----------------
-    T = 1 << K2_CHAIN_LOG_T
+    # ---- 4. K2 vs plain: 2 and 3 factors, every order --------------------
+    k2_err = 0
+    k2_times = {}
+    for nf in (2, 3):
+        for order in kernels.ORDERS:
+            tag = f"nf={nf} {order}"
+            for log_t in (K2_SMALL_LOG_T, K2_LOG_T):
+                polys = tuple(rand_field((8, 1 << log_t), gen, dev)
+                              for _ in range(nf))
+                r = rand_field((8, 1), gen, dev)
+                k2_err = max(k2_err, k2_error(
+                    kernels.product_round(polys, r, order),
+                    kernels.product_round_plain(polys, r, order),
+                    f"({tag}, T = 2^{log_t})"))
+            # pass alone, pass + finish, plain at 2^18 (the last inputs)
+            k2_times[(nf, order)] = t = time_k2(kernels, ops, polys, r, order)
+            print(f"[kernel] product_round {tag} T=2^{K2_LOG_T}: pass "
+                  f"{t['pass_ms']:.4f} ms + finish {t['finish_ms']:.4f} ms "
+                  f"(kernel-only), wrapper {t['wrapper_ms']:.4f} ms, plain "
+                  f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                  f"({t['bound_by']}), {t['blocks']} blocks", flush=True)
+            del polys
+            # 0, 1 and r-1 in every factor and as the challenge
+            vals = torch.randint(0, 3, (nf, 1 << 10), generator=gen,
+                                 device=dev)
+            polys = tuple(ints_to_words([edge[int(v)] for v in row], dev)
+                          for row in vals.tolist())
+            for x in edge:
+                r = ints_to_words([x], dev)
+                k2_err = max(k2_err, k2_error(
+                    kernels.product_round(polys, r, order),
+                    kernels.product_round_plain(polys, r, order),
+                    f"({tag}, 0/1/r-1, r = {x % 1000})"))
+            small = tuple(rand_field((8, 8), gen, dev) for _ in range(nf))
+            r = rand_field((8, 1), gen, dev)
+            msg, bound = kernels.product_round(small, r, order)
+            want_msg, want_bound = k2_python_ints(kernels, ops, small, r,
+                                                  order)
+            check((msg is None and want_msg is None)
+                  or ops.unpack_ints(msg.reshape(8, -1)) == want_msg,
+                  f"K2 message disagrees with Python ints ({tag})")
+            check((bound is None and want_bound is None)
+                  or [ops.unpack_ints(b) for b in bound] == want_bound,
+                  f"K2 binds disagree with Python ints ({tag})")
+    # the round-step entry point's size, where launch latency rules
+    polys = tuple(rand_field((8, 1 << K2_SMALL_LOG_T), gen, dev)
+                  for _ in range(3))
+    r = rand_field((8, 1), gen, dev)
+    k2_small = time_k2(kernels, ops, polys, r, "message_bind")
+    print(f"[kernel] product_round nf=3 message_bind T=2^{K2_SMALL_LOG_T}: "
+          f"pass {k2_small['pass_ms']:.4f} ms + finish "
+          f"{k2_small['finish_ms']:.4f} ms (kernel-only), wrapper "
+          f"{k2_small['wrapper_ms']:.4f} ms, plain "
+          f"{k2_small['plain_ms']:.4f} ms, bound {k2_small['bound_ms']:.4f} "
+          f"ms, {k2_small['blocks']} blocks", flush=True)
+    print(f"[kernel] K2 == product_round_plain bit for bit (2 and 3 factors, "
+          f"every order, T=2^{K2_SMALL_LOG_T} and 2^{K2_LOG_T}, 0/1/r-1); "
+          "T=8 == Python ints", flush=True)
+
+    # ---- 5. round-step path and a chained ProductSumcheck ----------------
+    T = 1 << K2_LOG_T
     chain = [tuple(rand_field((8, T), gen, dev) for _ in range(3))]
-    rs = [rand_field((8, 1), gen, dev) for _ in range(K2_CHAIN_LOG_T)]
+    rs = [rand_field((8, 1), gen, dev) for _ in range(K2_LOG_T)]
     msgs = []
     torch.cuda.synchronize()
     kernels.mont_mul.launches = 0
-    kernels.product_round_deg3.launches = 0
+    kernels.product_round.launches = 0
     t0 = time.perf_counter()
     for r in rs:
         msg, bound = round_step(chain[-1], r)
@@ -269,55 +401,63 @@ def main():
         chain.append(bound)
     torch.cuda.synchronize()
     t_chain = time.perf_counter() - t0
-    k2_launches = kernels.product_round_deg3.launches
+    k2_round_launches = kernels.product_round.launches
     k1_round_launches = kernels.mont_mul.launches
-    check(k2_launches == K2_CHAIN_LOG_T,
-          f"round_step launched K2 {k2_launches} times in "
-          f"{K2_CHAIN_LOG_T} rounds")
+    check(k2_round_launches == K2_LOG_T,
+          f"round_step launched K2 {k2_round_launches} times in "
+          f"{K2_LOG_T} rounds")
     check(chain[-1][0].shape == (8, 1), "chained run did not end at T = 1")
-    k2_err = 0
     for i, r in enumerate(rs):
-        want = kernels.product_round_deg3_plain(*chain[i], r)
-        k2_err = max(k2_err, k2_error((msgs[i], *chain[i + 1]), want,
+        want = kernels.product_round_plain(chain[i], r, "message_bind")
+        k2_err = max(k2_err, k2_error((msgs[i], chain[i + 1]), want,
                                       f"in chained round {i}"))
-    print(f"[path] round_step 2^{K2_CHAIN_LOG_T} -> 2: {K2_CHAIN_LOG_T} "
-          f"rounds in {t_chain:.4f}s, K2 launches {k2_launches}, K1 "
-          f"launches {k1_round_launches} (the mod-p finish of the sums); "
-          "every round == product_round_deg3_plain bit for bit", flush=True)
+    print(f"[path] round_step 2^{K2_LOG_T} -> 2: {K2_LOG_T} rounds in "
+          f"{t_chain:.4f}s, K2 launches {k2_round_launches}, K1 launches "
+          f"{k1_round_launches}; every round == product_round_plain bit for "
+          "bit", flush=True)
     del chain, msgs
-    k2_times = {}
-    for log_t in (14, K2_CHAIN_LOG_T):
-        polys = tuple(rand_field((8, 1 << log_t), gen, dev)
-                      for _ in range(3))
-        r = rand_field((8, 1), gen, dev)
-        k2_err = max(k2_err, k2_error(kernels.product_round_deg3(*polys, r),
-                                      kernels.product_round_deg3_plain(
-                                          *polys, r), f"at T = 2^{log_t}"))
-        k2_times[log_t] = t = time_k2(kernels, polys, r)
-        print(f"[kernel] product_round_deg3 T=2^{log_t}: {t['ms']:.4f} ms "
-              f"(wrapper {t['wrapper_ms']:.4f} ms), plain "
-              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-              f"({t['bound_by']})", flush=True)
-        del polys
-    small = tuple(rand_field((8, 8), gen, dev) for _ in range(3))
-    r = rand_field((8, 1), gen, dev)
-    msg, *bound = kernels.product_round_deg3(*small, r)
-    vals = [ops.unpack_ints(p) for p in small]
-    rv = ops.unpack_ints(r)[0]
-    def ev(v, i, x):                 # factor v's eval at X = x, pair i
-        return (v[i] + x * (v[i + 4] - v[i])) % P
-    want = [sum(ev(vals[0], i, x) * ev(vals[1], i, x) % P * ev(vals[2], i, x)
-                for i in range(4)) % P for x in (0, 2, 3)]
-    check(ops.unpack_ints(msg.reshape(8, -1)) == want,
-          "K2 message disagrees with Python ints")
-    check([ops.unpack_ints(b) for b in bound]
-          == [[(v[i] + rv * (v[i + 4] - v[i])) % P for i in range(4)]
-              for v in vals], "K2 binds disagree with Python ints")
-    print("[kernel] K2 == product_round_deg3_plain bit for bit (T=2^14, "
-          f"2^{K2_CHAIN_LOG_T}, every chained round); T=8 == Python ints",
-          flush=True)
 
-    # ---- 5. main path: sha2-chain through prove_prefix on the card -------
+    factors = [rand_field((8, T), gen, dev) for _ in range(3)]
+    inst = ProductSumcheck(factors)
+    card_msgs = []
+    live_message = inst.message_evals_dev
+    inst.message_evals_dev = lambda rnd: card_msgs.append(
+        live_message(rnd)) or card_msgs[-1]
+    torch.cuda.synchronize()
+    kernels.product_round.launches = 0
+    t0 = time.perf_counter()
+    proof, r_sc = BatchedSumcheck.prove([inst], OpeningAccumulator(),
+                                        Blake2bTranscript(b"chip_smoke"))
+    t_sumcheck = time.perf_counter() - t0
+    k2_sumcheck_launches = kernels.product_round.launches
+    check(k2_sumcheck_launches == K2_LOG_T + 1,
+          f"ProductSumcheck launched K2 {k2_sumcheck_launches} times in "
+          f"{K2_LOG_T} rounds (want {K2_LOG_T + 1})")
+    polys, plain_msgs = tuple(factors), []
+    for j, rj in enumerate([None] + r_sc):
+        order = ("message" if j == 0 else "bind" if j == K2_LOG_T
+                 else "bind_message")
+        msg, bound = kernels.product_round_plain(polys, rj, order)
+        polys = bound or polys
+        if msg is not None:
+            plain_msgs.append(msg)
+    check(len(card_msgs) == len(plain_msgs) == K2_LOG_T
+          and all(torch.equal(c, w) for c, w in zip(card_msgs, plain_msgs)),
+          "chained ProductSumcheck messages differ from the plain chain")
+    check(inst.final_claims == [ops.unpack_ints(p)[0] for p in polys],
+          "chained ProductSumcheck final claims differ from the plain chain")
+    check(BatchedSumcheck.verify(
+        proof, [VerifierProductSumcheck(K2_LOG_T, inst.input_claim(None),
+                                        inst.final_claims)],
+        OpeningAccumulator(), Blake2bTranscript(b"chip_smoke")) == r_sc,
+        "the chained ProductSumcheck did not verify")
+    print(f"[path] ProductSumcheck 3 x 2^{K2_LOG_T}: {K2_LOG_T} rounds in "
+          f"{t_sumcheck:.4f}s, K2 launches {k2_sumcheck_launches}; every "
+          "message and the final claims == the plain chain; verified",
+          flush=True)
+    del factors, inst, card_msgs, plain_msgs, polys
+
+    # ---- 6. main path: sha2-chain through prove_prefix on the card -------
     t0 = time.perf_counter()
     tr = sha2_chain_trace()          # raises if the chain's output is wrong
     t_trace = time.perf_counter() - t0
@@ -337,7 +477,7 @@ def main():
     torch.cuda.reset_peak_memory_stats(dev)
     ops.mont_mul = recording
     kernels.mont_mul.launches = 0
-    kernels.product_round_deg3.launches = 0
+    kernels.product_round.launches = 0
     try:
         t0 = time.perf_counter()
         proof, stage_s, stage_lines = timed_stages(
@@ -345,12 +485,17 @@ def main():
         t_prove = time.perf_counter() - t0
     finally:
         launches = kernels.mont_mul.launches
+        k2_launches = kernels.product_round.launches
         ops.mont_mul = field_mul
     peak = torch.cuda.max_memory_allocated(dev)
     print(stage_lines, end="")
+    log_t = tr.padded_length.bit_length() - 1
     check(launches > 0, "K1 was not launched on the main path")
-    check(kernels.product_round_deg3.launches == 0,
-          "K2 launched on the prefix path (it serves no live round)")
+    # stage 1s: the first message, log T - 1 bind + message passes, the
+    # last bind
+    check(k2_launches == log_t + 1,
+          f"K2 launched {k2_launches} times on the prefix path (want "
+          f"{log_t + 1}: the shift sumcheck's {log_t} rounds)")
     check(set(stage_s) == PREFIX_STAGES, f"stage lines: {stage_s}")
     check([e["stage"] for e in proof.fs_tape]
           == [k for k in stage_s if k != "witness-extraction"],
@@ -362,8 +507,9 @@ def main():
     print(f"[path] prove_prefix {t_prove:.3f}s ("
           + ", ".join(f"{k} {v:.3f}s" for k, v in stage_s.items())
           + f"), peak allocated {peak / 2**30:.3f} GiB, K1 launches "
-          f"{launches}, {len(shapes)} launch shapes; verify_prefix accepted "
-          f"in {t_verify:.3f}s", flush=True)
+          f"{launches}, {len(shapes)} launch shapes, K2 launches "
+          f"{k2_launches} (stage 1s, {log_t} rounds); verify_prefix "
+          f"accepted in {t_verify:.3f}s", flush=True)
 
     # K1 vs plain at the main path's largest shape and its heaviest one
     def numel(sh):
@@ -381,13 +527,13 @@ def main():
         times = time_k1(kernels, a, b)
         main_times[(sa_shape, sb_shape)] = times
         print(f"[kernel] mont_mul {tag} path shape {sa_shape} x {sb_shape} "
-              f"({shapes[(sa_shape, sb_shape)]} launches): {times[0]:.4f} ms,"
-              f" plain {times[1]:.4f} ms, bound {times[2]:.4f} ms "
-              f"({times[3]})", flush=True)
+              f"({shapes[(sa_shape, sb_shape)]} launches): {times[0]:.4f} ms "
+              f"(with the wrapper {times[1]:.4f} ms), plain {times[2]:.4f} "
+              f"ms, bound {times[3]:.4f} ms ({times[4]})", flush=True)
         del a, b
-    ms, plain_ms, bound, by = main_times[largest]
+    ms, events_ms, plain_ms, bound, by = main_times[largest]
 
-    # ---- 6. card vs CPU on the fib trace ---------------------------------
+    # ---- 7. card vs CPU on the fib trace ---------------------------------
     fib_layout = MemoryLayout(**FIB_LAYOUT)
     fib = trace_program(FIB.format(output_start=fib_layout.output_start,
                                    termination=fib_layout.termination),
@@ -401,25 +547,34 @@ def main():
     print(f"[card-vs-cpu] fib ({fib.length} cycles): identical PrefixProof; "
           f"states {[e['state'][:16] for e in on_card.fs_tape]}", flush=True)
 
-    # ---- 7. results -------------------------------------------------------
+    # ---- 8. results -------------------------------------------------------
     print(f"[total] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(card)
-    k2 = k2_times[K2_CHAIN_LOG_T]
+    # K2's headline: the main path's round (stage 1s: two factors, bind then
+    # message) at 2^18; "ms" is its two kernels' device time
+    k2 = k2_times[(2, "bind_message")]
     print(json.dumps({"kernels": [{
         "name": "mont_mul", "route": "cuda",
         "source": "jolt_tpu_torch/csrc/mont_mul.cu",
         "replaces": "jolt_tpu/field/pallas_ops.py:44",
         "launches": launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-        "bound_by": by, "library_ms": None,
+        "ms": ms, "wrapper_ms": events_ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": by, "library_ms": None,
         "shape": [list(largest[0]), list(largest[1])]}, {
-        "name": "product_round_deg3", "route": "cuda",
+        "name": "product_round", "route": "cuda",
         "source": "jolt_tpu_torch/csrc/product_round.cu",
         "replaces": "jolt_tpu/field/pallas_ops.py:97",
         "launches": k2_launches, "max_abs_err": k2_err,
-        **k2, "library_ms": None,
-        "shape": [[8, T]] * 3 + [[8, 1]],
-        "at_t14": k2_times[14]}]}))
+        "ms": k2["ms"], "wrapper_ms": k2["wrapper_ms"],
+        "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+        "library_ms": None, "shape": [[8, T]] * 2 + [[8, 1]],
+        "order": "bind_message", "spill_bytes": k2_spills,
+        "modes": [{"nf": nf, "order": order, **t}
+                  for (nf, order), t in k2_times.items()],
+        "message_bind_small": k2_small,
+        "round_step_launches": k2_round_launches,
+        "product_sumcheck_launches": k2_sumcheck_launches}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,7 +7,8 @@
 // 8 x 32-bit limbs, R = 2^256, limbs-first (8, n0, n1) int32 tensors.
 //
 // Design: one thread per element.  CIOS Montgomery multiplication over
-// 8 words with 64-bit products, then one conditional subtract of p.  Takes
+// 8 words on 32-bit multiply-add carry chains, then one conditional
+// subtract of p.  Takes
 // a < 2^256 and b < p, so the value before the subtract is < 2p.  Each
 // operand comes with (limb, row, column) strides in elements, so a
 // broadcast scalar or per-row weight is read in place with stride 0; the
@@ -22,12 +23,11 @@
 // 28.7 ps and multiplies 16.3 ps per element: the kernel is bound by bytes
 // when both operands stream, and close to balanced when one is a scalar.
 //
-// The CIOS product itself (`fr::mont_mul8`) lives in `fr.cuh`, shared
-// with K2 (`product_round.cu`).
+// The CIOS product itself (`fr::mont_mul8`, on PTX carry chains) lives in
+// `fr.cuh`, shared with K2 (`product_round.cu`).
 //
 // Left for later: the reduction is not interleaved with the schoolbook
-// across warps, no PTX carry chains (mad.lo.cc / madc.hi) are used, and
-// nothing is fused around the product.
+// across warps, and nothing is fused around the product.
 
 #include "fr.cuh"
 

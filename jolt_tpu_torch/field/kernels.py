@@ -3,14 +3,15 @@
   * K1 `mont_mul` (``csrc/mont_mul.cu``) replaces the JAX package's Pallas
     kernel ``field/pallas_ops.py:mont_mul``: the elementwise Montgomery
     product.
-  * K2 `product_round_deg3` (``csrc/product_round.cu``) replaces
+  * K2 `product_round` (``csrc/product_round.cu``) replaces
     ``field/pallas_ops.py:product_round_deg3``: one HighToLow round of a
-    degree-3, three-factor product sumcheck (message evals + the bound
-    factors in one pass).
+    product sumcheck of 2 or 3 factors (message evals and the bound factors
+    in one pass, in one of four orders, the message finished mod p on the
+    card); `product_round_deg3` is its "message_bind" order at 3 factors.
 
 On CPU tensors each wrapper calls its plain version (`mont_mul_plain`,
-`product_round_deg3_plain`); on CUDA tensors it launches its kernel or
-raises.  `<wrapper>.launches` counts the launches.
+`product_round_plain`); on CUDA tensors it launches its kernel or raises.
+`mont_mul.launches` and `product_round.launches` count the launches.
 
 The kernels build at first use from the sources in this package, one
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` per source, all started
@@ -117,9 +118,9 @@ _KERNELS = {
     "K1": ("mont_mul.cu", "libjolt_mont_mul.so", {
         "jolt_mont_mul": (ctypes.c_int, [_P] * 3 + [_I64] * 8 + [_P])}),
     "K2": ("product_round.cu", "libjolt_product_round.so", {
-        "jolt_product_round_blocks": (ctypes.c_int, [_I64]),
-        "jolt_product_round_deg3": (ctypes.c_int,
-                                    [_P] * 8 + [_I64, _P])}),
+        "jolt_product_round_blocks": (ctypes.c_int, [ctypes.c_int, _I64]),
+        "jolt_product_round": (ctypes.c_int, [ctypes.c_int] * 2
+                               + [_I64] + [_P] * 10)}),
 }
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -234,28 +235,111 @@ mont_mul.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K2: one fused round of a degree-3, three-factor product sumcheck
+# K2: one HighToLow round of a product sumcheck of 2 or 3 factors
 # ---------------------------------------------------------------------------
 
-def product_round_deg3_plain(p0: torch.Tensor, p1: torch.Tensor,
-                             p2: torch.Tensor, r: torch.Tensor):
-    """K2's function in plain torch: the message evals at X = 0, 2, 3 of
-    sum_i p0(X) p1(X) p2(X) over the pairs (i, i + T/2), as (8, 3, 1)
-    Montgomery limbs, and each factor bound HighToLow at r, (8, T/2).
+# K2's pass orders (`Order` in csrc/product_round.cu)
+ORDERS = ("message_bind", "message", "bind_message", "bind")
 
-    Products and binds use `mont_mul_plain`; the sums are `ops.sum_mod`,
-    whose mod-p finish of the (8, 3) column sums is the same
-    `ops.reduce_cols` the kernel's wrapper uses."""
+
+def _r_tensor(r, device) -> torch.Tensor:
+    """The challenge as (8, 1) Montgomery limbs on `device`: r is a canonical
+    int or already such a tensor."""
+    if isinstance(r, torch.Tensor):
+        return r.to(device)
+    from . import ops
+    return ops.pack_ints([r], device)
+
+
+def _r_words(r) -> "ctypes.Array":
+    """The challenge's 8 Montgomery words for the launch, on the host: a
+    canonical int converts there, a device tensor is copied back (32 bytes,
+    which waits for the card)."""
+    if isinstance(r, torch.Tensor):
+        words = [int(w) & MASK32 for w in r.reshape(N_LIMBS).tolist()]
+    else:
+        mont = int(r) % P * R % P
+        words = [(mont >> (32 * i)) & MASK32 for i in range(N_LIMBS)]
+    return (ctypes.c_uint32 * N_LIMBS)(*words)
+
+
+def _tensors(polys, r):
+    """The factors, and r if it is a tensor."""
+    return polys + ((r,) if isinstance(r, torch.Tensor) else ())
+
+
+def _check_round(polys, order) -> None:
+    if order not in ORDERS:
+        raise ValueError(f"product_round: order {order!r} (want one of "
+                         f"{ORDERS})")
+    if len(polys) not in (2, 3):
+        raise ValueError(f"product_round: {len(polys)} factors (K2 takes 2 "
+                         "or 3)")
+    T = polys[0].shape[-1]
+    least = 4 if order == "bind_message" else 2
+    if (any(p.dim() != 2 or p.shape != (N_LIMBS, T) for p in polys)
+            or T % least or T < least):
+        raise ValueError("product_round: shapes "
+                         f"{[tuple(p.shape) for p in polys]} (want factors "
+                         f"(8, T) with T a multiple of {least})")
+
+
+def product_round_plain(polys, r, order: str):
+    """K2's function in plain torch: one HighToLow round of the product
+    sumcheck of `polys` (2 or 3 factors, each (8, T)) at degree NF =
+    len(polys), in pass order `order` (`ORDERS`):
+
+      * "message_bind": the message over the pairs (i, i + T/2), and each
+        factor bound at r (the JAX package's `product_round_deg3` at NF = 3);
+      * "message": the message alone;
+      * "bind_message": each factor bound at r, then the message of the
+        bound factors (a live round: bind at r_j, message round j + 1);
+      * "bind": the bind alone.
+
+    Returns (msg, bound): msg the evals at X = 0, 2, .., NF as (8, NF, 1)
+    Montgomery limbs (None for "bind"), bound the NF factors (8, T/2)
+    (None for "message").  r is a canonical int or (8, 1) Montgomery limbs
+    (unused by "message").  Products and binds use `mont_mul_plain`; the
+    sums are `ops.sum_mod`, whose mod-p finish (`ops.reduce_cols`) the
+    kernel's finish equals bit for bit."""
     from ..poly import dense
     from . import ops
-    acc = None
-    for p in (p0, p1, p2):
-        e = dense.sumcheck_eval_points_high(p, 3)
-        acc = e if acc is None else mont_mul_plain(acc, e)
-    half = p0.shape[-1] // 2
-    bound = [ops.add(p[:, :half], mont_mul_plain(
-        ops.sub(p[:, half:], p[:, :half]), r)) for p in (p0, p1, p2)]
-    return (ops.sum_mod(acc), *bound)
+    polys = tuple(polys)
+    _check_round(polys, order)
+
+    def message(ps):
+        acc = None
+        for p in ps:
+            e = dense.sumcheck_eval_points_high(p, len(ps))
+            acc = e if acc is None else mont_mul_plain(acc, e)
+        return ops.sum_mod(acc)
+
+    msg = bound = None
+    if order in ("message_bind", "message"):
+        msg = message(polys)
+    if order != "message":
+        r_t = _r_tensor(r, polys[0].device)
+        half = polys[0].shape[-1] // 2
+        bound = tuple(ops.add(p[:, :half], mont_mul_plain(
+            ops.sub(p[:, half:], p[:, :half]), r_t)) for p in polys)
+    if order == "bind_message":
+        msg = message(bound)
+    return msg, bound
+
+
+def product_round(polys, r=None, order: str = "message_bind"):
+    """One HighToLow round of the product sumcheck of 2 or 3 factors: see
+    `product_round_plain` for the orders and the result (msg, bound).
+
+    CPU tensors take `product_round_plain`.  CUDA tensors launch K2
+    (`launch_product_round`): the pass kernel and, for a message, the
+    finish kernel that sums its blocks and reduces mod p on the card -- at
+    most two launches and no torch op on the limbs."""
+    polys = tuple(polys)
+    if all(t.device.type == "cpu" for t in _tensors(polys, r)):
+        return product_round_plain(polys, r, order)
+    return launch_product_round(polys, r, order)
+
 
 
 def product_round_deg3(p0: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
@@ -263,61 +347,66 @@ def product_round_deg3(p0: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
     """One HighToLow round of the product sumcheck of p0 p1 p2 (each (8, T),
     T even) at the challenge r (8, 1): returns (msg, b0, b1, b2) with msg the
     (8, 3, 1) Montgomery evals at X = 0, 2, 3 and b0..b2 the bound factors
-    (8, T/2) -- the JAX kernel followed by its `reduce_lazy_cols`.
-
-    CPU tensors take `product_round_deg3_plain`.  CUDA tensors launch K2
-    (`launch_product_round`); its per-block exact uint64 limb-plane sums add
-    up in int64 here and `ops.reduce_cols` reduces them mod p."""
-    if all(t.device.type == "cpu" for t in (p0, p1, p2, r)):
-        return product_round_deg3_plain(p0, p1, p2, r)
-    from . import ops
-    partial, *bound = launch_product_round(p0, p1, p2, r)
-    # each block sum < 2^40: int64 holds the uint64 and their total exactly
-    msg = ops.reduce_cols(partial.sum(dim=0)[:, :, None])
+    (8, T/2) -- the JAX kernel followed by its `reduce_lazy_cols`.  K2's
+    "message_bind" order (`product_round`)."""
+    msg, bound = product_round((p0, p1, p2), r, "message_bind")
     return (msg, *bound)
 
 
-def launch_product_round(p0: torch.Tensor, p1: torch.Tensor,
-                         p2: torch.Tensor, r: torch.Tensor):
-    """Launch K2 on the operands' card's current stream; returns
-    (partial, b0, b1, b2): partial (blocks, 8, 3) int64 holds each thread
-    block's exact uint64 sums of the 32-bit limb planes of its products,
-    b0..b2 the bound factors (8, T/2).  Counts one launch on
-    `product_round_deg3.launches`."""
-    args = (p0, p1, p2, r)
-    dev = p0.device
-    if dev.type != "cuda" or any(t.device != dev for t in args):
-        raise ValueError("product_round_deg3: operands on "
-                         f"{[str(t.device) for t in args]}")
-    if any(t.dtype != torch.int32 for t in args):
-        raise TypeError("product_round_deg3: dtypes "
-                        f"{[t.dtype for t in args]} (want int32)")
-    T = p0.shape[-1]
-    if (any(t.shape != (N_LIMBS, T) for t in args[:3]) or T % 2 or T < 2
-            or tuple(r.shape) != (N_LIMBS, 1)):
-        raise ValueError("product_round_deg3: shapes "
-                         f"{[tuple(t.shape) for t in args]} (want three "
-                         "(8, T), T even, and r (8, 1))")
-    half = T // 2
-    if half >= 1 << 31:
-        raise ValueError(f"product_round_deg3: {half} pairs exceed 2^31")
-    p0, p1, p2, r = (t.contiguous() for t in args)
+def launch_product_round(polys, r, order: str, finish: bool = True):
+    """Launch K2 on the factors' card's current stream; returns (msg,
+    bound) as `product_round` does.  With finish=False the finish kernel is
+    not launched and msg is the pass kernel's block sums instead: (8 NF,
+    blocks) int64, column k * 8 + l the exact sum of limb l at the k-th eval
+    point (for timing the pass alone).  Counts one launch on
+    `product_round.launches`."""
+    polys = tuple(polys)
+    _check_round(polys, order)
+    dev = polys[0].device
+    if dev.type != "cuda" or any(t.device != dev
+                                 for t in _tensors(polys, r)):
+        raise ValueError("product_round: operands on "
+                         f"{[str(t.device) for t in _tensors(polys, r)]}")
+    if any(p.dtype != torch.int32 for p in polys):
+        raise TypeError("product_round: dtypes "
+                        f"{[p.dtype for p in polys]} (want int32)")
+    T = polys[0].shape[-1]
+    if T // 2 >= 1 << 31:
+        raise ValueError(f"product_round: {T // 2} pairs exceed 2^31")
+    nf = len(polys)
+    code = ORDERS.index(order)
+    polys = tuple(p.contiguous() for p in polys)
+    ptrs = [p.data_ptr() for p in polys] + [None] * (3 - nf)
+    words = None if order == "message" else _r_words(r)
     lib = _load("K2")
-    blocks = lib.jolt_product_round_blocks(half)
-    bound = [torch.empty((N_LIMBS, half), dtype=torch.int32, device=dev)
-             for _ in range(3)]
-    partial = torch.empty((blocks, N_LIMBS, 3), dtype=torch.int64,
-                          device=dev)
+    msg = partial = bound = None
     with torch.cuda.device(dev):          # launch on the operands' card
+        blocks = lib.jolt_product_round_blocks(code, T)
+        if blocks < 0:
+            raise RuntimeError(f"product_round: CUDA error {-blocks}")
+        if order != "bind":
+            partial = torch.empty((N_LIMBS * nf, blocks), dtype=torch.int64,
+                                  device=dev)
+            if finish:
+                msg = torch.empty((N_LIMBS, nf, 1), dtype=torch.int32,
+                                  device=dev)
+        outs = [None] * 3
+        if order != "message":
+            b = torch.empty((nf, N_LIMBS, T // 2), dtype=torch.int32,
+                            device=dev)
+            bound = tuple(b.unbind(0))
+            outs[:nf] = [x.data_ptr() for x in bound]
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.jolt_product_round_deg3(
-            p0.data_ptr(), p1.data_ptr(), p2.data_ptr(), r.data_ptr(),
-            *(b.data_ptr() for b in bound), partial.data_ptr(), half, stream)
+        rc = lib.jolt_product_round(
+            nf, code, T, *ptrs, *outs, words,
+            None if partial is None else partial.data_ptr(),
+            None if msg is None else msg.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"product_round_deg3: K2 launch failed, CUDA "
-                           f"error {rc}")
-    product_round_deg3.launches += 1
-    return (partial, *bound)
+        raise RuntimeError(f"product_round: K2 launch failed, CUDA error {rc}")
+    product_round.launches += 1
+    if order != "bind" and not finish:
+        msg = partial
+    return msg, bound
 
 
-product_round_deg3.launches = 0
+product_round.launches = 0

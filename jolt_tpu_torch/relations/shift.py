@@ -42,9 +42,10 @@ import numpy as np
 import torch
 
 from ..field import FR, ops
-from ..poly import dense, eq
+from ..poly import eq
 from ..poly.split_eq import eq_plus_one_int
 from ..sumcheck.engine import OpeningAccumulator, SumcheckInstance
+from ..sumcheck.product import ProductRounds
 
 P = FR.modulus
 
@@ -106,16 +107,11 @@ def shift_column_values(bc_table, pc_idx: Sequence[int],
     return [int(v) for v in tab_np[np.asarray(pc_idx, dtype=np.int64)]]
 
 
-def _shift_message(E: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
-    """Round evals at X in {0, 2} of sum W' * COL.  (L, 2, 1)."""
-    e = dense.sumcheck_eval_points_high(E, 2)
-    v = dense.sumcheck_eval_points_high(V, 2)
-    return ops.sum_mod(ops.mont_mul(e, v))
-
-
 class ShiftSumcheck(SumcheckInstance):
     """Prover instance: sum_j W'(r_cycle, j) * COL(j), degree 2, log T
-    rounds, HighToLow."""
+    rounds, HighToLow: a two-factor product sumcheck of (W', COL), whose
+    rounds run on K2 (`ProductRounds`: one pass per round binds at r_j and
+    forms round j + 1's evals at X in {0, 2})."""
 
     degree = 2
 
@@ -125,8 +121,8 @@ class ShiftSumcheck(SumcheckInstance):
         assert len(col_values) == 1 << self.n
         self.gamma = gamma
         self.device = torch.device(device)
-        self.E = shift_weight_evals(r_cycle, self.device)
-        self.Pv = ops.pack_ints(col_values, self.device)
+        self.rounds = ProductRounds((shift_weight_evals(r_cycle, self.device),
+                                     ops.pack_ints(col_values, self.device)))
         self.final_openings: Optional[dict] = None
 
     @property
@@ -139,15 +135,14 @@ class ShiftSumcheck(SumcheckInstance):
              for name, _ in SHIFT_COLUMNS], self.gamma)
 
     def message_evals_dev(self, round: int):
-        return _shift_message(self.E, self.Pv)
+        return self.rounds.message()
 
     def ingest_challenge(self, r: int, round: int) -> None:
-        r_dev = ops.pack_ints([r], self.device)
-        self.E = dense.bind_high(self.E, r_dev)
-        self.Pv = dense.bind_high(self.Pv, r_dev)
+        self.rounds.bind(r)
 
     def finalize(self) -> None:
-        self.final_openings = {"cols": ops.unpack_ints(self.Pv)[0]}
+        _, cols = self.rounds.flush()
+        self.final_openings = {"cols": ops.unpack_ints(cols)[0]}
 
     def cache_openings(self, accumulator: OpeningAccumulator,
                        r_slice: Sequence[int]) -> None:

@@ -8,11 +8,14 @@ order: HighToLow.
 `round_step` is the counterpart of the JAX package's round-step entry point
 (`__graft_entry__.py`, `round_step`): one product-sumcheck round of three
 factors at degree 3 -- the message evals and the HighToLow bind at a given
-challenge -- which on a CUDA device is one launch of kernel K2.  It cannot
-serve a live prover round: there the challenge r_j is drawn from round j's
-message, so round j's message and its bind cannot share one pass.
-`ProductSumcheck` therefore runs its rounds through the engine, with K1
-carrying every product.
+challenge -- which on a CUDA device is kernel K2 in its "message_bind"
+order.  A live prover round cannot use that order: there the challenge r_j
+is drawn from round j's message.  `ProductRounds` drives K2's other orders
+instead: the first round's message alone, then per round one pass that
+binds at r_j and forms round j + 1's message, then the last bind alone.
+`ProductSumcheck` with 2 or 3 factors runs on it (and so does the shift
+sumcheck, `relations/shift.py`); other factor counts keep the torch tier,
+with K1 carrying every product.
 """
 
 from __future__ import annotations
@@ -57,8 +60,43 @@ def round_step(polys: Sequence[torch.Tensor], r: torch.Tensor
     return msg, tuple(bound)
 
 
+class ProductRounds:
+    """The factors of a HighToLow product sumcheck of 2 or 3 factors at
+    degree 2 or 3, through its live rounds on K2: `message()` gives the
+    round's evals at X = 0, 2, .., NF as (8, NF, 1); `bind(r)` only stores
+    the challenge, which the next `message()` binds in the same pass
+    ("bind_message"), or `flush()` alone ("bind").  The first message has
+    no bind before it ("message").  So each round is one K2 call: on the
+    card at most two launches, on the CPU its plain version."""
+
+    def __init__(self, polys: Sequence[torch.Tensor]):
+        self.polys: Tuple[torch.Tensor, ...] = tuple(polys)
+        self._r: Optional[int] = None        # the challenge not yet bound
+
+    def message(self) -> torch.Tensor:
+        if self._r is None:
+            msg, _ = kernels.product_round(self.polys, None, "message")
+        else:
+            msg, self.polys = kernels.product_round(self.polys, self._r,
+                                                    "bind_message")
+            self._r = None
+        return msg
+
+    def bind(self, r: int) -> None:
+        self.flush()
+        self._r = r
+
+    def flush(self) -> Tuple[torch.Tensor, ...]:
+        """Bind the stored challenge, if any; returns the factors."""
+        if self._r is not None:
+            _, self.polys = kernels.product_round(self.polys, self._r, "bind")
+            self._r = None
+        return self.polys
+
+
 class ProductSumcheck(SumcheckInstance):
-    """Prover instance for sum_x prod_k P_k(x) over the full hypercube."""
+    """Prover instance for sum_x prod_k P_k(x) over the full hypercube.
+    With 2 or 3 factors its rounds run on K2 (`ProductRounds`)."""
 
     def __init__(self, polys: List[torch.Tensor]):
         T = polys[0].shape[-1]
@@ -67,6 +105,8 @@ class ProductSumcheck(SumcheckInstance):
         self.device = polys[0].device
         self._num_rounds = T.bit_length() - 1
         assert 1 << self._num_rounds == T
+        self._rounds = (ProductRounds(polys) if len(polys) in (2, 3)
+                        else None)
         self._input_claim: Optional[int] = None
         self.final_claims: Optional[List[int]] = None
 
@@ -86,13 +126,20 @@ class ProductSumcheck(SumcheckInstance):
         return self._input_claim
 
     def message_evals_dev(self, round: int) -> torch.Tensor:
+        if self._rounds is not None:
+            return self._rounds.message()
         return _product_message(self.polys, self.degree)
 
     def ingest_challenge(self, r: int, round: int) -> None:
+        if self._rounds is not None:
+            self._rounds.bind(r)
+            return
         r_dev = ops.pack_ints([r], self.device)
         self.polys = [dense.bind_high(Pk, r_dev) for Pk in self.polys]
 
     def finalize(self) -> None:
+        if self._rounds is not None:
+            self.polys = list(self._rounds.flush())
         self.final_claims = [ops.unpack_ints(Pk)[0] for Pk in self.polys]
 
     def cache_openings(self, accumulator: OpeningAccumulator,

@@ -1,4 +1,5 @@
-"""The main path's workload, and the card it runs on.
+"""The main path's workload, the card it runs on, and the least time the
+card could take for each kernel's work.
 
 The workload is `bench.py`'s: the sha2-chain guest
 (`examples/gen_sha256.py:emit_inline`, ~2.3k cycles per SHA-256
@@ -13,11 +14,14 @@ import contextlib
 import hashlib
 import importlib.util
 import io
+import math
 import os
 import pathlib
 import re
 import subprocess
 from typing import Callable, Dict, Tuple
+
+import numpy as np
 
 from .riscv.emulator import MemoryLayout
 from .tracer.native import trace_program_native
@@ -27,6 +31,13 @@ SHA2_CHAIN = 114          # ~2^18 cycles, the bench's size
 SHA2_INPUT = bytes(range(32))
 _GEN_SHA256 = (pathlib.Path(__file__).resolve().parent.parent / "examples"
                / "gen_sha256.py")
+# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 3.35 TB/s;
+# 32-bit integer multiply-adds on the CUDA cores: 132 SMs x 64 per clock x
+# 1.98 GHz = 16.7 T/s (half of the 67 TFLOP/s float32 rate's FMA count)
+HBM_BYTES_PER_S = 3.35e12
+INT32_MAD_PER_S = 132 * 64 * 1.98e9
+# one Fr Montgomery product: 136 32x32->64 multiplies = 272 multiply-adds
+MADS_PER_PRODUCT = 272
 
 
 def sha2_chain_layout() -> MemoryLayout:
@@ -85,3 +96,33 @@ def timed_stages(fn: Callable[[], object]
     stages = {m.group(1): float(m.group(2)) for m in re.finditer(
         r"\[prove\] ([\w-]+): ([0-9.]+)s", text)}
     return out, stages, text
+
+
+def bound_ms(n_bytes: int, products: int) -> Tuple[float, str]:
+    """The least time for a kernel that moves `n_bytes` and does `products`
+    Montgomery products, in ms, and which of the two bounds it."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = products * MADS_PER_PRODUCT / INT32_MAD_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def k1_bound_ms(a_shape, b_shape) -> Tuple[float, str]:
+    """One K1 call: each operand read once and the output written once
+    (32 B per element each), one product per output element."""
+    n = math.prod(np.broadcast_shapes(a_shape, b_shape)[1:])
+    n_a, n_b = math.prod(a_shape[1:]), math.prod(b_shape[1:])
+    return bound_ms(32 * (n_a + n_b + n), n)
+
+
+def k2_bound_ms(nf: int, order: str, T: int, blocks: int) -> Tuple[float, str]:
+    """One K2 call in `order` at T entries a factor: the factors (and r)
+    read once, the bound factors, the blocks' (8 nf) uint64 column sums and
+    the message written once; a product per bound entry, (nf - 1) per eval
+    point and message pair (T/2 pairs, T/4 after a bind first)."""
+    pairs = T // 2
+    bind, msg = order != "message", order != "bind"
+    n_bytes = 32 * nf * T + 32 * bind + (32 * nf * pairs if bind else 0) \
+        + ((64 * nf * blocks + 32 * nf) if msg else 0)
+    msg_pairs = pairs // 2 if order == "bind_message" else pairs
+    products = nf * pairs * bind + (nf - 1) * nf * msg_pairs * msg
+    return bound_ms(n_bytes, products)

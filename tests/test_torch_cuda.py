@@ -1,5 +1,6 @@
-"""The torch port on the card: K1 and K2 against their plain versions,
-and the prover on "cuda" against the prover on "cpu".
+"""The torch port on the card: K1 and K2 (every pass order, 2 and 3
+factors, and its on-card finish of the message) against their plain
+versions, and the prover on "cuda" against the prover on "cpu".
 
 These tests need an NVIDIA GPU; without one they skip.  The machine with
 the card has no JAX, so this module imports none, and there it runs
@@ -15,9 +16,11 @@ import pytest
 import torch
 
 from jolt_tpu_torch import PublicIO, prove_prefix, verify_prefix
-from jolt_tpu_torch.field import kernels
+from jolt_tpu_torch.field import kernels, ops
 from jolt_tpu_torch.riscv.emulator import MemoryLayout
-from jolt_tpu_torch.sumcheck.product import round_step
+from jolt_tpu_torch.sumcheck.engine import BatchedSumcheck, OpeningAccumulator
+from jolt_tpu_torch.sumcheck.product import ProductSumcheck, round_step
+from jolt_tpu_torch.transcript import Blake2bTranscript
 from jolt_tpu_torch.tracer import trace_program
 
 pytestmark = pytest.mark.cuda
@@ -63,13 +66,69 @@ def test_k2_matches_plain_on_card(card, log_t):
     gen.manual_seed(log_t)
     polys = [_rand_field(gen, (8, 1 << log_t), card) for _ in range(3)]
     r = _rand_field(gen, (8, 1), card)
-    before = kernels.product_round_deg3.launches
-    got = kernels.product_round_deg3(*polys, r)
-    want = kernels.product_round_deg3_plain(*polys, r)
+    before = kernels.product_round.launches
+    msg, *bound = kernels.product_round_deg3(*polys, r)
+    want_msg, want_bound = kernels.product_round_plain(polys, r,
+                                                       "message_bind")
     torch.cuda.synchronize()
-    assert kernels.product_round_deg3.launches == before + 1
-    for g, w in zip(got, want):
+    assert kernels.product_round.launches == before + 1
+    for g, w in zip((msg, *bound), (want_msg, *want_bound)):
         assert g.shape == w.shape and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("order", kernels.ORDERS)
+@pytest.mark.parametrize("nf", [2, 3])
+def test_k2_every_order_matches_plain_on_card(card, nf, order):
+    """Each pass order at 2 and 3 factors equals the plain version bit for
+    bit, on seeded inputs and on factors and challenges of 0, 1 and r-1."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(nf * 10 + kernels.ORDERS.index(order))
+    polys = [_rand_field(gen, (8, 1 << 12), card) for _ in range(nf)]
+    edge = [0, 1, kernels.P - 1]
+    pick = torch.randint(0, 3, (nf, 1 << 8), generator=gen, device=card)
+    edges = [ops.pack_ints([edge[int(v)] for v in row], card)
+             for row in pick.tolist()]
+    for ps, r in ((polys, _rand_field(gen, (8, 1), card)),
+                  (edges, 0), (edges, 1), (edges, kernels.P - 1)):
+        msg, bound = kernels.product_round(ps, r, order)
+        want_msg, want_bound = kernels.product_round_plain(ps, r, order)
+        assert (msg is None) == (want_msg is None)
+        assert msg is None or torch.equal(msg, want_msg)
+        assert (bound is None) == (want_bound is None)
+        assert bound is None or all(torch.equal(b, w)
+                                    for b, w in zip(bound, want_bound))
+
+
+@pytest.mark.parametrize("nf", [2, 3])
+def test_k2_finish_matches_reduce_cols_on_card(card, nf):
+    """The finish kernel's message equals ops.reduce_cols of the pass
+    kernel's block sums (added in int64)."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(40 + nf)
+    polys = [_rand_field(gen, (8, 1 << 16), card) for _ in range(nf)]
+    r = _rand_field(gen, (8, 1), card)
+    for order in ("message_bind", "message", "bind_message"):
+        partial, _ = kernels.launch_product_round(polys, r, order,
+                                                  finish=False)
+        cols = partial.reshape(nf, 8, -1).sum(dim=-1).T[:, :, None]
+        msg, _ = kernels.product_round(polys, r, order)
+        assert torch.equal(msg, ops.reduce_cols(cols))
+
+
+def test_product_sumcheck_card_equals_cpu(card):
+    """ProductSumcheck of 2 and 3 factors on K2's live-round orders gives
+    the same proof on the card as on the CPU."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(3)
+    for nf in (2, 3):
+        polys = [_rand_field(gen, (8, 1 << 10), card) for _ in range(nf)]
+        runs = []
+        for ps in (polys, [p.cpu() for p in polys]):
+            inst = ProductSumcheck(ps)
+            proof, r = BatchedSumcheck.prove([inst], OpeningAccumulator(),
+                                             Blake2bTranscript(b"card"))
+            runs.append((proof, r, inst.final_claims))
+        assert runs[0] == runs[1]
 
 
 def test_round_step_chained_on_card(card):
@@ -82,9 +141,9 @@ def test_round_step_chained_on_card(card):
     for _ in range(12):
         r = _rand_field(gen, (8, 1), card)
         msg, bound = round_step(polys, r)
-        want = kernels.product_round_deg3_plain(*polys, r)
+        want = kernels.product_round_plain(polys, r, "message_bind")
         assert torch.equal(msg, want[0])
-        assert all(torch.equal(b, w) for b, w in zip(bound, want[1:]))
+        assert all(torch.equal(b, w) for b, w in zip(bound, want[1]))
         polys = bound
     assert polys[0].shape == (8, 1)
 

@@ -175,3 +175,24 @@ def test_constants_upload_once_per_value_and_device():
     for _ in range(2):
         got = tops.sub(tops.pack_ints(xs, CPU), tops.pack_ints(ys, CPU))
         assert tops.unpack_ints(got) == [(x - y) % P for x, y in zip(xs, ys)]
+
+
+def test_kernel_source_constants_match_the_field():
+    """The words of p, R mod p and R^2 mod p and -p^-1 mod 2^32 that the
+    port's CUDA kernels compile in (`csrc/fr.cuh`) are the field's."""
+    import pathlib
+    import re
+    src = (pathlib.Path(kernels.__file__).resolve().parents[1] / "csrc"
+           / "fr.cuh").read_text()
+
+    def words(name):
+        body = re.search(rf"#define {name}\s*\\\s*\{{([^}}]*)\}}", src).group(1)
+        return sum(int(w, 16) << (32 * i)
+                   for i, w in enumerate(re.findall(r"0x([0-9a-f]+)u", body)))
+
+    R = 1 << 256
+    assert words("FR_P_WORDS") == P
+    assert words("FR_R_WORDS") == R % P
+    assert words("FR_R2_WORDS") == R * R % P
+    n0 = int(re.search(r"kN0 = 0x([0-9a-f]+)u", src).group(1), 16)
+    assert n0 * P % (1 << 32) == (1 << 32) - 1

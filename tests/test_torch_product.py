@@ -1,16 +1,23 @@
-"""The port's product sumcheck and its round-step kernel K2 against the JAX
+"""The port's product sumcheck and its round kernel K2 against the JAX
 package, on the CPU.
 
   * `ProductSumcheck` runs `tests/test_sumcheck.py`'s cases through both
     packages' batched sumcheck engines: the same round polynomials,
     challenges, final claims and transcript state; the port's verifier twin
-    accepts and rejects a tampered round.
-  * `product_round_deg3_plain` and `round_step` (K2's function; the
-    wrapper takes the plain version for CPU tensors) equal the body of the
-    JAX package's round-step entry point (`__graft_entry__.entry`: the jnp
-    composition `sumcheck_eval_points_high` / `mont_mul` / `sum_mod` /
-    `bind_high`) at T = 2^8 and 2^10.  JAX cannot run the Pallas kernel on
-    the CPU; `tests/test_pallas_kernels.py` checks its algebra the same way.
+    accepts and rejects a tampered round.  With 2 or 3 factors its rounds
+    run on K2's live-round orders (`ProductRounds`), with 1 on the torch
+    tier.
+  * K2's plain version (`product_round_plain`; the wrapper takes it for CPU
+    tensors), in each pass order: "message_bind", "message" and "bind"
+    against the body of the JAX package's round-step entry point
+    (`__graft_entry__.entry`: the jnp composition
+    `sumcheck_eval_points_high` / `mont_mul` / `sum_mod` / `bind_high`) at
+    T = 2^8 and 2^10, and "bind_message" against `dense.bind_high` followed
+    by `sumcheck.product._product_message_kernel` at T = 2^6, 2^8, 2^10 for 2
+    and 3 factors.  JAX cannot run the Pallas kernel on the CPU;
+    `tests/test_pallas_kernels.py` checks its algebra the same way.
+  * The message's mod-p finish (`ops.reduce_cols`, which K2's finish kernel
+    equals on the card) against Python ints at extreme column sums.
 """
 
 import random
@@ -27,6 +34,7 @@ from jolt_tpu.poly import eq as jeq
 from jolt_tpu.sumcheck import BatchedSumcheck as JBatchedSumcheck
 from jolt_tpu.sumcheck import OpeningAccumulator as JOpeningAccumulator
 from jolt_tpu.sumcheck.product import ProductSumcheck as JProductSumcheck
+from jolt_tpu.sumcheck.product import _product_message_kernel
 from jolt_tpu.transcript import Blake2bTranscript as JTranscript
 
 from jolt_tpu_torch.field import kernels
@@ -109,15 +117,19 @@ def test_eq_weighted_product_sumcheck_matches_jax():
 
 # ---- K2's function: one fused round at degree 3 --------------------------
 
-def _round_inputs(log_t, seed):
-    """Three seeded factors of 2^log_t canonical ints, and a challenge."""
+def _round_inputs(log_t, seed, nf=3):
+    """nf seeded factors of 2^log_t canonical ints, and a challenge."""
     rng = np.random.default_rng(seed)
-    words = rng.integers(0, 1 << 32, size=(3 * (1 << log_t) + 1, 8),
+    words = rng.integers(0, 1 << 32, size=(nf * (1 << log_t) + 1, 8),
                          dtype=np.uint64)
     vals = [sum(int(w) << (32 * i) for i, w in enumerate(row)) % P
             for row in words]
     n = 1 << log_t
-    return [vals[k * n:(k + 1) * n] for k in range(3)], vals[-1]
+    return [vals[k * n:(k + 1) * n] for k in range(nf)], vals[-1]
+
+
+def _ints(msg):
+    return tops.unpack_ints(msg.reshape(8, -1))
 
 
 @pytest.mark.parametrize("log_t", [8, 10])
@@ -131,11 +143,58 @@ def test_k2_plain_matches_jax_round_step(log_t):
     want_msg = jops.unpack_ints(msg_j.reshape(msg_j.shape[0], -1))
     want_bound = [jops.unpack_ints(b) for b in bound_j]
     msg_s, bound_s = round_step(polys, r_t)
-    for msg, *bound in (kernels.product_round_deg3_plain(*polys, r_t),
-                        (msg_s, *bound_s)):
+    for msg, bound in (kernels.product_round_plain(polys, r_t,
+                                                   "message_bind"),
+                       kernels.product_round_plain(polys, r,
+                                                   "message_bind"),
+                       (msg_s, bound_s)):
         assert msg.shape == (8, 3, 1)
-        assert tops.unpack_ints(msg.reshape(8, -1)) == want_msg
+        assert _ints(msg) == want_msg
         assert [tops.unpack_ints(b) for b in bound] == want_bound
+    msg, none = kernels.product_round_plain(polys, None, "message")
+    assert none is None and _ints(msg) == want_msg
+    none, bound = kernels.product_round_plain(polys, r, "bind")
+    assert none is None
+    assert [tops.unpack_ints(b) for b in bound] == want_bound
+
+
+@pytest.mark.parametrize("nf", [2, 3])
+@pytest.mark.parametrize("log_t", [6, 8, 10])
+def test_k2_bind_message_plain_matches_jax(log_t, nf):
+    """The live-round order: bind at r, then the message of the bound
+    factors, against the JAX package's bind_high and product message."""
+    ints, r = _round_inputs(log_t, 100 * nf + log_t, nf)
+    r_j = jops.pack_ints([r])
+    bound_j = tuple(jdense.bind_high(jops.pack_ints(v), r_j) for v in ints)
+    msg_j = _product_message_kernel(bound_j, nf)
+    want_msg = jops.unpack_ints(msg_j.reshape(msg_j.shape[0], -1))
+    want_bound = [jops.unpack_ints(b) for b in bound_j]
+    polys = [tops.pack_ints(v, CPU) for v in ints]
+    for msg, bound in (kernels.product_round_plain(polys, r, "bind_message"),
+                       kernels.product_round(polys, tops.pack_ints([r], CPU),
+                                             "bind_message")):
+        assert msg.shape == (8, nf, 1)
+        assert _ints(msg) == want_msg
+        assert [tops.unpack_ints(b) for b in bound] == want_bound
+
+
+def test_k2_finish_exact_at_extreme_sums():
+    """The message's mod-p finish at column sums near its limits: every
+    32-bit word near 2^32 - 1 over 2^31 - 1 terms (so the carry h above
+    2^256 is ~2^31), and a many-block sum of all-ones words, against Python
+    ints."""
+    n_terms = (1 << 31) - 1
+    rng = np.random.default_rng(7)
+    low = rng.integers(0, 1 << 16, size=(8, 3, 1), dtype=np.int64)
+    cols = torch.from_numpy(n_terms * ((1 << 32) - 1 - low))
+    got = _ints(tops.reduce_cols(cols))
+    want = [sum(int(cols[l, k, 0]) << (32 * l) for l in range(8)) % P
+            * pow(1 << 256, -1, P) % P for k in range(3)]
+    assert got == want
+    words = torch.full((8, 3, 4096), -1, dtype=torch.int32)   # 2^32 - 1
+    got = _ints(tops.sum_mod(words))
+    s = 4096 * ((1 << 256) - 1)
+    assert got == [s % P * pow(1 << 256, -1, P) % P] * 3
 
 
 def test_round_step_chained_matches_python_ints():
@@ -166,11 +225,22 @@ def test_k2_wrapper_takes_plain_on_cpu_without_launching():
     ints, r = _round_inputs(6, 9)
     polys = [tops.pack_ints(v, CPU) for v in ints]
     r_t = tops.pack_ints([r], CPU)
-    before = kernels.product_round_deg3.launches
-    got = kernels.product_round_deg3(*polys, r_t)
-    want = kernels.product_round_deg3_plain(*polys, r_t)
-    assert kernels.product_round_deg3.launches == before
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    before = kernels.product_round.launches
+    msg, *bound = kernels.product_round_deg3(*polys, r_t)
+    want = kernels.product_round_plain(polys, r_t, "message_bind")
+    assert torch.equal(msg, want[0])
+    assert all(torch.equal(g, w) for g, w in zip(bound, want[1]))
+    for nf in (2, 3):
+        for order in kernels.ORDERS:
+            msg, bound = kernels.product_round(polys[:nf], r, order)
+            want_msg, want_bound = kernels.product_round_plain(polys[:nf], r,
+                                                               order)
+            assert (msg is None) == (want_msg is None)
+            assert msg is None or torch.equal(msg, want_msg)
+            assert (bound is None) == (want_bound is None)
+            assert bound is None or all(
+                torch.equal(b, w) for b, w in zip(bound, want_bound))
+    assert kernels.product_round.launches == before
 
 
 def test_k2_wrapper_refuses_mixed_devices_and_bad_shapes():
@@ -180,3 +250,9 @@ def test_k2_wrapper_refuses_mixed_devices_and_bad_shapes():
         kernels.product_round_deg3(a, a, a, r.to("meta"))
     with pytest.raises(ValueError):
         round_step([a, a], r)
+    with pytest.raises(ValueError):                  # four factors
+        kernels.product_round([a] * 4, r, "message")
+    with pytest.raises(ValueError):                  # no such order
+        kernels.product_round([a] * 2, r, "bind_twice")
+    with pytest.raises(ValueError):                  # T/4 pairs: T >= 4
+        kernels.product_round([a[:, :2]] * 2, r, "bind_message")
