@@ -9,8 +9,15 @@ Phases:
   2. build K1 (`jolt_tpu_torch/csrc/mont_mul.cu`) and K2
      (`jolt_tpu_torch/csrc/product_round.cu`), one nvcc for sm_90a each, both
      at once; ptxas's registers and spills;
-  3. K1 vs `mont_mul_plain` on the card, bit for bit: seeded random inputs
-     at N = 2^20, the values 0, 1 and r-1, a sample against Python ints;
+  3. K1 (`mont_mul.cu`, the elementwise Fr kernel) vs its plain version on
+     the card, bit for bit, in each of its six forms (mul, add, sub, bind
+     of halves and of pairs, evals, reduce with and without a scale):
+     seeded inputs at N = 2^20, the values 0, 1 and r-1, and a 512-element
+     sample against Python ints; each form's kernel-only time at 2^20
+     (torch.profiler, on inputs that come from HBM: `cold_copies`) with
+     the columns a thread chosen by size and forced to 1 and to 2, beside
+     its bound and its plain version's time; the same at a product by a
+     scalar and a bind of 2^17-2^19 outputs;
   4. K2 vs `product_round_plain` on the card, bit for bit, for 2 and 3
      factors in each pass order (message then bind, message alone, bind
      then message, bind alone): seeded inputs at T = 2^14 and 2^18, the
@@ -28,11 +35,14 @@ Phases:
      held against the plain chain;
   6. the main path: the sha2-chain guest (chain=114, ~2^18 cycles) traced
      by the port's native tracer, `prove_prefix(trace, device="cuda")`
-     (stages 1-5) with K1's and K2's launch counts read around it (K2
-     carries the shift sumcheck, stage 1s: log2 T + 1 calls), then
-     `verify_prefix`; then K1 vs plain again at the largest launch shape of
-     that run and at the shape with the most work (launches x elements),
-     with times and bounds;
+     (stages 1-5) with K1's launch count per form and K2's read around it
+     (K2 carries the shift sumcheck, stage 1s: log2 T + 1 calls), every
+     K1 launch's shapes recorded (`kernels.record`) and no call of the
+     plain versions' limb arithmetic, then `verify_prefix`;
+     a second `prove_prefix` under torch.profiler counts the device kernels
+     that are neither K1 nor K2; then each K1 form vs plain again at the
+     largest launch shape of that run and at the one with the most work
+     (launches x bound), with kernel-only times and bounds;
   7. card vs CPU: `prove_prefix` on the small fib trace gives identical
      proofs on "cuda" and on "cpu";
   8. one JSON line with every ported kernel, the card line, and the final
@@ -45,6 +55,7 @@ before printing any result.
 import collections
 import dataclasses
 import json
+import math
 import pathlib
 import re
 import sys
@@ -128,29 +139,146 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def compare_k1(kernels, a, b):
-    """K1 vs plain on the card; returns max |difference| over the words."""
-    got = kernels.mont_mul(a, b)
-    want = kernels.mont_mul_plain(a, b)
+def rand_sums(shape, gen, device):
+    """Seeded int64 limb-plane sums (8, *batch) in the range the column sums
+    of the path reach (each plane < 2^62, the top one < 2^61, so the carry
+    out above 2^256 stays below 2^32)."""
+    w = torch.randint(0, 1 << 62, tuple(shape), generator=gen, device=device,
+                      dtype=torch.int64)
+    w[7] >>= 1
+    return w
+
+
+def k1_args(form, key, draw, draw_int, draw_sums):
+    """Operands for K1's `form` as a launch record's key describes them
+    (`kernels.record`): shapes, "int" for a value passed by value, and
+    bind's and evals' layout of (lo, hi) -- the "high" and "low" halves of
+    one tensor, or "split"."""
+    def pair(shape, layout):
+        *batch, h = shape
+        if layout == "split":
+            return draw(shape), draw(shape)
+        P = draw(tuple(batch) + (2 * h,))
+        if layout == "high":
+            return P[..., :h], P[..., h:]
+        return P[..., 0::2], P[..., 1::2]
+    if form in ("mul", "add", "sub"):
+        return tuple(draw_int() if s == "int" else draw(s) for s in key)
+    if form == "bind":
+        lo_shape, layout, r = key
+        return (*pair(lo_shape, layout), draw_int() if r == "int" else draw(r))
+    if form == "evals":
+        lo_shape, degree, layout = key
+        return (*pair(lo_shape, layout), degree)
+    cols, scale = key
+    return (draw_sums(cols), None if scale is None
+            else draw_int() if scale == "int" else draw(scale))
+
+
+def k1_call(kernels, form, args):
+    return {"mul": kernels.mont_mul, "add": kernels.add, "sub": kernels.sub,
+            "bind": kernels.bind, "evals": kernels.evals,
+            "reduce": kernels.reduce}[form](*args)
+
+
+def k1_plain(kernels, form, args):
+    """The plain version of `form` on the same operands (an int operand as
+    its Montgomery limbs)."""
+    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+    nb = max(a.dim() for a in args if isinstance(a, torch.Tensor)) - 1
+
+    def t(x):
+        return kernels._plain_operand(x, dev, nb)
+    if form in ("mul", "add", "sub"):
+        plain = {"mul": kernels.mont_mul_plain, "add": kernels.add_plain,
+                 "sub": kernels.sub_plain}[form]
+        return plain(t(args[0]), t(args[1]))
+    if form == "bind":
+        return kernels.bind_plain(args[0], args[1], t(args[2]))
+    if form == "evals":
+        return kernels.evals_plain(*args)
+    return kernels.reduce_plain(args[0],
+                                None if args[1] is None else t(args[1]))
+
+
+def k1_python(kernels, form, args, shape):
+    """K1's function on Python ints over the raw Montgomery words: the
+    output's words as ints, in the output's (8, ...) order."""
+    P, r_inv = kernels.P, pow(1 << 256, -1, kernels.P)
+
+    def vals(x):
+        if not isinstance(x, torch.Tensor):
+            return [x % P * (1 << 256) % P] * math.prod(shape[1:])
+        return words_to_ints(x.expand(shape).contiguous())
+    if form == "reduce":
+        cols, scale = args
+        raw = cols.reshape(8, -1).cpu().tolist()
+        S = [sum(raw[l][j] << (32 * l) for l in range(8)) % P
+             for j in range(len(raw[0]))]
+        if scale is None:
+            return S
+        return [s * c * r_inv % P for s, c in zip(S, vals(scale))]
+    a, b = vals(args[0]), vals(args[1])
+    if form == "mul":
+        return [x * y * r_inv % P for x, y in zip(a, b)]
+    if form == "add":
+        return [(x + y) % P for x, y in zip(a, b)]
+    if form == "sub":
+        return [(x - y) % P for x, y in zip(a, b)]
+    if form == "bind":
+        return [(x + (y - x) * r * r_inv) % P
+                for x, y, r in zip(a, b, vals(args[2]))]
+    return [v for k in range(args[2]) for v in
+            ([x for x in a] if k == 0 else
+             [(y + k * (y - x)) % P for x, y in zip(a, b)])]
+
+
+def compare_k1(kernels, form, args, where):
+    """K1 vs its plain version on the card; returns max |difference| over
+    the words (0, or the check fails)."""
+    got = k1_call(kernels, form, args)
+    want = k1_plain(kernels, form, args)
     torch.cuda.synchronize()
-    check(got.shape == want.shape, f"K1 shape {got.shape} vs {want.shape}")
+    check(got.shape == want.shape,
+          f"K1 {form} shape {tuple(got.shape)} vs {tuple(want.shape)} {where}")
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
     check(err == 0 and torch.equal(got, want),
-          f"K1 disagrees with mont_mul_plain at {tuple(a.shape)} x "
-          f"{tuple(b.shape)}")
+          f"K1 {form} disagrees with its plain version {where}")
     return err
 
 
-def time_k1(kernels, a, b, reps=20):
-    """K1 in ms: kernel-only, with the wrapper (CUDA events over
-    back-to-back calls), the plain version; the bound."""
+def time_k1(kernels, form, args, key):
+    """K1's `form` in ms: kernel-only (torch.profiler) with the columns a
+    thread chosen by size as on the main path, and with one and two forced
+    (`force_k1_columns`; bit-equal checked); the plain version (CUDA
+    events); and the bound of the launch `key`."""
     from jolt_tpu_torch.workload import k1_bound_ms
-    ms = kernel_ms(lambda: kernels.mont_mul(a, b), ("mont_mul_kernel",),
-                   reps)["mont_mul_kernel"]
-    events_ms = cuda_ms(lambda: kernels.mont_mul(a, b), reps)
-    plain_ms = cuda_ms(lambda: kernels.mont_mul_plain(a, b), 3)
-    bound, by = k1_bound_ms(tuple(a.shape), tuple(b.shape))
-    return ms, events_ms, plain_ms, bound, by
+    sets = cold_copies(args)
+    name = f"k1_{form}"
+    t = {}
+    for v in (0, 1, 2) if form != "reduce" else (0,):
+        kernels.force_k1_columns(v)
+        try:
+            if v:
+                compare_k1(kernels, form, args, f"at {key}, V = {v}")
+            t[f"ms_v{v}" if v else "ms"] = kernel_ms(
+                lambda *a: k1_call(kernels, form, a), sets, (name,))[name]
+        finally:
+            kernels.force_k1_columns(0)
+    del sets
+    bound, by = k1_bound_ms(form, key)
+    return {**t, "plain_ms": cuda_ms(lambda: k1_plain(kernels, form, args), 3),
+            "bound_ms": bound, "bound_by": by}
+
+
+def k1_line(form, key, t, tag=""):
+    """One printed line of a K1 timing (`time_k1`)."""
+    alt = "".join(f", V = {k[-1]}: {t[k]:.5f}" for k in ("ms_v1", "ms_v2")
+                  if k in t)
+    return (f"[kernel] K1 {form} {tag}{key}: {t['ms']:.5f} ms kernel-only "
+            f"(V by size{alt}), plain {t['plain_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.5f} ms ({t['bound_by']}), "
+            f"{t['bound_ms'] / t['ms']:.0%} of the bound")
 
 
 def k2_error(got, want, where):
@@ -201,19 +329,48 @@ def k2_python_ints(kernels, ops, polys, r, order):
     return message(bound if order == "bind_message" else vals), bound
 
 
-def kernel_ms(fn, names, reps=20, tries=3):
+L2_BYTES = 50 << 20          # the H100's L2
+
+
+def cold_copies(args):
+    """`args` and enough copies of its tensors that cycling through them
+    reads three times the L2 before one comes round again, so each call
+    finds its inputs in HBM (as the main path mostly does) and, in the
+    steady state, pays for the last call's writes leaving the L2.  Views of
+    one tensor stay views of one copy (bind's halves and pairs keep their
+    layout)."""
+    storages = {}
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            storages[a.untyped_storage().data_ptr()] = a.untyped_storage()
+    size = sum(st.nbytes() for st in storages.values())
+    sets = [tuple(args)]
+    for _ in range(1, math.ceil(3 * L2_BYTES / max(size, 1))):
+        new = {k: st.clone() for k, st in storages.items()}
+        sets.append(tuple(
+            torch.empty(0, dtype=a.dtype, device=a.device).set_(
+                new[a.untyped_storage().data_ptr()], a.storage_offset(),
+                a.shape, a.stride())
+            if isinstance(a, torch.Tensor) else a for a in args))
+    return sets
+
+
+def kernel_ms(fn, arg_sets, names, reps=20, tries=3):
     """Mean device time of each kernel whose name holds one of `names`
     (each launched once a call), kernel-only: torch.profiler over `reps`
-    calls after a warm-up, so the host's cost of the calls is not in it.
-    The mean is over the launches the trace holds (it may miss one of a
-    run of long kernels); a trace with fewer than half is taken again."""
-    fn()
+    calls fn(*args), cycling through `arg_sets` (`cold_copies`), after a
+    warm-up, so neither the host's cost of the calls nor cached inputs are
+    in it.  The mean is over the launches the trace holds (it may miss one
+    of a run of long kernels); a trace with fewer than half is taken
+    again."""
+    for args in arg_sets:
+        fn(*args)
     torch.cuda.synchronize()
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
+            for i in range(reps):
+                fn(*arg_sets[i % len(arg_sets)])
             torch.cuda.synchronize()
         seen = {name: [] for name in names}
         for e in prof.events():
@@ -237,8 +394,8 @@ def time_k2(kernels, ops, polys, r, order):
     r_int = ops.unpack_ints(r)[0]
     names = ("round_kernel",) + (("finish_kernel",) if order != "bind"
                                  else ())
-    dev_ms = kernel_ms(lambda: kernels.product_round(polys, r_int, order),
-                       names)
+    dev_ms = kernel_ms(lambda *ps: kernels.product_round(ps, r_int, order),
+                       cold_copies(polys), names)
     wrapper = cuda_ms(lambda: kernels.product_round(polys, r_int, order), 20)
     plain = cuda_ms(lambda: kernels.product_round_plain(polys, r, order), 3)
     partial, _ = kernels.launch_product_round(polys, r_int, order,
@@ -292,40 +449,112 @@ def main():
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
+    k1_spills = spill_bytes(reports["K1"])
     k2_spills = spill_bytes(reports["K2"])
-    print(f"[build] K2 spill bytes (stores + loads, all kernels): "
-          f"{k2_spills}", flush=True)
+    print(f"[build] spill bytes (stores + loads, all kernels): K1 "
+          f"{k1_spills}, K2 {k2_spills}", flush=True)
 
-    # ---- 3. K1 vs plain at N = 2^20, edge values, Python ints ------------
+    # ---- 3. K1 vs plain in every form: 2^20, edge values, Python ints ----
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    n = 1 << 20
-    a = rand_field((8, n), gen, dev)
-    b = rand_field((8, n), gen, dev)
-    max_err = compare_k1(kernels, a, b)
-    ms, events_ms, plain_ms, bound, by = time_k1(kernels, a, b)
-    print(f"[kernel] mont_mul N=2^20: {ms:.4f} ms (with the wrapper "
-          f"{events_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
-          f"{bound:.4f} ms ({by})", flush=True)
     P = kernels.P
     edge = [0, 1, P - 1]
-    ea = [x for x in edge for _ in edge]
-    eb = [y for _ in edge for y in edge]
-    ew_a, ew_b = ints_to_words(ea, dev), ints_to_words(eb, dev)
-    max_err = max(max_err, compare_k1(kernels, ew_a, ew_b))
-    r_inv = pow(1 << 256, -1, P)
-    got = words_to_ints(kernels.mont_mul(ew_a, ew_b))
-    want = [x * y * r_inv % P for x, y in zip(ea, eb)]
-    check(got == want, "K1 wrong on 0, 1, r-1")
-    idx = torch.randint(0, n, (512,), generator=gen, device=dev)
-    sa, sb = a[:, idx], b[:, idx]
-    got = words_to_ints(kernels.mont_mul(sa, sb))
-    want = [x * y * r_inv % P
-            for x, y in zip(words_to_ints(sa), words_to_ints(sb))]
-    check(got == want, "K1 disagrees with Python ints")
-    print("[kernel] K1 == mont_mul_plain bit for bit (N=2^20, 0/1/r-1); "
-          "sample == Python ints", flush=True)
-    del a, b
+
+    def draw(shape):
+        return rand_field(shape, gen, dev)
+
+    def draw_int():
+        bits = torch.randint(0, 1 << 62, (5,), generator=gen,
+                             device=dev).tolist()
+        return sum(v << (62 * i) for i, v in enumerate(bits)) % P
+
+    def draw_sums(shape):
+        return rand_sums(shape, gen, dev)
+
+    def draw_edge(shape):
+        pick = torch.randint(0, 3, (math.prod(shape[1:]),), generator=gen,
+                             device=dev).tolist()
+        return ints_to_words([edge[v] for v in pick], dev).reshape(shape)
+
+    def draw_edge_int():
+        return edge[int(torch.randint(0, 3, (1,), generator=gen,
+                                      device=dev))]
+
+    def draw_edge_sums(shape):
+        return kernels.u64_words(draw_edge(tuple(shape) + (64,))).sum(-1)
+
+    n = 1 << 20
+    # each form at 2^20 outputs, in the layouts of the main path
+    k1_cases = {
+        "mul": ((8, n), (8, n)), "add": ((8, n), (8, n)),
+        "sub": ((8, n), "int"), "bind": ((8, n), "high", "int"),
+        "evals": ((8, n), 3, "high"), "reduce": ((8, n), (8, 1)),
+    }
+    k1_err = {form: 0 for form in kernels.FORMS}
+    k1_n20 = {}
+    for form, key in k1_cases.items():
+        args = k1_args(form, key, draw, draw_int, draw_sums)
+        k1_err[form] = compare_k1(kernels, form, args, "at N = 2^20")
+        k1_n20[form] = t = time_k1(kernels, form, args, key)
+        print(k1_line(form, key, t), flush=True)
+        del args
+    # the shapes the one-column kernel was timed at (a product by a scalar
+    # at 2^17 and 2^18 columns, a bind of 2^17 outputs) and their neighbours
+    # up to 2^19
+    k1_ref = {}
+    for form, key in (("mul", ((8, 1 << 17), "int")),
+                      ("mul", ((8, 1 << 18), "int")),
+                      ("mul", ((8, 1 << 19), "int")),
+                      ("bind", ((8, 1 << 17), "high", "int")),
+                      ("bind", ((8, 1 << 18), "high", "int")),
+                      ("bind", ((8, 1 << 17), "low", "int")),
+                      ("bind", ((8, 1 << 18), "low", "int")),
+                      ("bind", ((8, 1 << 19), "low", "int"))):
+        args = k1_args(form, key, draw, draw_int, draw_sums)
+        k1_err[form] = max(k1_err[form], compare_k1(kernels, form, args,
+                                                    f"at {key}"))
+        k1_ref[f"{form} {key}"] = t = time_k1(kernels, form, args, key)
+        print(k1_line(form, key, t), flush=True)
+    # the layouts at 2^20 not timed above: bind of pairs with a device r,
+    # evals of split pairs, reduce without a scale
+    for form, key in (("bind", ((8, n), "low", (8, 1))),
+                      ("evals", ((8, n), 2, "split")),
+                      ("reduce", ((8, n), None)),
+                      ("mul", ((8, 4, 1), (8, 4, n // 4)))):
+        args = k1_args(form, key, draw, draw_int, draw_sums)
+        k1_err[form] = max(k1_err[form], compare_k1(kernels, form, args,
+                                                    f"at {key}"))
+    # 0, 1 and r-1 in every operand; a 512-element sample vs Python ints
+    small = {
+        "mul": [((8, 1024), (8, 1024)), ((8, 2, 512), "int")],
+        "add": [((8, 1024), (8, 1024)), ((8, 1024), (8, 1))],
+        "sub": [((8, 1024), (8, 1024)), ("int", (8, 1024))],
+        "bind": [((8, 1024), "high", "int"), ((8, 1024), "low", (8, 1)),
+                 ((8, 3, 512), "split", "int")],
+        "evals": [((8, 1024), 3, "high"), ((8, 2, 512), 2, "split")],
+        "reduce": [((8, 1024), None), ((8, 1024), "int"),
+                   ((8, 2, 512), (8, 2, 1))],
+    }
+    samples = {"mul": ((8, 512), (8, 512)), "add": ((8, 512), (8, 1)),
+               "sub": ("int", (8, 512)), "bind": ((8, 512), "low", "int"),
+               "evals": ((8, 512), 3, "high"), "reduce": ((8, 512), (8, 1))}
+    for form, keys in small.items():
+        for key in keys:
+            args = k1_args(form, key, draw_edge, draw_edge_int,
+                           draw_edge_sums)
+            k1_err[form] = max(k1_err[form], compare_k1(
+                kernels, form, args, f"on 0/1/r-1 at {key}"))
+        key = samples[form]
+        args = k1_args(form, key, draw, draw_int, draw_sums)
+        out = k1_call(kernels, form, args)
+        shape = tuple(torch.broadcast_shapes(
+            *(a.shape for a in args if isinstance(a, torch.Tensor))))
+        check(words_to_ints(out.reshape(8, -1))
+              == k1_python(kernels, form, args, shape),
+              f"K1 {form} disagrees with Python ints at {key}")
+    max_err = max(k1_err.values())
+    print("[kernel] K1 == its plain version bit for bit in every form (N = "
+          "2^20, 0/1/r-1); 512-element samples == Python ints", flush=True)
 
     # ---- 4. K2 vs plain: 2 and 3 factors, every order --------------------
     k2_err = 0
@@ -392,8 +621,7 @@ def main():
     rs = [rand_field((8, 1), gen, dev) for _ in range(K2_LOG_T)]
     msgs = []
     torch.cuda.synchronize()
-    kernels.mont_mul.launches = 0
-    kernels.product_round.launches = 0
+    kernels.reset_launches()
     t0 = time.perf_counter()
     for r in rs:
         msg, bound = round_step(chain[-1], r)
@@ -402,7 +630,7 @@ def main():
     torch.cuda.synchronize()
     t_chain = time.perf_counter() - t0
     k2_round_launches = kernels.product_round.launches
-    k1_round_launches = kernels.mont_mul.launches
+    k1_round_launches = sum(kernels.k1_launches().values())
     check(k2_round_launches == K2_LOG_T,
           f"round_step launched K2 {k2_round_launches} times in "
           f"{K2_LOG_T} rounds")
@@ -464,33 +692,44 @@ def main():
     print(f"[path] sha2-chain chain={SHA2_CHAIN}: {tr.length} cycles, "
           f"padded {tr.padded_length}, traced in {t_trace:.2f}s", flush=True)
 
-    # record the shape of every Montgomery product of the path: all of the
-    # port's code multiplies through ops.mont_mul, which calls K1's wrapper
-    shapes = collections.Counter()
-    field_mul = ops.mont_mul
+    # K1's and K2's launches, per form, and every K1 launch's shapes: set to
+    # 0 just before the main path and read just after
+    # and the plain versions' torch limb arithmetic must not run there
+    plain_calls = collections.Counter()
+    plain = {n: getattr(kernels, n)
+             for n in ("_carry", "_sub_p_select", "mont_mul_plain")}
 
-    def recording(a, b):
-        shapes[(tuple(a.shape), tuple(b.shape))] += 1
-        return field_mul(a, b)
-
+    def counted(name, fn):
+        def call(*args):
+            plain_calls[name] += 1
+            return fn(*args)
+        return call
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    ops.mont_mul = recording
-    kernels.mont_mul.launches = 0
-    kernels.product_round.launches = 0
+    kernels.reset_launches()
+    kernels.record = []
+    for name, fn in plain.items():
+        setattr(kernels, name, counted(name, fn))
     try:
         t0 = time.perf_counter()
         proof, stage_s, stage_lines = timed_stages(
             lambda: prove_prefix(tr, device="cuda"))
         t_prove = time.perf_counter() - t0
     finally:
-        launches = kernels.mont_mul.launches
+        k1_counts = kernels.k1_launches()
         k2_launches = kernels.product_round.launches
-        ops.mont_mul = field_mul
+        records, kernels.record = kernels.record, None
+        for name, fn in plain.items():
+            setattr(kernels, name, fn)
+    launches = sum(k1_counts.values())
     peak = torch.cuda.max_memory_allocated(dev)
     print(stage_lines, end="")
     log_t = tr.padded_length.bit_length() - 1
-    check(launches > 0, "K1 was not launched on the main path")
+    check(all(k1_counts.values()),
+          f"a K1 form was not launched on the main path: {k1_counts}")
+    check(len(records) == launches, "K1's launch record missed launches")
+    check(not plain_calls, "torch limb arithmetic ran on the card's path: "
+          f"{dict(plain_calls)}")
     # stage 1s: the first message, log T - 1 bind + message passes, the
     # last bind
     check(k2_launches == log_t + 1,
@@ -504,34 +743,68 @@ def main():
     ok = verify_prefix(proof, PublicIO.from_trace(tr))
     t_verify = time.perf_counter() - t0
     check(ok is True, "verify_prefix did not accept")
+    shapes = collections.Counter(records)
+    # the address-phase scale of s2-s5 is in the reduce form's finish
+    check(shapes[("mul", ((8, 3, 1), (8, 1, 1)))] == 0,
+          "the path still multiplies (8, 3, 1) messages by a scale")
     print(f"[path] prove_prefix {t_prove:.3f}s ("
           + ", ".join(f"{k} {v:.3f}s" for k, v in stage_s.items())
           + f"), peak allocated {peak / 2**30:.3f} GiB, K1 launches "
-          f"{launches}, {len(shapes)} launch shapes, K2 launches "
+          f"{launches} {k1_counts}, {len(shapes)} launch shapes, K2 launches "
           f"{k2_launches} (stage 1s, {log_t} rounds); verify_prefix "
           f"accepted in {t_verify:.3f}s", flush=True)
 
-    # K1 vs plain at the main path's largest shape and its heaviest one
-    def numel(sh):
-        return int(np.prod(torch.broadcast_shapes(*sh)[1:]))
-    largest = max(shapes, key=numel)
-    heaviest = max(shapes, key=lambda s: shapes[s] * numel(s))
-    main_times = {}
-    for tag, (sa_shape, sb_shape) in (("largest", largest),
-                                      ("most work", heaviest)):
-        if (sa_shape, sb_shape) in main_times:
-            continue
-        a = rand_field(sa_shape, gen, dev)
-        b = rand_field(sb_shape, gen, dev)
-        max_err = max(max_err, compare_k1(kernels, a, b))
-        times = time_k1(kernels, a, b)
-        main_times[(sa_shape, sb_shape)] = times
-        print(f"[kernel] mont_mul {tag} path shape {sa_shape} x {sb_shape} "
-              f"({shapes[(sa_shape, sb_shape)]} launches): {times[0]:.4f} ms "
-              f"(with the wrapper {times[1]:.4f} ms), plain {times[2]:.4f} "
-              f"ms, bound {times[3]:.4f} ms ({times[4]})", flush=True)
-        del a, b
-    ms, events_ms, plain_ms, bound, by = main_times[largest]
+    # the device kernels of a second run, by name: those of neither kernel
+    prove_prefix(tr, device="cuda")           # warm, as the first run was
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prove_prefix(tr, device="cuda")
+        torch.cuda.synchronize()
+    census = collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            census[e.name] += 1
+    own = ("k1_", "round_kernel", "finish_kernel")
+    others = {k: c for k, c in census.items()
+              if not any(o in k for o in own) and "Memcpy" not in k
+              and "Memset" not in k}
+    copies = {k: c for k, c in census.items() if "Memcpy" in k}
+    n_other = sum(others.values())
+    print(f"[path] device kernels on prove_prefix (profiled run): "
+          f"{sum(c for k, c in census.items() if 'k1_' in k)} K1, "
+          f"{sum(c for k, c in census.items() if any(o in k for o in own[1:]))}"
+          f" K2, {n_other} others, copies {copies}; the most frequent "
+          "others: " + "; ".join(
+              f"{k[:70]} x{c}" for k, c in
+              sorted(others.items(), key=lambda kv: -kv[1])[:6]), flush=True)
+
+    # each form vs plain at the main path's largest shape and at the one
+    # with the most work (launches x bound)
+    from jolt_tpu_torch.workload import k1_bound_ms
+    k1_forms = {}
+    for form in kernels.FORMS:
+        keys = {k: c for (f, k), c in shapes.items() if f == form}
+        largest = max(keys, key=lambda k: k1_bound_ms(form, k)[0])
+        heaviest = max(keys, key=lambda k: keys[k] * k1_bound_ms(form, k)[0])
+        entry = {"form": form, "launches": k1_counts[form]}
+        for tag, key in (("largest", largest), ("heaviest", heaviest)):
+            args = k1_args(form, key, draw, draw_int, draw_sums)
+            k1_err[form] = max(k1_err[form], compare_k1(
+                kernels, form, args, f"at the path's {tag} shape {key}"))
+            t = time_k1(kernels, form, args, key)
+            entry[tag] = {"key": repr(key), "launches": keys[key], **t}
+            print(k1_line(form, key, t, f"{tag} path shape ({keys[key]} "
+                          "launches) "), flush=True)
+            del args
+        entry.update(max_abs_err=k1_err[form], n20=k1_n20[form],
+                     **{k: entry["heaviest"][k] for k in
+                        ("ms", "plain_ms", "bound_ms", "bound_by")})
+        k1_forms[form] = entry
+    max_err = max(k1_err.values())
+    # K1's headline: the form whose heaviest path shape has the most work
+    head = max(k1_forms.values(),
+               key=lambda e: e["heaviest"]["launches"] * e["bound_ms"])
 
     # ---- 7. card vs CPU on the fib trace ---------------------------------
     fib_layout = MemoryLayout(**FIB_LAYOUT)
@@ -556,11 +829,15 @@ def main():
     print(json.dumps({"kernels": [{
         "name": "mont_mul", "route": "cuda",
         "source": "jolt_tpu_torch/csrc/mont_mul.cu",
-        "replaces": "jolt_tpu/field/pallas_ops.py:44",
+        "replaces": "jolt_tpu/field/pallas_ops.py:45",
         "launches": launches, "max_abs_err": max_err,
-        "ms": ms, "wrapper_ms": events_ms, "plain_ms": plain_ms,
-        "bound_ms": bound, "bound_by": by, "library_ms": None,
-        "shape": [list(largest[0]), list(largest[1])]}, {
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None, "form": head["form"],
+        "shape": head["heaviest"]["key"],
+        "forms": list(k1_forms.values()), "reference_shapes": k1_ref,
+        "spill_bytes": k1_spills,
+        "other_device_kernels": n_other}, {
         "name": "product_round", "route": "cuda",
         "source": "jolt_tpu_torch/csrc/product_round.cu",
         "replaces": "jolt_tpu/field/pallas_ops.py:97",

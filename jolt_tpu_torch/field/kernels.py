@@ -1,8 +1,15 @@
 """The port's hand-written Hopper kernels for Fr, and their plain versions.
 
-  * K1 `mont_mul` (``csrc/mont_mul.cu``) replaces the JAX package's Pallas
-    kernel ``field/pallas_ops.py:mont_mul``: the elementwise Montgomery
-    product.
+  * K1 (``csrc/mont_mul.cu``) replaces the JAX package's Pallas kernel
+    ``field/pallas_ops.py:mont_mul``.  It is the port's elementwise Fr
+    kernel, in six forms (`FORMS`), one wrapper each:
+      `mont_mul`  the Montgomery product;
+      `add`, `sub`  (a +- b) mod p;
+      `bind`      lo + r (hi - lo), HighToLow halves or LowToHigh pairs;
+      `evals`     a pair's values at X = 0, 2, .., d (sumcheck eval points);
+      `reduce`    exact int64 limb-plane sums -> Fr, times an optional scale.
+    An int operand is a canonical field element and reaches the kernel by
+    value in its parameters (a challenge, a constant): no upload.
   * K2 `product_round` (``csrc/product_round.cu``) replaces
     ``field/pallas_ops.py:product_round_deg3``: one HighToLow round of a
     product sumcheck of 2 or 3 factors (message evals and the bound factors
@@ -10,8 +17,11 @@
     card); `product_round_deg3` is its "message_bind" order at 3 factors.
 
 On CPU tensors each wrapper calls its plain version (`mont_mul_plain`,
+`add_plain`, `sub_plain`, `bind_plain`, `evals_plain`, `reduce_plain`,
 `product_round_plain`); on CUDA tensors it launches its kernel or raises.
-`mont_mul.launches` and `product_round.launches` count the launches.
+Each wrapper counts its launches in ``.launches`` (`k1_launches()` gives
+K1's per form); with `record` set to a list, every K1 launch also appends
+(form, key), key the operands' shapes (`_key`).
 
 The kernels build at first use from the sources in this package, one
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` per source, all started
@@ -22,11 +32,12 @@ ctypes, so nothing is compiled when this module is imported.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import os
 import shutil
 import subprocess
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -40,11 +51,67 @@ R_MOD_P = R % P
 R2_MOD_P = R * R % P
 
 P_LIMBS = [(P >> (32 * i)) & MASK32 for i in range(N_LIMBS)]
+_I32 = torch.int32
+
+
+# ---------------------------------------------------------------------------
+# limb words
+# ---------------------------------------------------------------------------
+
+def _limbs_of(x: int) -> List[int]:
+    """int (< 2^256) -> 8 little-endian 32-bit words as signed int32 values."""
+    out = []
+    for i in range(N_LIMBS):
+        w = (x >> (32 * i)) & MASK32
+        out.append(w - (1 << 32) if w >= 1 << 31 else w)
+    return out
+
+
+@functools.lru_cache(maxsize=4096)
+def _limbs_on(x: int, device: torch.device) -> torch.Tensor:
+    """The 8 limbs of x as an int32 tensor on `device`, uploaded once per
+    (value, device).  Callers never write into the result (every op
+    returns a new tensor)."""
+    return torch.tensor(_limbs_of(x), dtype=_I32, device=device)
+
+
+@functools.lru_cache(maxsize=4096)
+def _mont_words(x: int) -> "ctypes.Array":
+    """A canonical field element's Montgomery words, for a kernel's
+    parameters."""
+    mont = x % P * R % P
+    return (ctypes.c_uint32 * N_LIMBS)(
+        *[(mont >> (32 * i)) & MASK32 for i in range(N_LIMBS)])
+
+
+def _scalar(x: int, device, nbatch: int) -> torch.Tensor:
+    """A canonical int as Montgomery limbs (8, 1, .., 1) with `nbatch`
+    batch axes on `device`: the plain versions' form of a by-value
+    scalar."""
+    return _limbs_on(x % P * R % P, torch.device(device)).reshape(
+        (N_LIMBS,) + (1,) * nbatch)
 
 
 def _pack_limbs(w: torch.Tensor) -> torch.Tensor:
     """int64 words in [0, 2^32) -> int32 bit patterns."""
     return (w - ((w >> 31) << 32)).to(torch.int32)
+
+
+def u64_words(a: torch.Tensor) -> torch.Tensor:
+    """int32 limbs -> int64 holding the unsigned 32-bit value."""
+    return a.to(torch.int64) & MASK32
+
+
+def _carry(s: torch.Tensor) -> torch.Tensor:
+    """Propagate carries of int64 limb sums (any sign, result >= 0 and
+    < 2^256) into 32-bit words; returns int64 (8, ...)."""
+    out = torch.empty_like(s)
+    c = torch.zeros_like(s[0])
+    for i in range(N_LIMBS):
+        v = s[i] + c
+        out[i] = v & MASK32
+        c = v >> 32
+    return out
 
 
 def _sub_p_select(w: torch.Tensor) -> torch.Tensor:
@@ -58,12 +125,18 @@ def _sub_p_select(w: torch.Tensor) -> torch.Tensor:
     return torch.where(borrow.bool()[None], w, d)
 
 
+@functools.lru_cache(maxsize=16)
+def _p_words(device: torch.device) -> torch.Tensor:
+    """p's 8 words as int64 on `device` (the addend of `sub_plain`)."""
+    return torch.tensor(P_LIMBS, dtype=torch.int64, device=device)
+
+
 _N0_16 = (-pow(P, -1, 1 << 16)) % (1 << 16)
 _P16 = [(P >> (16 * i)) & 0xFFFF for i in range(16)]
 
 
 # ---------------------------------------------------------------------------
-# plain version
+# K1's plain versions
 # ---------------------------------------------------------------------------
 
 def _split16(a: torch.Tensor) -> torch.Tensor:
@@ -103,6 +176,66 @@ def mont_mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _pack_limbs(_sub_p_select(w))
 
 
+def add_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a + b) mod p: limbwise int64 sums, carries, one conditional
+    subtract."""
+    a, b = torch.broadcast_tensors(a, b)
+    return _pack_limbs(_sub_p_select(_carry(u64_words(a) + u64_words(b))))
+
+
+def sub_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a - b) mod p, as a + (p - b) with one conditional subtract."""
+    a, b = torch.broadcast_tensors(a, b)
+    p = _p_words(a.device).reshape((N_LIMBS,) + (1,) * (a.dim() - 1))
+    # p - b in [1, p]; a + (p - b) < 2p; the cond-subtract maps p to 0
+    return _pack_limbs(_sub_p_select(_carry(u64_words(a) + p - u64_words(b))))
+
+
+def bind_plain(lo: torch.Tensor, hi: torch.Tensor,
+               r: torch.Tensor) -> torch.Tensor:
+    """lo + r (hi - lo) mod p (r Montgomery limbs that broadcast)."""
+    return add_plain(lo, mont_mul_plain(sub_plain(hi, lo), r))
+
+
+def evals_plain(lo: torch.Tensor, hi: torch.Tensor,
+                degree: int) -> torch.Tensor:
+    """The values lo + X (hi - lo) at X = 0, 2, 3, .., degree, stacked on
+    axis 1: (8, degree, *batch), by repeated addition of the slope."""
+    outs = [lo]
+    if degree >= 2:
+        m = sub_plain(hi, lo)
+        cur = add_plain(hi, m)             # X = 2
+        outs.append(cur)
+        for _ in range(3, degree + 1):
+            cur = add_plain(cur, m)
+            outs.append(cur)
+    return torch.stack(outs, dim=1)
+
+
+def reduce_plain(cols: torch.Tensor,
+                 scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Exact int64 limb sums S = sum_i cols[i] 2^(32 i) (each plane a sum of
+    < 2^31 words) -> S mod p in Montgomery form, times `scale` if given.
+
+    S = lo + h * 2^256 with lo < 2^256 and h < 2^32; since every summand is
+    Montgomery-form, S mod p = mont_mul(lo, R) + mont_mul(h, R^2)
+    (mont_mul by the Montgomery 1 reduces any lo < 2^256 below p)."""
+    out = torch.empty_like(cols)
+    c = torch.zeros_like(cols[0])
+    for i in range(N_LIMBS):
+        v = cols[i] + c
+        out[i] = v & MASK32
+        c = v >> 32
+    h = torch.zeros_like(out)
+    h[0] = c
+    nd = cols.dim() - 1
+    # the Montgomery forms of 1 and of R mod p are R and R^2 mod p
+    lo = mont_mul_plain(_pack_limbs(out), _scalar(1, cols.device, nd))
+    hi = mont_mul_plain(_pack_limbs(h), _scalar(R_MOD_P, cols.device, nd))
+    res = add_plain(lo, hi)
+    return res if scale is None else mont_mul_plain(res, scale)
+
+
 # ---------------------------------------------------------------------------
 # build and bind
 # ---------------------------------------------------------------------------
@@ -116,7 +249,9 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _KERNELS = {
     "K1": ("mont_mul.cu", "libjolt_mont_mul.so", {
-        "jolt_mont_mul": (ctypes.c_int, [_P] * 3 + [_I64] * 8 + [_P])}),
+        "jolt_k1_launch_size": (ctypes.c_int, []),
+        "jolt_k1_force_columns": (None, [ctypes.c_int]),
+        "jolt_k1": (ctypes.c_int, [_P, _P])}),
     "K2": ("product_round.cu", "libjolt_product_round.so", {
         "jolt_product_round_blocks": (ctypes.c_int, [ctypes.c_int, _I64]),
         "jolt_product_round": (ctypes.c_int, [ctypes.c_int] * 2
@@ -184,54 +319,282 @@ def _load(name: str) -> ctypes.CDLL:
     for fn, (restype, argtypes) in _KERNELS[name][2].items():
         getattr(lib, fn).restype = restype
         getattr(lib, fn).argtypes = argtypes
+    if name == "K1" and lib.jolt_k1_launch_size() != ctypes.sizeof(_Launch):
+        raise RuntimeError("K1: the launch record's layout differs between "
+                           "csrc/mont_mul.cu and kernels.py")
     _libs[name] = lib
     return lib
 
 
 # ---------------------------------------------------------------------------
-# K1: the Montgomery product
+# K1: the elementwise Fr kernel
 # ---------------------------------------------------------------------------
 
-def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Elementwise Montgomery product of (8, *batch) int32 limb tensors that
-    broadcast together; returns a new contiguous (8, *batch) tensor.
+# K1's forms, in the order of `Op` in csrc/mont_mul.cu
+FORMS = ("mul", "add", "sub", "bind", "evals", "reduce")
+_OP = {form: i for i, form in enumerate(FORMS)}
+# operand kinds, `Kind` in csrc/mont_mul.cu
+_NONE, _SCALAR, _ROW, _VEC, _STRIDED = range(5)
+_LIMIT = 1 << 31            # K1's offsets are 32-bit
 
-    CPU tensors take `mont_mul_plain`.  CUDA tensors launch K1 on their
-    card's current stream: the batch collapses to (n0, n1) and each operand is
-    passed with its (limb, row, column) strides, so broadcast operands
-    (a scalar challenge, a per-row weight) are read in place with stride 0.
-    An operand whose broadcast view cannot be collapsed is copied first."""
-    if a.device.type == "cpu" and b.device.type == "cpu":
-        return mont_mul_plain(a, b)
-    if a.device.type != "cuda" or b.device != a.device:
-        raise ValueError(f"mont_mul: operands on {a.device} and {b.device}")
-    if a.dtype != torch.int32 or b.dtype != torch.int32:
-        raise TypeError(f"mont_mul: dtypes {a.dtype}, {b.dtype} (want int32)")
-    if a.shape[0] != N_LIMBS or b.shape[0] != N_LIMBS:
-        raise ValueError(f"mont_mul: limb axis {a.shape[0]}, {b.shape[0]}")
-    shape = torch.broadcast_shapes(a.shape, b.shape)
-    batch = shape[1:]
-    n1 = batch[-1] if batch else 1
-    n0 = math.prod(batch[:-1]) if len(batch) > 1 else 1
-    out = torch.empty((N_LIMBS, n0, n1), dtype=torch.int32, device=a.device)
-    if n0 * n1 == 0:
-        return out.reshape(shape)
-    if n0 * n1 >= 1 << 31:
-        raise ValueError(f"mont_mul: batch of {n0 * n1} exceeds 2^31")
-    av = a.expand(shape).reshape(N_LIMBS, n0, n1)
-    bv = b.expand(shape).reshape(N_LIMBS, n0, n1)
+# None, or a list to which every K1 launch appends (form, key) (`_key`)
+record: Optional[list] = None
+
+
+def force_k1_columns(v: int) -> None:
+    """Make every later K1 launch take `v` columns a thread (1 or 2; the
+    reduce form always takes 1), or with 0 let each launch's size choose, as
+    on the main path: for timing the choice against the other."""
+    if v not in (0, 1, 2):
+        raise ValueError(f"force_k1_columns: {v} (want 0, 1 or 2)")
+    _load("K1").jolt_k1_force_columns(v)
+
+
+class _Operand(ctypes.Structure):
+    _fields_ = [("p", ctypes.c_uint64), ("kind", ctypes.c_int32),
+                ("sl", ctypes.c_uint32), ("s0", ctypes.c_uint32),
+                ("s1", ctypes.c_uint32), ("w", ctypes.c_uint32 * N_LIMBS)]
+
+
+class _Launch(ctypes.Structure):
+    _fields_ = [("op", ctypes.c_int32), ("deg", ctypes.c_int32),
+                ("n0", ctypes.c_uint32), ("n1", ctypes.c_uint32),
+                ("out", ctypes.c_uint64), ("a", _Operand), ("b", _Operand),
+                ("c", _Operand)]
+
+
+def _device(form: str, *xs) -> torch.device:
+    """The one device of the tensor operands (an int operand has none)."""
+    devs = {x.device for x in xs if isinstance(x, torch.Tensor)}
+    if len(devs) != 1 or next(iter(devs)).type not in ("cpu", "cuda"):
+        raise ValueError(f"{form}: operands on {sorted(map(str, devs))}")
+    return devs.pop()
+
+
+def _check(form: str, *xs, dtype=torch.int32) -> None:
+    for x in xs:
+        if not isinstance(x, torch.Tensor):
+            continue
+        if x.dtype != dtype:
+            raise TypeError(f"{form}: dtype {x.dtype} (want {dtype})")
+        if x.dim() < 1 or x.shape[0] != N_LIMBS:
+            raise ValueError(f"{form}: shape {tuple(x.shape)} (want the "
+                             f"{N_LIMBS} limbs first)")
+
+
+def _plain_operand(x, device, nbatch: int):
+    """An operand for a plain version: an int becomes its limbs."""
+    return x if isinstance(x, torch.Tensor) else _scalar(int(x), device,
+                                                         nbatch)
+
+
+def _key(x):
+    """An operand's part of a launch record: its shape, or "int"."""
+    return tuple(x.shape) if isinstance(x, torch.Tensor) else "int"
+
+
+def _views(xs, shape, n0: int, n1: int):
+    """Each tensor operand as (view (8, n0, n1), sl, s0, s1) -- a copy where
+    its broadcast view cannot collapse -- then rows merged into one when
+    every operand's rows follow on from its columns.  Ints and None stay.
+    Returns (operands, n0, n1)."""
+    ops = []
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            v = x.expand(shape).reshape(N_LIMBS, n0, n1)
+            ops.append((v, *v.stride()))
+        else:
+            ops.append(x)
+    if n0 > 1 and n1 > 1 and any(o[2] != n1 * o[3] for o in ops
+                                 if isinstance(o, tuple)):
+        return ops, n0, n1
+    # one row: the columns' stride, or the rows' where there is one column
+    return [(o[0], o[1], 0, o[3] if n1 > 1 else o[2])
+            if isinstance(o, tuple) else o for o in ops], 1, n0 * n1
+
+
+def _fill(slot: _Operand, o, n0: int, n1: int) -> None:
+    """Describe one operand to the kernel (`Kind`)."""
+    if o is None:
+        slot.kind = _NONE
+        return
+    if not isinstance(o, tuple):
+        slot.kind = _SCALAR
+        slot.w = _mont_words(int(o))
+        return
+    v, sl, s0, s1 = o
+    if sl * (N_LIMBS - 1) + s0 * (n0 - 1) + s1 * (n1 - 1) >= _LIMIT:
+        raise ValueError(f"K1: operand {tuple(v.shape)} strides "
+                         f"{v.stride()} span 2^31 elements")
+    p = v.data_ptr()
+    slot.p, slot.sl, slot.s0, slot.s1 = p, sl, s0, s1
+    if s1 == 0:
+        slot.kind = _ROW
+    elif s1 == 1 and p % 8 == 0 and sl % 2 == 0 and s0 % 2 == 0:
+        slot.kind = _VEC
+    else:
+        slot.kind = _STRIDED
+
+
+def _describe(form: str, out: torch.Tensor, n0: int, n1: int, a, b=None,
+              c=None, deg: int = 0) -> _Launch:
+    """K1's launch record for `form` over (n0, n1) into `out` (`Launch` in
+    csrc/mont_mul.cu)."""
+    if N_LIMBS * max(deg, 1) * n0 * n1 >= _LIMIT:
+        raise ValueError(f"{form}: output {tuple(out.shape)} spans 2^31 "
+                         "elements")
+    L = _Launch()
+    L.op, L.deg, L.n0, L.n1, L.out = _OP[form], deg, n0, n1, out.data_ptr()
+    _fill(L.a, a, n0, n1)
+    _fill(L.b, b, n0, n1)
+    _fill(L.c, c, n0, n1)
+    return L
+
+
+def _go(form: str, out: torch.Tensor, L: _Launch) -> None:
+    """Launch K1 on out's card's current stream and count it."""
     lib = _load("K1")
-    with torch.cuda.device(a.device):      # launch on the operands' card
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = lib.jolt_mont_mul(out.data_ptr(), av.data_ptr(), bv.data_ptr(),
-                               n0, n1, *av.stride(), *bv.stride(), stream)
+    dev = out.device
+    with torch.cuda.device(dev):          # launch on the operands' card
+        rc = lib.jolt_k1(ctypes.byref(L),
+                         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"mont_mul: K1 launch failed, CUDA error {rc}")
-    mont_mul.launches += 1
-    return out.reshape(shape)
+        raise RuntimeError(f"{form}: K1 launch failed, CUDA error {rc}")
+    _K1[form].launches += 1
 
 
-mont_mul.launches = 0
+def _grid(batch) -> Tuple[int, int]:
+    """A batch shape as (rows, columns): the last axis is the columns."""
+    return (math.prod(batch[:-1]), batch[-1]) if batch else (1, 1)
+
+
+def _k1(form: str, xs, shape, out_shape, key, deg: int = 0) -> torch.Tensor:
+    """K1's `form` on the operands xs = (a, b, c) (tensors, ints or None)
+    over the batch of their broadcast shape `shape`, into a new tensor of
+    `out_shape`; `key` is the launch's record (`record`)."""
+    dev = next(x.device for x in xs if isinstance(x, torch.Tensor))
+    out = torch.empty(out_shape, dtype=_I32, device=dev)
+    n0, n1 = _grid(tuple(shape[1:]))
+    if n0 * n1:
+        ops, n0, n1 = _views(xs, shape, n0, n1)
+        _go(form, out, _describe(form, out, n0, n1, *ops, deg=deg))
+        if record is not None:
+            record.append((form, key))
+    return out
+
+
+def _layout(lo: torch.Tensor, hi: torch.Tensor) -> str:
+    """How lo and hi lie in memory, for the launch record: the "high" and
+    "low" halves of one tensor (HighToLow and LowToHigh pairs), or
+    "split"."""
+    gap = hi.data_ptr() - lo.data_ptr()
+    return ("low" if gap == 4 and lo.stride(-1) == 2 else "high"
+            if gap == 4 * lo.shape[-1] else "split")
+
+
+def _binary(form: str, plain, a, b) -> torch.Tensor:
+    dev = _device(form, a, b)
+    _check(form, a, b)
+    if dev.type == "cpu":
+        nb = max(x.dim() for x in (a, b) if isinstance(x, torch.Tensor)) - 1
+        return plain(_plain_operand(a, dev, nb), _plain_operand(b, dev, nb))
+    shape = torch.broadcast_shapes(*(x.shape for x in (a, b)
+                                     if isinstance(x, torch.Tensor)))
+    return _k1(form, (a, b, None), shape, shape, (_key(a), _key(b)))
+
+
+def mont_mul(a, b) -> torch.Tensor:
+    """Elementwise Montgomery product a * b * 2^-256 mod p of (8, *batch)
+    int32 limb tensors that broadcast together (a < 2^256, b < p), or of a
+    tensor and an int (a canonical field element, by value); returns a new
+    contiguous (8, *batch) tensor.
+
+    CPU tensors take `mont_mul_plain`.  CUDA tensors launch K1's "mul" form
+    on their card's current stream: broadcast operands (a per-row weight, a
+    device scalar) are read in place with stride 0; an operand whose
+    broadcast view cannot collapse to (rows, columns) is copied first."""
+    return _binary("mul", mont_mul_plain, a, b)
+
+
+def add(a, b) -> torch.Tensor:
+    """(a + b) mod p: K1's "add" form on the card, `add_plain` on the CPU
+    (operands as `mont_mul`'s)."""
+    return _binary("add", add_plain, a, b)
+
+
+def sub(a, b) -> torch.Tensor:
+    """(a - b) mod p: K1's "sub" form on the card, `sub_plain` on the CPU
+    (operands as `mont_mul`'s)."""
+    return _binary("sub", sub_plain, a, b)
+
+
+def bind(lo: torch.Tensor, hi: torch.Tensor, r) -> torch.Tensor:
+    """lo + r (hi - lo) mod p for lo, hi (8, *batch) and the challenge r (a
+    canonical int, by value, or one element of Montgomery limbs): K1's
+    "bind" form on the card, `bind_plain` on the CPU.  lo and hi may be
+    views of one tensor P: its halves (P[..., :h], P[..., h:], a HighToLow
+    bind) or its even and odd columns (P[..., 0::2], P[..., 1::2], a
+    LowToHigh bind, read with stride 2)."""
+    dev = _device("bind", lo, hi, r)
+    _check("bind", lo, hi, r)
+    if isinstance(r, torch.Tensor):
+        if r.numel() != N_LIMBS:
+            raise ValueError(f"bind: r of shape {tuple(r.shape)} (want one "
+                             "element)")
+        r = r.reshape((N_LIMBS,) + (1,) * (lo.dim() - 1))
+    if dev.type == "cpu":
+        return bind_plain(lo, hi, _plain_operand(r, dev, lo.dim() - 1))
+    shape = torch.broadcast_shapes(lo.shape, hi.shape)
+    return _k1("bind", (lo, hi, r), shape, shape,
+               (_key(lo), _layout(lo, hi), _key(r)))
+
+
+def evals(lo: torch.Tensor, hi: torch.Tensor, degree: int) -> torch.Tensor:
+    """The pairs' values lo + X (hi - lo) at X = 0, 2, 3, .., degree as
+    (8, degree, *batch): K1's "evals" form on the card, `evals_plain` on
+    the CPU."""
+    dev = _device("evals", lo, hi)
+    _check("evals", lo, hi)
+    if degree < 1:
+        raise ValueError(f"evals: degree {degree}")
+    if dev.type == "cpu":
+        return evals_plain(lo, hi, degree)
+    shape = torch.broadcast_shapes(lo.shape, hi.shape)
+    return _k1("evals", (lo, hi, None), shape,
+               (N_LIMBS, degree) + tuple(shape[1:]),
+               (_key(lo), degree, _layout(lo, hi)), deg=degree)
+
+
+def reduce(cols: torch.Tensor, scale=None) -> torch.Tensor:
+    """Exact int64 limb-plane sums (8, *batch) -> their value mod p in
+    Montgomery form (`reduce_plain`), times `scale` if given (an int, by
+    value, or Montgomery limbs that broadcast over the batch): K1's
+    "reduce" form on the card, `reduce_plain` on the CPU."""
+    dev = _device("reduce", cols, scale)
+    _check("reduce", cols, dtype=torch.int64)
+    _check("reduce", scale)
+    if dev.type == "cpu":
+        return reduce_plain(cols, None if scale is None else _plain_operand(
+            scale, dev, cols.dim() - 1))
+    return _k1("reduce", (cols, None, scale), cols.shape, cols.shape,
+               (_key(cols), None if scale is None else _key(scale)))
+
+
+_K1 = {"mul": mont_mul, "add": add, "sub": sub, "bind": bind,
+       "evals": evals, "reduce": reduce}
+for _fn in _K1.values():
+    _fn.launches = 0
+
+
+def k1_launches() -> Dict[str, int]:
+    """K1's launch counts, per form."""
+    return {form: fn.launches for form, fn in _K1.items()}
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    for fn in (*_K1.values(), product_round):
+        fn.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -247,8 +610,7 @@ def _r_tensor(r, device) -> torch.Tensor:
     int or already such a tensor."""
     if isinstance(r, torch.Tensor):
         return r.to(device)
-    from . import ops
-    return ops.pack_ints([r], device)
+    return _scalar(int(r), device, 1)
 
 
 def _r_words(r) -> "ctypes.Array":
@@ -257,10 +619,8 @@ def _r_words(r) -> "ctypes.Array":
     which waits for the card)."""
     if isinstance(r, torch.Tensor):
         words = [int(w) & MASK32 for w in r.reshape(N_LIMBS).tolist()]
-    else:
-        mont = int(r) % P * R % P
-        words = [(mont >> (32 * i)) & MASK32 for i in range(N_LIMBS)]
-    return (ctypes.c_uint32 * N_LIMBS)(*words)
+        return (ctypes.c_uint32 * N_LIMBS)(*words)
+    return _mont_words(int(r))
 
 
 def _tensors(polys, r):
@@ -299,29 +659,28 @@ def product_round_plain(polys, r, order: str):
     Returns (msg, bound): msg the evals at X = 0, 2, .., NF as (8, NF, 1)
     Montgomery limbs (None for "bind"), bound the NF factors (8, T/2)
     (None for "message").  r is a canonical int or (8, 1) Montgomery limbs
-    (unused by "message").  Products and binds use `mont_mul_plain`; the
-    sums are `ops.sum_mod`, whose mod-p finish (`ops.reduce_cols`) the
-    kernel's finish equals bit for bit."""
-    from ..poly import dense
-    from . import ops
+    (unused by "message").  It is composed of K1's plain versions; the
+    message's mod-p finish is `reduce_plain`, which the kernel's finish
+    equals bit for bit."""
     polys = tuple(polys)
     _check_round(polys, order)
+    half = polys[0].shape[-1] // 2
 
     def message(ps):
         acc = None
         for p in ps:
-            e = dense.sumcheck_eval_points_high(p, len(ps))
+            h = p.shape[-1] // 2
+            e = evals_plain(p[:, :h], p[:, h:], len(ps))
             acc = e if acc is None else mont_mul_plain(acc, e)
-        return ops.sum_mod(acc)
+        return reduce_plain(u64_words(acc).sum(dim=-1, keepdim=True))
 
     msg = bound = None
     if order in ("message_bind", "message"):
         msg = message(polys)
     if order != "message":
         r_t = _r_tensor(r, polys[0].device)
-        half = polys[0].shape[-1] // 2
-        bound = tuple(ops.add(p[:, :half], mont_mul_plain(
-            ops.sub(p[:, half:], p[:, :half]), r_t)) for p in polys)
+        bound = tuple(bind_plain(p[:, :half], p[:, half:], r_t)
+                      for p in polys)
     if order == "bind_message":
         msg = message(bound)
     return msg, bound

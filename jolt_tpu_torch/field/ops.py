@@ -13,12 +13,14 @@ the TPU has no widening multiply; Hopper has 32x32->64 integer multiplies):
 Compare with the JAX package only as canonical ints (`unpack_ints`,
 `interop.from_jax_limbs`): the two Montgomery forms differ (R = 2^260 there).
 
-Every Montgomery product goes through `kernels.mont_mul`: on a CUDA tensor
-that is the hand-written kernel (K1, ``csrc/mont_mul.cu``) for every batch
-size, on a CPU tensor its plain version.  No lane threshold: the reference's
-2048-lane / 128-lane rule sizes Pallas blocks on the TPU, while one launch of
-K1 costs less on the card than the ~150 tensor ops of the plain version at
-any size.
+Every op on the limbs is one of K1's wrappers (`kernels`), exported here
+as the field ops: on a CUDA tensor that is the hand-written kernel
+(``csrc/mont_mul.cu``) in one of its forms, one launch and no torch op on
+the limbs; on a CPU tensor its plain version.  An int operand (a challenge, a
+constant) is a canonical field element passed to the kernel by value.  No
+lane threshold: the reference's 2048-lane / 128-lane rule sizes Pallas
+blocks on the TPU, while one launch of K1 costs less on the card than the
+~10-150 tensor ops of a plain version at any size.
 
 Overflow bounds of the plain path (int64 working words):
   * add / sub / neg: limbwise sums of two 32-bit limbs plus a carry (< 2^33)
@@ -34,96 +36,40 @@ Overflow bounds of the plain path (int64 working words):
 
 from __future__ import annotations
 
-import functools
 from typing import List, Sequence
 
 import numpy as np
 import torch
 
 from . import kernels
-from .kernels import (MASK32, N_LIMBS, P, P_LIMBS, R, R2_MOD_P, R_MOD_P,
-                      _pack_limbs, _sub_p_select)
+from .kernels import N_LIMBS, P, R, R_MOD_P, _scalar, u64_words
 
 R_INV = pow(R, -1, P)
 _I32 = torch.int32
 
 
-def _limbs_of(x: int) -> List[int]:
-    """int (< 2^256) -> 8 little-endian 32-bit words as signed int32 values."""
-    out = []
-    for i in range(N_LIMBS):
-        w = (x >> (32 * i)) & MASK32
-        out.append(w - (1 << 32) if w >= 1 << 31 else w)
-    return out
-
-
-@functools.lru_cache(maxsize=4096)
-def _limbs_on(x: int, device: torch.device) -> torch.Tensor:
-    """The 8 limbs of x as an int32 tensor on `device`, uploaded once per
-    (value, device): a host-to-device copy per call was one pageable copy
-    and one host round trip for every constant of every round.  Callers
-    never write into the result (every op here returns a new tensor)."""
-    return torch.tensor(_limbs_of(x), dtype=_I32, device=device)
-
-
-@functools.lru_cache(maxsize=16)
-def _p_words(device: torch.device) -> torch.Tensor:
-    """p's 8 words as int64 on `device` (the addend of `sub`), made once."""
-    return torch.tensor(P_LIMBS, dtype=torch.int64, device=device)
-
-
-def _const(x: int, device, ndim: int = 1) -> torch.Tensor:
-    return _limbs_on(x, torch.device(device)).reshape(
-        (N_LIMBS,) + (1,) * ndim)
-
-
-def u64_words(a: torch.Tensor) -> torch.Tensor:
-    """int32 limbs -> int64 holding the unsigned 32-bit value."""
-    return a.to(torch.int64) & MASK32
-
-
-def _carry(s: torch.Tensor) -> torch.Tensor:
-    """Propagate carries of int64 limb sums (any sign, result >= 0 and
-    < 2^256) into 32-bit words; returns int64 (8, ...)."""
-    out = torch.empty_like(s)
-    c = torch.zeros_like(s[0])
-    for i in range(N_LIMBS):
-        v = s[i] + c
-        out[i] = v & MASK32
-        c = v >> 32
-    return out
-
-
 # ---------------------------------------------------------------------------
-# add / sub / neg / mont_mul
+# K1's forms: add / sub / neg / mont_mul / bind / evals / reduce_cols
 # ---------------------------------------------------------------------------
 
-def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(a + b) mod p."""
-    a, b = torch.broadcast_tensors(a, b)
-    return _pack_limbs(_sub_p_select(_carry(u64_words(a) + u64_words(b))))
-
-
-def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(a - b) mod p, as a + (p - b) with one conditional subtract."""
-    a, b = torch.broadcast_tensors(a, b)
-    p = _p_words(a.device).reshape((N_LIMBS,) + (1,) * (a.dim() - 1))
-    # p - b in [1, p]; a + (p - b) < 2p; the cond-subtract maps p to 0
-    return _pack_limbs(_sub_p_select(_carry(u64_words(a) + p - u64_words(b))))
+# K1's wrappers are the field ops (the kernel on a CUDA tensor, the plain
+# version on a CPU tensor); callers outside `field` take them from here.
+add = kernels.add
+sub = kernels.sub
+mont_mul = kernels.mont_mul
+bind = kernels.bind
+evals = kernels.evals
+reduce_cols = kernels.reduce
 
 
 def neg(a: torch.Tensor) -> torch.Tensor:
-    return sub(torch.zeros_like(a), a)
-
-
-def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Montgomery product a * b * R^-1 mod p (K1 on the card)."""
-    return kernels.mont_mul(a, b)
+    return sub(0, a)
 
 
 def const_mont(c: int, batch_shape=(), device="cuda") -> torch.Tensor:
-    """Constant c in Montgomery form, broadcastable over `batch_shape`."""
-    return _const((c % P) * R % P, device, max(len(batch_shape), 1))
+    """Constant c in Montgomery form, broadcastable over `batch_shape`,
+    uploaded once per (value, device)."""
+    return _scalar(c, device, max(len(batch_shape), 1))
 
 
 def zeros(batch_shape, device="cuda") -> torch.Tensor:
@@ -135,7 +81,7 @@ def zeros(batch_shape, device="cuda") -> torch.Tensor:
 def ones(batch_shape, device="cuda") -> torch.Tensor:
     """The field one (Montgomery form) broadcast over `batch_shape`, a
     read-only expanded view: (8, *batch_shape)."""
-    one = _const(R_MOD_P, device, len(batch_shape))
+    one = _scalar(1, device, len(batch_shape))
     return one.expand((N_LIMBS,) + tuple(batch_shape))
 
 
@@ -145,12 +91,13 @@ def ones(batch_shape, device="cuda") -> torch.Tensor:
 
 def from_words(words: torch.Tensor) -> torch.Tensor:
     """Plain little-endian 32-bit words (k <= 8, *batch) of a value < p ->
-    Montgomery form: one mont_mul by R^2."""
+    Montgomery form: one mont_mul by R^2 (the Montgomery words of the
+    canonical scalar R mod p)."""
     k = words.shape[0]
     plain = torch.zeros((N_LIMBS,) + tuple(words.shape[1:]), dtype=_I32,
                         device=words.device)
     plain[:k] = words.to(_I32)
-    return mont_mul(plain, _const(R2_MOD_P, words.device, words.dim() - 1))
+    return mont_mul(plain, R_MOD_P)
 
 
 def from_u64(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
@@ -163,8 +110,9 @@ def from_u32(x: torch.Tensor) -> torch.Tensor:
 
 
 def to_canonical(a: torch.Tensor) -> torch.Tensor:
-    """Montgomery -> canonical limbs (x mod p): mont_mul by plain 1."""
-    return mont_mul(a, _const(1, a.device, a.dim() - 1))
+    """Montgomery -> canonical limbs (x mod p): mont_mul by plain 1 (the
+    Montgomery words of the canonical scalar R^-1)."""
+    return mont_mul(a, R_INV)
 
 
 def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
@@ -176,32 +124,12 @@ def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
 # reductions
 # ---------------------------------------------------------------------------
 
-def reduce_cols(cols: torch.Tensor) -> torch.Tensor:
-    """Exact int64 limb sums S = sum_i cols[i] 2^(32 i) (each plane a sum of
-    < 2^31 words) -> S mod p in Montgomery form.
-
-    S = lo + h * 2^256 with lo < 2^256 and h < 2^32; since every summand is
-    Montgomery-form, S mod p = mont_mul(lo, R) + mont_mul(h, R^2)
-    (mont_mul by the Montgomery 1 reduces any lo < 2^256 below p)."""
-    out = torch.empty_like(cols)
-    c = torch.zeros_like(cols[0])
-    for i in range(N_LIMBS):
-        v = cols[i] + c
-        out[i] = v & MASK32
-        c = v >> 32
-    dev, nd = cols.device, cols.dim() - 1
-    lo = mont_mul(_pack_limbs(out), _const(R_MOD_P, dev, nd))
-    h = torch.zeros_like(out)
-    h[0] = c
-    hi = mont_mul(_pack_limbs(h), _const(R2_MOD_P, dev, nd))
-    return add(lo, hi)
-
-
-def sum_mod(a: torch.Tensor) -> torch.Tensor:
-    """Sum field elements over the LAST axis -> shape (..., 1)."""
+def sum_mod(a: torch.Tensor, scale=None) -> torch.Tensor:
+    """Sum field elements over the LAST axis -> shape (..., 1), times
+    `scale` if given."""
     if a.shape[-1] >= 1 << 31:
         raise ValueError("sum_mod: more than 2^31 terms overflow int64 limbs")
-    return reduce_cols(u64_words(a).sum(dim=-1, keepdim=True))
+    return reduce_cols(u64_words(a).sum(dim=-1, keepdim=True), scale)
 
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -225,7 +153,7 @@ def pack_ints(vals: Sequence[int], device="cuda") -> torch.Tensor:
     converts on the host; a list ships canonical words and multiplies by
     R^2 on the device."""
     if len(vals) == 1:
-        return _const(int(vals[0]) % P * R % P, device)
+        return _scalar(int(vals[0]), device, 1)
     words = torch.from_numpy(_words_of_ints(vals).astype(np.int32))
     return from_words(words.to(device))
 

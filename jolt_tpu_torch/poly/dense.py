@@ -18,18 +18,17 @@ import torch
 from ..field import ops
 
 
-def bind_high(P: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    """Bind the MSB variable to challenge r (Montgomery scalar (L, 1))."""
+def bind_high(P: torch.Tensor, r) -> torch.Tensor:
+    """Bind the MSB variable to challenge r (a canonical int, or a
+    Montgomery scalar (L, 1)): K1's bind of the two halves."""
     half = P.shape[-1] // 2
-    lo, hi = P[..., :half], P[..., half:]
-    return ops.add(lo, ops.mont_mul(ops.sub(hi, lo), r))
+    return ops.bind(P[..., :half], P[..., half:], r)
 
 
-def bind_low(P: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    """Bind the LSB variable to challenge r (Montgomery scalar (L, 1))."""
-    pairs = P.reshape(P.shape[:-1] + (P.shape[-1] // 2, 2))
-    lo, hi = pairs[..., 0], pairs[..., 1]
-    return ops.add(lo, ops.mont_mul(ops.sub(hi, lo), r))
+def bind_low(P: torch.Tensor, r) -> torch.Tensor:
+    """Bind the LSB variable to challenge r (a canonical int, or a
+    Montgomery scalar (L, 1)): K1's bind of the interleaved pairs."""
+    return ops.bind(P[..., 0::2], P[..., 1::2], r)
 
 
 def evaluate(P: torch.Tensor, point: Sequence[int]) -> int:
@@ -38,25 +37,17 @@ def evaluate(P: torch.Tensor, point: Sequence[int]) -> int:
     verifier-side work."""
     assert P.shape[-1] == 1 << len(point)
     for r in point:          # bind MSB first -> HighToLow over the point
-        P = bind_high(P, ops.pack_ints([r], P.device))
+        P = bind_high(P, r)
     return ops.unpack_ints(P)[0]
 
 
 def sumcheck_eval_points_high(P: torch.Tensor, degree: int) -> torch.Tensor:
     """Per-index univariate evals at X in {0, 2, 3, ..., degree} for the MSB
     variable: (L, degree, T/2); entry [:, 0] is X=0, entry [:, j>=1] is
-    X=j+1 (eval(X) = lo + X*(hi-lo), by repeated addition of the slope)."""
+    X=j+1 (eval(X) = lo + X*(hi-lo), by repeated addition of the slope):
+    K1's evals form, written straight into the output."""
     half = P.shape[-1] // 2
-    lo, hi = P[..., :half], P[..., half:]
-    outs = [lo]
-    if degree >= 2:
-        m = ops.sub(hi, lo)
-        cur = ops.add(hi, m)             # X=2
-        outs.append(cur)
-        for _ in range(3, degree + 1):
-            cur = ops.add(cur, m)
-            outs.append(cur)
-    return torch.stack(outs, dim=1)
+    return ops.evals(P[..., :half], P[..., half:], degree)
 
 
 def from_ints(vals: Sequence[int], device="cuda") -> torch.Tensor:

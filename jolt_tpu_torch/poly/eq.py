@@ -6,7 +6,7 @@ big-endian convention, r[0] corresponds to the MSB of the table index.
 
 eq(r, x) = prod_j (r_j x_j + (1-r_j)(1-x_j)); the table over all x in
 {0,1}^n is built by n doubling steps, each one mont_mul of the current table
-by r_j and an interleave -- O(T) multiplies total.
+by r_j (by value) and an interleave -- O(T) multiplies total.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import torch
 from ..field import FR, ops
 
 
-def _double(E: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+def _double(E: torch.Tensor, r: int) -> torch.Tensor:
     """One doubling step: E (L, S) -> (L, 2S) appending variable r as new LSB."""
     hi = ops.mont_mul(E, r)              # E * r      -> x_new = 1
     lo = ops.sub(E, hi)                  # E * (1-r)  -> x_new = 0
@@ -33,7 +33,7 @@ def evals(point: Sequence[int], device="cuda",
     multiplies every entry (eq_poly.rs:96 `evals_with_scaling`)."""
     E = ops.pack_ints([1 if scale is None else scale], device)
     for r in point:
-        E = _double(E, ops.pack_ints([r], device))
+        E = _double(E, r)
     return E
 
 

@@ -23,8 +23,7 @@ def evals(point: Sequence[int], device="cuda") -> torch.Tensor:
     lt = ops.zeros((1,), device)
     eqacc = ops.ones((1,), device)
     for r in point:
-        r_dev = ops.pack_ints([r], device)
-        eq1 = ops.mont_mul(eqacc, r_dev)
+        eq1 = ops.mont_mul(eqacc, r)        # r by value
         lt0 = ops.add(lt, eq1)              # x_b = 0: add r_b * eqacc
         eq0 = ops.sub(eqacc, eq1)           # eqacc * (1 - r_b)
         lt = torch.stack([lt0, lt], dim=-1).reshape(ops.N_LIMBS, -1)

@@ -7,14 +7,17 @@ sha2-chain guest at chain=114, ~2^18 cycles), runs `prove_prefix` once to
 warm up (kernel builds, allocator), then once under `torch.profiler`, and
 prints one JSON line: the wall time of each stage (inflated by the
 profiler's own cost), the summed device time of all kernels and copies, the
-device's busy share of the wall time, K1's and K2's launches and device
-time, K1's kernel-only time per launch shape beside that shape's bound, and
-the ten operations with the most device time.
+device's busy share of the wall time, K1's launches and device time per
+form (`k1_mul`, .., `k1_reduce`), K2's launches and device time, K1's
+kernel-only time per launch shape beside that shape's bound, the device
+kernels that are neither K1 nor K2, and the ten operations with the most
+device time.
 
-K1's launches are matched to their shapes by order: every Montgomery
-product of the path goes through `ops.mont_mul`, which records its operand
-shapes here, and the card runs the launches of one stream in the order
-they were made.
+K1's launches are matched to their shapes by order: every K1 launch
+appends its form and operand shapes to `kernels.record`, and the card runs
+the launches of one stream in the order they were made.  A form whose
+traced kernels do not number its launches (the tracer dropped one) gets no
+per-shape times; its `traced` count says so.
 """
 
 from __future__ import annotations
@@ -28,11 +31,18 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from . import prove_prefix
-from .field import kernels, ops
+from .field import kernels
 from .workload import card_line, k1_bound_ms, sha2_chain_trace, timed_stages
 
-K1_KERNEL = "mont_mul_kernel"
 K2_KERNELS = ("round_kernel", "finish_kernel")
+
+
+def _k1_form(name: str):
+    """The K1 form a device kernel's name belongs to, or None."""
+    for form in kernels.FORMS:
+        if f"k1_{form}" in name:
+            return form
+    return None
 
 
 def main() -> None:
@@ -42,20 +52,12 @@ def main() -> None:
     prove_prefix(trace, device="cuda")                 # warm-up
     torch.cuda.synchronize()
 
-    launch_shapes = []
-    field_mul = ops.mont_mul
-
-    def recording(a, b):
-        launch_shapes.append((tuple(a.shape), tuple(b.shape)))
-        return field_mul(a, b)
-
     def run():
         prove_prefix(trace, device="cuda")
         torch.cuda.synchronize()
 
-    kernels.mont_mul.launches = 0
-    kernels.product_round.launches = 0
-    ops.mont_mul = recording
+    kernels.reset_launches()
+    kernels.record = []
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -63,38 +65,45 @@ def main() -> None:
             _, stages, _ = timed_stages(run)
             wall = time.perf_counter() - t0
     finally:
-        ops.mont_mul = field_mul
+        records, kernels.record = kernels.record, None
     # kernels and copies on the card (one stream: their times do not overlap)
     by_name = {}
-    k1_events = []
+    k1_events = collections.defaultdict(list)
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             c, us = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (c + 1, us + e.time_range.elapsed_us())
-            if K1_KERNEL in e.name:
-                k1_events.append(e)
+            form = _k1_form(e.name)
+            if form is not None:
+                k1_events[form].append(e)
     rows = sorted(((k, c, us) for k, (c, us) in by_name.items()),
                   key=lambda r: -r[2])
     device_us = sum(us for _, _, us in rows)
-    k1_us = sum(us for key, _, us in rows if K1_KERNEL in key)
-    k2_us = sum(us for key, _, us in rows
-                if any(k in key for k in K2_KERNELS))
-    k2_count = sum(c for key, c, _ in rows
-                   if any(k in key for k in K2_KERNELS))
-    if len(k1_events) != len(launch_shapes):
-        raise RuntimeError(f"{len(k1_events)} K1 kernels traced for "
-                           f"{len(launch_shapes)} launches")
-    k1_events.sort(key=lambda e: e.time_range.start)
+    k2_rows = [r for r in rows if any(k in r[0] for k in K2_KERNELS)]
+    others = [r for r in rows if _k1_form(r[0]) is None
+              and not any(k in r[0] for k in K2_KERNELS)]
+    # K1 per form, and per launch shape within each form
+    launches = kernels.k1_launches()
     per_shape = collections.defaultdict(lambda: [0, 0.0])
-    for shape, e in zip(launch_shapes, k1_events):
-        per_shape[shape][0] += 1
-        per_shape[shape][1] += e.time_range.elapsed_us()
+    k1_forms = {}
+    for form in kernels.FORMS:
+        keys = [k for f, k in records if f == form]
+        events = sorted(k1_events[form], key=lambda e: e.time_range.start)
+        # the tracer may drop an event; then the order no longer matches
+        # launches to shapes, and the form has no per-shape times
+        if len(events) == len(keys):
+            for key, e in zip(keys, events):
+                per_shape[(form, key)][0] += 1
+                per_shape[(form, key)][1] += e.time_range.elapsed_us()
+        k1_forms[form] = {
+            "launches": launches[form], "traced": len(events),
+            "device_s": sum(e.time_range.elapsed_us() for e in events) / 1e6}
     k1_shapes = []
-    for (a, b), (count, us) in sorted(per_shape.items(),
-                                      key=lambda kv: -kv[1][1]):
-        bound, by = k1_bound_ms(a, b)
+    for (form, key), (count, us) in sorted(per_shape.items(),
+                                           key=lambda kv: -kv[1][1]):
+        bound, by = k1_bound_ms(form, key)
         mean_ms = us / count / 1e3
-        k1_shapes.append({"a": list(a), "b": list(b), "launches": count,
+        k1_shapes.append({"form": form, "key": repr(key), "launches": count,
                           "device_s": us / 1e6, "mean_ms": mean_ms,
                           "bound_ms": bound, "bound_by": by,
                           "share_of_bound": bound / mean_ms})
@@ -104,12 +113,19 @@ def main() -> None:
         "wall_s": wall, "stage_s": stages,
         "device_busy_s": device_us / 1e6,
         "device_busy_share": device_us / 1e6 / wall,
-        "k1_launches": kernels.mont_mul.launches, "k1_device_s": k1_us / 1e6,
+        "k1_launches": sum(launches.values()),
+        "k1_device_s": sum(f["device_s"] for f in k1_forms.values()),
+        "k1_forms": k1_forms,
         "k2_calls": kernels.product_round.launches,
-        "k2_kernel_launches": k2_count, "k2_device_s": k2_us / 1e6,
+        "k2_kernel_launches": sum(c for _, c, _ in k2_rows),
+        "k2_device_s": sum(us for _, _, us in k2_rows) / 1e6,
+        "other_kernels": sum(c for k, c, _ in others if "Memcpy" not in k
+                             and "Memset" not in k),
         "k1_shapes": k1_shapes,
         "top_device_ops": [{"op": k[:80], "count": c, "device_s": us / 1e6}
                            for k, c, us in rows[:10]],
+        "top_other_ops": [{"op": k[:80], "count": c, "device_s": us / 1e6}
+                          for k, c, us in others[:10]],
     }))
 
 

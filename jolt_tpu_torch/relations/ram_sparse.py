@@ -23,7 +23,8 @@ The pairing pattern over all rounds depends only on the access positions,
 NOT on the challenges, so the whole merge schedule precomputes on the host
 with numpy (`RamPairSchedule`, logic unchanged) and uploads its index
 tensors to the device once; per-round device work is gathers + field ops
-over at most T lanes, and every Fr product goes through K1.
+over at most T lanes, and every Fr op goes through K1 (challenges and
+gamma powers by value).
 
 Relations (all degree <= 3):
   registers rw:  sum eq(r_cyc,j) [wa (inc + Val) + (g ra1 + g^2 ra2) Val]
@@ -35,9 +36,9 @@ Relations (all degree <= 3):
 
 In the address phase every relation's remaining sum carries one fully bound
 cycle factor (EQ[:, :1], LT*INC or INC[:, :1]).  The JAX host engine scales
-the host evals by it (a `post` hook); here the (8, 3, 1) message is
-multiplied by that factor on the device through K1.  Both are exact mod p,
-so the proof bytes are the same.
+the host evals by it (a `post` hook); here the message's mod-p finish (K1's
+reduce form) multiplies it in on the device.  Both are exact mod p, so the
+proof bytes are the same.
 
 Opening points are normalized to the canonical big-endian cycle-major
 order (r_cycle ++ r_addr): cycle challenges arrive LSB-first and reverse;
@@ -230,10 +231,7 @@ class RamPairSchedule:
 
 def _evals3(e: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
     """Univariate evals at X in {0,2,3}: (L,E) pairs -> (L,3,E)."""
-    m = ops.sub(o, e)
-    v2 = ops.add(o, m)
-    v3 = ops.add(v2, m)
-    return torch.stack([e, v2, v3], dim=1)
+    return ops.evals(e, o, 3)
 
 
 def _gather_pairs(X, src_e, src_o, has_e, has_o, fill_e, fill_o):
@@ -257,8 +255,7 @@ def _rw_cycle_message(RA, VAL, EQ, INC, src_e, src_o, has_e, has_o,
     inc3 = _cycle_pairs(INC, rows)
     ra3 = _evals3(rae, rao)
     val3 = _evals3(vale, valo)
-    term = ops.add(ops.mont_mul(one_pg[:, None], val3),
-                   ops.mont_mul(g[:, None], inc3))
+    term = ops.add(ops.mont_mul(val3, one_pg), ops.mont_mul(inc3, g))
     return ops.sum_mod(ops.mont_mul(eq3, ops.mont_mul(ra3, term)))
 
 
@@ -274,21 +271,22 @@ def _prod_cycle_message(RA, CYC: Sequence[torch.Tensor], AC, src_e, src_o,
 
 def _bind_pairs(X, src_e, src_o, has_e, has_o, fill_e, fill_o, r):
     xe, xo = _gather_pairs(X, src_e, src_o, has_e, has_o, fill_e, fill_o)
-    return ops.add(xe, ops.mont_mul(ops.sub(xo, xe), r))
+    return ops.bind(xe, xo, r)
 
 
-def _rw_addr_message(RA_K, VAL_K, one_pg, ginc):
-    """evals at {0,2,3} of sum_k ra(X) * ((1+g) val(X) + g*inc_c)."""
+def _rw_addr_message(RA_K, VAL_K, one_pg, ginc, scale):
+    """evals at {0,2,3} of sum_k ra(X) * ((1+g) val(X) + g*inc_c), times
+    the bound cycle factor `scale`."""
     ra3 = dense.sumcheck_eval_points_high(RA_K, 3)
     val3 = dense.sumcheck_eval_points_high(VAL_K, 3)
-    term = ops.add(ops.mont_mul(one_pg[:, None], val3), ginc[:, None, :])
-    return ops.sum_mod(ops.mont_mul(ra3, term))
+    term = ops.add(ops.mont_mul(val3, one_pg), ginc[:, None, :])
+    return ops.sum_mod(ops.mont_mul(ra3, term), scale)
 
 
-def _prod_addr_message(RA_K, TAB_K):
+def _prod_addr_message(RA_K, TAB_K, scale):
     ra3 = dense.sumcheck_eval_points_high(RA_K, 3)
     t3 = dense.sumcheck_eval_points_high(TAB_K, 3)
-    return ops.sum_mod(ops.mont_mul(ra3, t3))
+    return ops.sum_mod(ops.mont_mul(ra3, t3), scale)
 
 
 def _materialize(vals: torch.Tensor, cols: torch.Tensor,
@@ -311,23 +309,21 @@ def _reg_rw_cycle_message(WA, RA1, RA2, VAL, EQ, INC, src_e, src_o, has_e,
     ra13 = _evals3(r1e, r1o)
     ra23 = _evals3(r2e, r2o)
     val3 = _evals3(vle, vlo)
-    reads = ops.add(ops.mont_mul(g1[:, None], ra13),
-                    ops.mont_mul(g2[:, None], ra23))
+    reads = ops.add(ops.mont_mul(ra13, g1), ops.mont_mul(ra23, g2))
     summand = ops.add(ops.mont_mul(wa3, ops.add(inc3, val3)),
                       ops.mont_mul(reads, val3))
     return ops.sum_mod(ops.mont_mul(eq3, summand))
 
 
-def _reg_rw_addr_message(WA_K, RA1_K, RA2_K, VAL_K, incc, g1, g2):
+def _reg_rw_addr_message(WA_K, RA1_K, RA2_K, VAL_K, incc, g1, g2, scale):
     wa3 = dense.sumcheck_eval_points_high(WA_K, 3)
     ra13 = dense.sumcheck_eval_points_high(RA1_K, 3)
     ra23 = dense.sumcheck_eval_points_high(RA2_K, 3)
     val3 = dense.sumcheck_eval_points_high(VAL_K, 3)
-    reads = ops.add(ops.mont_mul(g1[:, None], ra13),
-                    ops.mont_mul(g2[:, None], ra23))
+    reads = ops.add(ops.mont_mul(ra13, g1), ops.mont_mul(ra23, g2))
     summand = ops.add(ops.mont_mul(wa3, ops.add(incc[:, None, :], val3)),
                       ops.mont_mul(reads, val3))
-    return ops.sum_mod(summand)
+    return ops.sum_mod(summand, scale)
 
 
 # ---------------------------------------------------------------------------
@@ -348,6 +344,7 @@ class _SparseRamBase(SumcheckInstance):
         self.RA = ops.ones((sched.n_entries0,), self.device)
         self.final_openings: Optional[dict] = None
         self.RA_K: Optional[torch.Tensor] = None
+        self._scale: Optional[torch.Tensor] = None
 
     @property
     def num_rounds(self) -> int:
@@ -355,14 +352,16 @@ class _SparseRamBase(SumcheckInstance):
 
     # -- hooks ----------------------------------------------------------
     def _cycle_message(self, t: int, rnd: _Round) -> torch.Tensor: ...
-    def _cycle_bind(self, rnd: _Round, r_dev) -> None: ...
+    def _cycle_bind(self, rnd: _Round, r: int) -> None: ...
 
     def _enter_addr_phase(self) -> None:
         """Materialize the relation's own K-length tables (none by
         default)."""
 
-    def _addr_message(self) -> torch.Tensor: ...
-    def _addr_bind(self, r_dev) -> None: ...
+    def _addr_message(self, scale: torch.Tensor) -> torch.Tensor:
+        """The address-phase message, its finish scaled by `scale`."""
+
+    def _addr_bind(self, r: int) -> None: ...
 
     def _addr_scale(self) -> torch.Tensor:
         """The fully bound cycle factor (8, 1) that scales every
@@ -372,16 +371,16 @@ class _SparseRamBase(SumcheckInstance):
     def message_evals_dev(self, round: int) -> torch.Tensor:
         if round < self.log_T:
             return self._cycle_message(round, self.sched.rounds[round])
-        return ops.mont_mul(self._addr_message(),
-                            self._addr_scale()[:, None, :])
+        if self._scale is None:       # bound for the rest of the sumcheck
+            self._scale = self._addr_scale()[:, None, :]
+        return self._addr_message(self._scale)
 
     def ingest_challenge(self, r: int, round: int) -> None:
-        r_dev = ops.pack_ints([r], self.device)
         if round < self.log_T:
             rnd = self.sched.rounds[round]
             self.RA = _bind_pairs(self.RA, rnd.even_src, rnd.odd_src,
-                                  rnd.has_e, rnd.has_o, 0, 0, r_dev)
-            self._cycle_bind(rnd, r_dev)
+                                  rnd.has_e, rnd.has_o, 0, 0, r)
+            self._cycle_bind(rnd, r)
             if round + 1 == self.log_T:
                 n = len(self.sched.final_cols)
                 self.RA_K = _materialize(self.RA[:, :n],
@@ -389,8 +388,8 @@ class _SparseRamBase(SumcheckInstance):
                                          ops.zeros((self.K,), self.device))
                 self._enter_addr_phase()
         else:
-            self.RA_K = dense.bind_high(self.RA_K, r_dev)
-            self._addr_bind(r_dev)
+            self.RA_K = dense.bind_high(self.RA_K, r)
+            self._addr_bind(r)
 
     def _col_consts(self, TAB_K: torch.Tensor) -> List[torch.Tensor]:
         """Per cycle round, the public table's value at each pair's column
@@ -445,8 +444,7 @@ class SparseRamReadWriteChecking(_SparseRamBase):
         self.VAL = sched.initial_val()
         self.EQ = eq.evals(self.r_cycle, dev)
         self.INC = ops.pack_ints(inc, dev)
-        self.g = ops.pack_ints([self.gamma], dev)
-        self.one_pg = ops.pack_ints([(1 + self.gamma) % P], dev)
+        self.one_pg = (1 + self.gamma) % P
         self.VAL_K: Optional[torch.Tensor] = None
         self.ginc: Optional[torch.Tensor] = None
 
@@ -457,14 +455,13 @@ class SparseRamReadWriteChecking(_SparseRamBase):
         return _rw_cycle_message(self.RA, self.VAL, self.EQ, self.INC,
                                  rnd.even_src, rnd.odd_src, rnd.has_e,
                                  rnd.has_o, rnd.imp_e, rnd.imp_o, rnd.rows,
-                                 self.one_pg, self.g)
+                                 self.one_pg, self.gamma)
 
-    def _cycle_bind(self, rnd: _Round, r_dev) -> None:
+    def _cycle_bind(self, rnd: _Round, r: int) -> None:
         self.VAL = _bind_pairs(self.VAL, rnd.even_src, rnd.odd_src,
-                               rnd.has_e, rnd.has_o, rnd.imp_e, rnd.imp_o,
-                               r_dev)
-        self.EQ = dense.bind_low(self.EQ, r_dev)
-        self.INC = dense.bind_low(self.INC, r_dev)
+                               rnd.has_e, rnd.has_o, rnd.imp_e, rnd.imp_o, r)
+        self.EQ = dense.bind_low(self.EQ, r)
+        self.INC = dense.bind_low(self.INC, r)
 
     def _enter_addr_phase(self) -> None:
         # untouched columns: Val(k, *) == Init(k) (constant in j, so its
@@ -476,13 +473,14 @@ class SparseRamReadWriteChecking(_SparseRamBase):
         n = len(self.sched.final_cols)
         self.VAL_K = _materialize(self.VAL[:, :n], self.sched.final_cols_dev,
                                   _u64_field(base, self.device))
-        self.ginc = ops.mont_mul(self.g, self.INC[:, :1])   # (L, 1)
+        self.ginc = ops.mont_mul(self.INC[:, :1], self.gamma)   # (L, 1)
 
-    def _addr_message(self) -> torch.Tensor:
-        return _rw_addr_message(self.RA_K, self.VAL_K, self.one_pg, self.ginc)
+    def _addr_message(self, scale) -> torch.Tensor:
+        return _rw_addr_message(self.RA_K, self.VAL_K, self.one_pg, self.ginc,
+                                scale)
 
-    def _addr_bind(self, r_dev) -> None:
-        self.VAL_K = dense.bind_high(self.VAL_K, r_dev)
+    def _addr_bind(self, r: int) -> None:
+        self.VAL_K = dense.bind_high(self.VAL_K, r)
 
     def _addr_scale(self) -> torch.Tensor:
         return self.EQ[:, :1]                  # fully bound eq factor
@@ -521,14 +519,14 @@ class SparseRamRafEvaluation(_SparseRamBase):
                                    rnd.even_src, rnd.odd_src, rnd.has_e,
                                    rnd.has_o, rnd.rows)
 
-    def _cycle_bind(self, rnd: _Round, r_dev) -> None:
-        self.EQ = dense.bind_low(self.EQ, r_dev)
+    def _cycle_bind(self, rnd: _Round, r: int) -> None:
+        self.EQ = dense.bind_low(self.EQ, r)
 
-    def _addr_message(self) -> torch.Tensor:
-        return _prod_addr_message(self.RA_K, self.A_K)
+    def _addr_message(self, scale) -> torch.Tensor:
+        return _prod_addr_message(self.RA_K, self.A_K, scale)
 
-    def _addr_bind(self, r_dev) -> None:
-        self.A_K = dense.bind_high(self.A_K, r_dev)
+    def _addr_bind(self, r: int) -> None:
+        self.A_K = dense.bind_high(self.A_K, r)
 
     def _addr_scale(self) -> torch.Tensor:
         return self.EQ[:, :1]
@@ -567,15 +565,15 @@ class SparseRamValEvaluation(_SparseRamBase):
                                    rnd.odd_src, rnd.has_e, rnd.has_o,
                                    rnd.rows)
 
-    def _cycle_bind(self, rnd: _Round, r_dev) -> None:
-        self.LT = dense.bind_low(self.LT, r_dev)
-        self.INC = dense.bind_low(self.INC, r_dev)
+    def _cycle_bind(self, rnd: _Round, r: int) -> None:
+        self.LT = dense.bind_low(self.LT, r)
+        self.INC = dense.bind_low(self.INC, r)
 
-    def _addr_message(self) -> torch.Tensor:
-        return _prod_addr_message(self.RA_K, self.EA_K)
+    def _addr_message(self, scale) -> torch.Tensor:
+        return _prod_addr_message(self.RA_K, self.EA_K, scale)
 
-    def _addr_bind(self, r_dev) -> None:
-        self.EA_K = dense.bind_high(self.EA_K, r_dev)
+    def _addr_bind(self, r: int) -> None:
+        self.EA_K = dense.bind_high(self.EA_K, r)
 
     def _addr_scale(self) -> torch.Tensor:
         return ops.mont_mul(self.LT[:, :1], self.INC[:, :1])
@@ -627,14 +625,14 @@ class SparseRamOutputCheck(_SparseRamBase):
                                    rnd.even_src, rnd.odd_src, rnd.has_e,
                                    rnd.has_o, rnd.rows)
 
-    def _cycle_bind(self, rnd: _Round, r_dev) -> None:
-        self.INC = dense.bind_low(self.INC, r_dev)
+    def _cycle_bind(self, rnd: _Round, r: int) -> None:
+        self.INC = dense.bind_low(self.INC, r)
 
-    def _addr_message(self) -> torch.Tensor:
-        return _prod_addr_message(self.RA_K, self.W_K)
+    def _addr_message(self, scale) -> torch.Tensor:
+        return _prod_addr_message(self.RA_K, self.W_K, scale)
 
-    def _addr_bind(self, r_dev) -> None:
-        self.W_K = dense.bind_high(self.W_K, r_dev)
+    def _addr_bind(self, r: int) -> None:
+        self.W_K = dense.bind_high(self.W_K, r)
 
     def _addr_scale(self) -> torch.Tensor:
         return self.INC[:, :1]
@@ -680,8 +678,6 @@ class SparseRegistersReadWriteChecking(_SparseRamBase):
         self.VAL = sched.initial_val()
         self.EQ = eq.evals(self.r_cycle, dev)
         self.INC = ops.pack_ints(log.inc, dev)
-        self.g1_dev = ops.pack_ints([self.gamma], dev)
-        self.g2_dev = ops.pack_ints([self.g2i], dev)
         self.WA_K = self.RA1_K = self.RA2_K = self.VAL_K = None
         self.incc = None
 
@@ -693,22 +689,21 @@ class SparseRegistersReadWriteChecking(_SparseRamBase):
         return _reg_rw_cycle_message(
             self.WA, self.RA1, self.RA2, self.VAL, self.EQ, self.INC,
             rnd.even_src, rnd.odd_src, rnd.has_e, rnd.has_o, rnd.imp_e,
-            rnd.imp_o, rnd.rows, self.g1_dev, self.g2_dev)
+            rnd.imp_o, rnd.rows, self.gamma, self.g2i)
 
     def ingest_challenge(self, r: int, round: int) -> None:
-        r_dev = ops.pack_ints([r], self.device)
         if round < self.log_T:
             rnd = self.sched.rounds[round]
 
             def bind(X, fe, fo):
                 return _bind_pairs(X, rnd.even_src, rnd.odd_src, rnd.has_e,
-                                   rnd.has_o, fe, fo, r_dev)
+                                   rnd.has_o, fe, fo, r)
             self.WA = bind(self.WA, 0, 0)
             self.RA1 = bind(self.RA1, 0, 0)
             self.RA2 = bind(self.RA2, 0, 0)
             self.VAL = bind(self.VAL, rnd.imp_e, rnd.imp_o)
-            self.EQ = dense.bind_low(self.EQ, r_dev)
-            self.INC = dense.bind_low(self.INC, r_dev)
+            self.EQ = dense.bind_low(self.EQ, r)
+            self.INC = dense.bind_low(self.INC, r)
             if round + 1 == self.log_T:
                 n = len(self.sched.final_cols)
                 cols = self.sched.final_cols_dev
@@ -720,15 +715,15 @@ class SparseRegistersReadWriteChecking(_SparseRamBase):
                 self.VAL_K = _materialize(self.VAL[:, :n], cols, zK)
                 self.incc = self.INC[:, :1]
         else:
-            self.WA_K = dense.bind_high(self.WA_K, r_dev)
-            self.RA1_K = dense.bind_high(self.RA1_K, r_dev)
-            self.RA2_K = dense.bind_high(self.RA2_K, r_dev)
-            self.VAL_K = dense.bind_high(self.VAL_K, r_dev)
+            self.WA_K = dense.bind_high(self.WA_K, r)
+            self.RA1_K = dense.bind_high(self.RA1_K, r)
+            self.RA2_K = dense.bind_high(self.RA2_K, r)
+            self.VAL_K = dense.bind_high(self.VAL_K, r)
 
-    def _addr_message(self) -> torch.Tensor:
+    def _addr_message(self, scale) -> torch.Tensor:
         return _reg_rw_addr_message(self.WA_K, self.RA1_K, self.RA2_K,
-                                    self.VAL_K, self.incc, self.g1_dev,
-                                    self.g2_dev)
+                                    self.VAL_K, self.incc, self.gamma,
+                                    self.g2i, scale)
 
     def _addr_scale(self) -> torch.Tensor:
         return self.EQ[:, :1]

@@ -79,9 +79,8 @@ def pack_input_columns(inputs: R1CSCycleInputs, device) -> torch.Tensor:
     words = np.ascontiguousarray(words).reshape(4, NUM_VARS, -1)
     val = ops.from_words(
         torch.from_numpy(words.view(np.int32)).to(device))
-    corr = ops.const_mont(1 << 128, (1, 1), device)
     mask = torch.from_numpy(sign_mask).to(device)
-    return ops.select(mask, ops.sub(val, corr), val)
+    return ops.select(mask, ops.sub(val, 1 << 128), val)
 
 
 def _combo_terms(w_rows: Sequence[Tuple[int, Dict[int, int]]], device):
@@ -256,10 +255,8 @@ class SpartanOuterProver(SumcheckInstance):
         self.AZ, self.BZ, self.CZ = mats
 
         E_cyc = eq.evals(tau_cyc, self.device)
-        e0 = ops.mont_mul(E_cyc, ops.pack_ints(
-            [(1 - tau_g) % P * l_scale % P], self.device))
-        e1 = ops.mont_mul(E_cyc, ops.pack_ints(
-            [tau_g * l_scale % P], self.device))
+        e0 = ops.mont_mul(E_cyc, (1 - tau_g) % P * l_scale % P)
+        e1 = ops.mont_mul(E_cyc, tau_g * l_scale % P)
         self.E = torch.cat([e0, e1], dim=-1)
         self.input_openings: List[int] = None
 
@@ -274,9 +271,8 @@ class SpartanOuterProver(SumcheckInstance):
         return _outer_message(self.E, self.AZ, self.BZ, self.CZ)
 
     def ingest_challenge(self, r: int, round: int) -> None:
-        r_dev = ops.pack_ints([r], self.device)
         self.E, self.AZ, self.BZ, self.CZ = _bind4(
-            self.E, self.AZ, self.BZ, self.CZ, r_dev)
+            self.E, self.AZ, self.BZ, self.CZ, r)
 
     def cache_openings(self, accumulator: OpeningAccumulator,
                        r_slice: Sequence[int]) -> None:

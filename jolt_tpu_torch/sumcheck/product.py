@@ -134,8 +134,7 @@ class ProductSumcheck(SumcheckInstance):
         if self._rounds is not None:
             self._rounds.bind(r)
             return
-        r_dev = ops.pack_ints([r], self.device)
-        self.polys = [dense.bind_high(Pk, r_dev) for Pk in self.polys]
+        self.polys = [dense.bind_high(Pk, r) for Pk in self.polys]
 
     def finalize(self) -> None:
         if self._rounds is not None:

@@ -38,6 +38,10 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_MAD_PER_S = 132 * 64 * 1.98e9
 # one Fr Montgomery product: 136 32x32->64 multiplies = 272 multiply-adds
 MADS_PER_PRODUCT = 272
+# the least work that takes exact limb sums S = lo + h 2^256 (lo < 2^256
+# < 6p, h < 2^32) to S mod p: h (2^256 mod p) and a one-word quotient of lo
+# times p, 8 words by 1 each: 16 32x32->64 multiplies = 32 multiply-adds
+MADS_PER_FOLD = 32
 
 
 def sha2_chain_layout() -> MemoryLayout:
@@ -98,20 +102,48 @@ def timed_stages(fn: Callable[[], object]
     return out, stages, text
 
 
-def bound_ms(n_bytes: int, products: int) -> Tuple[float, str]:
+def bound_ms(n_bytes: int, products: int, mads: int = 0
+             ) -> Tuple[float, str]:
     """The least time for a kernel that moves `n_bytes` and does `products`
-    Montgomery products, in ms, and which of the two bounds it."""
+    Montgomery products and `mads` more multiply-adds, in ms, and which of
+    the two bounds it."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = products * MADS_PER_PRODUCT / INT32_MAD_PER_S * 1e3
+    t_ops = (products * MADS_PER_PRODUCT + mads) / INT32_MAD_PER_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def k1_bound_ms(a_shape, b_shape) -> Tuple[float, str]:
-    """One K1 call: each operand read once and the output written once
-    (32 B per element each), one product per output element."""
-    n = math.prod(np.broadcast_shapes(a_shape, b_shape)[1:])
-    n_a, n_b = math.prod(a_shape[1:]), math.prod(b_shape[1:])
-    return bound_ms(32 * (n_a + n_b + n), n)
+def _numel(shape) -> int:
+    """Field elements (or int64 sum columns) of an (8, *batch) shape; an
+    int operand (a value in the kernel's parameters) is 0."""
+    return 0 if shape == "int" or shape is None else math.prod(shape[1:])
+
+
+def k1_bound_ms(form: str, key) -> Tuple[float, str]:
+    """One K1 launch of `form` with the record `key` (`kernels.record`):
+    each operand read once (32 B an element; the reduce form's int64 sums
+    64 B), the output written once, and `MADS_PER_PRODUCT` per product --
+    one an output for "mul" and "bind", none for "add", "sub" and "evals";
+    "reduce" needs its folds (`MADS_PER_FOLD`) and one product only with a
+    scale.  This counts what the function needs, not what the kernel does
+    (the reduce form folds h and lo with two full products)."""
+    if form in ("mul", "add", "sub"):
+        a, b = key
+        n = math.prod(np.broadcast_shapes(*[s[1:] for s in key
+                                            if s != "int"]))
+        return bound_ms(32 * (_numel(a) + _numel(b) + n),
+                        n if form == "mul" else 0)
+    if form == "bind":
+        lo, _, r = key
+        n = _numel(lo)
+        return bound_ms(32 * (3 * n + (_numel(r) if r != "int" else 0)), n)
+    if form == "evals":
+        lo, degree, _ = key
+        n = _numel(lo)
+        return bound_ms(32 * (2 + degree) * n, 0)
+    cols, scale = key
+    n = _numel(cols)
+    return bound_ms(64 * n + 32 * (n + _numel(scale)),
+                    0 if scale is None else n, MADS_PER_FOLD * n)
 
 
 def k2_bound_ms(nf: int, order: str, T: int, blocks: int) -> Tuple[float, str]:

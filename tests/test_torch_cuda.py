@@ -1,6 +1,7 @@
-"""The torch port on the card: K1 and K2 (every pass order, 2 and 3
-factors, and its on-card finish of the message) against their plain
-versions, and the prover on "cuda" against the prover on "cpu".
+"""The torch port on the card: K1 (every form: mul, add, sub, bind, evals,
+reduce) and K2 (every pass order, 2 and 3 factors, and its on-card finish
+of the message) against their plain versions, and the prover on "cuda"
+against the prover on "cpu".
 
 These tests need an NVIDIA GPU; without one they skip.  The machine with
 the card has no JAX, so this module imports none, and there it runs
@@ -49,6 +50,88 @@ def test_k1_matches_plain_on_card(card):
                            kernels.mont_mul_plain(x, y))
     torch.cuda.synchronize()
     assert kernels.mont_mul.launches == before + 3
+
+
+# K1's forms, each in the layouts the prover gives it: operand shapes,
+# "int" for a value passed by value, and (lo, hi) as halves or pairs of one
+# tensor or as two tensors
+_K1_CASES = {
+    "mul": [((8, 4, 1000), (8, 4, 1000)), ((8, 4, 1), (8, 4, 1000)),
+            ((8, 1001), "int"), ((8, 7, 1), (8, 1, 1))],
+    "add": [((8, 3, 998), (8, 3, 998)), ((8, 998), (8, 1))],
+    "sub": [((8, 1000), (8, 1000)), ("int", (8, 2, 999))],
+    "bind": [((8, 1024), "high", "int"), ((8, 1024), "low", (8, 1)),
+             ((8, 3, 500), "low", "int"), ((8, 999), "split", "int")],
+    "evals": [((8, 1024), 3, "high"), ((8, 3, 500), 2, "high"),
+              ((8, 999), 3, "split")],
+    "reduce": [((8, 3, 1), None), ((8, 1000), "int"),
+               ((8, 20, 100), (8, 1, 1))],
+}
+
+
+def _k1_operands(form, key, gen, card):
+    P = kernels.P
+
+    def field(shape):
+        return _rand_field(gen, shape, card)
+
+    def value():
+        return int(torch.randint(0, 1 << 62, (1,), generator=gen,
+                                 device=card)) ** 4 % P
+
+    def pair(shape, layout):
+        *batch, h = shape
+        if layout == "split":
+            return field(shape), field(shape)
+        whole = field(tuple(batch) + (2 * h,))
+        return ((whole[..., :h], whole[..., h:]) if layout == "high"
+                else (whole[..., 0::2], whole[..., 1::2]))
+    if form in ("mul", "add", "sub"):
+        return [value() if s == "int" else field(s) for s in key]
+    if form == "bind":
+        return [*pair(key[0], key[1]),
+                value() if key[2] == "int" else field(key[2])]
+    if form == "evals":
+        return [*pair(key[0], key[2]), key[1]]
+    w = torch.randint(0, 1 << 62, key[0], generator=gen, device=card,
+                      dtype=torch.int64)
+    w[7] >>= 1
+    return [w, None if key[1] is None else
+            value() if key[1] == "int" else field(key[1])]
+
+
+@pytest.mark.parametrize("columns", [0, 1, 2])
+@pytest.mark.parametrize("form", ["mul", "add", "sub", "bind", "evals",
+                                  "reduce"])
+def test_k1_every_form_matches_plain_on_card(card, form, columns):
+    """Each K1 form equals its plain version bit for bit in each layout,
+    with the columns a thread chosen by size (0) or forced to 1 or 2, and
+    each call is one launch of that form."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(kernels.FORMS.index(form))
+    wrapper = {"mul": kernels.mont_mul, "add": kernels.add,
+               "sub": kernels.sub, "bind": kernels.bind,
+               "evals": kernels.evals, "reduce": kernels.reduce}[form]
+    for key in _K1_CASES[form]:
+        args = _k1_operands(form, key, gen, card)
+        before = kernels.k1_launches()
+        kernels.force_k1_columns(columns)
+        try:
+            got = wrapper(*args)
+            torch.cuda.synchronize()
+        finally:
+            kernels.force_k1_columns(0)
+        assert kernels.k1_launches()[form] == before[form] + 1
+        nb = max(a.dim() for a in args if isinstance(a, torch.Tensor)) - 1
+        plain = [kernels._plain_operand(a, card, nb)
+                 if isinstance(a, int) and not (form == "evals" and a is
+                                                 args[-1]) else a
+                 for a in args]
+        want = {"mul": kernels.mont_mul_plain, "add": kernels.add_plain,
+                "sub": kernels.sub_plain, "bind": kernels.bind_plain,
+                "evals": kernels.evals_plain,
+                "reduce": kernels.reduce_plain}[form](*plain)
+        assert got.shape == want.shape and torch.equal(got, want), key
 
 
 def _rand_field(gen, shape, card):

@@ -9,6 +9,8 @@ package's `mont_mul` takes its rolled tier and the port's wrapper takes
 its tests are in tests/test_torch_cuda.py.
 """
 
+import ctypes
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +19,7 @@ import torch
 from jolt_tpu.field import ops as jops
 from jolt_tpu.field.params import FR
 
+from jolt_tpu_torch import workload
 from jolt_tpu_torch.field import kernels
 from jolt_tpu_torch.field import ops as tops
 from jolt_tpu_torch.interop import from_jax_limbs
@@ -196,3 +199,308 @@ def test_kernel_source_constants_match_the_field():
     assert words("FR_R2_WORDS") == R * R % P
     n0 = int(re.search(r"kN0 = 0x([0-9a-f]+)u", src).group(1), 16)
     assert n0 * P % (1 << 32) == (1 << 32) - 1
+
+
+# ---- K1's forms: each plain version against the JAX package ------------
+
+from jolt_tpu.poly import dense as jdense  # noqa: E402
+
+
+def _pair(n, seed):
+    """Seeded canonical ints (edges first) as JAX and port limbs."""
+    return _both(_vals(n, seed))
+
+
+@pytest.mark.parametrize("n", [2048, 4096])
+@pytest.mark.parametrize("op", ["add", "sub"])
+def test_add_sub_plain_match_jax(op, n):
+    """add_plain / sub_plain on streaming operands, a broadcast scalar and a
+    per-row operand, against jops.add / jops.sub."""
+    (ja, ta), (jb, tb) = _pair(n, 20), _pair(n, 21)
+    plain = getattr(kernels, f"{op}_plain")
+    jf = getattr(jops, op)
+    assert tops.unpack_ints(plain(ta, tb)) == jops.unpack_ints(jf(ja, jb))
+    (js, ts) = _pair(1, 22)
+    assert (tops.unpack_ints(plain(ta, ts))
+            == jops.unpack_ints(jf(ja, jnp.broadcast_to(js, ja.shape))))
+    rows = ta.reshape(8, 2, n // 2)
+    w = tops.pack_ints([P - 1, 1], CPU)[:, :, None]            # per row
+    got = tops.unpack_ints(plain(rows, w).reshape(8, n))
+    xs = tops.unpack_ints(ta)
+    sign = 1 if op == "add" else -1
+    assert got == [(x + sign * (P - 1 if i < n // 2 else 1)) % P
+                   for i, x in enumerate(xs)]
+
+
+@pytest.mark.parametrize("r_as", ["int", "tensor"])
+@pytest.mark.parametrize("order", ["high", "low"])
+def test_bind_plain_matches_jax(order, r_as):
+    jp, tp = _pair(4096, 23)
+    r = _vals(3, 24)[2]
+    r_t = r if r_as == "int" else tops.pack_ints([r], CPU)
+    half = 2048
+    if order == "high":
+        lo, hi = tp[:, :half], tp[:, half:]
+    else:
+        lo, hi = tp[:, 0::2], tp[:, 1::2]
+    got = kernels.bind_plain(lo, hi, kernels._plain_operand(r_t, CPU, 1))
+    want = getattr(jdense, f"bind_{order}")(jp, jops.pack_ints([r]))
+    assert tops.unpack_ints(got) == jops.unpack_ints(want)
+    assert torch.equal(kernels.bind(lo, hi, r_t), got)
+
+
+@pytest.mark.parametrize("degree", [2, 3])
+def test_evals_plain_matches_jax(degree):
+    jp, tp = _pair(4096, 25)
+    got = kernels.evals_plain(tp[:, :2048], tp[:, 2048:], degree)
+    want = jdense.sumcheck_eval_points_high(jp, degree)
+    assert got.shape == (8, degree, 2048)
+    assert (tops.unpack_ints(got.reshape(8, -1))
+            == jops.unpack_ints(want.reshape(want.shape[0], -1)))
+
+
+@pytest.mark.parametrize("scale", [None, "int", "tensor"])
+@pytest.mark.parametrize("n", [2048, 4096])
+def test_reduce_plain_matches_jax(n, scale):
+    """reduce_plain of the int64 limb-plane sums, with and without a scale,
+    against jops.sum_mod followed by a product."""
+    ja, ta = _pair(n, 26)
+    s = _vals(2, 27)[1]
+    cols = kernels.u64_words(ta).sum(dim=-1, keepdim=True)
+    arg = {None: None, "int": s, "tensor": tops.pack_ints([s], CPU)}[scale]
+    got = kernels.reduce_plain(
+        cols, None if arg is None else kernels._plain_operand(arg, CPU, 1))
+    want = jops.sum_mod(ja)
+    if scale is not None:
+        want = jops.mont_mul(want, jops.pack_ints([s]))
+    assert tops.unpack_ints(got) == jops.unpack_ints(want)
+    assert torch.equal(tops.sum_mod(ta, arg), got)
+
+
+@pytest.mark.parametrize("form", kernels.FORMS)
+def test_k1_wrappers_take_plain_on_cpu_without_launching(form):
+    xs = tops.pack_ints(_vals(16, 28), CPU)
+    r = _vals(2, 29)[1]
+    cols = kernels.u64_words(xs).sum(dim=-1, keepdim=True)
+    calls = {
+        "mul": (lambda: kernels.mont_mul(xs, r),
+                lambda: kernels.mont_mul_plain(xs, tops.pack_ints([r], CPU))),
+        "add": (lambda: kernels.add(xs, xs), lambda: kernels.add_plain(xs, xs)),
+        "sub": (lambda: kernels.sub(0, xs),
+                lambda: kernels.sub_plain(torch.zeros_like(xs), xs)),
+        "bind": (lambda: kernels.bind(xs[:, 0::2], xs[:, 1::2], r),
+                 lambda: kernels.bind_plain(xs[:, 0::2], xs[:, 1::2],
+                                            tops.pack_ints([r], CPU))),
+        "evals": (lambda: kernels.evals(xs[:, :8], xs[:, 8:], 3),
+                  lambda: kernels.evals_plain(xs[:, :8], xs[:, 8:], 3)),
+        "reduce": (lambda: kernels.reduce(cols, r),
+                   lambda: kernels.reduce_plain(
+                       cols, tops.pack_ints([r], CPU))),
+    }
+    before = kernels.k1_launches()
+    got, want = calls[form][0](), calls[form][1]()
+    assert torch.equal(got, want)
+    assert kernels.k1_launches() == before
+
+
+def test_k1_wrappers_refuse_what_the_kernel_does_not_take():
+    a = tops.pack_ints(_vals(8, 30), CPU)
+    with pytest.raises(ValueError):
+        kernels.add(a, a.to("meta"))
+    with pytest.raises(TypeError):
+        kernels.sub(a, a.to(torch.int64))
+    with pytest.raises(ValueError):
+        kernels.bind(a, a, a)                 # r must be one element
+    with pytest.raises(ValueError):
+        kernels.evals(a, a, 0)
+    with pytest.raises(TypeError):
+        kernels.reduce(a)                     # the sums are int64
+
+
+# ---- K1's launch records, run by an emulator of the kernel -------------
+#
+# The CUDA kernel runs only on the card.  Here each wrapper's CUDA branch
+# runs on CPU tensors with its launch handed to `_emulate`, which reads and
+# writes memory exactly where csrc/mont_mul.cu would for that record
+# (operand kinds, strides, merged rows, the evals planes) and checks the
+# alignment that the kernel's 64-bit accesses need; its
+# arithmetic is Python ints.  So the wrapper's description of every layout
+# is held against the plain version before any launch on the card.
+
+_R_INV = pow(1 << 256, -1, P)
+_K = kernels
+
+
+def _emulate(form, out, L):
+    n0, n1, deg = L.n0, L.n1, max(L.deg, 1)
+    N = n0 * n1
+    assert 8 * deg * N < 1 << 31
+
+    def words(o, off, width=4):
+        assert off + 7 * o.sl < 1 << 31                  # 32-bit offsets
+        ctype = ctypes.c_uint32 if width == 4 else ctypes.c_uint64
+        return [ctype.from_address(o.p + width * (off + l * o.sl)).value
+                for l in range(8)]
+
+    def value(o, row, col, width=4):
+        if o.kind == _K._SCALAR:
+            ws = list(o.w)
+        else:
+            s1 = 0 if o.kind == _K._ROW else o.s1
+            off = row * o.s0 + col * s1
+            if o.kind == _K._VEC:
+                assert o.s1 == 1
+                assert col % 2 or (o.p + 4 * off) % 8 == 0
+                assert o.sl % 2 == 0
+            ws = words(o, off, width)
+        return sum(w << (32 * l) for l, w in enumerate(ws))
+
+    for row in range(n0):
+        for col in range(n1):
+            if form == "reduce":
+                x = value(L.a, row, col, width=8)
+            else:
+                x, y = value(L.a, row, col), value(L.b, row, col)
+            if form == "mul":
+                outs = [x * y * _R_INV % P]
+            elif form == "add":
+                outs = [(x + y) % P]
+            elif form == "sub":
+                outs = [(x - y) % P]
+            elif form == "bind":
+                r = value(L.c, row, col)
+                outs = [(x + (y - x) * r * _R_INV) % P]
+            elif form == "evals":
+                outs = [x] + [(y + k * (y - x)) % P for k in range(1, deg)]
+            else:
+                outs = [x % P]
+                if L.c.kind != _K._NONE:
+                    outs = [outs[0] * value(L.c, row, col) * _R_INV % P]
+            for k, v in enumerate(outs):
+                for l in range(8):
+                    addr = out.data_ptr() + 4 * (l * deg * N + k * N
+                                                 + row * n1 + col)
+                    ctypes.c_uint32.from_address(addr).value = \
+                        (v >> (32 * l)) & 0xFFFFFFFF
+
+
+def _field(shape, seed):
+    n = int(np.prod(shape[1:]))
+    return tops.pack_ints(_vals(n, seed), CPU).reshape(shape)
+
+
+def _sums(shape, seed):
+    """Exact int64 limb-plane sums of 5 field elements per entry."""
+    return kernels.u64_words(_field(tuple(shape) + (5,), seed)).sum(dim=-1)
+
+
+_S = _vals(2, 31)[1]
+
+
+def _halves(P, r):
+    h = P.shape[-1] // 2
+    return _K.bind(P[..., :h], P[..., h:], r)
+
+
+def _pairs(P, r):
+    return _K.bind(P[..., 0::2], P[..., 1::2], r)
+
+
+def _points(P, degree):
+    h = P.shape[-1] // 2
+    return _K.evals(P[..., :h], P[..., h:], degree)
+
+
+# name -> (the operands, the wrapper that takes them, the kinds of operands
+# a, b, c it must launch)
+_LAYOUTS = {
+    "mul streaming": (lambda: (_field((8, 2, 8), 1), _field((8, 2, 8), 2)),
+                      _K.mont_mul, ("VEC", "VEC", "NONE")),
+    "mul int": (lambda: (_field((8, 3, 4), 3), _S), _K.mont_mul,
+                ("VEC", "SCALAR", "NONE")),
+    "mul odd planes": (lambda: (_field((8, 15), 4), _S), _K.mont_mul,
+                       ("STRIDED", "SCALAR", "NONE")),
+    "mul per row": (lambda: (_field((8, 4, 1), 5), _field((8, 4, 6), 6)),
+                    _K.mont_mul, ("ROW", "VEC", "NONE")),
+    "mul unaligned view": (lambda: (_field((8, 12), 7)[:, 1:9],
+                                    _field((8, 8), 8)),
+                           _K.mont_mul, ("STRIDED", "VEC", "NONE")),
+    "mul broadcast copy": (lambda: (_field((8, 2, 1, 4), 9),
+                                    _field((8, 2, 3, 4), 10)),
+                           _K.mont_mul, ("VEC", "VEC", "NONE")),
+    "mul one column": (lambda: (_field((8, 5, 1), 11), _field((8, 5, 1), 12)),
+                       _K.mont_mul, ("STRIDED", "STRIDED", "NONE")),
+    "add device scalar": (lambda: (_field((8, 6), 13), _field((8, 1), 14)),
+                          _K.add, ("VEC", "ROW", "NONE")),
+    "sub neg": (lambda: (0, _field((8, 3, 2), 15)), _K.sub,
+                ("SCALAR", "VEC", "NONE")),
+    "bind high": (lambda: (_field((8, 16), 16), _S), _halves,
+                  ("VEC", "VEC", "SCALAR")),
+    "bind high rows": (lambda: (_field((8, 3, 8), 17), _S), _halves,
+                       ("VEC", "VEC", "SCALAR")),
+    "bind low": (lambda: (_field((8, 16), 19), _field((8, 1), 18)), _pairs,
+                 ("STRIDED", "STRIDED", "ROW")),
+    "bind low rows": (lambda: (_field((8, 3, 8), 20), _S), _pairs,
+                      ("STRIDED", "STRIDED", "SCALAR")),
+    "bind low odd": (lambda: (_field((8, 14), 21), _S), _pairs,
+                     ("STRIDED", "STRIDED", "SCALAR")),
+    "bind split": (lambda: (_field((8, 6), 22), _field((8, 6), 23), _S),
+                   _K.bind, ("VEC", "VEC", "SCALAR")),
+    "evals high 2": (lambda: (_field((8, 16), 24), 2), _points,
+                     ("VEC", "VEC", "NONE")),
+    "evals high 3 rows": (lambda: (_field((8, 2, 8), 25), 3), _points,
+                          ("VEC", "VEC", "NONE")),
+    "evals split 3": (lambda: (_field((8, 6), 26), _field((8, 6), 27), 3),
+                      _K.evals, ("VEC", "VEC", "NONE")),
+    "reduce": (lambda: (_sums((8, 3, 1), 28),), _K.reduce,
+               ("STRIDED", "NONE", "NONE")),
+    "reduce int scale": (lambda: (_sums((8, 3, 1), 29), _S), _K.reduce,
+                         ("STRIDED", "NONE", "SCALAR")),
+    "reduce row scale": (lambda: (_sums((8, 4, 6), 30), _field((8, 4, 1), 31)),
+                         _K.reduce, ("VEC", "NONE", "ROW")),
+}
+_KIND_NAMES = {getattr(_K, f"_{k}"): k for k in
+               ("NONE", "SCALAR", "ROW", "VEC", "STRIDED")}
+
+
+@pytest.mark.parametrize("name", sorted(_LAYOUTS))
+def test_k1_launch_record_addresses_every_layout(name, monkeypatch):
+    make, wrapper, kinds = _LAYOUTS[name]
+    args = make()
+    want = wrapper(*args)                          # the plain version
+    launched = []
+
+    def emulate(form, out, L):
+        launched.append(tuple(_KIND_NAMES[o.kind] for o in (L.a, L.b, L.c)))
+        _emulate(form, out, L)
+
+    monkeypatch.setattr(_K, "_device", lambda form, *xs: torch.device("cuda"))
+    monkeypatch.setattr(_K, "_go", emulate)
+    got = wrapper(*args)
+    assert launched == [kinds]
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+# ---- K1's bounds -------------------------------------------------------
+
+_MB = 1 << 20
+
+
+@pytest.mark.parametrize("form, key, n_bytes, mads", [
+    ("mul", ((8, _MB), (8, _MB)), 96 * _MB, 272 * _MB),
+    ("sub", ((8, _MB), "int"), 64 * _MB, 0),
+    ("bind", ((8, 1 << 17), "high", "int"), 96 << 17, 272 << 17),
+    ("bind", ((8, 1 << 17), "split", (8, 1)), (96 << 17) + 32, 272 << 17),
+    ("evals", ((8, 1 << 18), 3, "split"), 160 << 18, 0),
+    ("reduce", ((8, 20, 1 << 18), None), 96 * 20 << 18, 32 * 20 << 18),
+    ("reduce", ((8, _MB), (8, 1)), 96 * _MB + 32, (272 + 32) * _MB),
+])
+def test_k1_bound_counts_what_the_function_needs(form, key, n_bytes, mads):
+    """Each input byte read once, each output byte written once, and the
+    multiply-adds the function needs: the reduce form's folds are 32 a
+    column, plus a product only with a scale."""
+    ms, by = workload.k1_bound_ms(form, key)
+    t_bytes = n_bytes / workload.HBM_BYTES_PER_S * 1e3
+    t_ops = mads / workload.INT32_MAD_PER_S * 1e3
+    assert ms == pytest.approx(max(t_bytes, t_ops), rel=1e-12)
+    assert by == ("bytes" if t_bytes >= t_ops else "operations")

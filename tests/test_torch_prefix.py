@@ -1,12 +1,11 @@
-"""The torch port's stages 2-5 against the JAX package, on the CPU.
+"""The torch port's stages 1-5 against the JAX package, on the CPU.
 
 The fib trace of tests/test_prove_verify.py goes through the JAX package's
 stage functions (`test_torch_stage1._jax_prefix`: one accumulator, one
 transcript, `prove`'s order, every instance through the backend registry
 and `prove_scan`) and through `jolt_tpu_torch.prove_prefix(...,
-device="cpu")`.  Every `stage2..5` field of the proof and the FS-tape
-state after `stage2-reg-rw`, `stage3-reg-val` and `stage4-5-ram` must be
-equal; `verify_prefix` must accept the proof and reject it with a tampered
+device="cpu")`.  Every stage-1/1s and `stage2..5` field of the proof and
+the FS-tape state after each of the five stages must be equal; `verify_prefix` must accept the proof and reject it with a tampered
 round polynomial or opening in each stage.  Below those, the relation
 helpers of the slice meet their JAX counterparts one by one.
 
@@ -66,6 +65,20 @@ def jax_prefix(fib):
 @pytest.fixture(scope="module")
 def port_proof(fib):
     return jt.prove_prefix(fib[1], device=CPU)
+
+
+@pytest.mark.parametrize("field", ["stage1_uniskip", "stage1_polys",
+                                   "r1cs_input_openings", "shift_polys",
+                                   "shift_opening"])
+def test_stage1_field_matches_jax(port_proof, jax_prefix, field):
+    assert getattr(port_proof, field) == jax_prefix[field]
+
+
+@pytest.mark.parametrize("i,stage", [(0, "stage1-spartan"),
+                                     (1, "stage1s-shift")])
+def test_fs_tape_matches_jax(port_proof, jax_prefix, i, stage):
+    assert port_proof.fs_tape[i] == jax_prefix["fs_tape"][i]
+    assert port_proof.fs_tape[i]["stage"] == stage
 
 
 @pytest.mark.parametrize("stage", STAGES)
@@ -230,7 +243,7 @@ def test_rw_cycle_message_matches_jax(fib):
         tops.ones((st.n_entries0,), CPU), st.initial_val(),
         teq.evals(point, CPU), tops.pack_ints(ram_t.inc, CPU), rt.even_src,
         rt.odd_src, rt.has_e, rt.has_o, rt.imp_e, rt.imp_o, rt.rows,
-        tops.pack_ints([1 + g], CPU), tops.pack_ints([g], CPU))
+        (1 + g) % P, g)
     assert got.shape == (8, 3, 1)
     assert tops.unpack_ints(got.reshape(8, -1)) == jops.unpack_ints(
         want.reshape(want.shape[0], -1))
