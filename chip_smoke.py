@@ -35,8 +35,9 @@ Phases:
      held against the plain chain;
   6. the main path: the sha2-chain guest (chain=114, ~2^18 cycles) traced
      by the port's native tracer, `prove_prefix(trace, device="cuda")`
-     (stages 1-5) with K1's launch count per form and K2's read around it
-     (K2 carries the shift sumcheck, stage 1s: log2 T + 1 calls), every
+     (stages 1-6v) with K1's launch count per form and K2's read around it,
+     and per stage (K2 carries the shift sumcheck, stage 1s, and every
+     ra-virtualization instance of stage 6v: log2 T + 1 calls each), every
      K1 launch's shapes recorded (`kernels.record`) and no call of the
      plain versions' limb arithmetic, then `verify_prefix`;
      a second `prove_prefix` under torch.profiler counts the device kernels
@@ -44,7 +45,10 @@ Phases:
      largest launch shape of that run and at the one with the most work
      (launches x bound), with kernel-only times and bounds;
   7. card vs CPU: `prove_prefix` on the small fib trace gives identical
-     proofs on "cuda" and on "cpu";
+     proofs on "cuda" and on "cpu" (stages 1-6v; fib's RAM and bytecode
+     spaces fit one chunk, so it has no stage-6v instance), and one
+     `RaVirtual` instance (d = 2) on seeded chunks gives identical round
+     polynomials, openings and transcripts on both;
   8. one JSON line with every ported kernel, the card line, and the final
      `{"ok": true, "device": ...}` line.
 
@@ -72,7 +76,12 @@ SEED = 1234
 K2_LOG_T = 18                # K2's full size: the main path's 2^18
 K2_SMALL_LOG_T = 14          # the round-step entry point's own size
 PREFIX_STAGES = {"witness-extraction", "stage1-spartan", "stage1s-shift",
-                 "stage2-reg-rw", "stage3-reg-val", "stage4-5-ram"}
+                 "stage2-reg-rw", "stage3-reg-val", "stage4-5-ram",
+                 "stage5i-instr-lookups", "stage6-bytecode",
+                 "stage6v-ra-virtual"}
+# the d = 2 ra-virtualization instance held card against CPU (phase 7)
+RA_VIRTUAL_LOG_T = 14
+RA_VIRTUAL_LOG_K = 13
 
 FIB_LAYOUT = dict(max_input_size=64, max_output_size=64)
 FIB = """
@@ -422,6 +431,9 @@ def main():
     sys.path.insert(0, str(ROOT))
     from jolt_tpu_torch import PublicIO, prove_prefix, verify_prefix
     from jolt_tpu_torch.field import kernels, ops
+    from jolt_tpu_torch.prover.prover import BC_RA_SOURCES, RAM_RA_SOURCES
+    from jolt_tpu_torch.relations.ra_virtual import (RaVirtual,
+                                                     chunk_streams, d_chunks)
     from jolt_tpu_torch.riscv.emulator import MemoryLayout
     from jolt_tpu_torch.sumcheck.engine import (BatchedSumcheck,
                                                 OpeningAccumulator)
@@ -712,7 +724,7 @@ def main():
         setattr(kernels, name, counted(name, fn))
     try:
         t0 = time.perf_counter()
-        proof, stage_s, stage_lines = timed_stages(
+        proof, stage_s, stage_lines, stage_launches = timed_stages(
             lambda: prove_prefix(tr, device="cuda"))
         t_prove = time.perf_counter() - t0
     finally:
@@ -730,11 +742,23 @@ def main():
     check(len(records) == launches, "K1's launch record missed launches")
     check(not plain_calls, "torch limb arithmetic ran on the card's path: "
           f"{dict(plain_calls)}")
-    # stage 1s: the first message, log T - 1 bind + message passes, the
-    # last bind
-    check(k2_launches == log_t + 1,
+    # stage 1s and each ra-virtualization instance of stage 6v (one per
+    # full-ra claim of a space wider than one chunk): the first message,
+    # log T - 1 bind + message passes, the last bind
+    n6v = sum(len(src) for log_k, src in ((proof.ram_log_K, RAM_RA_SOURCES),
+                                          (proof.bytecode_log_K,
+                                           BC_RA_SOURCES))
+              if d_chunks(log_k) == 2)
+    check(all(d_chunks(k) <= 2 for k in (proof.ram_log_K,
+                                          proof.bytecode_log_K)),
+          "a stage-6v instance has more than 3 factors: off K2")
+    check(k2_launches == (1 + n6v) * (log_t + 1),
           f"K2 launched {k2_launches} times on the prefix path (want "
-          f"{log_t + 1}: the shift sumcheck's {log_t} rounds)")
+          f"{(1 + n6v) * (log_t + 1)}: the shift sumcheck's and {n6v} "
+          f"stage-6v instances' {log_t} rounds each)")
+    check(stage_launches["stage1s-shift"]["k2"] == log_t + 1
+          and stage_launches["stage6v-ra-virtual"]["k2"]
+          == n6v * (log_t + 1), f"K2 per stage: {stage_launches}")
     check(set(stage_s) == PREFIX_STAGES, f"stage lines: {stage_s}")
     check([e["stage"] for e in proof.fs_tape]
           == [k for k in stage_s if k != "witness-extraction"],
@@ -751,8 +775,13 @@ def main():
           + ", ".join(f"{k} {v:.3f}s" for k, v in stage_s.items())
           + f"), peak allocated {peak / 2**30:.3f} GiB, K1 launches "
           f"{launches} {k1_counts}, {len(shapes)} launch shapes, K2 launches "
-          f"{k2_launches} (stage 1s, {log_t} rounds); verify_prefix "
-          f"accepted in {t_verify:.3f}s", flush=True)
+          f"{k2_launches} (stage 1s and {n6v} stage-6v instances, {log_t} "
+          f"rounds each; RAM log K {proof.ram_log_K}, bytecode log K "
+          f"{proof.bytecode_log_K}); verify_prefix accepted in "
+          f"{t_verify:.3f}s", flush=True)
+    for label, n in stage_launches.items():
+        print(f"[path] launches in {label}: K1 {sum(n['k1'].values())} "
+              f"{n['k1']}, K2 {n['k2']}", flush=True)
 
     # the device kernels of a second run, by name: those of neither kernel
     prove_prefix(tr, device="cuda")           # warm, as the first run was
@@ -819,6 +848,33 @@ def main():
           "verify_prefix rejected the fib proof")
     print(f"[card-vs-cpu] fib ({fib.length} cycles): identical PrefixProof; "
           f"states {[e['state'][:16] for e in on_card.fs_tape]}", flush=True)
+    # stage 6v's instance (d = 2: three factors on K2) on seeded chunks; the
+    # claim is any value, since only card == CPU is checked here
+    rng = np.random.default_rng(SEED)
+    n_v = 1 << RA_VIRTUAL_LOG_T
+    idx = rng.integers(0, 1 << RA_VIRTUAL_LOG_K, n_v)
+    r_cyc = [int(x) for x in rng.integers(0, 1 << 62, RA_VIRTUAL_LOG_T)]
+    r_addr = [int(x) for x in rng.integers(0, 1 << 62, RA_VIRTUAL_LOG_K)]
+    chunks = chunk_streams(idx, RA_VIRTUAL_LOG_K)
+    check(len(chunks) == 2, "the seeded ra-virtualization is not d = 2")
+    runs = {}
+    for where in ("cuda", "cpu"):
+        inst = RaVirtual(chunks, RA_VIRTUAL_LOG_K, r_cyc, r_addr, 12345,
+                         ("ram_ra", 0), device=where)
+        acc, transcript = OpeningAccumulator(), Blake2bTranscript(b"6v")
+        kernels.product_round.launches = 0
+        polys, _ = BatchedSumcheck.prove([inst], acc, transcript)
+        runs[where] = (polys, inst.final_openings, acc.openings,
+                       transcript.state, kernels.product_round.launches)
+    check(runs["cuda"][:4] == runs["cpu"][:4],
+          "RaVirtual differs between cuda and cpu")
+    check(runs["cuda"][4] == RA_VIRTUAL_LOG_T + 1,
+          f"RaVirtual launched K2 {runs['cuda'][4]} times in "
+          f"{RA_VIRTUAL_LOG_T} rounds")
+    print(f"[card-vs-cpu] RaVirtual d=2 (log K {RA_VIRTUAL_LOG_K}, T = "
+          f"2^{RA_VIRTUAL_LOG_T}): identical round polys, openings and "
+          f"transcript; K2 launches on the card {runs['cuda'][4]}",
+          flush=True)
 
     # ---- 8. results -------------------------------------------------------
     print(f"[total] {time.perf_counter() - t_start:.1f}s", flush=True)
@@ -851,7 +907,11 @@ def main():
                   for (nf, order), t in k2_times.items()],
         "message_bind_small": k2_small,
         "round_step_launches": k2_round_launches,
-        "product_sumcheck_launches": k2_sumcheck_launches}]}))
+        "product_sumcheck_launches": k2_sumcheck_launches,
+        "stage6v_instances": n6v, "ram_log_K": proof.ram_log_K,
+        "bytecode_log_K": proof.bytecode_log_K,
+        "launches_by_stage": {k: v["k2"] for k, v in
+                              stage_launches.items()}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

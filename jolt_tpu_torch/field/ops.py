@@ -137,6 +137,24 @@ def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return sum_mod(mont_mul(a, b))
 
 
+def segment_sum_mod(a: torch.Tensor, ids: torch.Tensor,
+                    num_segments: int) -> torch.Tensor:
+    """Segment sum over the LAST axis: out[..., s] = sum_{i: ids[i]=s}
+    a[..., i] -> (..., num_segments), exact mod p and order-free.
+
+    Each 32-bit limb plane sums exactly in int64 by `index_add_` (integer
+    atomics on the card: deterministic), then one `reduce_cols` (K1's
+    reduce form on the card) finishes mod p; its contract bounds a segment
+    at 2^31 terms, which the whole axis stays under."""
+    if a.shape[-1] >= 1 << 31:
+        raise ValueError("segment_sum_mod: more than 2^31 terms overflow "
+                         "int64 limbs")
+    cols = torch.zeros(a.shape[:-1] + (num_segments,), dtype=torch.int64,
+                       device=a.device)
+    cols.index_add_(a.dim() - 1, ids.to(a.device), u64_words(a))
+    return reduce_cols(cols)
+
+
 # ---------------------------------------------------------------------------
 # host <-> device conversion of Python ints
 # ---------------------------------------------------------------------------

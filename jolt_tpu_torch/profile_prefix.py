@@ -7,11 +7,21 @@ sha2-chain guest at chain=114, ~2^18 cycles), runs `prove_prefix` once to
 warm up (kernel builds, allocator), then once under `torch.profiler`, and
 prints one JSON line: the wall time of each stage (inflated by the
 profiler's own cost), the summed device time of all kernels and copies, the
-device's busy share of the wall time, K1's launches and device time per
-form (`k1_mul`, .., `k1_reduce`), K2's launches and device time, K1's
-kernel-only time per launch shape beside that shape's bound, the device
-kernels that are neither K1 nor K2, and the ten operations with the most
-device time.
+device's busy share of the wall time, and per stage (witness extraction,
+s1 ... s6v) its device time, busy share and K1 (per form) and K2
+launches; K1's launches and device time per form (`k1_mul`, ..,
+`k1_reduce`), K2's launches and device time, K1's kernel-only time per
+launch shape beside that shape's bound, the device kernels that are
+neither K1 nor K2, and the ten operations with the most device time.  A
+third run under `cProfile` gives the host's split: the cumulative seconds
+of the port's functions that take the most (`host_top`; the suffix
+evaluation's worker threads are not profiled, their wait is in their
+caller).
+
+A stage's device time is that of the kernels and copies that start between
+the end of the stage before and its own end (the "[prove] <label>" marks
+of the prover's stage timer); every stage ends in a blocking copy, so its
+device work does not run into the next.
 
 K1's launches are matched to their shapes by order: every K1 launch
 appends its form and operand shapes to `kernels.record`, and the card runs
@@ -22,8 +32,10 @@ per-shape times; its `traced` count says so.
 
 from __future__ import annotations
 
+import cProfile
 import collections
 import json
+import pstats
 import time
 
 import torch
@@ -62,15 +74,24 @@ def main() -> None:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            _, stages, _ = timed_stages(run)
+            _, stages, _, stage_launches = timed_stages(run)
             wall = time.perf_counter() - t0
     finally:
         records, kernels.record = kernels.record, None
+    # each stage's end on the profiler's clock
+    ends = sorted((e.time_range.start, e.name[len("[prove] "):])
+                  for e in prof.events()
+                  if e.device_type == DeviceType.CPU
+                  and e.name.startswith("[prove] "))
+    stage_us = collections.Counter()
     # kernels and copies on the card (one stream: their times do not overlap)
     by_name = {}
     k1_events = collections.defaultdict(list)
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
+            label = next((lb for t, lb in ends if e.time_range.start <= t),
+                         "after the last stage")
+            stage_us[label] += e.time_range.elapsed_us()
             c, us = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (c + 1, us + e.time_range.elapsed_us())
             form = _k1_form(e.name)
@@ -84,6 +105,7 @@ def main() -> None:
               and not any(k in r[0] for k in K2_KERNELS)]
     # K1 per form, and per launch shape within each form
     launches = kernels.k1_launches()
+    k2_calls = kernels.product_round.launches
     per_shape = collections.defaultdict(lambda: [0, 0.0])
     k1_forms = {}
     for form in kernels.FORMS:
@@ -107,16 +129,30 @@ def main() -> None:
                           "device_s": us / 1e6, "mean_ms": mean_ms,
                           "bound_ms": bound, "bound_by": by,
                           "share_of_bound": bound / mean_ms})
+    # the host's split, from a third run under cProfile
+    host = cProfile.Profile()
+    host.runcall(run)
+    host_top = [
+        {"function": f"{file.split('jolt_tpu_torch/')[-1]}:{line}({name})",
+         "calls": nc, "cum_s": ct}
+        for (file, line, name), (_, nc, _, ct, _) in sorted(
+            pstats.Stats(host).stats.items(), key=lambda kv: -kv[1][3])
+        if "jolt_tpu_torch" in file][:40]
     print(json.dumps({
         "card": card_line(),
         "cycles": trace.length, "padded_length": trace.padded_length,
         "wall_s": wall, "stage_s": stages,
         "device_busy_s": device_us / 1e6,
         "device_busy_share": device_us / 1e6 / wall,
+        "stages": {label: {
+            "wall_s": stages.get(label), "device_s": stage_us[label] / 1e6,
+            "busy_share": (stage_us[label] / 1e6 / stages[label]
+                           if stages.get(label) else None),
+            **stage_launches.get(label, {})} for _, label in ends},
         "k1_launches": sum(launches.values()),
         "k1_device_s": sum(f["device_s"] for f in k1_forms.values()),
         "k1_forms": k1_forms,
-        "k2_calls": kernels.product_round.launches,
+        "k2_calls": k2_calls,
         "k2_kernel_launches": sum(c for _, c, _ in k2_rows),
         "k2_device_s": sum(us for _, _, us in k2_rows) / 1e6,
         "other_kernels": sum(c for k, c, _ in others if "Memcpy" not in k
@@ -126,6 +162,7 @@ def main() -> None:
                            for k, c, us in rows[:10]],
         "top_other_ops": [{"op": k[:80], "count": c, "device_s": us / 1e6}
                           for k, c, us in others[:10]],
+        "host_top": host_top,
     }))
 
 

@@ -12,6 +12,9 @@ no zk, no committed program image), then
   3   registers Val evaluation            (Twist prefix-sum via LT)
   4   RAM read/write checking + raf       (sparse Twist, batched)
   5   RAM Val evaluation + output check   (batched)
+  5i  instruction-execution read-raf Shout over 2^128
+  6   bytecode read-raf + register rafs + lookup-flag columns (batched)
+  6v  RAM/bytecode ra virtualization to committed 8-bit chunk selectors
 
 Later stages extend this function into the port's full `prove`.
 """
@@ -24,30 +27,54 @@ import os
 import time
 from typing import Dict, List
 
+import numpy as np
 import torch
 
 from ..config import ProofConfig
-from ..relations.ram_sparse import (RamPairSchedule, SparseRamOutputCheck,
+from ..field import kernels, ops
+from ..field.params import FR
+from ..lookups import tables as LT
+from ..poly import eq
+from ..relations.bytecode import CLAIM_COLUMNS
+from ..relations.instruction_read_raf import InstructionReadRaf
+from ..relations.ra_virtual import RaVirtual, chunk_streams
+from ..relations.ram_sparse import (RamPairSchedule, SparseOneHotTableEval,
+                                    SparseRamOutputCheck,
                                     SparseRamRafEvaluation,
                                     SparseRamReadWriteChecking,
                                     SparseRamValEvaluation,
                                     SparseRegistersReadWriteChecking,
-                                    SparseRegistersValEvaluation)
-from ..relations.shift import ShiftSumcheck, shift_column_values
+                                    SparseRegistersValEvaluation,
+                                    combined_table_dev, index_table)
+from ..relations.shift import (SHIFT_COLUMNS, ShiftSumcheck,
+                               shift_column_values)
 from ..relations.spartan_outer import (SpartanOuterProver, num_stage1_rounds,
                                        prove_uniskip)
 from ..sumcheck.engine import BatchedSumcheck, OpeningAccumulator
 from ..tracer.trace import Trace
 from ..transcript import Blake2bTranscript
 from ..witness.bytecode import extract_bytecode_witness
+from ..witness.instruction_lookups import (
+    D as LK_D, extract_instruction_lookup_witness)
 from ..witness.r1cs_inputs import extract_r1cs_inputs
 from ..witness.ram import extract_ram_log
 from ..witness.registers import extract_register_log
 
+P = FR.modulus
+
+LOOKUP_FLAG_COLUMNS = ([(f"flag_{n}", f"lk_{n}") for n in LT.TABLE_NAMES]
+                       + [("raf", "lk_raf")])
+
+# full-ra virtual claims consumed by the ra-virtualization stage, in order
+RAM_RA_SOURCES = [("ram", "ra"), ("ram_raf", "ra"),
+                  ("ram_val_eval", "ra"), ("ram_output", "ra")]
+BC_RA_SOURCES = [("bytecode", "ra"), ("bytecode_flags", "ra"),
+                 ("bytecode_shift", "ra")]
+
 
 @dataclasses.dataclass
 class PrefixProof:
-    """The stage 1-5 parts of the wire-format proof, named as in the JAX
+    """The stage 1-6v parts of the wire-format proof, named as in the JAX
     package's `JoltProof`, plus the transcript checkpoints."""
 
     trace_length: int          # unpadded
@@ -66,12 +93,20 @@ class PrefixProof:
     stage5_polys: List[List[int]]      # RAM Val evaluation + output check
     stage5_openings: Dict[str, int]    # ra/inc + oc_ra/oc_inc
     ram_log_K: int
+    stage5i_polys: List[List[int]]     # instruction read-raf Shout
+    stage5i_openings: Dict[str, int]   # ra0..ra15, flag_<table>, raf_flag
+    stage6_polys: List[List[int]]      # bytecode read-raf + register rafs
+    stage6_openings: Dict[str, int]    # bytecode ra + register one-hot opens
+    stage6_claims: List[int]           # virtual rd/rs1/rs2 index claims
     bytecode_log_K: int
+    stage6v_polys: List[List[int]]     # ram/bytecode ra virtualization
+    stage6v_openings: Dict[str, int]   # per-(source, chunk) openings
     # prover-chosen protocol configuration (config.ProofConfig wire dict)
     config: Dict[str, int]
     # Fiat-Shamir tape: {"stage", "n_rounds", "state" (hex)} after each of
-    # stage1-spartan, stage1s-shift, stage2-reg-rw, stage3-reg-val and
-    # stage4-5-ram
+    # stage1-spartan, stage1s-shift, stage2-reg-rw, stage3-reg-val,
+    # stage4-5-ram, stage5i-instr-lookups, stage6-bytecode and
+    # stage6v-ra-virtual
     fs_tape: List[dict]
 
 
@@ -170,37 +205,55 @@ def _tape_entry(label: str, transcript: Blake2bTranscript) -> dict:
 class _StageTimer:
     """JOLT_TPU_STAGE_TIMING=1 prints one line per finished stage, as the
     JAX package's prover does: `[prove] <label>: <seconds>s`, plus the
-    device's peak allocated memory on CUDA.  Every stage ends in a
-    device-to-host copy, so the host clock covers its device work."""
+    device's peak allocated memory on CUDA and the stage's kernel launches
+    (`k1=<form>:<n>,..` for each K1 form, `k2=<n>` K2 calls).  Each stage's
+    end is also a zero-length `torch.profiler` range "[prove] <label>", so
+    a profile can split device time by stage (`profile_prefix.py`).  Every
+    stage ends in a device-to-host copy, so the host clock covers its
+    device work."""
 
     def __init__(self, device: torch.device):
         self.on = bool(os.environ.get("JOLT_TPU_STAGE_TIMING"))
         self.device = device
+        self.launches = self._launches()
         self.t0 = time.perf_counter()
+
+    @staticmethod
+    def _launches() -> Dict[str, int]:
+        return {**kernels.k1_launches(), "k2": kernels.product_round.launches}
 
     def mark(self, label: str) -> None:
         now = time.perf_counter()
         if self.on:
+            with torch.profiler.record_function(f"[prove] {label}"):
+                pass
             mem = ""
             if self.device.type == "cuda":
                 peak = torch.cuda.max_memory_allocated(self.device)
                 mem = f" peak_mem={peak / 2**30:.3f}G"
-            print(f"[prove] {label}: {now - self.t0:.4f}s{mem}", flush=True)
+            n = self._launches()
+            d = {k: n[k] - self.launches[k] for k in n}
+            self.launches = n
+            k1 = ",".join(f"{f}:{d[f]}" for f in kernels.FORMS)
+            print(f"[prove] {label}: {now - self.t0:.4f}s{mem} k1={k1} "
+                  f"k2={d['k2']}", flush=True)
         self.t0 = now
 
 
 def prove_prefix(trace: Trace, device="cuda") -> PrefixProof:
-    """Prove stages 1 through 5 of the trace on `device` (the card unless
+    """Prove stages 1 through 6v of the trace on `device` (the card unless
     the caller asks for the CPU)."""
     device = resolve_device(device)
     require_no_advice(trace.memory_layout)
     timer = _StageTimer(device)
-    # ---- witness extraction (host), as far as stages 1-5 need it --------
+    # ---- witness extraction (host), as far as stages 1-6v need it -------
     inputs = extract_r1cs_inputs(trace)
     reg_wit = extract_register_log(trace)
     ram_wit = extract_ram_log(trace)
     bc_wit = extract_bytecode_witness(trace)
+    lk_wit = extract_instruction_lookup_witness(trace, inputs)
     log_T = trace.log_T
+    T_pad = trace.padded_length
     timer.mark("witness-extraction")
 
     transcript = Blake2bTranscript(b"Jolt")
@@ -308,6 +361,130 @@ def prove_prefix(trace: Trace, device="cuda") -> PrefixProof:
     del ram_ve, ram_oc, ram_sched
     finish("stage4-5-ram")
 
+    # ---- Stage 5i: instruction-execution read-raf Shout ------------------
+    # Binds LookupOutput / lookup operands to the table MLEs over the
+    # 2^128 interleaved-operand index space.
+    gamma_lk = transcript.challenge_scalar()
+    lk = InstructionReadRaf(
+        lk_wit, gamma_lk, r_cycle,
+        accumulator.get_claim(("r1cs_input", "lookup_output")),
+        accumulator.get_claim(("r1cs_input", "left_lookup_operand")),
+        accumulator.get_claim(("r1cs_input", "right_lookup_operand")),
+        device)
+    stage5i_polys, r5i = BatchedSumcheck.prove([lk], accumulator,
+                                               transcript)
+    r_lk_cyc = r5i[LT.LOG_K:]
+    stage5i_openings = {f"ra{i}": lk.final_openings[f"ra{i}"]
+                        for i in range(LK_D)}
+    for t, tname in enumerate(LT.TABLE_NAMES):
+        stage5i_openings[f"flag_{tname}"] = lk.flag_claims[t]
+    stage5i_openings["raf_flag"] = lk.raf_flag_claim
+    del lk
+    finish("stage5i-instr-lookups")
+
+    # ---- Stage 6: bytecode read-raf + register index rafs (batched) ------
+    # The rd/rs1/rs2 index streams are proven from BOTH sides against the
+    # same virtual claims: bytecode side (public decoded columns) and
+    # register side (the one-hot access matrices).  A second bytecode
+    # instance proves the lookup-table / raf flag claims of stage 5i, a
+    # third the shift sumcheck's output claim.
+    gamma_bc = transcript.challenge_scalar()
+    idx_cols = ops.from_u32(torch.from_numpy(np.asarray(
+        [reg_wit.rd_eff, reg_wit.rs1_eff, reg_wit.rs2_eff],
+        dtype=np.int32)).to(device))                            # (8, 3, T)
+    idx_claims = ops.unpack_ints(ops.dot(
+        eq.evals(r_cycle, device)[:, None, :], idx_cols).reshape(8, -1))
+    del idx_cols
+    bc_claims = [accumulator.get_claim(("r1cs_input", name))
+                 for name, _ in CLAIM_COLUMNS[:-3]] + idx_claims
+
+    def _combine(claims):
+        acc, g = 0, 1
+        for c in claims:
+            acc = (acc + g * c) % P
+            g = g * gamma_bc % P
+        return acc
+
+    zeros_T = np.zeros(T_pad, dtype=np.uint64)
+    bc_sched = RamPairSchedule(bc_wit.pc_idx, zeros_T, zeros_T, bc_wit.K,
+                               device=device)
+
+    def _bc_table(gamma, columns=None):
+        return combined_table_dev(bc_wit.table, bc_wit.entry, bc_wit.K,
+                                  gamma, columns=columns, device=device)
+    bc = SparseOneHotTableEval(bc_sched, bc_wit.log_K, _bc_table(gamma_bc),
+                               r_cycle, _combine(bc_claims),
+                               ("bytecode", "ra"))
+    flag_claims = [accumulator.get_claim(("instr_flag", n))
+                   for n in LT.TABLE_NAMES]
+    flag_claims.append(accumulator.get_claim(("instr_flag", "raf")))
+    bc_flags = SparseOneHotTableEval(
+        bc_sched, bc_wit.log_K, _bc_table(gamma_bc, LOOKUP_FLAG_COLUMNS),
+        r_lk_cyc, _combine(flag_claims), ("bytecode_flags", "ra"))
+    # shift-output claim: the gamma_sh-combined current-row columns at the
+    # shift sumcheck's bound point reduce to the same public table
+    bc_shift = SparseOneHotTableEval(
+        bc_sched, bc_wit.log_K, _bc_table(gamma_sh, SHIFT_COLUMNS),
+        list(accumulator.get_point(("shift", "cols"))),
+        accumulator.get_claim(("shift", "cols")), ("bytecode_shift", "ra"))
+    reg_idx_tab = index_table(128, device)
+    raf_insts = []
+    for idx_stream, claim, name in ((reg_wit.rd_eff, idx_claims[0], "wa"),
+                                    (reg_wit.rs1_eff, idx_claims[1], "ra1"),
+                                    (reg_wit.rs2_eff, idx_claims[2], "ra2")):
+        sched_p = RamPairSchedule(idx_stream, zeros_T, zeros_T, 128,
+                                  device=device)
+        raf_insts.append(SparseOneHotTableEval(
+            sched_p, 7, reg_idx_tab, r_cycle, claim,
+            ("registers_raf", name), opening_key="m"))
+    raf_rd, raf_rs1, raf_rs2 = raf_insts
+    stage6_polys, _ = BatchedSumcheck.prove(
+        [bc, bc_flags, bc_shift, raf_rd, raf_rs1, raf_rs2], accumulator,
+        transcript)
+    stage6_openings = {"ra": bc.final_openings["ra"],
+                       "flags_ra": bc_flags.final_openings["ra"],
+                       "shift_ra": bc_shift.final_openings["ra"],
+                       "raf_wa": raf_rd.final_openings["m"],
+                       "raf_ra1": raf_rs1.final_openings["m"],
+                       "raf_ra2": raf_rs2.final_openings["m"]}
+    del bc, bc_flags, bc_shift, raf_rd, raf_rs1, raf_rs2, raf_insts
+    del bc_sched, reg_idx_tab
+    finish("stage6-bytecode")
+
+    # ---- Stage 6v: RAM/bytecode ra virtualization -------------------------
+    # Every full-ra opening accumulated by stages 4-6 reduces to openings of
+    # the d committed 8-bit chunk selectors (relations/ra_virtual.py).
+    # Spaces that already fit one chunk (log_K <= 8) re-index the claim
+    # directly: the 256-row committed MLE at the zero-padded point IS the
+    # full-ra MLE.
+    insts6v = []
+    for prefix, idx, log_Kv, sources in (
+            ("ram_ra", ram_wit.cols, ram_wit.log_K, RAM_RA_SOURCES),
+            ("bc_ra", bc_wit.pc_idx, bc_wit.log_K, BC_RA_SOURCES)):
+        chunks = [torch.from_numpy(c).to(device)
+                  for c in chunk_streams(np.asarray(idx), log_Kv)]
+        for t, oid in enumerate(sources):
+            pt, cl = accumulator.openings[oid]
+            r_cyc_v, r_addr_v = list(pt[:log_T]), list(pt[log_T:])
+            if len(chunks) == 1:
+                accumulator.insert((f"{prefix}_virt", (t, 0)),
+                                   r_cyc_v + r_addr_v, cl)
+            else:
+                insts6v.append(RaVirtual(chunks, log_Kv, r_cyc_v, r_addr_v,
+                                         cl, (prefix, t), device))
+        del chunks
+    stage6v_polys: List[List[int]] = []
+    stage6v_openings: Dict[str, int] = {}
+    if insts6v:
+        stage6v_polys, _ = BatchedSumcheck.prove(insts6v, accumulator,
+                                                 transcript)
+        for inst in insts6v:
+            prefix, t = inst.tag
+            for i, v in enumerate(inst.final_openings):
+                stage6v_openings[f"{prefix}_{t}_{i}"] = v
+    del insts6v
+    finish("stage6v-ra-virtual")
+
     return PrefixProof(
         trace_length=trace.length,
         padded_length=trace.padded_length,
@@ -325,7 +502,14 @@ def prove_prefix(trace: Trace, device="cuda") -> PrefixProof:
         stage5_polys=stage5_polys,
         stage5_openings=stage5_openings,
         ram_log_K=ram_wit.log_K,
+        stage5i_polys=stage5i_polys,
+        stage5i_openings=stage5i_openings,
+        stage6_polys=stage6_polys,
+        stage6_openings=stage6_openings,
+        stage6_claims=list(idx_claims),
         bytecode_log_K=bc_wit.log_K,
+        stage6v_polys=stage6v_polys,
+        stage6v_openings=stage6v_openings,
         config=proof_config.as_dict(),
         fs_tape=fs_tape,
     )

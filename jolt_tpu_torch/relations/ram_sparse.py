@@ -33,6 +33,8 @@ Relations (all degree <= 3):
   RAM raf:       sum eq(r_cyc,j) ra(k,j) A(k)          (A public affine)
   RAM val eval:  sum LT(j,r_cyc) inc(j) ra(k,j) eqA(r_addr,k)
   output check:  sum inc(j) ra(k,j) W(k)               (W public sparse)
+  one-hot table: sum eq(r_cyc,j) M(k,j) TAB(k)         (TAB public dense:
+                 the register rafs and the bytecode read-raf of stage 6)
 
 In the address phase every relation's remaining sum carries one fully bound
 cycle factor (EQ[:, :1], LT*INC or INC[:, :1]).  The JAX host engine scales
@@ -650,6 +652,73 @@ class SparseRamOutputCheck(_SparseRamBase):
 
 
 # ---------------------------------------------------------------------------
+# generic one-hot x public-table relation (registers raf, bytecode read-raf)
+# ---------------------------------------------------------------------------
+
+class SparseOneHotTableEval(_SparseRamBase):
+    """claim = sum_{k,j} eq(r_cycle,j) * M(k,j) * TAB(k) for a one-hot M
+    given by its per-cycle index stream and a PUBLIC dense table TAB.
+
+    Covers the register raf instances (TAB(k) = k) and the bytecode
+    read-raf Shout (TAB = gamma-combined decoded-program columns,
+    `zkvm/bytecode/read_raf_checking.rs`).  TAB_K lives on the schedule's
+    device."""
+
+    def __init__(self, sched: RamPairSchedule, log_K: int,
+                 TAB_K: torch.Tensor, r_cycle: Sequence[int], claim: int,
+                 opening_id, opening_key: str = "ra"):
+        super().__init__(sched, log_K)
+        self.claim = claim % P
+        self.EQ = eq.evals([x % P for x in r_cycle], self.device)
+        self.TAB_K = TAB_K
+        self.opening_id = opening_id
+        self.opening_key = opening_key
+        self._percol = self._col_consts(TAB_K)
+
+    def input_claim(self, accumulator: OpeningAccumulator) -> int:
+        return self.claim
+
+    def _cycle_message(self, t: int, rnd: _Round) -> torch.Tensor:
+        return _prod_cycle_message(self.RA, [self.EQ], self._percol[t],
+                                   rnd.even_src, rnd.odd_src, rnd.has_e,
+                                   rnd.has_o, rnd.rows)
+
+    def _cycle_bind(self, rnd: _Round, r: int) -> None:
+        self.EQ = dense.bind_low(self.EQ, r)
+
+    def _addr_message(self, scale) -> torch.Tensor:
+        return _prod_addr_message(self.RA_K, self.TAB_K, scale)
+
+    def _addr_bind(self, r: int) -> None:
+        self.TAB_K = dense.bind_high(self.TAB_K, r)
+
+    def _addr_scale(self) -> torch.Tensor:
+        return self.EQ[:, :1]
+
+    def finalize(self) -> None:
+        self.final_openings = _finals(**{self.opening_key: self.RA_K})
+
+    def cache_openings(self, accumulator: OpeningAccumulator,
+                       r_slice: Sequence[int]) -> None:
+        r_cyc, r_addr = _norm_split(r_slice, self.log_T)
+        accumulator.insert(self.opening_id, r_cyc + r_addr,
+                           self.final_openings[self.opening_key])
+
+
+def index_table(K: int, device="cuda") -> torch.Tensor:
+    """TAB(k) = k, a device field tensor (registers raf)."""
+    return _u64_field(np.arange(K, dtype=np.uint64), device)
+
+
+def combined_table_dev(table, entry: int, K: int, gamma: int,
+                       columns=None, device="cuda") -> torch.Tensor:
+    """Device table for the bytecode read-raf (bytecode.py combined_table)."""
+    from .bytecode import combined_table
+    return ops.pack_ints(combined_table(table, entry, K, gamma, columns),
+                         device)
+
+
+# ---------------------------------------------------------------------------
 # registers: read/write checking (3 ports) + Val evaluation
 # ---------------------------------------------------------------------------
 
@@ -818,7 +887,7 @@ class SparseRamOutputCheckVerifier(_SparseNorm, RamOutputCheckVerifier):
         return w_eval * o["ra"] % P * o["inc"] % P
 
 
-class _RegistersVerifier(_SparseNorm, SumcheckInstance):
+class _SparseVerifier(_SparseNorm, SumcheckInstance):
     degree = 3
 
     @property
@@ -832,7 +901,7 @@ class _RegistersVerifier(_SparseNorm, SumcheckInstance):
         raise NotImplementedError("verifier instance")
 
 
-class SparseRegistersReadWriteCheckingVerifier(_RegistersVerifier):
+class SparseRegistersReadWriteCheckingVerifier(_SparseVerifier):
     def __init__(self, log_T: int, gamma: int, r_cycle: Sequence[int],
                  claims: Sequence[int], openings: dict):
         self.log_T = log_T
@@ -857,7 +926,7 @@ class SparseRegistersReadWriteCheckingVerifier(_RegistersVerifier):
         return eq.eq_int(self.r_cycle, r_cyc) * inner % P
 
 
-class SparseRegistersValEvaluationVerifier(_RegistersVerifier):
+class SparseRegistersValEvaluationVerifier(_SparseVerifier):
     def __init__(self, log_T: int, r_addr: Sequence[int],
                  r_cyc: Sequence[int], val_claim: int, openings: dict):
         self.log_T = log_T
@@ -877,3 +946,60 @@ class SparseRegistersValEvaluationVerifier(_RegistersVerifier):
         lt_eval = lt.lt_point_int(r_cyc_new, self.r_cyc)
         eq_addr = eq.eq_int(self.r_addr, r_addr_new)
         return lt_eval * eq_addr % P * o["wa"] % P * o["inc"] % P
+
+
+def index_mle_eval(r_addr) -> int:
+    """B(r) for B(k) = k over the register space (big-endian)."""
+    n = len(r_addr)
+    acc = 0
+    for i, rb in enumerate(r_addr):
+        acc = (acc + (1 << (n - 1 - i)) * rb) % P
+    return acc
+
+
+class SparseRegistersRafVerifier(_SparseVerifier):
+    def __init__(self, log_T: int, r_cycle, index_claim: int,
+                 m_opening: int):
+        self.log_T = log_T
+        self.log_K = REG_LOG_K
+        self.r_cycle = list(r_cycle)
+        self.index_claim = index_claim
+        self.m_opening = m_opening
+
+    def input_claim(self, accumulator: OpeningAccumulator) -> int:
+        return self.index_claim % P
+
+    def expected_output_claim(self, accumulator: OpeningAccumulator,
+                              r: Sequence[int]) -> int:
+        r_cyc, r_addr = self._split(r)
+        return (eq.eq_int(self.r_cycle, r_cyc) * self.m_opening % P
+                * index_mle_eval(r_addr) % P)
+
+
+class SparseBytecodeReadRafVerifier(_SparseVerifier):
+    def __init__(self, log_T: int, log_K: int, gamma: int,
+                 r_cycle: Sequence[int], claims: Sequence[int],
+                 program, openings: dict, columns=None):
+        self.log_T, self.log_K = log_T, log_K
+        self.gamma = gamma
+        self.r_cycle = list(r_cycle)
+        self.claims = list(claims)
+        self.program = program
+        self.openings = openings
+        self.columns = columns
+
+    def input_claim(self, accumulator: OpeningAccumulator) -> int:
+        acc, g = 0, 1
+        for c in self.claims:
+            acc = (acc + g * c) % P
+            g = g * self.gamma % P
+        return acc
+
+    def expected_output_claim(self, accumulator: OpeningAccumulator,
+                              r: Sequence[int]) -> int:
+        from .bytecode import combined_table_eval
+        r_cyc, r_addr = self._split(r)
+        tab_eval = combined_table_eval(self.program, 1 << self.log_K,
+                                       self.gamma, r_addr, self.columns)
+        return (eq.eq_int(self.r_cycle, r_cyc) * self.openings["ra"] % P
+                * tab_eval % P)

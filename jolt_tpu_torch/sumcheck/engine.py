@@ -6,6 +6,9 @@ prove, `:413` verify): the transcript and round-poly algebra stay on the
 host (tiny, sequential); each instance's round message and bind run as
 torch work over its bound MLE tensors, and the engine copies every
 instance's message to the host with ONE device-to-host copy per round.
+An instance whose round message is host work (the instruction read-raf's
+address rounds) returns None from `message_evals_dev` and gives its round
+polynomial from `compute_message`.
 
 Protocol (prove):
   1. absorb every instance's input claim (label "sumcheck_claim")
@@ -85,12 +88,19 @@ class SumcheckInstance(abc.ABC):
     def input_claim(self, accumulator: OpeningAccumulator) -> int: ...
 
     @abc.abstractmethod
-    def message_evals_dev(self, round: int) -> torch.Tensor:
+    def message_evals_dev(self, round: int) -> Optional[torch.Tensor]:
         """The round message's Montgomery-limb evaluations (8, ...) at the
-        points other than 1, as a tensor on the instance's device.
+        points other than 1, as a tensor on the instance's device; or None
+        when the round's message is host work (`compute_message`).
 
         The engine fetches ALL instances' tensors with ONE device-to-host
         copy per round; kernel launches before it stay asynchronous."""
+
+    def compute_message(self, round: int, previous_claim: int) -> UniPoly:
+        """The round polynomial computed on the host, for a round whose
+        `message_evals_dev` is None."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no host message for round {round}")
 
     @abc.abstractmethod
     def ingest_challenge(self, r: int, round: int) -> None: ...
@@ -138,26 +148,33 @@ class BatchedSumcheck:
         compressed_polys: List[List[int]] = []
 
         for rnd in range(max_rounds):
-            # 1: launch every active instance's message (async),
-            # 2: ONE blocking device-to-host copy for the whole batch,
-            # 3: interpolate on the host.  The longest instance is active
-            # in every round, so the batch is never empty.
+            # 1: launch every active instance's message (async); an
+            # instance whose message is host work this round computes it,
+            # 2: ONE blocking device-to-host copy for the device messages,
+            # 3: interpolate on the host.
             polys: List[Optional[UniPoly]] = [None] * len(instances)
             active: List[int] = []
             arrays = []
             for i, (inst, claim) in enumerate(zip(instances, claims)):
                 off = inst.round_offset(max_rounds)
                 if off <= rnd < off + inst.num_rounds:
-                    active.append(i)
-                    arrays.append(inst.message_evals_dev(rnd - off))
+                    arr = inst.message_evals_dev(rnd - off)
+                    if arr is None:
+                        polys[i] = inst.compute_message(rnd - off, claim)
+                    else:
+                        active.append(i)
+                        arrays.append(arr)
                 else:
                     polys[i] = UniPoly([claim * two_inv % P])
-            flat = [a.reshape(a.shape[0], -1) for a in arrays]
-            host = torch.cat(flat, dim=1).cpu().numpy()
-            bounds = np.cumsum([0] + [f.shape[1] for f in flat])
-            for k, i in enumerate(active):
-                evals = ops.np_unpack_ints(host[:, bounds[k]:bounds[k + 1]])
-                polys[i] = UniPoly.from_evals_and_hint(claims[i], evals, P)
+            if arrays:
+                flat = [a.reshape(a.shape[0], -1) for a in arrays]
+                host = torch.cat(flat, dim=1).cpu().numpy()
+                bounds = np.cumsum([0] + [f.shape[1] for f in flat])
+                for k, i in enumerate(active):
+                    evals = ops.np_unpack_ints(
+                        host[:, bounds[k]:bounds[k + 1]])
+                    polys[i] = UniPoly.from_evals_and_hint(claims[i], evals,
+                                                           P)
 
             batched = UniPoly([0])
             for poly, c in zip(polys, coeffs):

@@ -14,8 +14,11 @@ is drawn from round j's message.  `ProductRounds` drives K2's other orders
 instead: the first round's message alone, then per round one pass that
 binds at r_j and forms round j + 1's message, then the last bind alone.
 `ProductSumcheck` with 2 or 3 factors runs on it (and so does the shift
-sumcheck, `relations/shift.py`); other factor counts keep the torch tier,
-with K1 carrying every product.
+sumcheck, `relations/shift.py`); with any other factor count it holds
+its factors as one stack (L, F, T) whose message is `stack_message` on K1
+and whose bind is one `dense.bind_high`.  The ra virtualization of stage
+6v (`relations/ra_virtual.py`) is a `ProductSumcheck`; the instruction
+read-raf's 18-factor cycle rounds call `stack_message` directly.
 """
 
 from __future__ import annotations
@@ -31,14 +34,18 @@ from .engine import OpeningAccumulator, SumcheckInstance
 P = FR.modulus
 
 
-def _product_message(polys: Sequence[torch.Tensor],
-                     degree: int) -> torch.Tensor:
-    """Round-message evals at X in {0, 2, .., degree} for a product of MLEs:
-    (L, degree, 1) with evals[:, j] = sum_i prod_k P_k,X_j[i]."""
-    acc = None
-    for Pk in polys:
-        e = dense.sumcheck_eval_points_high(Pk, degree)   # (L, deg, T/2)
-        acc = e if acc is None else ops.mont_mul(acc, e)
+def stack_message(S: torch.Tensor, degree: int) -> torch.Tensor:
+    """Round-message evals at X in {0, 2, .., degree} of sum_j prod_f
+    S[:, f, j] for a stack S (L, F, T) of F factors bound HighToLow:
+    (L, degree, 1).  K1's evals form over the whole stack (one launch,
+    (L, degree, F, T/2)), a chain of F - 1 K1 products along the factors,
+    and one `sum_mod`: the JAX package's `_cycle_message_kernel`, which
+    walks the eval points one at a time only to bound the TPU's memory
+    (the same bytes either way)."""
+    e = dense.sumcheck_eval_points_high(S, degree)       # (L, deg, F, T/2)
+    acc = e[:, :, 0]
+    for f in range(1, S.shape[1]):
+        acc = ops.mont_mul(acc, e[:, :, f])
     return ops.sum_mod(acc)
 
 
@@ -96,17 +103,22 @@ class ProductRounds:
 
 class ProductSumcheck(SumcheckInstance):
     """Prover instance for sum_x prod_k P_k(x) over the full hypercube.
-    With 2 or 3 factors its rounds run on K2 (`ProductRounds`)."""
+    With 2 or 3 factors its rounds run on K2 (`ProductRounds`); with any
+    other count on the stack (L, F, T) through K1 (`stack_message`)."""
 
-    def __init__(self, polys: List[torch.Tensor]):
+    def __init__(self, polys: Sequence[torch.Tensor]):
         T = polys[0].shape[-1]
         assert all(p.shape[-1] == T for p in polys)
-        self.polys = list(polys)
         self.device = polys[0].device
         self._num_rounds = T.bit_length() - 1
         assert 1 << self._num_rounds == T
-        self._rounds = (ProductRounds(polys) if len(polys) in (2, 3)
-                        else None)
+        self._degree = len(polys)
+        if len(polys) in (2, 3):
+            self._rounds: Optional[ProductRounds] = ProductRounds(polys)
+            self.S: Optional[torch.Tensor] = None
+        else:
+            self._rounds = None
+            self.S = torch.stack(list(polys), dim=1)      # (L, F, T)
         self._input_claim: Optional[int] = None
         self.final_claims: Optional[List[int]] = None
 
@@ -118,28 +130,34 @@ class ProductSumcheck(SumcheckInstance):
 
     @property
     def degree(self) -> int:
-        return len(self.polys)
+        return self._degree
 
     def input_claim(self, accumulator: OpeningAccumulator) -> int:
         if self._input_claim is None:
-            self._input_claim = ops.unpack_ints(_product_claim(self.polys))[0]
+            factors = (self._rounds.polys if self._rounds is not None
+                       else self.S.unbind(1))
+            self._input_claim = ops.unpack_ints(_product_claim(factors))[0]
         return self._input_claim
 
     def message_evals_dev(self, round: int) -> torch.Tensor:
         if self._rounds is not None:
             return self._rounds.message()
-        return _product_message(self.polys, self.degree)
+        return stack_message(self.S, self.degree)
 
     def ingest_challenge(self, r: int, round: int) -> None:
         if self._rounds is not None:
             self._rounds.bind(r)
-            return
-        self.polys = [dense.bind_high(Pk, r) for Pk in self.polys]
+        else:
+            self.S = dense.bind_high(self.S, r)
 
     def finalize(self) -> None:
         if self._rounds is not None:
-            self.polys = list(self._rounds.flush())
-        self.final_claims = [ops.unpack_ints(Pk)[0] for Pk in self.polys]
+            bound = torch.cat(self._rounds.flush(), dim=1)    # (L, F)
+            self._rounds = None
+        else:
+            bound = self.S.reshape(self.S.shape[0], -1)
+            self.S = None
+        self.final_claims = ops.unpack_ints(bound)
 
     def cache_openings(self, accumulator: OpeningAccumulator,
                        r_slice: Sequence[int]) -> None:

@@ -3,25 +3,33 @@
 Torch-package counterpart of the JAX package's `verifier/verifier.py`:
 `verify_prefix` validates the proof-carried config, replays the preamble
 and checks stage 1 (Spartan uni-skip + outer), stage 1s (shift), stages 2
-and 3 (registers read/write checking and Val evaluation) and stages 4 and 5
-(RAM read/write + raf, then Val evaluation + output check) exactly as the
-full verifier does in the sumcheck-only configuration.  All of it is host
-work on Python ints.
+and 3 (registers read/write checking and Val evaluation), stages 4 and 5
+(RAM read/write + raf, then Val evaluation + output check), stage 5i (the
+instruction read-raf Shout), stage 6 (bytecode read-raf and the register
+rafs) and stage 6v (ra virtualization) exactly as the full verifier does in
+the sumcheck-only configuration.  All of it is host work on Python ints.
 """
 
 from __future__ import annotations
 
 from ..config import ConfigError, ProofConfig
 from ..field.params import FR
-from ..prover.prover import (PrefixProof, fiat_shamir_preamble,
-                             require_no_advice)
-from ..relations.ram_sparse import (SparseRamOutputCheckVerifier,
+from ..lookups import tables as LT
+from ..prover.prover import (BC_RA_SOURCES, LOOKUP_FLAG_COLUMNS,
+                             RAM_RA_SOURCES, PrefixProof,
+                             fiat_shamir_preamble, require_no_advice)
+from ..relations.bytecode import CLAIM_COLUMNS
+from ..relations.instruction_read_raf import InstructionReadRafVerifier
+from ..relations.ra_virtual import RaVirtualVerifier, block_point, d_chunks
+from ..relations.ram_sparse import (SparseBytecodeReadRafVerifier,
+                                    SparseRamOutputCheckVerifier,
                                     SparseRamRafEvaluationVerifier,
                                     SparseRamReadWriteCheckingVerifier,
                                     SparseRamValEvaluationVerifier,
+                                    SparseRegistersRafVerifier,
                                     SparseRegistersReadWriteCheckingVerifier,
                                     SparseRegistersValEvaluationVerifier)
-from ..relations.shift import ShiftVerifier
+from ..relations.shift import SHIFT_COLUMNS, ShiftVerifier
 from ..relations.spartan_outer import (SpartanOuterVerifier,
                                        num_stage1_rounds, verify_uniskip)
 from ..riscv.emulator import MemoryLayout
@@ -30,10 +38,13 @@ from ..sumcheck.engine import BatchedSumcheck, OpeningAccumulator, SumcheckError
 from ..tracer.trace import Trace
 from ..transcript import Blake2bTranscript
 from ..witness.bytecode import bytecode_K
-from ..witness.r1cs_inputs import (NUM_VARS, V_RAM_ADDRESS,
+from ..witness.instruction_lookups import D as LK_D
+from ..witness.instruction_lookups import LOG_M as LK_LOG_M
+from ..witness.r1cs_inputs import (NUM_VARS, V_LEFT_LOOKUP_OPERAND,
+                                   V_LOOKUP_OUTPUT, V_RAM_ADDRESS,
                                    V_RAM_READ_VALUE, V_RAM_WRITE_VALUE,
-                                   V_RD_WRITE_VALUE, V_RS1_VALUE, V_RS2_VALUE,
-                                   VAR_NAMES)
+                                   V_RD_WRITE_VALUE, V_RIGHT_LOOKUP_OPERAND,
+                                   V_RS1_VALUE, V_RS2_VALUE, VAR_NAMES)
 from ..witness.ram import initial_memory_vals
 
 P = FR.modulus
@@ -69,7 +80,7 @@ class PublicIO:
 
 
 def verify_prefix(proof: PrefixProof, io: PublicIO) -> bool:
-    """Check stages 1 through 5 of `proof` against the public statement;
+    """Check stages 1 through 6v of `proof` against the public statement;
     returns True or raises VerificationError."""
     require_no_advice(io.memory_layout)
     program = expand_program(io.code, io.entry, io.start)
@@ -220,4 +231,111 @@ def verify_prefix(proof: PrefixProof, io: PublicIO) -> bool:
     accumulator.insert(("ram_output", "ra"), r5n, o5["oc_ra"])
     accumulator.insert(("ram_output", "inc"), r5_cyc, o5["oc_inc"])
     accumulator.flush_to_transcript(transcript)
+
+    # ---- Stage 5i: instruction-execution read-raf Shout ------------------
+    gamma_lk = transcript.challenge_scalar()
+    o5i = proof.stage5i_openings
+    inst5i = InstructionReadRafVerifier(
+        log_T, gamma_lk, r_cycle,
+        proof.r1cs_input_openings[V_LOOKUP_OUTPUT],
+        proof.r1cs_input_openings[V_LEFT_LOOKUP_OPERAND],
+        proof.r1cs_input_openings[V_RIGHT_LOOKUP_OPERAND], o5i)
+    try:
+        r5i = BatchedSumcheck.verify(proof.stage5i_polys, [inst5i],
+                                     accumulator, transcript)
+    except SumcheckError as e:
+        raise VerificationError(f"stage5i: {e}") from e
+    r_lk_addr, r_lk_cyc = r5i[:LT.LOG_K], r5i[LT.LOG_K:]
+    for tname in LT.TABLE_NAMES:
+        accumulator.insert(("instr_flag", tname), r_lk_cyc,
+                           o5i[f"flag_{tname}"])
+    accumulator.insert(("instr_flag", "raf"), r_lk_cyc, o5i["raf_flag"])
+    for i in range(LK_D):
+        pt = list(r_lk_cyc) + list(r_lk_addr[LK_LOG_M * i:LK_LOG_M * (i + 1)])
+        accumulator.insert(("instr_ra", i), pt, o5i[f"ra{i}"])
+    accumulator.flush_to_transcript(transcript)
+
+    # ---- Stage 6: bytecode read-raf (decoded fields vs public program) --
+    gamma_bc = transcript.challenge_scalar()
+    name_to_idx = {n: i for i, n in enumerate(VAR_NAMES)}
+    idx_claims = list(proof.stage6_claims)
+    bc_claims = [proof.r1cs_input_openings[name_to_idx[name]]
+                 for name, _ in CLAIM_COLUMNS[:-3]] + idx_claims
+    o6 = proof.stage6_openings
+    inst6 = SparseBytecodeReadRafVerifier(
+        log_T, proof.bytecode_log_K, gamma_bc, r_cycle, bc_claims,
+        program, {"ra": o6["ra"]})
+    flag_claims = [o5i[f"flag_{n}"] for n in LT.TABLE_NAMES]
+    flag_claims.append(o5i["raf_flag"])
+    inst6f = SparseBytecodeReadRafVerifier(
+        log_T, proof.bytecode_log_K, gamma_bc, r_lk_cyc, flag_claims,
+        program, {"ra": o6["flags_ra"]},
+        columns=LOOKUP_FLAG_COLUMNS)
+    inst6s = SparseBytecodeReadRafVerifier(
+        log_T, proof.bytecode_log_K, gamma_sh, list(r_sh),
+        [proof.shift_opening], program, {"ra": o6["shift_ra"]},
+        columns=SHIFT_COLUMNS)
+    raf_insts = [SparseRegistersRafVerifier(log_T, r_cycle, idx_claims[i],
+                                            o6[f"raf_{n}"])
+                 for i, n in enumerate(("wa", "ra1", "ra2"))]
+    stage6_insts = [inst6, inst6f, inst6s] + raf_insts
+    try:
+        r6 = BatchedSumcheck.verify(proof.stage6_polys, stage6_insts,
+                                    accumulator, transcript)
+    except SumcheckError as e:
+        raise VerificationError(f"stage6: {e}") from e
+    max6 = max(i.num_rounds for i in stage6_insts)
+
+    def _norm6(inst):
+        c, a = inst._split(r6[max6 - inst.num_rounds:])
+        return c + a
+
+    accumulator.insert(("bytecode", "ra"), _norm6(inst6), o6["ra"])
+    accumulator.insert(("bytecode_flags", "ra"), _norm6(inst6f),
+                       o6["flags_ra"])
+    accumulator.insert(("bytecode_shift", "ra"), _norm6(inst6s),
+                       o6["shift_ra"])
+    for i, n in enumerate(("wa", "ra1", "ra2")):
+        accumulator.insert(("registers_raf", n), _norm6(raf_insts[i]),
+                           o6[f"raf_{n}"])
+    accumulator.flush_to_transcript(transcript)
+
+    # ---- Stage 6v: RAM/bytecode ra virtualization ------------------------
+    # full-ra claims reduce to committed chunk-selector openings (mirrors
+    # the prover's stage 6v; d == 1 spaces re-index claims directly)
+    insts6v = []
+    meta6v = []
+    for prefix, log_Kv, sources in (
+            ("ram_ra", proof.ram_log_K, RAM_RA_SOURCES),
+            ("bc_ra", proof.bytecode_log_K, BC_RA_SOURCES)):
+        d = d_chunks(log_Kv)
+        for t, oid in enumerate(sources):
+            pt, cl = accumulator.openings[oid]
+            r_cyc_v, r_addr_v = list(pt[:log_T]), list(pt[log_T:])
+            if d == 1:
+                accumulator.insert((f"{prefix}_virt", (t, 0)),
+                                   r_cyc_v + r_addr_v, cl)
+            else:
+                try:
+                    chunk_ops = [proof.stage6v_openings[f"{prefix}_{t}_{i}"]
+                                 for i in range(d)]
+                except KeyError as e:
+                    raise VerificationError(
+                        f"missing stage6v opening {e}") from e
+                insts6v.append(RaVirtualVerifier(log_T, log_Kv, r_cyc_v, cl,
+                                                 chunk_ops))
+                meta6v.append((prefix, t, d, r_addr_v, log_Kv))
+    if insts6v:
+        try:
+            r6v = BatchedSumcheck.verify(proof.stage6v_polys, insts6v,
+                                         accumulator, transcript)
+        except SumcheckError as e:
+            raise VerificationError(f"stage6v: {e}") from e
+        for inst, (prefix, t, d, r_addr_v, log_Kv) in zip(insts6v, meta6v):
+            for i in range(d):
+                accumulator.insert(
+                    (f"{prefix}_virt", (t, i)),
+                    list(r6v) + block_point(r_addr_v, log_Kv, i),
+                    proof.stage6v_openings[f"{prefix}_{t}_{i}"])
+        accumulator.flush_to_transcript(transcript)
     return True

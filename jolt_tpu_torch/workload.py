@@ -86,9 +86,11 @@ def card_line() -> str:
 
 
 def timed_stages(fn: Callable[[], object]
-                 ) -> Tuple[object, Dict[str, float], str]:
+                 ) -> Tuple[object, Dict[str, float], str, Dict[str, dict]]:
     """Run `fn()` with the prover's stage timing on (JOLT_TPU_STAGE_TIMING);
-    return its result, the seconds of each stage and the printed lines."""
+    return its result, the seconds of each stage, the printed lines, and
+    each stage's kernel launches as the lines give them:
+    {label: {"k1": {form: n}, "k2": n}}."""
     buf = io.StringIO()
     os.environ["JOLT_TPU_STAGE_TIMING"] = "1"
     try:
@@ -97,9 +99,15 @@ def timed_stages(fn: Callable[[], object]
     finally:
         del os.environ["JOLT_TPU_STAGE_TIMING"]
     text = buf.getvalue()
-    stages = {m.group(1): float(m.group(2)) for m in re.finditer(
-        r"\[prove\] ([\w-]+): ([0-9.]+)s", text)}
-    return out, stages, text
+    stages, launches = {}, {}
+    line = r"\[prove\] ([\w-]+): ([0-9.]+)s.* k1=(\S+) k2=(\d+)"
+    for m in re.finditer(line, text):
+        stages[m.group(1)] = float(m.group(2))
+        launches[m.group(1)] = {
+            "k1": {f: int(n) for f, n in (kv.split(":")
+                                          for kv in m.group(3).split(","))},
+            "k2": int(m.group(4))}
+    return out, stages, text, launches
 
 
 def bound_ms(n_bytes: int, products: int, mads: int = 0

@@ -1,7 +1,9 @@
 """The torch port on the card: K1 (every form: mul, add, sub, bind, evals,
 reduce) and K2 (every pass order, 2 and 3 factors, and its on-card finish
-of the message) against their plain versions, and the prover on "cuda"
-against the prover on "cpu".
+of the message) against their plain versions, the segment sums and the
+stacked product message of stage 5i and the ra virtualization of stage 6v
+on "cuda" against "cpu", and the prover on "cuda" against the prover on
+"cpu" (stages 1-6v, with and without stage-6v instances).
 
 These tests need an NVIDIA GPU; without one they skip.  The machine with
 the card has no JAX, so this module imports none, and there it runs
@@ -18,9 +20,11 @@ import torch
 
 from jolt_tpu_torch import PublicIO, prove_prefix, verify_prefix
 from jolt_tpu_torch.field import kernels, ops
+from jolt_tpu_torch.relations.ra_virtual import RaVirtual, chunk_streams
 from jolt_tpu_torch.riscv.emulator import MemoryLayout
 from jolt_tpu_torch.sumcheck.engine import BatchedSumcheck, OpeningAccumulator
-from jolt_tpu_torch.sumcheck.product import ProductSumcheck, round_step
+from jolt_tpu_torch.sumcheck.product import (ProductSumcheck, round_step,
+                                             stack_message)
 from jolt_tpu_torch.transcript import Blake2bTranscript
 from jolt_tpu_torch.tracer import trace_program
 
@@ -231,6 +235,43 @@ def test_round_step_chained_on_card(card):
     assert polys[0].shape == (8, 1)
 
 
+def test_segment_sum_and_stack_message_card_equal_cpu(card):
+    gen = torch.Generator(device=card)
+    gen.manual_seed(21)
+    a = _rand_field(gen, (8, 3, 5000), card)
+    ids = torch.randint(0, 300, (5000,), generator=gen, device=card)
+    assert torch.equal(ops.segment_sum_mod(a, ids, 300).cpu(),
+                       ops.segment_sum_mod(a.cpu(), ids.cpu(), 300))
+    for nf in (18, 3):
+        S = _rand_field(gen, (8, nf, 1 << 12), card)
+        assert torch.equal(stack_message(S, nf).cpu(),
+                           stack_message(S.cpu(), nf))
+
+
+def test_ra_virtual_card_equals_cpu(card):
+    """A d = 2 ra-virtualization instance runs its rounds on K2 (log T + 1
+    calls) and gives the same proof on the card as on the CPU."""
+    gen = torch.Generator()
+    gen.manual_seed(6)
+    log_t, log_k = 10, 13
+    idx = torch.randint(0, 1 << log_k, (1 << log_t,), generator=gen).numpy()
+    r_cyc = [int(x) for x in torch.randint(0, 1 << 62, (log_t,),
+                                           generator=gen)]
+    r_addr = [int(x) for x in torch.randint(0, 1 << 62, (log_k,),
+                                            generator=gen)]
+    runs = []
+    for dev in (card, "cpu"):
+        inst = RaVirtual(chunk_streams(idx, log_k), log_k, r_cyc, r_addr, 7,
+                         ("ram_ra", 0), device=dev)
+        before = kernels.product_round.launches
+        proof, r = BatchedSumcheck.prove([inst], OpeningAccumulator(),
+                                         Blake2bTranscript(b"6v"))
+        runs.append((proof, r, inst.final_openings))
+        if dev is card:
+            assert kernels.product_round.launches == before + log_t + 1
+    assert runs[0] == runs[1]
+
+
 def test_prove_stage1_card_equals_cpu(card):
     layout = MemoryLayout(max_input_size=64, max_output_size=64)
     trace = trace_program(f"""
@@ -253,5 +294,34 @@ def test_prove_stage1_card_equals_cpu(card):
     """, layout=layout)
     on_card = prove_prefix(trace, device=card)
     on_cpu = prove_prefix(trace, device="cpu")
+    assert dataclasses.asdict(on_card) == dataclasses.asdict(on_cpu)
+    assert verify_prefix(on_card, PublicIO.from_trace(trace))
+
+
+def test_prove_prefix_stage6v_card_equals_cpu(card):
+    """The fib guest with a 2 KiB input region (RAM log K = 9): stage 6v
+    has four d = 2 instances, on K2 on the card."""
+    layout = MemoryLayout(max_input_size=2048, max_output_size=64)
+    trace = trace_program(f"""
+        li   a0, 20
+        li   a1, 0
+        li   a2, 1
+    loop:
+        beq  a0, zero, done
+        add  a3, a1, a2
+        mv   a1, a2
+        mv   a2, a3
+        addi a0, a0, -1
+        j    loop
+    done:
+        li   t0, {layout.output_start}
+        sd   a1, 0(t0)
+        li   t1, {layout.termination}
+        li   t2, 1
+        sd   t2, 0(t1)
+    """, layout=layout)
+    on_card = prove_prefix(trace, device=card)
+    on_cpu = prove_prefix(trace, device="cpu")
+    assert on_card.stage6v_polys
     assert dataclasses.asdict(on_card) == dataclasses.asdict(on_cpu)
     assert verify_prefix(on_card, PublicIO.from_trace(trace))

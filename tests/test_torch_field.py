@@ -24,6 +24,11 @@ from jolt_tpu_torch.field import kernels
 from jolt_tpu_torch.field import ops as tops
 from jolt_tpu_torch.interop import from_jax_limbs
 
+# One intra-op thread: the suite runs in several worker processes, and
+# torch's default of a thread per core in each oversubscribes the CPU
+# (the fib prefix: ~6 s alone, ~250 s with six such processes).
+torch.set_num_threads(1)
+
 P = FR.modulus
 CPU = "cpu"
 BATCHES = [1, 2047, 2048, 4096]
@@ -452,6 +457,13 @@ _LAYOUTS = {
                           ("VEC", "VEC", "NONE")),
     "evals split 3": (lambda: (_field((8, 6), 26), _field((8, 6), 27), 3),
                       _K.evals, ("VEC", "VEC", "NONE")),
+    # a stacked product's message (`product.stack_message`): the eval
+    # points of every factor's halves, then factor planes of that output
+    "evals stack": (lambda: (_field((8, 3, 16), 32), 4), _points,
+                    ("VEC", "VEC", "NONE")),
+    "mul stack factors": (lambda: (_field((8, 4, 3, 8), 33)[:, :, 0],
+                                   _field((8, 4, 3, 8), 34)[:, :, 2]),
+                          _K.mont_mul, ("VEC", "VEC", "NONE")),
     "reduce": (lambda: (_sums((8, 3, 1), 28),), _K.reduce,
                ("STRIDED", "NONE", "NONE")),
     "reduce int scale": (lambda: (_sums((8, 3, 1), 29), _S), _K.reduce,
@@ -504,3 +516,30 @@ def test_k1_bound_counts_what_the_function_needs(form, key, n_bytes, mads):
     t_ops = mads / workload.INT32_MAD_PER_S * 1e3
     assert ms == pytest.approx(max(t_bytes, t_ops), rel=1e-12)
     assert by == ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def test_stage_timer_lines_give_each_stages_launches(monkeypatch):
+    """The prover's stage timer prints each stage's K1 launches per form
+    and K2 calls, and `workload.timed_stages` reads them back per stage
+    (launches stood in for by bumping the counts between the marks)."""
+    from jolt_tpu_torch.prover.prover import _StageTimer
+
+    def bump(form, n):
+        fn = kernels.product_round if form == "k2" else kernels._K1[form]
+        monkeypatch.setattr(fn, "launches", fn.launches + n)
+
+    def run():
+        timer = _StageTimer(torch.device("cpu"))
+        bump("mul", 3)
+        bump("k2", 2)
+        timer.mark("stage-a")
+        bump("reduce", 5)
+        timer.mark("stage-b")
+        return "done"
+
+    out, stages, text, launches = workload.timed_stages(run)
+    assert out == "done" and sorted(stages) == ["stage-a", "stage-b"]
+    assert text.count("[prove] ") == 2
+    zero = dict.fromkeys(kernels.FORMS, 0)
+    assert launches == {"stage-a": {"k1": {**zero, "mul": 3}, "k2": 2},
+                        "stage-b": {"k1": {**zero, "reduce": 5}, "k2": 0}}

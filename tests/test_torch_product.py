@@ -5,8 +5,8 @@ package, on the CPU.
     packages' batched sumcheck engines: the same round polynomials,
     challenges, final claims and transcript state; the port's verifier twin
     accepts and rejects a tampered round.  With 2 or 3 factors its rounds
-    run on K2's live-round orders (`ProductRounds`), with 1 on the torch
-    tier.
+    run on K2's live-round orders (`ProductRounds`), with 1, 4 or 5 on
+    the factor stack (`stack_message`, one `bind_high` a round).
   * K2's plain version (`product_round_plain`; the wrapper takes it for CPU
     tensors), in each pass order: "message_bind", "message" and "bind"
     against the body of the JAX package's round-step entry point
@@ -47,6 +47,11 @@ from jolt_tpu_torch.sumcheck.product import (ProductSumcheck,
                                              VerifierProductSumcheck,
                                              round_step)
 from jolt_tpu_torch.transcript import Blake2bTranscript
+
+# One intra-op thread: the suite runs in several worker processes, and
+# torch's default of a thread per core in each oversubscribes the CPU
+# (the fib prefix: ~6 s alone, ~250 s with six such processes).
+torch.set_num_threads(1)
 
 P = FR.modulus
 CPU = "cpu"
@@ -100,6 +105,19 @@ def test_product_sumcheck_matches_jax(seed, shape):
     with pytest.raises(SumcheckError):
         BatchedSumcheck.verify(bad, ver, OpeningAccumulator(),
                                Blake2bTranscript(b"test_sumcheck"))
+
+
+def test_product_sumcheck_factor_stack_matches_jax():
+    """4 and 5 factors run on the factor stack through K1's forms; the
+    verifier twins of both packages take degree 3 at most, so only the
+    provers are compared."""
+    ints = _factor_ints(13, [(4, 4), (5, 5), (3, 1)])
+    inst_j = [JProductSumcheck([jdense.from_ints(v) for v in fs])
+              for fs in ints]
+    inst_t = [ProductSumcheck([tops.pack_ints(v, CPU) for v in fs])
+              for fs in ints]
+    assert [i._rounds for i in inst_t] == [None] * 3
+    _run_both(inst_j, inst_t, b"test_sumcheck")
 
 
 def test_eq_weighted_product_sumcheck_matches_jax():

@@ -14,12 +14,14 @@ in the order of `jolt_tpu/prover/prover.py:466-627` -- witness extraction,
 the preamble with `ProofConfig.new`, no commitments (`setup=None`), `tau`,
 `prove_uniskip`, the `spartan_outer` instance through `prove_scan`,
 `gamma_sh`, `shift_column_values` and the `spartan_shift` instance, then
-the stage 2-5 instances of the backend registry -- and reads the
+the stage 2-5 instances of the backend registry, then stages 5i, 6 and 6v
+as `prove` builds them (`_jax_stages_5i_6v`) -- and reads the
 transcript's (n_rounds, state) where `prove` records its FS tape
 (`JOLT_TPU_FS_TRACE`).  On the fib trace `test_torch_prefix.py` compares
-every stage, 1 to 5, against one run of the JAX side; this module holds
-the port's stage-1 proof to its verifier, and compares stages 1 and 1s on
-the sha2-chain (the JAX side stops after `stage1s-shift`).
+every stage, 1 to 6v, against one run of the JAX side, and
+`test_torch_prefix_sha2.py` (slow tier) does the same on the sha2-chain at
+chain=1; this module holds the port's stage-1 proof to its verifier and
+the port's tracers to the JAX package's on the sha2-chain.
 """
 
 import copy
@@ -33,9 +35,13 @@ import torch
 from jolt_tpu.config import ProofConfig
 from jolt_tpu.field import ops as jops
 from jolt_tpu.kernels import get_backend
+from jolt_tpu.lookups import tables as LT
 from jolt_tpu.poly import dense as jdense
 from jolt_tpu.poly import eq as jeq
+from jolt_tpu.prover import prover as jprover
 from jolt_tpu.prover.prover import fiat_shamir_preamble
+from jolt_tpu.relations import bytecode as jbc
+from jolt_tpu.relations import ra_virtual as jrv
 from jolt_tpu.relations import ram_sparse as jrs
 from jolt_tpu.relations import shift as jshift
 from jolt_tpu.relations import spartan_outer as jso
@@ -45,6 +51,8 @@ from jolt_tpu.sumcheck.scan import prove_scan
 from jolt_tpu.tracer import trace_program
 from jolt_tpu.transcript import Blake2bTranscript
 from jolt_tpu.witness.bytecode import extract_bytecode_witness
+from jolt_tpu.witness.instruction_lookups import (
+    D as LK_D, extract_instruction_lookup_witness)
 from jolt_tpu.witness.r1cs_inputs import extract_r1cs_inputs
 from jolt_tpu.witness.ram import extract_ram_log
 from jolt_tpu.witness.registers import extract_register_log
@@ -62,6 +70,11 @@ from jolt_tpu_torch.witness.r1cs_inputs import \
     extract_r1cs_inputs as t_extract_r1cs_inputs
 from test_prove_verify import FIB, L
 
+# One intra-op thread: the suite runs in several worker processes, and
+# torch's default of a thread per core in each oversubscribes the CPU
+# (the fib prefix: ~6 s alone, ~250 s with six such processes).
+torch.set_num_threads(1)
+
 P = jops.FR.modulus
 CPU = "cpu"
 
@@ -75,8 +88,8 @@ def _port_trace(tr):
         [dataclasses.asdict(r) for r in tr.program.rows], tr.program.start)
 
 
-def _jax_prefix(tr, last="stage4-5-ram"):
-    """The JAX package's stage 1-5 prefix of `prove`, stage by stage, up to
+def _jax_prefix(tr, last="stage6v-ra-virtual"):
+    """The JAX package's stage 1-6v prefix of `prove`, stage by stage, up to
     and including the stage labelled `last`: one accumulator and one
     transcript, every instance made through the backend registry and run by
     `prove_scan`, in `prove`'s order.  Returns the `JoltProof` fields and
@@ -157,20 +170,126 @@ def _jax_prefix(tr, last="stage4-5-ram"):
                      ram_wit.witness_base, z_out, bytes(tr.device.outputs))
     stage5_polys, _ = prove_scan([ram_ve, ram_oc], acc, transcript)
     mark("stage4-5-ram")
-    return {**out,
-            "stage2_polys": stage2_polys,
-            "stage2_openings": dict(rw.final_openings),
-            "stage3_polys": stage3_polys,
-            "stage3_openings": dict(ve.final_openings),
-            "stage4_polys": stage4_polys,
-            "stage4_openings": {
-                **{f"rw_{k}": v for k, v in ram_rw.final_openings.items()},
-                **{f"raf_{k}": v for k, v in
-                   ram_raf.final_openings.items()}},
-            "stage5_polys": stage5_polys,
-            "stage5_openings": {
-                **dict(ram_ve.final_openings),
-                **{f"oc_{k}": v for k, v in ram_oc.final_openings.items()}}}
+    out = {**out,
+           "stage2_polys": stage2_polys,
+           "stage2_openings": dict(rw.final_openings),
+           "stage3_polys": stage3_polys,
+           "stage3_openings": dict(ve.final_openings),
+           "stage4_polys": stage4_polys,
+           "stage4_openings": {
+               **{f"rw_{k}": v for k, v in ram_rw.final_openings.items()},
+               **{f"raf_{k}": v for k, v in
+                  ram_raf.final_openings.items()}},
+           "stage5_polys": stage5_polys,
+           "stage5_openings": {
+               **dict(ram_ve.final_openings),
+               **{f"oc_{k}": v for k, v in ram_oc.final_openings.items()}}}
+    if last == "stage4-5-ram":
+        return out
+    return {**out, **_jax_stages_5i_6v(tr, bk, acc, transcript, mark, inputs,
+                                       reg_wit, ram_wit, bc_wit, r_cycle,
+                                       gamma_sh, last)}
+
+
+def _jax_stages_5i_6v(tr, bk, acc, transcript, mark, inputs, reg_wit,
+                      ram_wit, bc_wit, r_cycle, gamma_sh, last):
+    """Stages 5i, 6 and 6v of the JAX package's `prove`
+    (`jolt_tpu/prover/prover.py:628-738`), continuing `_jax_prefix`'s
+    accumulator and transcript, up to and including the stage `last`."""
+    log_T, T_pad = tr.log_T, tr.padded_length
+    lk_wit = extract_instruction_lookup_witness(tr, inputs)
+    # stage 5i: instruction read-raf
+    gamma_lk = transcript.challenge_scalar()
+    lk = bk.make("instruction_read_raf", lk_wit, gamma_lk, r_cycle,
+                 *(acc.get_claim(("r1cs_input", n)) for n in
+                   ("lookup_output", "left_lookup_operand",
+                    "right_lookup_operand")))
+    stage5i_polys, r5i = prove_scan([lk], acc, transcript)
+    mark("stage5i-instr-lookups")
+    r_lk_cyc = r5i[LT.LOG_K:]
+    o5i = {f"ra{i}": lk.final_openings[f"ra{i}"] for i in range(LK_D)}
+    for t, name in enumerate(LT.TABLE_NAMES):
+        o5i[f"flag_{name}"] = lk.flag_claims[t]
+    o5i["raf_flag"] = lk.raf_flag_claim
+    out = {"stage5i_polys": stage5i_polys, "stage5i_openings": o5i}
+    if last == "stage5i-instr-lookups":
+        return out
+    # stage 6: bytecode read-raf + register rafs
+    gamma_bc = transcript.challenge_scalar()
+    e_cyc = jeq.evals(r_cycle)
+    streams = (reg_wit.rd_eff, reg_wit.rs1_eff, reg_wit.rs2_eff)
+    idx_claims = [jops.unpack_ints(jops.dot(e_cyc, jops.pack_ints(col)))[0]
+                  for col in streams]
+
+    def combine(claims):
+        a, g = 0, 1
+        for c in claims:
+            a, g = (a + g * c) % P, g * gamma_bc % P
+        return a
+
+    zeros = np.zeros(T_pad, dtype=np.uint64)
+    bc_sched = jrs.RamPairSchedule(bc_wit.pc_idx, zeros, zeros, bc_wit.K)
+
+    def table(gamma, columns=None):
+        return jrs.combined_table_dev(bc_wit.table, bc_wit.entry, bc_wit.K,
+                                      gamma, columns=columns)
+    bc_claims = [acc.get_claim(("r1cs_input", n))
+                 for n, _ in jbc.CLAIM_COLUMNS[:-3]] + idx_claims
+    flag_claims = [acc.get_claim(("instr_flag", n))
+                   for n in LT.TABLE_NAMES + ["raf"]]
+    insts = [
+        jrs.SparseOneHotTableEval(bc_sched, bc_wit.log_K, table(gamma_bc),
+                                  r_cycle, combine(bc_claims),
+                                  ("bytecode", "ra")),
+        jrs.SparseOneHotTableEval(
+            bc_sched, bc_wit.log_K,
+            table(gamma_bc, jprover.LOOKUP_FLAG_COLUMNS), r_lk_cyc,
+            combine(flag_claims), ("bytecode_flags", "ra")),
+        jrs.SparseOneHotTableEval(
+            bc_sched, bc_wit.log_K, table(gamma_sh, jshift.SHIFT_COLUMNS),
+            list(acc.get_point(("shift", "cols"))),
+            acc.get_claim(("shift", "cols")), ("bytecode_shift", "ra"))]
+    reg_tab = jrs.index_table(128)
+    for col, claim, name in zip(streams, idx_claims, ("wa", "ra1", "ra2")):
+        insts.append(jrs.SparseOneHotTableEval(
+            jrs.RamPairSchedule(col, zeros, zeros, 128), 7, reg_tab, r_cycle,
+            claim, ("registers_raf", name), opening_key="m"))
+    stage6_polys, _ = prove_scan(insts, acc, transcript)
+    mark("stage6-bytecode")
+    out.update(stage6_polys=stage6_polys, stage6_claims=list(idx_claims),
+               stage6_openings={
+                   "ra": insts[0].final_openings["ra"],
+                   "flags_ra": insts[1].final_openings["ra"],
+                   "shift_ra": insts[2].final_openings["ra"],
+                   **{f"raf_{n}": inst.final_openings["m"] for n, inst in
+                      zip(("wa", "ra1", "ra2"), insts[3:])}})
+    if last == "stage6-bytecode":
+        return out
+    # stage 6v: RAM / bytecode ra virtualization
+    insts6v = []
+    for prefix, idx, log_Kv, sources in (
+            ("ram_ra", ram_wit.cols, ram_wit.log_K, jprover.RAM_RA_SOURCES),
+            ("bc_ra", np.asarray(bc_wit.pc_idx), bc_wit.log_K,
+             jprover.BC_RA_SOURCES)):
+        chunks = jrv.chunk_streams(idx, log_Kv)
+        for t, oid in enumerate(sources):
+            pt, cl = acc.openings[oid]
+            if len(chunks) == 1:
+                acc.insert((f"{prefix}_virt", (t, 0)), list(pt), cl)
+            else:
+                insts6v.append(jrv.RaVirtual(chunks, log_Kv, list(pt[:log_T]),
+                                             list(pt[log_T:]), cl,
+                                             (prefix, t)))
+    stage6v_polys, o6v = [], {}
+    if insts6v:
+        stage6v_polys, _ = prove_scan(insts6v, acc, transcript)
+        for inst in insts6v:
+            prefix, t = inst.tag
+            for i, v in enumerate(inst.final_openings):
+                o6v[f"{prefix}_{t}_{i}"] = v
+    mark("stage6v-ra-virtual")
+    out.update(stage6v_polys=stage6v_polys, stage6v_openings=o6v)
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -263,16 +382,6 @@ def sha2():
                                       inputs=workload.SHA2_INPUT)}
 
 
-@pytest.fixture(scope="module")
-def sha2_jax_stage1(sha2):
-    return _jax_prefix(sha2["jax"], last="stage1s-shift")
-
-
-@pytest.fixture(scope="module")
-def sha2_port_proof(sha2):
-    return jt.prove_prefix(sha2["native"], device=CPU)
-
-
 @pytest.mark.parametrize("tracer", ["native", "python"])
 def test_sha2_port_tracers_match_jax(sha2, tracer):
     tr, pt = sha2["jax"], sha2[tracer]
@@ -282,22 +391,6 @@ def test_sha2_port_tracers_match_jax(sha2, tracer):
     for k in tr.columns:
         np.testing.assert_array_equal(pt.columns[k], tr.columns[k])
     assert bytes(pt.device.outputs[:32]) == workload.sha2_chain_digest(1)
-
-
-@pytest.mark.parametrize("field", ["stage1_uniskip", "stage1_polys",
-                                   "r1cs_input_openings", "shift_polys",
-                                   "shift_opening", "fs_tape"])
-def test_sha2_stage1_matches_jax(sha2_port_proof, sha2_jax_stage1, field):
-    want = sha2_jax_stage1[field]
-    got = getattr(sha2_port_proof, field)
-    if field == "fs_tape":        # the JAX side stops after stage 1s
-        got = got[:len(want)]
-    assert got == want
-
-
-def test_sha2_verify_stage1_accepts(sha2_port_proof, sha2):
-    assert jt.verify_prefix(sha2_port_proof,
-                            jt.PublicIO.from_trace(sha2["native"]))
 
 
 # ---- device modules of the slice, one by one --------------------------
