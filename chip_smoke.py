@@ -34,22 +34,29 @@ Phases:
      engine (K2's live-round orders), every message and the final claims
      held against the plain chain;
   6. the main path: the sha2-chain guest (chain=114, ~2^18 cycles) traced
-     by the port's native tracer, `prove_prefix(trace, device="cuda")`
-     (stages 1-6v) with K1's launch count per form and K2's read around it,
-     and per stage (K2 carries the shift sumcheck, stage 1s, and every
-     ra-virtualization instance of stage 6v: log2 T + 1 calls each), every
+     by the port's native tracer, `prove(trace, setup=None,
+     device="cuda")` (stages 1-8) with K1's launch count per form and
+     K2's read around it, and per stage (K2 carries the shift sumcheck,
+     stage 1s, every ra-virtualization instance of stage 6v -- log2 T + 1
+     calls each -- the cycle rounds of stage 7's Hamming-weight instances
+     and stage 8's one-hot groups, and stage 8's dense openings), every
      K1 launch's shapes recorded (`kernels.record`) and no call of the
-     plain versions' limb arithmetic, then `verify_prefix`;
-     a second `prove_prefix` under torch.profiler counts the device kernels
-     that are neither K1 nor K2; then each K1 form vs plain again at the
-     largest launch shape of that run and at the one with the most work
-     (launches x bound), with kernel-only times and bounds;
-  7. card vs CPU: `prove_prefix` on the small fib trace gives identical
-     proofs on "cuda" and on "cpu" (stages 1-6v; fib's RAM and bytecode
-     spaces fit one chunk, so it has no stage-6v instance), and one
-     `RaVirtual` instance (d = 2) on seeded chunks gives identical round
-     polynomials, openings and transcripts on both;
-  8. one JSON line with every ported kernel, the card line, and the final
+     plain versions' limb arithmetic, then `verify`; a second `prove`
+     under torch.profiler gives each stage's device time and busy share
+     and counts the device kernels that are neither K1 nor K2; then each
+     K1 form vs plain again at the largest launch shape of that run and at
+     the one with the most work (launches x bound), with kernel-only times
+     and bounds;
+  7. card vs CPU: `prove` on the small fib trace gives the same
+     `proof_io.serialize_proof` bytes on "cuda" and on "cpu" (stages 1-8;
+     fib's RAM and bytecode spaces fit one chunk, so it has no stage-6v
+     instance), and one `RaVirtual` instance (d = 2) on seeded chunks
+     gives identical round polynomials, openings and transcripts on both;
+  8. card vs CPU: one seeded booleanity and one Hamming-weight
+     `GroupedOneHot` of 18 members at K = 256 and T = 2^14 (stage 7's
+     largest group) give identical round polynomials, openings and
+     transcripts on both;
+  9. one JSON line with every ported kernel, the card line, and the final
      `{"ok": true, "device": ...}` line.
 
 Any failure raises and exits nonzero; with no CUDA device it exits 2
@@ -57,7 +64,6 @@ before printing any result.
 """
 
 import collections
-import dataclasses
 import json
 import math
 import pathlib
@@ -75,13 +81,19 @@ SEED = 1234
 
 K2_LOG_T = 18                # K2's full size: the main path's 2^18
 K2_SMALL_LOG_T = 14          # the round-step entry point's own size
-PREFIX_STAGES = {"witness-extraction", "stage1-spartan", "stage1s-shift",
-                 "stage2-reg-rw", "stage3-reg-val", "stage4-5-ram",
-                 "stage5i-instr-lookups", "stage6-bytecode",
-                 "stage6v-ra-virtual"}
+STAGES = ["witness-extraction", "stage1-spartan", "stage1s-shift",
+          "stage2-reg-rw", "stage3-reg-val", "stage4-5-ram",
+          "stage5i-instr-lookups", "stage6-bytecode", "stage6v-ra-virtual",
+          "stage7-booleanity", "stage8-reduction"]
 # the d = 2 ra-virtualization instance held card against CPU (phase 7)
 RA_VIRTUAL_LOG_T = 14
 RA_VIRTUAL_LOG_K = 13
+# the grouped one-hot instances held card against CPU (phase 8): stage 7's
+# largest group on the main path (16 instruction chunks and the 8-bit RAM
+# and bytecode chunks at K = 256)
+ONEHOT_LOG_T = 14
+ONEHOT_M = 18
+ONEHOT_K = 256
 
 FIB_LAYOUT = dict(max_input_size=64, max_output_size=64)
 FIB = """
@@ -429,10 +441,13 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(2)
     sys.path.insert(0, str(ROOT))
-    from jolt_tpu_torch import PublicIO, prove_prefix, verify_prefix
+    from jolt_tpu_torch import PublicIO, prove, verify
     from jolt_tpu_torch.field import kernels, ops
+    from jolt_tpu_torch.poly import eq
+    from jolt_tpu_torch.proof_io import serialize_proof
     from jolt_tpu_torch.prover.prover import BC_RA_SOURCES, RAM_RA_SOURCES
-    from jolt_tpu_torch.relations.ra_virtual import (RaVirtual,
+    from jolt_tpu_torch.relations.grouped_onehot import GroupedOneHot
+    from jolt_tpu_torch.relations.ra_virtual import (RaVirtual, block_widths,
                                                      chunk_streams, d_chunks)
     from jolt_tpu_torch.riscv.emulator import MemoryLayout
     from jolt_tpu_torch.sumcheck.engine import (BatchedSumcheck,
@@ -443,7 +458,8 @@ def main():
     from jolt_tpu_torch.tracer import trace_program
     from jolt_tpu_torch.transcript import Blake2bTranscript
     from jolt_tpu_torch.workload import (SHA2_CHAIN, card_line,
-                                         sha2_chain_trace, timed_stages)
+                                         sha2_chain_trace, stage_device_s,
+                                         timed_stages)
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -697,7 +713,7 @@ def main():
           flush=True)
     del factors, inst, card_msgs, plain_msgs, polys
 
-    # ---- 6. main path: sha2-chain through prove_prefix on the card -------
+    # ---- 6. main path: sha2-chain through prove on the card --------------
     t0 = time.perf_counter()
     tr = sha2_chain_trace()          # raises if the chain's output is wrong
     t_trace = time.perf_counter() - t0
@@ -725,7 +741,7 @@ def main():
     try:
         t0 = time.perf_counter()
         proof, stage_s, stage_lines, stage_launches = timed_stages(
-            lambda: prove_prefix(tr, device="cuda"))
+            lambda: prove(tr, setup=None, device="cuda"))
         t_prove = time.perf_counter() - t0
     finally:
         k1_counts = kernels.k1_launches()
@@ -752,44 +768,58 @@ def main():
     check(all(d_chunks(k) <= 2 for k in (proof.ram_log_K,
                                           proof.bytecode_log_K)),
           "a stage-6v instance has more than 3 factors: off K2")
-    check(k2_launches == (1 + n6v) * (log_t + 1),
-          f"K2 launched {k2_launches} times on the prefix path (want "
-          f"{(1 + n6v) * (log_t + 1)}: the shift sumcheck's and {n6v} "
-          f"stage-6v instances' {log_t} rounds each)")
+    # stage 7: each K group's Hamming-weight instance runs its log T cycle
+    # rounds on K2, plus the last bind for a one-member group
+    widths = ([7] * 3 + block_widths(proof.ram_log_K)
+              + block_widths(proof.bytecode_log_K) + [8] * 16)
+    n7 = sum(log_t + (widths.count(w) == 1) for w in set(widths))
     check(stage_launches["stage1s-shift"]["k2"] == log_t + 1
           and stage_launches["stage6v-ra-virtual"]["k2"]
-          == n6v * (log_t + 1), f"K2 per stage: {stage_launches}")
-    check(set(stage_s) == PREFIX_STAGES, f"stage lines: {stage_s}")
-    check([e["stage"] for e in proof.fs_tape]
-          == [k for k in stage_s if k != "witness-extraction"],
+          == n6v * (log_t + 1)
+          and stage_launches["stage7-booleanity"]["k2"] == n7
+          and stage_launches["stage8-reduction"]["k2"] > 0,
+          f"K2 per stage: {stage_launches}")
+    check(k2_launches == sum(v["k2"] for v in stage_launches.values()),
+          f"K2 launched {k2_launches} times on the main path, "
+          f"{stage_launches} by stage")
+    check(list(stage_s) == STAGES, f"stage lines: {stage_s}")
+    check([e["stage"] for e in proof.fs_tape] == STAGES[1:],
           f"FS tape: {proof.fs_tape}")
     t0 = time.perf_counter()
-    ok = verify_prefix(proof, PublicIO.from_trace(tr))
+    ok = verify(proof, PublicIO.from_trace(tr))
     t_verify = time.perf_counter() - t0
-    check(ok is True, "verify_prefix did not accept")
+    check(ok is True, "verify did not accept")
     shapes = collections.Counter(records)
     # the address-phase scale of s2-s5 is in the reduce form's finish
     check(shapes[("mul", ((8, 3, 1), (8, 1, 1)))] == 0,
           "the path still multiplies (8, 3, 1) messages by a scale")
-    print(f"[path] prove_prefix {t_prove:.3f}s ("
+    print(f"[path] prove {t_prove:.3f}s ("
           + ", ".join(f"{k} {v:.3f}s" for k, v in stage_s.items())
           + f"), peak allocated {peak / 2**30:.3f} GiB, K1 launches "
           f"{launches} {k1_counts}, {len(shapes)} launch shapes, K2 launches "
           f"{k2_launches} (stage 1s and {n6v} stage-6v instances, {log_t} "
-          f"rounds each; RAM log K {proof.ram_log_K}, bytecode log K "
-          f"{proof.bytecode_log_K}); verify_prefix accepted in "
-          f"{t_verify:.3f}s", flush=True)
-    for label, n in stage_launches.items():
-        print(f"[path] launches in {label}: K1 {sum(n['k1'].values())} "
-              f"{n['k1']}, K2 {n['k2']}", flush=True)
+          f"rounds each; stage 7 {n7}, stage 8 "
+          f"{stage_launches['stage8-reduction']['k2']}; RAM log K "
+          f"{proof.ram_log_K}, bytecode log K {proof.bytecode_log_K}); "
+          f"verify accepted in {t_verify:.3f}s", flush=True)
 
-    # the device kernels of a second run, by name: those of neither kernel
-    prove_prefix(tr, device="cuda")           # warm, as the first run was
+    # a second run under the profiler: each stage's device time and busy
+    # share, and the device kernels by name (those of neither kernel)
+    prove(tr, device="cuda")                  # warm, as the first run was
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        prove_prefix(tr, device="cuda")
+        _, prof_s, _, _ = timed_stages(lambda: prove(tr, device="cuda"))
         torch.cuda.synchronize()
+    dev_s = stage_device_s(prof)
+    for label in STAGES:
+        n = stage_launches[label]
+        print(f"[stage] {label}: {stage_s[label]:.4f}s timed; profiled "
+              f"{prof_s[label]:.4f}s, device {dev_s.get(label, 0.0):.4f}s, "
+              f"busy {dev_s.get(label, 0.0) / prof_s[label]:.1%}; K1 "
+              f"{sum(n['k1'].values())} {n['k1']}, K2 {n['k2']}", flush=True)
+    print(f"[stage] prove profiled {sum(prof_s.values()):.3f}s, busy "
+          f"{sum(dev_s.values()) / sum(prof_s.values()):.1%}", flush=True)
     census = collections.Counter()
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -800,7 +830,7 @@ def main():
               and "Memset" not in k}
     copies = {k: c for k, c in census.items() if "Memcpy" in k}
     n_other = sum(others.values())
-    print(f"[path] device kernels on prove_prefix (profiled run): "
+    print(f"[path] device kernels on prove (profiled run): "
           f"{sum(c for k, c in census.items() if 'k1_' in k)} K1, "
           f"{sum(c for k, c in census.items() if any(o in k for o in own[1:]))}"
           f" K2, {n_other} others, copies {copies}; the most frequent "
@@ -840,14 +870,16 @@ def main():
     fib = trace_program(FIB.format(output_start=fib_layout.output_start,
                                    termination=fib_layout.termination),
                         layout=fib_layout)
-    on_card = prove_prefix(fib, device="cuda")
-    on_cpu = prove_prefix(fib, device="cpu")
-    check(dataclasses.asdict(on_card) == dataclasses.asdict(on_cpu),
-          "prove_prefix differs between cuda and cpu on the fib trace")
-    check(verify_prefix(on_card, PublicIO.from_trace(fib)) is True,
-          "verify_prefix rejected the fib proof")
-    print(f"[card-vs-cpu] fib ({fib.length} cycles): identical PrefixProof; "
-          f"states {[e['state'][:16] for e in on_card.fs_tape]}", flush=True)
+    on_card = prove(fib, device="cuda")
+    on_cpu = prove(fib, device="cpu")
+    check(serialize_proof(on_card) == serialize_proof(on_cpu)
+          and on_card.fs_tape == on_cpu.fs_tape,
+          "prove differs between cuda and cpu on the fib trace")
+    check(verify(on_card, PublicIO.from_trace(fib)) is True,
+          "verify rejected the fib proof")
+    print(f"[card-vs-cpu] fib ({fib.length} cycles): identical proof bytes "
+          f"({len(serialize_proof(on_card))} B); states "
+          f"{[e['state'][:16] for e in on_card.fs_tape]}", flush=True)
     # stage 6v's instance (d = 2: three factors on K2) on seeded chunks; the
     # claim is any value, since only card == CPU is checked here
     rng = np.random.default_rng(SEED)
@@ -876,7 +908,34 @@ def main():
           f"transcript; K2 launches on the card {runs['cuda'][4]}",
           flush=True)
 
-    # ---- 8. results -------------------------------------------------------
+    # ---- 8. stage 7's largest group, card vs CPU --------------------------
+    # booleanity (K1) and Hamming weight (K2 cycle rounds) on seeded
+    # streams; the claims are any values, since only card == CPU is checked
+    streams = rng.integers(0, ONEHOT_K, (ONEHOT_M, 1 << ONEHOT_LOG_T))
+    log_k = ONEHOT_K.bit_length() - 1
+    r_cyc = [int(x) for x in rng.integers(2, 1 << 62, ONEHOT_LOG_T)]
+    r_addr = [int(x) for x in rng.integers(2, 1 << 62, log_k)]
+    for booleanity in (True, False):
+        runs = {}
+        for where in ("cuda", "cpu"):
+            inst = GroupedOneHot(
+                streams, ONEHOT_K, eq.evals(r_cyc, where),
+                [r_addr if booleanity else None] * ONEHOT_M,
+                list(range(ONEHOT_M)), 777, [f"m{i}" for i in
+                                             range(ONEHOT_M)],
+                booleanity=booleanity, opening_kind="t")
+            acc, transcript = OpeningAccumulator(), Blake2bTranscript(b"s7")
+            polys, _ = BatchedSumcheck.prove([inst], acc, transcript)
+            runs[where] = (polys, inst.final_openings, acc.openings,
+                           transcript.state)
+        check(runs["cuda"] == runs["cpu"],
+              f"GroupedOneHot (booleanity={booleanity}) differs between "
+              "cuda and cpu")
+        print(f"[card-vs-cpu] GroupedOneHot {'booleanity' if booleanity else 'Hamming'} "
+              f"M = {ONEHOT_M}, K = {ONEHOT_K}, T = 2^{ONEHOT_LOG_T}: "
+              "identical round polys, openings and transcript", flush=True)
+
+    # ---- 9. results -------------------------------------------------------
     print(f"[total] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(card)
     # K2's headline: the main path's round (stage 1s: two factors, bind then

@@ -5,5 +5,5 @@ byte for byte.  It imports torch and numpy only.  Entry points run on the
 card (`device="cuda"`) unless the caller asks for the CPU.
 """
 
-from .prover import PrefixProof, prove_prefix
-from .verifier import PublicIO, VerificationError, verify_prefix
+from .prover import JoltProof, PrefixProof, prove, prove_prefix
+from .verifier import PublicIO, VerificationError, verify, verify_prefix

@@ -176,6 +176,13 @@ def pack_ints(vals: Sequence[int], device="cuda") -> torch.Tensor:
     return from_words(words.to(device))
 
 
+def pack_ints_host(vals: Sequence[int], device="cuda") -> torch.Tensor:
+    """Python ints -> Montgomery limbs (8, len(vals)), converted on the
+    host: one upload and no launch, for the few constants of a round."""
+    words = _words_of_ints([int(v) % P * R % P for v in vals])
+    return torch.from_numpy(words.astype(np.int32)).to(device)
+
+
 def np_unpack_ints(arr: np.ndarray) -> List[int]:
     """(8, ...) int32/uint32 Montgomery words (host) -> canonical ints."""
     flat = np.ascontiguousarray(

@@ -1,15 +1,16 @@
-"""Where `prove_prefix` spends its time on one CUDA device.
+"""Where `prove` spends its time on one CUDA device.
 
     python3 -m jolt_tpu_torch.profile_prefix
 
 Traces the main path's workload (`workload.sha2_chain_trace`: the
-sha2-chain guest at chain=114, ~2^18 cycles), runs `prove_prefix` once to
-warm up (kernel builds, allocator), then once under `torch.profiler`, and
-prints one JSON line: the wall time of each stage (inflated by the
-profiler's own cost), the summed device time of all kernels and copies, the
-device's busy share of the wall time, and per stage (witness extraction,
-s1 ... s6v) its device time, busy share and K1 (per form) and K2
-launches; K1's launches and device time per form (`k1_mul`, ..,
+sha2-chain guest at chain=114, ~2^18 cycles), runs `prove(trace,
+setup=None, device="cuda")` (stages 1-8; the name is the module's from
+when the port reached stage 6v) once to warm up (kernel builds,
+allocator), then once under `torch.profiler`, and prints one JSON line:
+the wall time of each stage (inflated by the profiler's own cost), the
+summed device time of all kernels and copies, the device's busy share of
+the wall time, and per stage (witness extraction, s1 ... s8) its device
+time, busy share and K1 (per form) and K2 launches; K1's launches and device time per form (`k1_mul`, ..,
 `k1_reduce`), K2's launches and device time, K1's kernel-only time per
 launch shape beside that shape's bound, the device kernels that are
 neither K1 nor K2, and the ten operations with the most device time.  A
@@ -19,9 +20,7 @@ evaluation's worker threads are not profiled, their wait is in their
 caller).
 
 A stage's device time is that of the kernels and copies that start between
-the end of the stage before and its own end (the "[prove] <label>" marks
-of the prover's stage timer); every stage ends in a blocking copy, so its
-device work does not run into the next.
+the end of the stage before and its own end (`workload.stage_device_s`).
 
 K1's launches are matched to their shapes by order: every K1 launch
 appends its form and operand shapes to `kernels.record`, and the card runs
@@ -42,9 +41,10 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from . import prove_prefix
+from . import prove
 from .field import kernels
-from .workload import card_line, k1_bound_ms, sha2_chain_trace, timed_stages
+from .workload import (card_line, k1_bound_ms, sha2_chain_trace,
+                       stage_device_s, timed_stages)
 
 K2_KERNELS = ("round_kernel", "finish_kernel")
 
@@ -61,11 +61,11 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_prefix needs a CUDA device")
     trace = sha2_chain_trace()
-    prove_prefix(trace, device="cuda")                 # warm-up
+    prove(trace, device="cuda")                        # warm-up
     torch.cuda.synchronize()
 
     def run():
-        prove_prefix(trace, device="cuda")
+        prove(trace, device="cuda")
         torch.cuda.synchronize()
 
     kernels.reset_launches()
@@ -78,20 +78,12 @@ def main() -> None:
             wall = time.perf_counter() - t0
     finally:
         records, kernels.record = kernels.record, None
-    # each stage's end on the profiler's clock
-    ends = sorted((e.time_range.start, e.name[len("[prove] "):])
-                  for e in prof.events()
-                  if e.device_type == DeviceType.CPU
-                  and e.name.startswith("[prove] "))
-    stage_us = collections.Counter()
+    stage_s = stage_device_s(prof)
     # kernels and copies on the card (one stream: their times do not overlap)
     by_name = {}
     k1_events = collections.defaultdict(list)
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            label = next((lb for t, lb in ends if e.time_range.start <= t),
-                         "after the last stage")
-            stage_us[label] += e.time_range.elapsed_us()
             c, us = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (c + 1, us + e.time_range.elapsed_us())
             form = _k1_form(e.name)
@@ -145,10 +137,11 @@ def main() -> None:
         "device_busy_s": device_us / 1e6,
         "device_busy_share": device_us / 1e6 / wall,
         "stages": {label: {
-            "wall_s": stages.get(label), "device_s": stage_us[label] / 1e6,
-            "busy_share": (stage_us[label] / 1e6 / stages[label]
-                           if stages.get(label) else None),
-            **stage_launches.get(label, {})} for _, label in ends},
+            "wall_s": stages.get(label), "device_s": dev_s,
+            "busy_share": (dev_s / stages[label] if stages.get(label)
+                           else None),
+            **stage_launches.get(label, {})}
+            for label, dev_s in stage_s.items()},
         "k1_launches": sum(launches.values()),
         "k1_device_s": sum(f["device_s"] for f in k1_forms.values()),
         "k1_forms": k1_forms,

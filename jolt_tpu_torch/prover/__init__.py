@@ -1,1 +1,2 @@
-from .prover import PrefixProof, fiat_shamir_preamble, prove_prefix
+from .prover import (JoltProof, PrefixProof, fiat_shamir_preamble, prove,
+                     prove_prefix)

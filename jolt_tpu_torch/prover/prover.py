@@ -1,22 +1,25 @@
-"""The Jolt prover pipeline on torch, as far as the port reaches.
+"""The Jolt prover pipeline on torch.
 
-Torch counterpart of the JAX package's `prover/prover.py`.  `prove_prefix`
-is the prefix of its `prove` in the same order, with the same transcript
-draws: witness extraction (what these stages need), the Fiat-Shamir
-preamble, no commitments (the sumcheck-only configuration, `setup=None`;
-no zk, no committed program image), then
+Torch counterpart of the JAX package's `prover/prover.py`.  `prove` is its
+`prove` in the same order, with the same transcript draws, in the
+sumcheck-only configuration (`setup=None`: no commitments and no joint
+PCS opening; no zk, no committed program image): witness extraction, the
+Fiat-Shamir preamble, then
 
   1   Spartan outer (R1CS, uni-skip first round + 1 + log T rounds)
   1s  Spartan shift sumcheck (PC chaining via EqPlusOne)
   2   registers read/write checking       (sparse Twist)
   3   registers Val evaluation            (Twist prefix-sum via LT)
   4   RAM read/write checking + raf       (sparse Twist, batched)
-  5   RAM Val evaluation + output check   (batched)
+  5   RAM Val evaluation + output check   (batched; + advice openings)
   5i  instruction-execution read-raf Shout over 2^128
   6   bytecode read-raf + register rafs + lookup-flag columns (batched)
   6v  RAM/bytecode ra virtualization to committed 8-bit chunk selectors
+  7   one-hot booleanity + Hamming weight (grouped by K)
+  8   joint opening-reduction sumcheck (grouped by (K, point))
 
-Later stages extend this function into the port's full `prove`.
+`prove_prefix` stops after stage 6v; `prove` runs the same prefix and
+continues.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import dataclasses
 import hashlib
 import os
 import time
-from typing import Dict, List
+from typing import ClassVar, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -36,8 +39,11 @@ from ..field.params import FR
 from ..lookups import tables as LT
 from ..poly import eq
 from ..relations.bytecode import CLAIM_COLUMNS
+from ..relations.grouped_onehot import GroupedOneHot
 from ..relations.instruction_read_raf import InstructionReadRaf
-from ..relations.ra_virtual import RaVirtual, chunk_streams
+from ..relations.opening_reduction import (DenseOpening,
+                                           cycle_major_to_address_major_point)
+from ..relations.ra_virtual import RaVirtual, block_widths, chunk_streams
 from ..relations.ram_sparse import (RamPairSchedule, SparseOneHotTableEval,
                                     SparseRamOutputCheck,
                                     SparseRamRafEvaluation,
@@ -57,7 +63,7 @@ from ..witness.bytecode import extract_bytecode_witness
 from ..witness.instruction_lookups import (
     D as LK_D, extract_instruction_lookup_witness)
 from ..witness.r1cs_inputs import extract_r1cs_inputs
-from ..witness.ram import extract_ram_log
+from ..witness.ram import advice_poly_coeffs, advice_subcube, extract_ram_log
 from ..witness.registers import extract_register_log
 
 P = FR.modulus
@@ -74,8 +80,8 @@ BC_RA_SOURCES = [("bytecode", "ra"), ("bytecode_flags", "ra"),
 
 @dataclasses.dataclass
 class PrefixProof:
-    """The stage 1-6v parts of the wire-format proof, named as in the JAX
-    package's `JoltProof`, plus the transcript checkpoints."""
+    """The stage 1-6v parts of the wire-format proof, named as in
+    `JoltProof`, plus the transcript checkpoints."""
 
     trace_length: int          # unpadded
     padded_length: int
@@ -101,6 +107,7 @@ class PrefixProof:
     bytecode_log_K: int
     stage6v_polys: List[List[int]]     # ram/bytecode ra virtualization
     stage6v_openings: Dict[str, int]   # per-(source, chunk) openings
+    advice_openings: Dict[str, int]    # trusted/untrusted Init openings
     # prover-chosen protocol configuration (config.ProofConfig wire dict)
     config: Dict[str, int]
     # Fiat-Shamir tape: {"stage", "n_rounds", "state" (hex)} after each of
@@ -108,6 +115,140 @@ class PrefixProof:
     # stage4-5-ram, stage5i-instr-lookups, stage6-bytecode and
     # stage6v-ra-virtual
     fs_tape: List[dict]
+
+
+@dataclasses.dataclass
+class JoltProof:
+    """Wire-format proof parts (`JoltProofParts`, zkvm/prover.rs:561-583):
+    the JAX package's `JoltProof`, field for field and in its order, which
+    `proof_io.serialize_proof` encodes."""
+
+    trace_length: int          # unpadded
+    padded_length: int
+    stage1_uniskip: List[int]          # uni-skip first-round poly (31 coeffs)
+    stage1_polys: List[List[int]]      # compressed round polys
+    r1cs_input_openings: List[int]     # 38 openings at r_cycle
+    shift_polys: List[List[int]]       # PC-chaining shift sumcheck
+    shift_opening: int                 # combined current-row cols at rho
+    stage2_polys: List[List[int]]      # registers read/write checking
+    stage2_openings: Dict[str, int]    # wa/ra1/ra2/val/inc at bound point
+    stage3_polys: List[List[int]]      # registers Val evaluation
+    stage3_openings: Dict[str, int]    # wa/inc at new bound point
+    stage4_polys: List[List[int]]      # RAM rw-checking + raf (batched)
+    stage4_openings: Dict[str, int]    # ra/val/inc (rw) + ra (raf)
+    stage5_polys: List[List[int]]      # RAM Val evaluation + output check
+    stage5_openings: Dict[str, int]
+    ram_log_K: int
+    stage5i_polys: List[List[int]]     # instruction read-raf Shout
+    stage5i_openings: Dict[str, int]   # ra0..ra15, flag_<table>, raf_flag
+    stage6_polys: List[List[int]]      # bytecode read-raf + register rafs
+    stage6_openings: Dict[str, int]    # bytecode ra + register one-hot opens
+    stage6_claims: List[int]           # virtual rd/rs1/rs2 index claims
+    bytecode_log_K: int
+    stage6v_polys: List[List[int]]     # ram/bytecode ra virtualization
+    stage6v_openings: Dict[str, int]   # per-(source, chunk) openings
+    stage7_polys: List[List[int]]      # booleanity + hamming (all one-hots)
+    stage7_openings: Dict[str, int]    # per-matrix bound openings
+    stage8_polys: List[List[int]]      # joint opening-reduction sumcheck
+    stage8_openings: List[int]         # per-entry P_i(r*) terminal values
+    commitments: Dict[str, object]     # committed polys (G1 points)
+    opening_proofs: Dict[str, object]  # "joint" -> DoryProof|HyperKZGProof
+    advice_openings: Dict[str, int] = None   # trusted/untrusted Init openings
+    # zk mode (BlindFold): per-stage Pedersen round commitments replace the
+    # stageN_polys coefficient lists, plus one BlindFoldProof
+    zk_commitments: Dict[str, List[bytes]] = None
+    zk_blindfold: object = None
+    # prover-chosen protocol configuration, re-validated by the verifier
+    # (config.ProofConfig wire dict; ref zkvm/config.rs:95-210)
+    config: Dict[str, int] = None
+    # committed-bytecode mode: the program image's contribution to
+    # Val_init(r4_addr) (claim_reductions/program_image.rs)
+    program_image_claim: int = None
+    # the prover's transcript checkpoints (`PrefixProof.fs_tape` plus
+    # stage7-booleanity and stage8-reduction); not a dataclass field, so
+    # not in the wire format (a decoded proof has None)
+    fs_tape: ClassVar[Optional[List[dict]]] = None
+
+
+def committed_poly_names(d_ram: int = 1, d_bc: int = 1,
+                         advice_kinds=(), committed_image: bool = False):
+    """Canonical commitment absorb order, shared by prover and verifier
+    (one-hot access matrices then dense increment columns).  RAM and
+    bytecode access matrices are committed as d 8-bit chunk selectors
+    (reference RamRa(i)/BytecodeRa(i), `zkvm/witness.rs:24-74`) so no
+    committed one-hot exceeds 256 rows.  `advice_kinds` (derived from the
+    public MemoryLayout advice sizes) appends the trusted/untrusted advice
+    polynomials (`zkvm/prover.rs:806-860`)."""
+    return (["wa", "ra1", "ra2"]
+            + [f"ram_ra{i}" for i in range(d_ram)]
+            + [f"bc_ra{i}" for i in range(d_bc)]
+            + [f"lk_ra{i}" for i in range(LK_D)]
+            + ["inc", "ram_inc"]
+            + [f"{k}_advice" for k in advice_kinds]
+            + (["program_image"] if committed_image else []))
+
+
+def advice_kinds_of(layout) -> tuple:
+    """('trusted'?, 'untrusted'?) in canonical order, from the PUBLIC
+    memory layout (both sides derive the same commitment/entry lists)."""
+    return tuple(k for k in ("trusted", "untrusted")
+                 if layout.advice_region(k)[1] > 0)
+
+
+def stage8_entry_ids(d_ram: int = 1, d_bc: int = 1, advice_kinds=(),
+                     committed_image: bool = False):
+    """Ordered (accumulator_id, commitment_name) pairs covering EVERY
+    committed-polynomial opening produced by stages 1-7.  Shared by prover
+    and verifier so the joint reduction is built identically on both sides;
+    entries deduplicate on (commitment, point) with claim-equality checks."""
+    ids = [
+        (("registers", "wa"), "wa"), (("registers", "ra1"), "ra1"),
+        (("registers", "ra2"), "ra2"), (("registers", "inc"), "inc"),
+        (("registers_val_eval", "wa"), "wa"),
+        (("registers_val_eval", "inc"), "inc"),
+        (("ram", "inc"), "ram_inc"),
+        (("ram_val_eval", "inc"), "ram_inc"),
+        (("ram_output", "inc"), "ram_inc"),
+        (("registers_raf", "wa"), "wa"), (("registers_raf", "ra1"), "ra1"),
+        (("registers_raf", "ra2"), "ra2"),
+    ]
+    # ra-virtualization outputs: chunk openings per full-ra source claim
+    for t in range(len(RAM_RA_SOURCES)):
+        for i in range(d_ram):
+            ids.append(((f"ram_ra_virt", (t, i)), f"ram_ra{i}"))
+    for t in range(len(BC_RA_SOURCES)):
+        for i in range(d_bc):
+            ids.append(((f"bc_ra_virt", (t, i)), f"bc_ra{i}"))
+    for i in range(LK_D):
+        ids.append((("instr_ra", i), f"lk_ra{i}"))
+    onehot_labels = (["reg_wa", "reg_ra1", "reg_ra2"]
+                     + [f"ram_ra{i}" for i in range(d_ram)]
+                     + [f"bc_ra{i}" for i in range(d_bc)]
+                     + [f"lk_ra{i}" for i in range(LK_D)])
+    cnames = (["wa", "ra1", "ra2"]
+              + [f"ram_ra{i}" for i in range(d_ram)]
+              + [f"bc_ra{i}" for i in range(d_bc)]
+              + [f"lk_ra{i}" for i in range(LK_D)])
+    for label, cname in zip(onehot_labels, cnames):
+        ids.append(((("booleanity"), label), cname))
+        ids.append(((("hamming"), label), cname))
+    for kind in advice_kinds:
+        ids.append((("advice", kind), f"{kind}_advice"))
+    if committed_image:
+        ids.append((("program_image", "init"), "program_image"))
+    return ids
+
+
+def mle_eval_host(vals: Sequence[int], point: Sequence[int]) -> int:
+    """A dense MLE at a point on the host (point[0] binds the MSB), as
+    the JAX package's `blindfold/hyrax.py:mle_eval_host`."""
+    cur = [v % P for v in vals]
+    for r in point:
+        r = r % P
+        half = len(cur) // 2
+        cur = [(cur[i] + r * (cur[i + half] - cur[i])) % P
+               for i in range(half)]
+    return cur[0]
 
 
 def preprocessing_digest(code: bytes, entry: int, start: int, memory_layout,
@@ -175,18 +316,6 @@ def fiat_shamir_preamble(transcript: Blake2bTranscript, trace_length: int,
                           config.committed_program_image)
 
 
-def require_no_advice(layout) -> None:
-    """The ported prefix has no advice regions (the bench's and fib's
-    `MemoryLayout(64, 64)` have none): their Init contribution needs the
-    committed advice polynomials and the stage-8 reduction."""
-    kinds = [k for k in ("trusted", "untrusted")
-             if layout.advice_region(k)[1] > 0]
-    if kinds:
-        raise NotImplementedError(
-            f"{' and '.join(kinds)} advice regions need the advice openings "
-            "and the stage-8 joint reduction (ROADMAP A11), not ported yet")
-
-
 def resolve_device(device) -> torch.device:
     """The device a caller asked for; a CUDA device must exist (no silent
     fall-back to the CPU)."""
@@ -243,10 +372,35 @@ class _StageTimer:
 def prove_prefix(trace: Trace, device="cuda") -> PrefixProof:
     """Prove stages 1 through 6v of the trace on `device` (the card unless
     the caller asks for the CPU)."""
-    device = resolve_device(device)
-    require_no_advice(trace.memory_layout)
+    return _prove(trace, resolve_device(device), full=False)
+
+
+def prove(trace: Trace, setup=None, device="cuda", zk: bool = False,
+          committed_image: bool = False) -> JoltProof:
+    """Prove the trace on `device` (the card unless the caller asks for the
+    CPU): stages 1 through 8 in the sumcheck-only configuration, the JAX
+    package's `prove(trace)` (`setup=None`: the proof carries the bare
+    opening claims, no commitments and no joint opening proof)."""
+    if setup is not None:
+        raise NotImplementedError(
+            "a commitment setup needs Dory's commits and joint opening "
+            "(ROADMAP A11), not ported yet; pass setup=None")
+    if zk:
+        raise NotImplementedError(
+            "zk=True needs the BlindFold committed rounds (ROADMAP A14), "
+            "not ported yet")
+    if committed_image:
+        raise NotImplementedError(
+            "committed_image=True needs the program-image claim reduction "
+            "(ROADMAP A13), not ported yet")
+    return _prove(trace, resolve_device(device), full=True)
+
+
+def _prove(trace: Trace, device: torch.device, full: bool):
+    """The prover's stages in `prove`'s order: through stage 6v (a
+    `PrefixProof`), or with `full` through stage 8 (a `JoltProof`)."""
     timer = _StageTimer(device)
-    # ---- witness extraction (host), as far as stages 1-6v need it -------
+    # ---- witness extraction (host) --------------------------------------
     inputs = extract_r1cs_inputs(trace)
     reg_wit = extract_register_log(trace)
     ram_wit = extract_ram_log(trace)
@@ -254,6 +408,18 @@ def prove_prefix(trace: Trace, device="cuda") -> PrefixProof:
     lk_wit = extract_instruction_lookup_witness(trace, inputs)
     log_T = trace.log_T
     T_pad = trace.padded_length
+    # RAM/bytecode matrices commit as d 8-bit chunk selectors (ra_virtual);
+    # stages 6v, 7 and 8 read the chunk streams
+    ram_chunks = chunk_streams(ram_wit.cols, ram_wit.log_K)
+    bc_chunks = chunk_streams(np.asarray(bc_wit.pc_idx), bc_wit.log_K)
+    # advice polynomials (zkvm/prover.rs:806-860): dense dword vectors over
+    # the full advice regions, opened in stage 5 and reduced in stage 8
+    layout = trace.memory_layout
+    advice_kinds = advice_kinds_of(layout)
+    advice_coeffs = {
+        kind: advice_poly_coeffs(layout, kind, bytes(
+            getattr(trace.device, f"{kind}_advice", b"")))
+        for kind in advice_kinds}
     timer.mark("witness-extraction")
 
     transcript = Blake2bTranscript(b"Jolt")
@@ -345,6 +511,17 @@ def prove_prefix(trace: Trace, device="cuda") -> PrefixProof:
     val_pt = accumulator.get_point(("ram", "val"))  # normalized (cyc, addr)
     r4_cyc, r4_addr = list(val_pt[:log_T]), list(val_pt[log_T:])
     ram_val_claim = accumulator.get_claim(("ram", "val"))
+    # advice openings: each advice region is a size-aligned subcube of the
+    # address space, so its contribution to Init(r4_addr) factors as
+    # selector(high vars) * AdviceMLE(low vars); the MLE opening joins the
+    # stage-8 joint reduction (ref compute_advice_init_contributions)
+    advice_openings: Dict[str, int] = {}
+    for kind in advice_kinds:
+        a_vars, _ = advice_subcube(layout, kind, ram_wit.log_K)
+        r_low = r4_addr[len(r4_addr) - a_vars:]
+        advice_openings[kind] = mle_eval_host(advice_coeffs[kind], r_low)
+        accumulator.insert(("advice", kind), tuple(r_low),
+                           advice_openings[kind])
     ram_ve = SparseRamValEvaluation(ram_sched, ram_wit.log_K,
                                     ram_wit.init_vals, ram_wit.inc,
                                     r4_addr, r4_cyc, ram_val_claim)
@@ -458,11 +635,10 @@ def prove_prefix(trace: Trace, device="cuda") -> PrefixProof:
     # directly: the 256-row committed MLE at the zero-padded point IS the
     # full-ra MLE.
     insts6v = []
-    for prefix, idx, log_Kv, sources in (
-            ("ram_ra", ram_wit.cols, ram_wit.log_K, RAM_RA_SOURCES),
-            ("bc_ra", bc_wit.pc_idx, bc_wit.log_K, BC_RA_SOURCES)):
-        chunks = [torch.from_numpy(c).to(device)
-                  for c in chunk_streams(np.asarray(idx), log_Kv)]
+    for prefix, streams, log_Kv, sources in (
+            ("ram_ra", ram_chunks, ram_wit.log_K, RAM_RA_SOURCES),
+            ("bc_ra", bc_chunks, bc_wit.log_K, BC_RA_SOURCES)):
+        chunks = [torch.from_numpy(c).to(device) for c in streams]
         for t, oid in enumerate(sources):
             pt, cl = accumulator.openings[oid]
             r_cyc_v, r_addr_v = list(pt[:log_T]), list(pt[log_T:])
@@ -485,7 +661,7 @@ def prove_prefix(trace: Trace, device="cuda") -> PrefixProof:
     del insts6v
     finish("stage6v-ra-virtual")
 
-    return PrefixProof(
+    prefix = dict(
         trace_length=trace.length,
         padded_length=trace.padded_length,
         stage1_uniskip=list(s1_coeffs),
@@ -510,6 +686,133 @@ def prove_prefix(trace: Trace, device="cuda") -> PrefixProof:
         bytecode_log_K=bc_wit.log_K,
         stage6v_polys=stage6v_polys,
         stage6v_openings=stage6v_openings,
-        config=proof_config.as_dict(),
-        fs_tape=fs_tape,
-    )
+        advice_openings=advice_openings,
+        config=proof_config.as_dict())
+    if not full:
+        return PrefixProof(**prefix, fs_tape=fs_tape)
+
+    # ---- Stage 7: one-hot booleanity + Hamming weight (all matrices) -----
+    # every access matrix's index stream and width K; RAM/bytecode as their
+    # committed chunk selectors
+    onehot_meta = {"wa": (reg_wit.rd_eff, 128), "ra1": (reg_wit.rs1_eff, 128),
+                   "ra2": (reg_wit.rs2_eff, 128)}
+    for i, w in enumerate(block_widths(ram_wit.log_K)):
+        onehot_meta[f"ram_ra{i}"] = (ram_chunks[i], 1 << w)
+    for i, w in enumerate(block_widths(bc_wit.log_K)):
+        onehot_meta[f"bc_ra{i}"] = (bc_chunks[i], 1 << w)
+    for i in range(LK_D):
+        onehot_meta[f"lk_ra{i}"] = (lk_wit.chunks[i], 256)
+    labels7 = {"wa": "reg_wa", "ra1": "reg_ra1", "ra2": "reg_ra2"}
+    matrices = [(labels7.get(name, name), idx, K)
+                for name, (idx, K) in onehot_meta.items()]
+    max_log_K = max(K.bit_length() - 1 for _, _, K in matrices)
+    r_b = transcript.challenge_vector(max_log_K + log_T)
+    r_h = transcript.challenge_vector(log_T)
+    gamma7 = transcript.challenge_scalar()
+    # same-K matrices group into ONE gamma-RLC instance per (kind, K)
+    groups7: Dict[int, list] = {}
+    for label, idx, K in matrices:
+        groups7.setdefault(K, []).append((label, idx))
+    E_bcyc = eq.evals(r_b[max_log_K:], device)
+    E_h = eq.evals(r_h, device)
+    insts7 = []
+    for K, members in groups7.items():
+        log_Km = K.bit_length() - 1
+        r_addr = r_b[max_log_K - log_Km:max_log_K]
+        labs = [lab for lab, _ in members]
+        idx = torch.from_numpy(np.stack(
+            [np.asarray(s, dtype=np.int64) for _, s in members])).to(device)
+        m7 = len(members)
+        insts7.append(GroupedOneHot(idx, K, E_bcyc, [r_addr] * m7, [0] * m7,
+                                    gamma7, labs, booleanity=True,
+                                    opening_kind="booleanity"))
+        insts7.append(GroupedOneHot(idx, K, E_h, [None] * m7, [1] * m7,
+                                    gamma7, labs, booleanity=False,
+                                    opening_kind="hamming"))
+    stage7_polys, _ = BatchedSumcheck.prove(insts7, accumulator, transcript)
+    stage7_openings: Dict[str, int] = {}
+    for inst in insts7:
+        kind7 = "bool" if inst.booleanity else "ham"
+        for lab, v in zip(inst.labels, inst.final_openings):
+            stage7_openings[f"{kind7}_{lab}"] = v
+    del insts7, E_bcyc, E_h
+    finish("stage7-booleanity")
+
+    # ---- Stage 8: joint opening reduction --------------------------------
+    # Reduce EVERY committed-poly claim from stages 1-7 to openings at one
+    # shared point r* (zkvm/prover.rs:2097-2260); with no PCS the proof
+    # carries those openings and no joint opening proof.
+    entries = []          # (commitment_name, cycle-major point, claim)
+    seen: Dict[object, int] = {}
+    for oid, cname in stage8_entry_ids(len(ram_chunks), len(bc_chunks),
+                                       advice_kinds):
+        pt, cl = accumulator.openings[oid]
+        if (cname, pt) in seen:
+            if seen[(cname, pt)] != cl:
+                raise AssertionError(f"inconsistent duplicate claim {oid}")
+            continue
+        seen[(cname, pt)] = cl
+        entries.append((cname, list(pt), cl))
+    gamma8 = transcript.challenge_scalar()
+    # one-hot entries group by (K, point, reduced mod p): the members of a
+    # group share one address point and one cycle eq table (L, T); dense
+    # entries stay singletons.  Entries reorder group-first, so
+    # stage8_openings follows the instances' outputs.
+    groups8: Dict[tuple, list] = {}
+    dense8 = []
+    for cname, pt, cl in entries:
+        if cname in onehot_meta:
+            key8 = (onehot_meta[cname][1], tuple(x % P for x in pt))
+            groups8.setdefault(key8, []).append((cname, pt, cl))
+        else:
+            dense8.append((cname, pt, cl))
+    insts8 = []
+    n8 = 0
+    eq_tables: Dict[tuple, torch.Tensor] = {}   # by cycle point
+    for (K, _), members in groups8.items():
+        log_Km = K.bit_length() - 1
+        q = cycle_major_to_address_major_point(
+            members[0][1], len(members[0][1]) - log_Km)
+        q_cyc = tuple(x % P for x in q[log_Km:])
+        if q_cyc not in eq_tables:
+            eq_tables[q_cyc] = eq.evals(list(q_cyc), device)
+        m8 = len(members)
+        insts8.append(GroupedOneHot(
+            [onehot_meta[c][0] for c, _, _ in members], K, eq_tables[q_cyc],
+            [q[:log_Km]] * m8, [cl for _, _, cl in members], gamma8,
+            [f"{n8 + i}_{c}" for i, (c, _, _) in enumerate(members)],
+            booleanity=False, opening_kind="joint_opening"))
+        n8 += m8
+    dense_meta = {"inc": reg_wit.inc, "ram_inc": ram_wit.inc,
+                  **{f"{k}_advice": advice_coeffs[k] for k in advice_kinds}}
+    dense_dev: Dict[str, torch.Tensor] = {}     # each column packed once
+    for cname, pt, cl in dense8:
+        if cname not in dense_dev:
+            dense_dev[cname] = ops.pack_ints(dense_meta[cname], device)
+        insts8.append(DenseOpening(dense_dev[cname], pt, cl,
+                                   f"{n8}_{cname}", device))
+        n8 += 1
+    del eq_tables, dense_dev
+    stage8_polys, _ = BatchedSumcheck.prove(insts8, accumulator, transcript)
+    stage8_openings: List[int] = []
+    for inst in insts8:
+        if isinstance(inst, GroupedOneHot):
+            stage8_openings.extend(inst.final_openings)
+        else:
+            stage8_openings.append(inst.final_openings["p"])
+    del insts8
+    finish("stage8-reduction")
+
+    proof = JoltProof(
+        **{k: v for k, v in prefix.items()
+           if k not in ("advice_openings", "config")},
+        stage7_polys=stage7_polys,
+        stage7_openings=stage7_openings,
+        stage8_polys=stage8_polys,
+        stage8_openings=stage8_openings,
+        commitments={},
+        opening_proofs={},
+        advice_openings=advice_openings,
+        config=proof_config.as_dict())
+    proof.fs_tape = fs_tape
+    return proof

@@ -1,1 +1,1 @@
-from .verifier import PublicIO, VerificationError, verify_prefix
+from .verifier import PublicIO, VerificationError, verify, verify_prefix

@@ -1,26 +1,38 @@
-"""The Jolt verifier, as far as the port's prover reaches.
+"""The Jolt verifier: stage-sequential succinct verification.
 
-Torch-package counterpart of the JAX package's `verifier/verifier.py`:
-`verify_prefix` validates the proof-carried config, replays the preamble
-and checks stage 1 (Spartan uni-skip + outer), stage 1s (shift), stages 2
-and 3 (registers read/write checking and Val evaluation), stages 4 and 5
-(RAM read/write + raf, then Val evaluation + output check), stage 5i (the
-instruction read-raf Shout), stage 6 (bytecode read-raf and the register
-rafs) and stage 6v (ra virtualization) exactly as the full verifier does in
-the sumcheck-only configuration.  All of it is host work on Python ints.
+Torch-package counterpart of the JAX package's `verifier/verifier.py`
+(`crates/jolt-verifier/src/verifier.rs:176-230`), in the sumcheck-only
+configuration (`setup=None`).  `verify` validates the proof-carried
+config, replays the preamble and checks stage 1 (Spartan uni-skip +
+outer), stage 1s (shift), stages 2 and 3 (registers read/write checking
+and Val evaluation), stages 4 and 5 (RAM read/write + raf, then Val
+evaluation + output check, with the advice regions' Init contributions),
+stage 5i (the instruction read-raf Shout), stage 6 (bytecode read-raf and
+the register rafs), stage 6v (ra virtualization), stage 7 (booleanity +
+Hamming weight) and stage 8 (the joint opening reduction) exactly as the
+JAX package's verifier does; `verify_prefix` stops after stage 6v.  All
+of it is host work on Python ints.
 """
 
 from __future__ import annotations
 
+from typing import Dict
+
 from ..config import ConfigError, ProofConfig
 from ..field.params import FR
 from ..lookups import tables as LT
+from ..poly.eq import eq_int
 from ..prover.prover import (BC_RA_SOURCES, LOOKUP_FLAG_COLUMNS,
-                             RAM_RA_SOURCES, PrefixProof,
-                             fiat_shamir_preamble, require_no_advice)
+                             RAM_RA_SOURCES, JoltProof, PrefixProof,
+                             advice_kinds_of, fiat_shamir_preamble,
+                             stage8_entry_ids)
 from ..relations.bytecode import CLAIM_COLUMNS
+from ..relations.grouped_onehot import GroupedOneHotVerifier
 from ..relations.instruction_read_raf import InstructionReadRafVerifier
-from ..relations.ra_virtual import RaVirtualVerifier, block_point, d_chunks
+from ..relations.opening_reduction import (OpeningReductionVerifier,
+                                           cycle_major_to_address_major_point)
+from ..relations.ra_virtual import (RaVirtualVerifier, block_point,
+                                    block_widths, d_chunks)
 from ..relations.ram_sparse import (SparseBytecodeReadRafVerifier,
                                     SparseRamOutputCheckVerifier,
                                     SparseRamRafEvaluationVerifier,
@@ -45,7 +57,7 @@ from ..witness.r1cs_inputs import (NUM_VARS, V_LEFT_LOOKUP_OPERAND,
                                    V_RAM_READ_VALUE, V_RAM_WRITE_VALUE,
                                    V_RD_WRITE_VALUE, V_RIGHT_LOOKUP_OPERAND,
                                    V_RS1_VALUE, V_RS2_VALUE, VAR_NAMES)
-from ..witness.ram import initial_memory_vals
+from ..witness.ram import advice_subcube, initial_memory_vals
 
 P = FR.modulus
 
@@ -82,7 +94,31 @@ class PublicIO:
 def verify_prefix(proof: PrefixProof, io: PublicIO) -> bool:
     """Check stages 1 through 6v of `proof` against the public statement;
     returns True or raises VerificationError."""
-    require_no_advice(io.memory_layout)
+    _verify_through_6v(proof, io)
+    return True
+
+
+def verify(proof: JoltProof, io: PublicIO, setup=None) -> bool:
+    """Check every stage of `proof` (stages 1 through 8) against the public
+    statement, as the JAX package's `verify(proof, io)`; returns True or
+    raises VerificationError."""
+    if setup is not None:
+        raise NotImplementedError(
+            "a commitment setup needs Dory's joint-opening check (ROADMAP "
+            "A11), not ported yet; pass setup=None")
+    if proof.zk_commitments:
+        raise NotImplementedError(
+            "a zk proof needs the BlindFold verifier (ROADMAP A14), not "
+            "ported yet")
+    transcript, accumulator = _verify_through_6v(proof, io)
+    log_T = io.padded_length.bit_length() - 1
+    _verify_stages_7_8(proof, io, log_T, transcript, accumulator)
+    return True
+
+
+def _verify_through_6v(proof, io: PublicIO):
+    """Stages 1 through 6v of a `PrefixProof` or a `JoltProof` (the fields
+    they share); returns the transcript and the accumulator."""
     program = expand_program(io.code, io.entry, io.start)
     if proof.bytecode_log_K != bytecode_K(program).bit_length() - 1:
         raise VerificationError("bytecode_log_K inconsistent with program")
@@ -210,10 +246,34 @@ def verify_prefix(proof: PrefixProof, io: PublicIO) -> bool:
     # the proof's RAM address space (same rule as the prover witness)
     init_vals = initial_memory_vals(io.inputs, io.memory_layout, io.code,
                                     io.entry, K=1 << proof.ram_log_K)
+    # advice contribution to Init(r4_addr): selector-scaled openings of
+    # the committed advice polynomials (the regions are size-aligned
+    # subcubes; ref zkvm/ram/mod.rs compute_advice_init_contributions).
+    # Claims are proof-carried, accumulated here and proven by stage 8.
+    adv_extra = 0
+    adv_open = proof.advice_openings or {}
+    for kind in advice_kinds_of(io.memory_layout):
+        if kind not in adv_open:
+            raise VerificationError(f"missing {kind} advice opening")
+        try:
+            a_vars, pfx = advice_subcube(io.memory_layout, kind,
+                                         proof.ram_log_K)
+        except AssertionError as e:
+            raise VerificationError(f"advice region: {e}") from e
+        claim = adv_open[kind] % P
+        n_hi = proof.ram_log_K - a_vars
+        sel = 1
+        for i in range(n_hi):
+            bit = (pfx >> (n_hi - 1 - i)) & 1
+            rj = r4_addr[i] % P
+            sel = sel * (rj if bit else (1 - rj) % P) % P
+        adv_extra = (adv_extra + sel * claim) % P
+        accumulator.insert(("advice", kind),
+                           tuple(r4_addr[len(r4_addr) - a_vars:]), claim)
     o5 = proof.stage5_openings
     inst5 = SparseRamValEvaluationVerifier(
         log_T, proof.ram_log_K, r4_addr, r4_cyc, o4["rw_val"], init_vals,
-        {"ra": o5["ra"], "inc": o5["inc"]})
+        {"ra": o5["ra"], "inc": o5["inc"]}, extra_init=adv_extra)
     z_out = transcript.challenge_scalar()
     inst5b = SparseRamOutputCheckVerifier(
         log_T, proof.ram_log_K, z_out, io.outputs, io.memory_layout,
@@ -338,4 +398,135 @@ def verify_prefix(proof: PrefixProof, io: PublicIO) -> bool:
                     list(r6v) + block_point(r_addr_v, log_Kv, i),
                     proof.stage6v_openings[f"{prefix}_{t}_{i}"])
         accumulator.flush_to_transcript(transcript)
-    return True
+    return transcript, accumulator
+
+
+def _verify_stages_7_8(proof: JoltProof, io: PublicIO, log_T: int,
+                       transcript: Blake2bTranscript,
+                       accumulator: OpeningAccumulator) -> None:
+    """Stages 7 and 8 (`verifier.py:484-645` of the JAX package) at
+    `setup=None`: no joint PCS opening follows the reduction."""
+    # ---- Stage 7: one-hot booleanity + Hamming weight --------------------
+    mat_dims = [("reg_wa", 7), ("reg_ra1", 7), ("reg_ra2", 7)]
+    for i, w in enumerate(block_widths(proof.ram_log_K)):
+        mat_dims.append((f"ram_ra{i}", w))
+    for i, w in enumerate(block_widths(proof.bytecode_log_K)):
+        mat_dims.append((f"bc_ra{i}", w))
+    for i in range(LK_D):
+        mat_dims.append((f"lk_ra{i}", 8))
+    max_log_K = max(lk for _, lk in mat_dims)
+    r_b = transcript.challenge_vector(max_log_K + log_T)
+    r_h = transcript.challenge_vector(log_T)
+    gamma7 = transcript.challenge_scalar()
+    o7 = proof.stage7_openings
+    # mirror the prover's (kind, K) grouping (relations/grouped_onehot.py)
+    groups7: Dict[int, list] = {}
+    for label, lk_m in mat_dims:
+        groups7.setdefault(1 << lk_m, []).append(label)
+    insts7 = []
+    group_meta7 = []
+    try:
+        for Km, labels in groups7.items():
+            lk_m = Km.bit_length() - 1
+            r_addr = [x % P for x in r_b[max_log_K - lk_m:max_log_K]]
+            r_bcyc = [x % P for x in r_b[max_log_K:]]
+            m7 = len(labels)
+            w_bool = [(lambda rc, p=r_bcyc: eq_int(p, rc))] * m7
+            w_ham = [(lambda rc, p=[x % P for x in r_h]: eq_int(p, rc))] * m7
+            insts7.append(GroupedOneHotVerifier(
+                m7, lk_m, log_T, w_bool, [r_addr] * m7, [0] * m7, gamma7,
+                [o7[f"bool_{lab}"] for lab in labels], booleanity=True))
+            group_meta7.append(("bool", lk_m, labels))
+            insts7.append(GroupedOneHotVerifier(
+                m7, lk_m, log_T, w_ham, [None] * m7, [1] * m7, gamma7,
+                [o7[f"ham_{lab}"] for lab in labels], booleanity=False))
+            group_meta7.append(("ham", lk_m, labels))
+    except KeyError as e:
+        raise VerificationError(f"missing stage7 opening {e}") from e
+    try:
+        r7 = BatchedSumcheck.verify(proof.stage7_polys, insts7, accumulator,
+                                    transcript)
+    except SumcheckError as e:
+        raise VerificationError(f"stage7: {e}") from e
+    max7 = max(i.num_rounds for i in insts7)
+    for inst, (kind7, lk_m, labels) in zip(insts7, group_meta7):
+        r_sl = r7[max7 - inst.num_rounds:]
+        pt = list(r_sl[lk_m:]) + list(r_sl[:lk_m])      # cycle-major order
+        oid = "booleanity" if kind7 == "bool" else "hamming"
+        for lab in labels:
+            accumulator.insert((oid, lab), pt, o7[f"{kind7}_{lab}"])
+    accumulator.flush_to_transcript(transcript)
+
+    # ---- Stage 8: joint opening reduction --------------------------------
+    # Every committed-poly claim from stages 1-7 must be covered by the
+    # reduction (with Dory, ROADMAP A11, one joint PCS opening then checks
+    # the reduced openings).
+    onehot_logK = {"wa": 7, "ra1": 7, "ra2": 7}
+    for i, w in enumerate(block_widths(proof.ram_log_K)):
+        onehot_logK[f"ram_ra{i}"] = w
+    for i, w in enumerate(block_widths(proof.bytecode_log_K)):
+        onehot_logK[f"bc_ra{i}"] = w
+    for i in range(LK_D):
+        onehot_logK[f"lk_ra{i}"] = 8
+    entries = []
+    seen = {}
+    for oid, cname in stage8_entry_ids(
+            d_chunks(proof.ram_log_K), d_chunks(proof.bytecode_log_K),
+            advice_kinds_of(io.memory_layout)):
+        if oid not in accumulator.openings:
+            raise VerificationError(f"missing stage output claim {oid}")
+        pt, cl = accumulator.openings[oid]
+        key = (cname, pt)
+        if key in seen:
+            if seen[key] != cl:
+                raise VerificationError(
+                    f"inconsistent duplicate claim for {oid}")
+            continue
+        seen[key] = cl
+        entries.append((cname, list(pt), cl))
+    if len(proof.stage8_openings) != len(entries):
+        raise VerificationError("wrong number of stage-8 openings")
+    gamma8 = transcript.challenge_scalar()
+    # mirror the prover's (K, point) grouping (shared eq table per group);
+    # dense entries stay singletons; entries reorder group-first, aligned
+    # with the openings
+    groups8: Dict[tuple, list] = {}
+    dense8 = []
+    for cname, pt, cl in entries:
+        if cname in onehot_logK:
+            key8 = (1 << onehot_logK[cname], tuple(x % P for x in pt))
+            groups8.setdefault(key8, []).append((cname, pt, cl))
+        else:
+            dense8.append((cname, pt, cl))
+    entries = [e for g in groups8.values() for e in g] + dense8
+    insts8 = []
+    pos = 0
+    for (Km, _), members in groups8.items():
+        log_Km = Km.bit_length() - 1
+        qa8, wf8, cls8 = [], [], []
+        for cname, pt, cl in members:
+            q = cycle_major_to_address_major_point(pt, len(pt) - log_Km)
+            qa8.append([x % P for x in q[:log_Km]])
+            wf8.append(lambda rc, p=[x % P for x in q[log_Km:]]:
+                       eq_int(p, rc))
+            cls8.append(cl)
+        m8 = len(members)
+        insts8.append(GroupedOneHotVerifier(
+            m8, log_Km, len(members[0][1]) - log_Km, wf8, qa8, cls8,
+            gamma8, proof.stage8_openings[pos:pos + m8]))
+        pos += m8
+    for cname, pt, cl in dense8:
+        insts8.append(OpeningReductionVerifier(
+            len(pt), pt, cl, proof.stage8_openings[pos]))
+        pos += 1
+    try:
+        r8 = BatchedSumcheck.verify(proof.stage8_polys, insts8, accumulator,
+                                    transcript)
+    except SumcheckError as e:
+        raise VerificationError(f"stage8: {e}") from e
+    max8 = max(i.num_rounds for i in insts8)
+    for n8, ((cname, pt, cl), o) in enumerate(
+            zip(entries, proof.stage8_openings)):
+        accumulator.insert(("joint_opening", f"{n8}_{cname}"),
+                           r8[max8 - len(pt):], o)
+    accumulator.flush_to_transcript(transcript)

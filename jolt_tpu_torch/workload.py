@@ -110,6 +110,27 @@ def timed_stages(fn: Callable[[], object]
     return out, stages, text, launches
 
 
+def stage_device_s(prof) -> Dict[str, float]:
+    """Per stage of a `torch.profiler` trace of a timed prove (one taken
+    inside `timed_stages`, whose stage ends are the "[prove] <label>"
+    ranges): the device seconds of the kernels and copies that start
+    between the end of the stage before and the stage's own end.  Every
+    stage ends in a blocking copy, so its device work does not run into
+    the next."""
+    from torch.autograd import DeviceType
+    ends = sorted((e.time_range.start, e.name[len("[prove] "):])
+                  for e in prof.events()
+                  if e.device_type == DeviceType.CPU
+                  and e.name.startswith("[prove] "))
+    out: Dict[str, float] = {label: 0.0 for _, label in ends}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            label = next((lb for t, lb in ends if e.time_range.start <= t),
+                         "after the last stage")
+            out[label] = out.get(label, 0.0) + e.time_range.elapsed_us() / 1e6
+    return out
+
+
 def bound_ms(n_bytes: int, products: int, mads: int = 0
              ) -> Tuple[float, str]:
     """The least time for a kernel that moves `n_bytes` and does `products`

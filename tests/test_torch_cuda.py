@@ -1,9 +1,11 @@
 """The torch port on the card: K1 (every form: mul, add, sub, bind, evals,
 reduce) and K2 (every pass order, 2 and 3 factors, and its on-card finish
 of the message) against their plain versions, the segment sums and the
-stacked product message of stage 5i and the ra virtualization of stage 6v
-on "cuda" against "cpu", and the prover on "cuda" against the prover on
-"cpu" (stages 1-6v, with and without stage-6v instances).
+stacked product message of stage 5i, the ra virtualization of stage 6v and
+the grouped one-hot and dense-opening instances of stages 7 and 8 on
+"cuda" against "cpu", and the prover on "cuda" against the prover on "cpu"
+(stages 1-6v, with and without stage-6v instances; the whole proof's bytes,
+with and without advice regions).
 
 These tests need an NVIDIA GPU; without one they skip.  The machine with
 the card has no JAX, so this module imports none, and there it runs
@@ -18,8 +20,12 @@ import dataclasses
 import pytest
 import torch
 
-from jolt_tpu_torch import PublicIO, prove_prefix, verify_prefix
+from jolt_tpu_torch import PublicIO, prove, prove_prefix, verify, verify_prefix
 from jolt_tpu_torch.field import kernels, ops
+from jolt_tpu_torch.poly import eq
+from jolt_tpu_torch.proof_io import serialize_proof
+from jolt_tpu_torch.relations.grouped_onehot import GroupedOneHot
+from jolt_tpu_torch.relations.opening_reduction import DenseOpening
 from jolt_tpu_torch.relations.ra_virtual import RaVirtual, chunk_streams
 from jolt_tpu_torch.riscv.emulator import MemoryLayout
 from jolt_tpu_torch.sumcheck.engine import BatchedSumcheck, OpeningAccumulator
@@ -325,3 +331,86 @@ def test_prove_prefix_stage6v_card_equals_cpu(card):
     assert on_card.stage6v_polys
     assert dataclasses.asdict(on_card) == dataclasses.asdict(on_cpu)
     assert verify_prefix(on_card, PublicIO.from_trace(trace))
+
+
+@pytest.mark.parametrize("members,booleanity,points", [
+    (5, True, True), (3, False, True), (1, False, True), (4, False, False)])
+def test_grouped_onehot_card_equals_cpu(card, members, booleanity, points):
+    """Stage 7/8's grouped instance (booleanity on K1; the value kind's
+    cycle rounds on K2) gives the same proof on the card as on the CPU."""
+    gen = torch.Generator()
+    gen.manual_seed(8 + members)
+    log_t, K = 10, 64
+    streams = torch.randint(0, K, (members, 1 << log_t), generator=gen)
+    r_cyc = [int(x) for x in torch.randint(2, 1 << 62, (log_t,),
+                                           generator=gen)]
+    q = [int(x) for x in torch.randint(2, 1 << 62, (6,), generator=gen)]
+    runs = []
+    for dev in (card, "cpu"):
+        inst = GroupedOneHot(streams, K, eq.evals(r_cyc, dev),
+                             [q if points else None] * members,
+                             list(range(members)), 99,
+                             [str(i) for i in range(members)],
+                             booleanity=booleanity)
+        proof, r = BatchedSumcheck.prove([inst], OpeningAccumulator(),
+                                         Blake2bTranscript(b"s7"))
+        runs.append((proof, r, inst.final_openings))
+    assert runs[0] == runs[1]
+
+
+def test_dense_opening_card_equals_cpu(card):
+    gen = torch.Generator()
+    gen.manual_seed(9)
+    coeffs = [int(x) for x in torch.randint(0, 1 << 62, (1 << 10,),
+                                            generator=gen)]
+    point = [int(x) for x in torch.randint(0, 1 << 62, (10,), generator=gen)]
+    runs = []
+    for dev in (card, "cpu"):
+        inst = DenseOpening(coeffs, point, 5, "d", device=dev)
+        before = kernels.product_round.launches
+        proof, r = BatchedSumcheck.prove([inst], OpeningAccumulator(),
+                                         Blake2bTranscript(b"s8"))
+        runs.append((proof, r, inst.final_openings))
+        if dev is card:
+            assert kernels.product_round.launches == before + 10 + 1
+    assert runs[0] == runs[1]
+
+
+@pytest.mark.parametrize("advice", [False, True])
+def test_prove_card_equals_cpu(card, advice):
+    """The whole proof (stages 1-8) of fib, and of fib reading its count
+    and seeds from advice regions, has the same bytes on the card as on
+    the CPU, and verifies."""
+    layout = MemoryLayout(max_input_size=64, max_output_size=64,
+                          max_trusted_advice_size=32 if advice else 0,
+                          max_untrusted_advice_size=16 if advice else 0)
+    load = (f"""
+        li   t0, {layout.trusted_advice_start}
+        ld   a0, 0(t0)
+        li   t0, {layout.untrusted_advice_start}
+        ld   a1, 0(t0)
+        ld   a2, 8(t0)""" if advice else """
+        li   a0, 20
+        li   a1, 0
+        li   a2, 1""")
+    trace = trace_program(load + f"""
+    loop:
+        beq  a0, zero, done
+        add  a3, a1, a2
+        mv   a1, a2
+        mv   a2, a3
+        addi a0, a0, -1
+        j    loop
+    done:
+        li   t0, {layout.output_start}
+        sd   a1, 0(t0)
+        li   t1, {layout.termination}
+        li   t2, 1
+        sd   t2, 0(t1)
+    """, layout=layout,
+        trusted_advice=(20).to_bytes(8, "little") if advice else b"",
+        untrusted_advice=(1).to_bytes(16, "little") if advice else b"")
+    on_card = prove(trace, device=card)
+    on_cpu = prove(trace, device="cpu")
+    assert serialize_proof(on_card) == serialize_proof(on_cpu)
+    assert verify(on_card, PublicIO.from_trace(trace))

@@ -5,6 +5,7 @@ The port imports torch and numpy, never JAX and nothing of the JAX package
 JAX.  Its entry points run on the card unless the caller asks for the CPU.
 """
 
+import json
 import pathlib
 import re
 import subprocess
@@ -38,6 +39,44 @@ def test_import_pulls_in_no_jax_and_no_jax_package():
     n_modules, bad = res.stdout.strip().split(" ", 1)
     assert int(n_modules) >= 30
     assert bad == "[]"
+
+
+PROOF_FORMAT_MODULES = ["jolt_tpu_torch.curve", "jolt_tpu_torch.pcs",
+                        "jolt_tpu_torch.blindfold", "jolt_tpu_torch.proof_io"]
+
+_IMPORT_EACH = """
+import importlib, json, pkgutil, sys
+seen = {}
+for name in sys.argv[1:]:
+    mod = importlib.import_module(name)
+    for info in pkgutil.walk_packages(getattr(mod, "__path__", []),
+                                      mod.__name__ + "."):
+        importlib.import_module(info.name)
+    seen[name] = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "jolt_tpu"))
+print(json.dumps(seen))
+"""
+
+
+@pytest.fixture(scope="module")
+def proof_format_imports():
+    """One interpreter imports each proof-format module (and its
+    submodules) in turn; after each, the JAX and JAX-package modules
+    loaded so far."""
+    res = subprocess.run([sys.executable, "-c", _IMPORT_EACH,
+                          *PROOF_FORMAT_MODULES], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    return json.loads(res.stdout)
+
+
+@pytest.mark.parametrize("module", PROOF_FORMAT_MODULES)
+def test_proof_format_modules_import_no_jax(proof_format_imports, module):
+    """The copied host modules of the proof format (curve code, proof
+    types, the codec) import with no JAX and nothing of the JAX package:
+    their JAX package originals sit under a package whose `__init__`
+    imports JAX."""
+    assert proof_format_imports[module] == []
 
 
 def _sources():
@@ -75,6 +114,8 @@ def test_default_device_raises_without_cuda():
     """, layout=layout)
     with pytest.raises(RuntimeError, match="CUDA"):
         jolt_tpu_torch.prove_prefix(trace)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        jolt_tpu_torch.prove(trace)
 
 
 def test_kernel_wrapper_refuses_mixed_devices():

@@ -1,13 +1,20 @@
-"""The torch port's stages 1-6v against the JAX package, on the CPU.
+"""The torch port's stages 1-6v against the JAX package, and its whole fib
+proof against the JAX verifier, on the CPU.
 
 The fib trace of tests/test_prove_verify.py goes through the JAX package's
 stage functions (`test_torch_stage1._jax_prefix`: one accumulator, one
 transcript, `prove`'s order, every instance through the backend registry
-and `prove_scan`) and through `jolt_tpu_torch.prove_prefix(...,
-device="cpu")`.  Every stage-1/1s and `stage2..6v` field of the proof and
-the FS-tape state after each of the eight stages must be equal;
-`verify_prefix` must accept the proof and reject it with a tampered round
-polynomial or opening in each stage.  Fib's RAM and bytecode spaces fit
+and `prove_scan`) and through `jolt_tpu_torch.prove(..., device="cpu")`.
+Every stage-1/1s and `stage2..6v` field of the proof and the FS-tape state
+after each of the eight stages must be equal; `verify_prefix` must accept
+the proof and reject it with a tampered round polynomial or opening in
+each stage.  The whole proof (stages 1-8), written by the port's codec,
+must decode in the JAX package's codec and pass its `verify`; the port's
+`verify` must accept it and reject a tampered round polynomial or opening
+of stage 7 and of stage 8; the port's codec must round-trip it and the
+JAX codec's bytes of it.  (Its stage-7/8 fields and bytes are held to the
+JAX package's own stages in the slow `test_torch_prove_jax.py`: the JAX
+package's stage-7/8 compiles cost 82 s cold on this CPU.)  Fib's RAM and bytecode spaces fit
 one 8-bit chunk, so its stage 6v has no sumcheck: the same guest with a
 2 KiB input region (RAM log K = 9, two chunks) proves and verifies stage
 6v in the port, and its tampered round polynomials and chunk openings are
@@ -39,6 +46,7 @@ import numpy as np
 import pytest
 import torch
 
+from jolt_tpu import proof_io as jproof_io
 from jolt_tpu.field import ops as jops
 from jolt_tpu.poly import dense as jdense
 from jolt_tpu.poly import eq as jeq
@@ -50,6 +58,8 @@ from jolt_tpu.sumcheck.engine import BatchedSumcheck as JBatched
 from jolt_tpu.sumcheck.engine import OpeningAccumulator as JAcc
 from jolt_tpu.tracer import trace_program
 from jolt_tpu.transcript import Blake2bTranscript as JTranscript
+from jolt_tpu.verifier import verify as j_verify
+from jolt_tpu.verifier.verifier import PublicIO as JPublicIO
 from jolt_tpu.witness.bytecode import extract_bytecode_witness
 from jolt_tpu.witness.instruction_lookups import \
     extract_instruction_lookup_witness
@@ -58,6 +68,7 @@ from jolt_tpu.witness.ram import extract_ram_log
 from jolt_tpu.witness.registers import extract_register_log
 
 import jolt_tpu_torch as jt
+from jolt_tpu_torch import proof_io
 from jolt_tpu_torch.field import ops as tops
 from jolt_tpu_torch.interop import from_jax_limbs
 from jolt_tpu_torch.lookups import tables as tLT
@@ -111,7 +122,9 @@ def jax_prefix(fib):
 
 @pytest.fixture(scope="module")
 def port_proof(fib):
-    return jt.prove_prefix(fib[1], device=CPU)
+    """The port's whole proof of fib (stages 1-8); its stage 1-6v fields
+    are `prove_prefix`'s, since `prove` runs the same prefix."""
+    return jt.prove(fib[1], device=CPU)
 
 
 @pytest.mark.parametrize("field", ["stage1_uniskip", "stage1_polys",
@@ -226,20 +239,58 @@ def test_verify_prefix_rejects_tampered_opening(port_proof, fib, stage, key):
         jt.verify_prefix(bad, jt.PublicIO.from_trace(fib[1]))
 
 
-def test_advice_layout_is_not_ported():
-    """A layout with an advice region raises, naming the ROADMAP item,
-    before any work: the prefix never falls back."""
-    layout = MemoryLayout(max_input_size=64, max_output_size=64,
-                          max_trusted_advice_size=64)
-    trace = t_trace_program(f"""
-        li t1, {layout.termination}
-        li t2, 1
-        sd t2, 0(t1)
-    """, layout=layout)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        jt.prove_prefix(trace, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        jt.verify_prefix(None, jt.PublicIO.from_trace(trace))
+# ---- the whole proof: stages 7 and 8, the codec, the JAX verifier -------
+
+def test_prove_fields(port_proof, fib):
+    labels = (["reg_wa", "reg_ra1", "reg_ra2", "ram_ra0", "bc_ra0"]
+              + [f"lk_ra{i}" for i in range(16)])
+    assert set(port_proof.stage7_openings) == {
+        f"{kind}_{lab}" for kind in ("bool", "ham") for lab in labels}
+    assert len(port_proof.stage7_polys) == 8 + fib[1].log_T
+    assert len(port_proof.stage8_polys) == 8 + fib[1].log_T
+    assert port_proof.commitments == {} == port_proof.opening_proofs
+    assert port_proof.advice_openings == {}
+    assert [e["stage"] for e in port_proof.fs_tape[-2:]] == [
+        "stage7-booleanity", "stage8-reduction"]
+
+
+def test_proof_decodes_and_verifies_in_jax(port_proof, fib):
+    decoded, statement = jproof_io.deserialize_proof(
+        proof_io.serialize_proof(port_proof, {"outputs": b"\x01"}))
+    assert statement == {"outputs": b"\x01"}
+    assert decoded.stage8_openings == port_proof.stage8_openings
+    assert j_verify(decoded, JPublicIO.from_trace(fib[0]))
+
+
+def test_verify_accepts(port_proof, fib):
+    assert jt.verify(port_proof, jt.PublicIO.from_trace(fib[1]))
+
+
+@pytest.mark.parametrize("stage", [7, 8])
+@pytest.mark.parametrize("part", ["polys", "openings"])
+def test_verify_rejects_tampered_stage(port_proof, fib, stage, part):
+    bad = copy.deepcopy(port_proof)
+    if part == "polys":
+        poly = getattr(bad, f"stage{stage}_polys")[5]
+        poly[1] = (poly[1] + 1) % P
+    elif stage == 7:
+        bad.stage7_openings["bool_lk_ra3"] = (
+            bad.stage7_openings["bool_lk_ra3"] + 1) % P
+    else:
+        bad.stage8_openings[4] = (bad.stage8_openings[4] + 1) % P
+    with pytest.raises(jt.VerificationError, match=f"stage{stage}"):
+        jt.verify(bad, jt.PublicIO.from_trace(fib[1]))
+
+
+def test_codec_round_trips_port_and_jax_bytes(port_proof):
+    blob = proof_io.serialize_proof(port_proof)
+    again, _ = proof_io.deserialize_proof(blob)
+    assert proof_io.serialize_proof(again) == blob
+    # bytes the JAX codec wrote (from its own decode of the port's bytes)
+    jax_blob = jproof_io.serialize_proof(jproof_io.deserialize_proof(blob)[0])
+    assert jax_blob == blob
+    assert proof_io.serialize_proof(
+        proof_io.deserialize_proof(jax_blob)[0]) == jax_blob
 
 
 # ---- witness and relation helpers, one by one ---------------------------

@@ -15,13 +15,15 @@ the preamble with `ProofConfig.new`, no commitments (`setup=None`), `tau`,
 `prove_uniskip`, the `spartan_outer` instance through `prove_scan`,
 `gamma_sh`, `shift_column_values` and the `spartan_shift` instance, then
 the stage 2-5 instances of the backend registry, then stages 5i, 6 and 6v
-as `prove` builds them (`_jax_stages_5i_6v`) -- and reads the
-transcript's (n_rounds, state) where `prove` records its FS tape
-(`JOLT_TPU_FS_TRACE`).  On the fib trace `test_torch_prefix.py` compares
-every stage, 1 to 6v, against one run of the JAX side, and
-`test_torch_prefix_sha2.py` (slow tier) does the same on the sha2-chain at
-chain=1; this module holds the port's stage-1 proof to its verifier and
-the port's tracers to the JAX package's on the sha2-chain.
+as `prove` builds them (`_jax_stages_5i_6v`), then stages 7 and 8
+(`_jax_stages_7_8`) -- and reads the transcript's (n_rounds, state) where
+`prove` records its FS tape (`JOLT_TPU_FS_TRACE`); `_jax_proof` fills the
+JAX package's `JoltProof` from it.  On the fib trace `test_torch_prefix.py`
+compares every stage, 1 to 6v, against one run of the JAX side and
+`test_torch_prove_jax.py` (slow tier) stages 7, 8 and the proof bytes;
+`test_torch_prefix_sha2.py` (slow tier) compares the whole proof on the
+sha2-chain at chain=1; this module holds the port's stage-1 proof to its
+verifier and the port's tracers to the JAX package's on the sha2-chain.
 """
 
 import copy
@@ -41,6 +43,8 @@ from jolt_tpu.poly import eq as jeq
 from jolt_tpu.prover import prover as jprover
 from jolt_tpu.prover.prover import fiat_shamir_preamble
 from jolt_tpu.relations import bytecode as jbc
+from jolt_tpu.relations import grouped_onehot as jgo
+from jolt_tpu.relations import opening_reduction as jor
 from jolt_tpu.relations import ra_virtual as jrv
 from jolt_tpu.relations import ram_sparse as jrs
 from jolt_tpu.relations import shift as jshift
@@ -89,8 +93,9 @@ def _port_trace(tr):
 
 
 def _jax_prefix(tr, last="stage6v-ra-virtual"):
-    """The JAX package's stage 1-6v prefix of `prove`, stage by stage, up to
-    and including the stage labelled `last`: one accumulator and one
+    """The JAX package's stages of `prove` at `setup=None`, stage by stage,
+    up to and including the stage labelled `last` (through stage 8 with
+    `last="stage8-reduction"`): one accumulator and one
     transcript, every instance made through the backend registry and run by
     `prove_scan`, in `prove`'s order.  Returns the `JoltProof` fields and
     the FS-tape entries of the stages it ran."""
@@ -289,7 +294,124 @@ def _jax_stages_5i_6v(tr, bk, acc, transcript, mark, inputs, reg_wit,
                 o6v[f"{prefix}_{t}_{i}"] = v
     mark("stage6v-ra-virtual")
     out.update(stage6v_polys=stage6v_polys, stage6v_openings=o6v)
-    return out
+    if last == "stage6v-ra-virtual":
+        return out
+    return {**out, **_jax_stages_7_8(tr, bk, acc, transcript, mark, reg_wit,
+                                     ram_wit, bc_wit, lk_wit)}
+
+
+def _jax_proof(tr, out):
+    """The JAX package's `JoltProof` at `setup=None` from `_jax_prefix`'s
+    fields through stage 8 (as `prove` fills it, `prover.py:920-964`)."""
+    ram_log_K = extract_ram_log(tr).log_K
+    fields = {f.name for f in dataclasses.fields(jprover.JoltProof)}
+    return jprover.JoltProof(
+        trace_length=tr.length, padded_length=tr.padded_length,
+        ram_log_K=ram_log_K,
+        bytecode_log_K=extract_bytecode_witness(tr).log_K,
+        commitments={}, opening_proofs={}, advice_openings={},
+        config=ProofConfig.new(tr.log_T, ram_log_K).as_dict(),
+        **{k: v for k, v in out.items() if k in fields})
+
+
+def _jax_stages_7_8(tr, bk, acc, transcript, mark, reg_wit, ram_wit, bc_wit,
+                    lk_wit):
+    """Stages 7 and 8 of the JAX package's `prove` at `setup=None`
+    (`jolt_tpu/prover/prover.py:739-884`; no advice regions, no committed
+    image), continuing `_jax_stages_5i_6v`'s accumulator and transcript;
+    stage 8 on the host engine, the tier `prove` takes on the CPU."""
+    log_T = tr.log_T
+    ram_chunks = jrv.chunk_streams(ram_wit.cols, ram_wit.log_K)
+    bc_chunks = jrv.chunk_streams(np.asarray(bc_wit.pc_idx), bc_wit.log_K)
+    onehot_meta = {"wa": (reg_wit.rd_eff, 128), "ra1": (reg_wit.rs1_eff, 128),
+                   "ra2": (reg_wit.rs2_eff, 128)}
+    matrices = [("reg_wa", reg_wit.rd_eff, 128),
+                ("reg_ra1", reg_wit.rs1_eff, 128),
+                ("reg_ra2", reg_wit.rs2_eff, 128)]
+    for prefix, chunks, log_Kc in (("ram_ra", ram_chunks, ram_wit.log_K),
+                                   ("bc_ra", bc_chunks, bc_wit.log_K)):
+        for i, w in enumerate(jrv.block_widths(log_Kc)):
+            onehot_meta[f"{prefix}{i}"] = (chunks[i], 1 << w)
+            matrices.append((f"{prefix}{i}", chunks[i].tolist(), 1 << w))
+    for i in range(LK_D):
+        onehot_meta[f"lk_ra{i}"] = (lk_wit.chunks[i], 256)
+        matrices.append((f"lk_ra{i}", lk_wit.chunks[i].tolist(), 256))
+    # stage 7: booleanity + Hamming weight, one instance per (kind, K)
+    max_log_K = max(K.bit_length() - 1 for _, _, K in matrices)
+    r_b = transcript.challenge_vector(max_log_K + log_T)
+    r_h = transcript.challenge_vector(log_T)
+    gamma7 = transcript.challenge_scalar()
+    groups7 = {}
+    for label, idx, K in matrices:
+        groups7.setdefault(K, []).append((label, idx))
+    e_bcyc, e_h = jeq.evals(r_b[max_log_K:]), jeq.evals(r_h)
+    insts7 = []
+    for K, members in groups7.items():
+        r_addr = r_b[max_log_K - (K.bit_length() - 1):max_log_K]
+        labels, streams = [m[0] for m in members], [m[1] for m in members]
+        m7 = len(members)
+        insts7.append(bk.make("booleanity", streams, K, [e_bcyc] * m7,
+                              [r_addr] * m7, [0] * m7, gamma7, labels,
+                              booleanity=True, opening_kind="booleanity"))
+        insts7.append(bk.make("ram_hamming_booleanity", streams, K,
+                              [e_h] * m7, [None] * m7, [1] * m7, gamma7,
+                              labels, booleanity=False,
+                              opening_kind="hamming"))
+    stage7_polys, _ = prove_scan(insts7, acc, transcript)
+    o7 = {}
+    for inst in insts7:
+        kind = "bool" if inst.booleanity else "ham"
+        for label, v in zip(inst.labels, inst.final_openings):
+            o7[f"{kind}_{label}"] = v
+    mark("stage7-booleanity")
+    # stage 8: the joint opening reduction
+    d_ram, d_bc = len(ram_chunks), len(bc_chunks)
+    dense_meta = {"inc": reg_wit.inc, "ram_inc": ram_wit.inc}
+    entries, seen = [], {}
+    for oid, cname in jprover.stage8_entry_ids(d_ram, d_bc):
+        pt, cl = acc.openings[oid]
+        if (cname, pt) in seen:
+            assert seen[(cname, pt)] == cl
+            continue
+        seen[(cname, pt)] = cl
+        entries.append((cname, list(pt), cl))
+    gamma8 = transcript.challenge_scalar()
+    groups8, dense8 = {}, []
+    for cname, pt, cl in entries:
+        if cname in onehot_meta:
+            key = (onehot_meta[cname][1], tuple(x % P for x in pt))
+            groups8.setdefault(key, []).append((cname, pt, cl))
+        else:
+            dense8.append((cname, pt, cl))
+    insts8, n8 = [], 0
+    for (K, _), members in groups8.items():
+        log_K = K.bit_length() - 1
+        q = jor.cycle_major_to_address_major_point(
+            members[0][1], len(members[0][1]) - log_K)
+        w = jeq.evals(q[log_K:])
+        labels = [f"{n8 + i}_{c}" for i, (c, _, _) in enumerate(members)]
+        n8 += len(members)
+        insts8.append(jgo.GroupedOneHot(
+            [onehot_meta[c][0] for c, _, _ in members], K,
+            [w] * len(members), [q[:log_K]] * len(members),
+            [cl for _, _, cl in members], gamma8, labels,
+            booleanity=False, opening_kind="joint_opening"))
+    for cname, pt, cl in dense8:
+        insts8.append(bk.make("inc_claim_reduction", dense_meta[cname], pt,
+                              cl, f"{n8}_{cname}"))
+        n8 += 1
+    for inst in insts8:
+        inst.force_host = True
+    stage8_polys, _ = prove_scan(insts8, acc, transcript)
+    o8 = []
+    for inst in insts8:
+        if isinstance(inst, jgo.GroupedOneHot):
+            o8.extend(inst.final_openings)
+        else:
+            o8.append(inst.final_openings["p"])
+    mark("stage8-reduction")
+    return {"stage7_polys": stage7_polys, "stage7_openings": o7,
+            "stage8_polys": stage8_polys, "stage8_openings": o8}
 
 
 @pytest.fixture(scope="module")
