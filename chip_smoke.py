@@ -5,10 +5,14 @@ version, drives the port's main path once at full size, and checks it.
     python3 chip_smoke.py
 
 Phases:
-  1. the card (nvidia-smi name and power limit);
+  1. the card (nvidia-smi name and power limit) and the host (CPU model,
+     nproc: Dory's stages are host work);
   2. build K1 (`jolt_tpu_torch/csrc/mont_mul.cu`) and K2
-     (`jolt_tpu_torch/csrc/product_round.cu`), one nvcc for sm_90a each, both
-     at once; ptxas's registers and spills;
+     (`jolt_tpu_torch/csrc/product_round.cu`), one nvcc for sm_90a each, and
+     the Dory pairing library (`jolt_tpu_torch/csrc/pairing.cpp`, g++), all
+     at once; ptxas's registers and spills; then the Dory setup of the main
+     path (2^26: nu = 10, sigma = 16), generated or loaded from the port's
+     cache, with its seconds;
   3. K1 (`mont_mul.cu`, the elementwise Fr kernel) vs its plain version on
      the card, bit for bit, in each of its six forms (mul, add, sub, bind
      of halves and of pairs, evals, reduce with and without a scale):
@@ -34,15 +38,19 @@ Phases:
      engine (K2's live-round orders), every message and the final claims
      held against the plain chain;
   6. the main path: the sha2-chain guest (chain=114, ~2^18 cycles) traced
-     by the port's native tracer, `prove(trace, setup=None,
-     device="cuda")` (stages 1-8) with K1's launch count per form and
+     by the port's native tracer, `prove(trace, setup=setup,
+     device="cuda")` (the stage-0 Dory commits on the host, stages 1-8 on
+     the card, the stage-8 Dory opening on the host; its end-to-end
+     cycles/s and Dory's spans) with K1's launch count per form and
      K2's read around it, and per stage (K2 carries the shift sumcheck,
      stage 1s, every ra-virtualization instance of stage 6v -- log2 T + 1
      calls each -- the cycle rounds of stage 7's Hamming-weight instances
      and stage 8's one-hot groups, and stage 8's dense openings), every
      K1 launch's shapes recorded (`kernels.record`) and no call of the
-     plain versions' limb arithmetic, then `verify`; a second `prove`
-     under torch.profiler gives each stage's device time and busy share
+     plain versions' limb arithmetic, then `verify(..., setup=setup)`; a
+     second `prove`, at `setup=None` so its per-stage device numbers
+     compare with the runs before Dory, under torch.profiler gives each
+     stage's device time and busy share
      and counts the device kernels that are neither K1 nor K2; then each
      K1 form vs plain again at the largest launch shape of that run and at
      the one with the most work (launches x bound), with kernel-only times
@@ -55,12 +63,15 @@ Phases:
   8. card vs CPU: one seeded booleanity and one Hamming-weight
      `GroupedOneHot` of 18 members at K = 256 and T = 2^14 (stage 7's
      largest group) give identical round polynomials, openings and
-     transcripts on both;
+     transcripts on both; the whole proof of a small guest with a Dory
+     setup (13 variables) has the same bytes and FS tape on both, and
+     verifies;
   9. one JSON line with every ported kernel, the card line, and the final
      `{"ok": true, "device": ...}` line.
 
 Any failure raises and exits nonzero; with no CUDA device it exits 2
-before printing any result.
+before printing any result.  Nothing runs on the Python pairing tier:
+with JOLT_TPU_NO_NATIVE_PAIRING set the script fails.
 """
 
 import collections
@@ -69,6 +80,7 @@ import math
 import pathlib
 import re
 import sys
+import threading
 import time
 
 import numpy as np
@@ -81,10 +93,37 @@ SEED = 1234
 
 K2_LOG_T = 18                # K2's full size: the main path's 2^18
 K2_SMALL_LOG_T = 14          # the round-step entry point's own size
+# the stages of `prove` at setup=None (the profiled run), and with Dory (the
+# main path): stage 0's commits and the joint opening after stage 8
 STAGES = ["witness-extraction", "stage1-spartan", "stage1s-shift",
           "stage2-reg-rw", "stage3-reg-val", "stage4-5-ram",
           "stage5i-instr-lookups", "stage6-bytecode", "stage6v-ra-virtual",
           "stage7-booleanity", "stage8-reduction"]
+DORY_STAGES = (STAGES[:1] + ["stage0-commit"] + STAGES[1:]
+               + ["stage8-openings"])
+# the spans of the Dory commits (`prover/prover.py` stage 0, and each
+# commitment's tier 2 in `pcs/dory.py`) and of the opening (`pcs/dory.py`,
+# `pcs/scheme.py`)
+DORY_SPANS = ["commit.onehot", "commit.dense", "commit.tier2",
+              "open.rlc_rows", "open.e1", "open.A.v2init", "open.A.pair",
+              "open.A.g1fold", "open.A.g2fold", "open.B.row", "open.B.msm",
+              "open.B.g1fold"]
+# the small guest proven with Dory card against CPU (phase 8): the JAX
+# package's Dory pipeline guest, 2^13 variables (256 x 32)
+DORY_SMALL_VARS = 13
+DORY_SMALL = """
+    li   a1, 21
+    li   a2, 34
+    add  a3, a1, a2
+    xor  a4, a1, a2
+    and  a5, a3, a4
+    add  a3, a3, a5
+    li   t0, {output_start}
+    sd   a3, 0(t0)
+    li   t1, {termination}
+    li   t2, 1
+    sd   t2, 0(t1)
+"""
 # the d = 2 ra-virtualization instance held card against CPU (phase 7)
 RA_VIRTUAL_LOG_T = 14
 RA_VIRTUAL_LOG_K = 13
@@ -442,10 +481,14 @@ def main():
         sys.exit(2)
     sys.path.insert(0, str(ROOT))
     from jolt_tpu_torch import PublicIO, prove, verify
+    from jolt_tpu_torch.curve import native_pairing
     from jolt_tpu_torch.field import kernels, ops
+    from jolt_tpu_torch.pcs.dory import SRS_CACHE_DIR, DorySetup
+    from jolt_tpu_torch.prover.prover import required_num_vars
     from jolt_tpu_torch.poly import eq
     from jolt_tpu_torch.proof_io import serialize_proof
-    from jolt_tpu_torch.prover.prover import BC_RA_SOURCES, RAM_RA_SOURCES
+    from jolt_tpu_torch.prover.prover import (BC_RA_SOURCES, RAM_RA_SOURCES,
+                                              committed_poly_names)
     from jolt_tpu_torch.relations.grouped_onehot import GroupedOneHot
     from jolt_tpu_torch.relations.ra_virtual import (RaVirtual, block_widths,
                                                      chunk_streams, d_chunks)
@@ -457,7 +500,8 @@ def main():
                                                  round_step)
     from jolt_tpu_torch.tracer import trace_program
     from jolt_tpu_torch.transcript import Blake2bTranscript
-    from jolt_tpu_torch.workload import (SHA2_CHAIN, card_line,
+    from jolt_tpu_torch.utils import profiling
+    from jolt_tpu_torch.workload import (SHA2_CHAIN, card_line, host_line,
                                          sha2_chain_trace, stage_device_s,
                                          timed_stages)
 
@@ -467,12 +511,31 @@ def main():
     card = card_line()
     print(f"[card] {card}  torch {torch.__version__} cuda {torch.version.cuda}"
           f"  {torch.cuda.get_device_name(0)}", flush=True)
+    print(f"[host] {host_line()}", flush=True)
+    check(not native_pairing.python_tier(),
+          "JOLT_TPU_NO_NATIVE_PAIRING is set: Dory would run its Python tier")
 
-    # ---- 2. build K1 and K2 ---------------------------------------------
+    # ---- 2. build K1, K2 and the pairing library; the Dory setup --------
     t0 = time.perf_counter()
+    pairing_build = {}
+
+    def build_pairing():
+        try:
+            pairing_build["path"] = native_pairing.build(force=True)
+        except BaseException as e:           # re-raised after the join
+            pairing_build["error"] = e
+        pairing_build["s"] = time.perf_counter() - t0
+    builder = threading.Thread(target=build_pairing)
+    builder.start()
     reports = kernels.build()
-    print(f"[build] K1 and K2 built in {time.perf_counter() - t0:.2f}s",
-          flush=True)
+    t_nvcc = time.perf_counter() - t0
+    builder.join()
+    if "error" in pairing_build:
+        raise pairing_build["error"]
+    check(native_pairing.available(), "the pairing library did not load")
+    print(f"[build] K1 and K2 built in {t_nvcc:.2f}s; the pairing library "
+          f"({pairing_build['path']}) in {pairing_build['s']:.2f}s, all at "
+          "once", flush=True)
     for name, report in reports.items():
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
@@ -481,6 +544,17 @@ def main():
     k2_spills = spill_bytes(reports["K2"])
     print(f"[build] spill bytes (stores + loads, all kernels): K1 "
           f"{k1_spills}, K2 {k2_spills}", flush=True)
+    # the main path's setup: 2^26 = 256 x 2^18, the largest committed
+    # polynomial of the 2^18 trace
+    t0 = time.perf_counter()
+    cached = (pathlib.Path(SRS_CACHE_DIR) / "dory_torch_ate_10_16.pkl"
+              ).exists()
+    setup = DorySetup.generate(required_num_vars(1 << 18, 0, 0))
+    t_setup = time.perf_counter() - t0
+    check((setup.nu, setup.sigma) == (10, 16), "setup shape")
+    print(f"[setup] Dory nu={setup.nu} sigma={setup.sigma}: {t_setup:.2f}s "
+          f"({'loaded from the cache' if cached else 'generated'})",
+          flush=True)
 
     # ---- 3. K1 vs plain in every form: 2^20, edge values, Python ints ----
     gen = torch.Generator(device=dev)
@@ -719,6 +793,8 @@ def main():
     t_trace = time.perf_counter() - t0
     print(f"[path] sha2-chain chain={SHA2_CHAIN}: {tr.length} cycles, "
           f"padded {tr.padded_length}, traced in {t_trace:.2f}s", flush=True)
+    check(required_num_vars(tr.padded_length, 0, 0) == setup.num_vars,
+          f"the setup does not fit the trace's {tr.padded_length} cycles")
 
     # K1's and K2's launches, per form, and every K1 launch's shapes: set to
     # 0 just before the main path and read just after
@@ -738,10 +814,12 @@ def main():
     kernels.record = []
     for name, fn in plain.items():
         setattr(kernels, name, counted(name, fn))
+    # Dory's spans (the span profiler that `open` and `open_rlc` report to)
+    dory_prof = profiling.PROFILER = profiling.Profiler()
     try:
         t0 = time.perf_counter()
         proof, stage_s, stage_lines, stage_launches = timed_stages(
-            lambda: prove(tr, setup=None, device="cuda"))
+            lambda: prove(tr, setup=setup, device="cuda"))
         t_prove = time.perf_counter() - t0
     finally:
         k1_counts = kernels.k1_launches()
@@ -749,6 +827,7 @@ def main():
         records, kernels.record = kernels.record, None
         for name, fn in plain.items():
             setattr(kernels, name, fn)
+        profiling.PROFILER = profiling.Profiler(enabled=False)
     launches = sum(k1_counts.values())
     peak = torch.cuda.max_memory_allocated(dev)
     print(stage_lines, end="")
@@ -782,18 +861,34 @@ def main():
     check(k2_launches == sum(v["k2"] for v in stage_launches.values()),
           f"K2 launched {k2_launches} times on the main path, "
           f"{stage_launches} by stage")
-    check(list(stage_s) == STAGES, f"stage lines: {stage_s}")
-    check([e["stage"] for e in proof.fs_tape] == STAGES[1:],
+    check(list(stage_s) == DORY_STAGES, f"stage lines: {stage_s}")
+    check([e["stage"] for e in proof.fs_tape] == DORY_STAGES[1:],
           f"FS tape: {proof.fs_tape}")
+    check(set(proof.commitments) == set(committed_poly_names(
+        d_chunks(proof.ram_log_K), d_chunks(proof.bytecode_log_K)))
+          and "joint" in proof.opening_proofs,
+          f"commitments {sorted(proof.commitments)}, opening proofs "
+          f"{sorted(proof.opening_proofs)}")
+    check(all(stage_launches[s] == {"k1": {f: 0 for f in kernels.FORMS},
+                                    "k2": 0}
+              for s in ("stage0-commit", "stage8-openings")),
+          "a Dory stage launched K1 or K2")
     t0 = time.perf_counter()
-    ok = verify(proof, PublicIO.from_trace(tr))
+    ok = verify(proof, PublicIO.from_trace(tr), setup=setup)
     t_verify = time.perf_counter() - t0
     check(ok is True, "verify did not accept")
+    cycles_per_s = tr.length / t_prove
+    spans = {name: dory_prof.total(name) for name in DORY_SPANS}
+    check(all(v > 0 for v in spans.values()), f"Dory spans: {spans}")
+    # the setup's point encodings, made anew by each prove's Dory instance
+    # (nested in commit.onehot, commit.tier2 and the opening's rounds)
+    t_encode = dory_prof.total("encode.setup")
     shapes = collections.Counter(records)
     # the address-phase scale of s2-s5 is in the reduce form's finish
     check(shapes[("mul", ((8, 3, 1), (8, 1, 1)))] == 0,
           "the path still multiplies (8, 3, 1) messages by a scale")
-    print(f"[path] prove {t_prove:.3f}s ("
+    print(f"[path] prove(setup=nu {setup.nu}, sigma {setup.sigma}) "
+          f"{t_prove:.3f}s = {cycles_per_s:.1f} cycles/s end to end ("
           + ", ".join(f"{k} {v:.3f}s" for k, v in stage_s.items())
           + f"), peak allocated {peak / 2**30:.3f} GiB, K1 launches "
           f"{launches} {k1_counts}, {len(shapes)} launch shapes, K2 launches "
@@ -801,16 +896,26 @@ def main():
           f"rounds each; stage 7 {n7}, stage 8 "
           f"{stage_launches['stage8-reduction']['k2']}; RAM log K "
           f"{proof.ram_log_K}, bytecode log K {proof.bytecode_log_K}); "
-          f"verify accepted in {t_verify:.3f}s", flush=True)
+          f"verify(setup) accepted in {t_verify:.3f}s", flush=True)
+    t_dory = stage_s["stage0-commit"] + stage_s["stage8-openings"]
+    print("[dory] spans (s, summed over calls): " + ", ".join(
+        f"{n} {v:.4f}" for n, v in spans.items()) + f"; stage0-commit "
+        f"{stage_s['stage0-commit']:.3f}s, stage8-openings "
+        f"{stage_s['stage8-openings']:.3f}s of prove {t_prove:.3f}s "
+        f"({t_dory / t_prove:.1%}); encode.setup {t_encode:.4f}s "
+        f"({t_encode / t_prove:.1%} of prove)", flush=True)
 
-    # a second run under the profiler: each stage's device time and busy
-    # share, and the device kernels by name (those of neither kernel)
+    # a second run under the profiler, at setup=None so that the card's
+    # stages compare with the runs before Dory: each stage's device time
+    # and busy share, and the device kernels by name (those of neither
+    # kernel)
     prove(tr, device="cuda")                  # warm, as the first run was
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, prof_s, _, _ = timed_stages(lambda: prove(tr, device="cuda"))
         torch.cuda.synchronize()
+    check(list(prof_s) == STAGES, f"profiled stage lines: {prof_s}")
     dev_s = stage_device_s(prof)
     for label in STAGES:
         n = stage_launches[label]
@@ -934,6 +1039,24 @@ def main():
         print(f"[card-vs-cpu] GroupedOneHot {'booleanity' if booleanity else 'Hamming'} "
               f"M = {ONEHOT_M}, K = {ONEHOT_K}, T = 2^{ONEHOT_LOG_T}: "
               "identical round polys, openings and transcript", flush=True)
+    # the whole proof with a Dory setup, on a guest small enough for the CPU
+    small = trace_program(DORY_SMALL.format(
+        output_start=fib_layout.output_start,
+        termination=fib_layout.termination), layout=fib_layout,
+        min_padded=32)
+    small_setup = DorySetup.generate(DORY_SMALL_VARS)
+    on_card = prove(small, setup=small_setup, device="cuda")
+    on_cpu = prove(small, setup=small_setup, device="cpu")
+    check(serialize_proof(on_card) == serialize_proof(on_cpu)
+          and on_card.fs_tape == on_cpu.fs_tape
+          and on_card.fs_tape[-1]["stage"] == "stage8-openings",
+          "prove with a Dory setup differs between cuda and cpu")
+    check(verify(on_card, PublicIO.from_trace(small), setup=small_setup)
+          is True, "verify rejected the small Dory proof")
+    print(f"[card-vs-cpu] Dory guest ({small.length} cycles, setup nu="
+          f"{small_setup.nu} sigma={small_setup.sigma}): identical proof "
+          f"bytes ({len(serialize_proof(on_card))} B) and FS tape "
+          f"({len(on_card.fs_tape)} entries); verified", flush=True)
 
     # ---- 9. results -------------------------------------------------------
     print(f"[total] {time.perf_counter() - t_start:.1f}s", flush=True)

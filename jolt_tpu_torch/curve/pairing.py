@@ -1,14 +1,12 @@
 """BN254 pairing (host-side entry points) + G2 affine arithmetic.
 
-Copied from the JAX package's `curve/pairing.py`, logic unchanged except
-`final_exp` and `pairing_product`, which keep only their Python tier
-(`ate.py`): the JAX package also routes them to a native C++ library,
-which the port gains with Dory (ROADMAP A11); both give the same values.
-The original notes follow.
+Copied from the JAX package's `curve/pairing.py`, logic unchanged
+(`final_exp` and `pairing_product` route to the native library built
+from `csrc/pairing.cpp`).  The original notes follow.
 
 Production pairing: the OPTIMAL ATE (Miller loop over 6x+2, ~65 bits --
-curve/ate.py is the Python oracle, the JAX package's native pairing the
-batched C++ production tier; values agree exactly).  `pairing_product` is the
+curve/ate.py is the Python oracle, csrc/pairing.cpp the batched C++
+production tier; values agree exactly).  `pairing_product` is the
 workhorse for Dory tier-2 commits / reduce rounds and KZG verification;
 switching from the original Tate tier (254-bit loop) was a ~10x
 throughput win on the commit path.
@@ -161,6 +159,10 @@ def miller(p: Point, q: G2Point) -> Fq12:
 
 
 def final_exp(f: Fq12) -> Fq12:
+    from . import native_pairing as _np
+    fast = _np.final_exp(f)
+    if fast is not None:
+        return fast
     return f.pow(_FINAL_EXP)
 
 
@@ -173,12 +175,18 @@ def tate_pairing(p: Point, q: G2Point) -> Fq12:
 
 
 def pairing_product(pairs: List[Tuple[Point, G2Point]]) -> Fq12:
-    """prod e(P_i, Q_i) with ONE shared final exponentiation (the optimal-
-    ate Miller loops of curve/ate.py)."""
-    from .ate import ate_miller, g2_prepare
-    acc = Fq12.one()
-    for p, q in pairs:
-        acc = acc * ate_miller(p, g2_prepare(q))
+    """prod e(P_i, Q_i) with ONE shared final exponentiation.
+
+    Routes through the native C++ library (csrc/pairing.cpp, batched
+    optimal-ate Miller loops, threaded) when built; the Python fallback
+    (curve/ate.py) computes identical values and remains the oracle."""
+    from . import native_pairing as _np
+    acc = _np.miller_product(pairs)
+    if acc is None:
+        from .ate import ate_miller, g2_prepare
+        acc = Fq12.one()
+        for p, q in pairs:
+            acc = acc * ate_miller(p, g2_prepare(q))
     return final_exp(acc)
 
 

@@ -1,2 +1,5 @@
-"""Commitment-scheme types of the proof format (the schemes themselves
-come with Dory, ROADMAP A11)."""
+"""Commitment schemes: Dory (`dory`, `scheme`) and the HyperKZG proof type
+of the proof format (the scheme is ROADMAP A15)."""
+
+from .dory import Dory, DoryCommitment, DoryProof, DorySetup
+from .scheme import DoryScheme, make_scheme

@@ -1,11 +1,11 @@
 """The Jolt prover pipeline on torch.
 
 Torch counterpart of the JAX package's `prover/prover.py`.  `prove` is its
-`prove` in the same order, with the same transcript draws, in the
-sumcheck-only configuration (`setup=None`: no commitments and no joint
-PCS opening; no zk, no committed program image): witness extraction, the
-Fiat-Shamir preamble, then
+`prove` in the same order, with the same transcript draws (no zk, no
+committed program image): witness extraction, the Fiat-Shamir preamble,
+then
 
+  0   Dory commitments of the witness polynomials (with a setup; host)
   1   Spartan outer (R1CS, uni-skip first round + 1 + log T rounds)
   1s  Spartan shift sumcheck (PC chaining via EqPlusOne)
   2   registers read/write checking       (sparse Twist)
@@ -16,8 +16,12 @@ Fiat-Shamir preamble, then
   6   bytecode read-raf + register rafs + lookup-flag columns (batched)
   6v  RAM/bytecode ra virtualization to committed 8-bit chunk selectors
   7   one-hot booleanity + Hamming weight (grouped by K)
-  8   joint opening-reduction sumcheck (grouped by (K, point))
+  8   joint opening-reduction sumcheck (grouped by (K, point)), then
+      with a setup one Dory opening of the claims' random linear
+      combination (host)
 
+At `setup=None` (the sumcheck-only configuration) stage 0 and the joint
+opening are left out and the proof carries the bare opening claims.
 `prove_prefix` stops after stage 6v; `prove` runs the same prefix and
 continues.
 """
@@ -33,16 +37,18 @@ from typing import ClassVar, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..config import ProofConfig
+from ..config import LOG_K_CHUNK, ProofConfig
 from ..field import kernels, ops
 from ..field.params import FR
 from ..lookups import tables as LT
+from ..pcs.scheme import make_scheme
 from ..poly import eq
 from ..relations.bytecode import CLAIM_COLUMNS
 from ..relations.grouped_onehot import GroupedOneHot
 from ..relations.instruction_read_raf import InstructionReadRaf
 from ..relations.opening_reduction import (DenseOpening,
-                                           cycle_major_to_address_major_point)
+                                           cycle_major_to_address_major_point,
+                                           embedding_factor)
 from ..relations.ra_virtual import RaVirtual, block_widths, chunk_streams
 from ..relations.ram_sparse import (RamPairSchedule, SparseOneHotTableEval,
                                     SparseRamOutputCheck,
@@ -59,6 +65,7 @@ from ..relations.spartan_outer import (SpartanOuterProver, num_stage1_rounds,
 from ..sumcheck.engine import BatchedSumcheck, OpeningAccumulator
 from ..tracer.trace import Trace
 from ..transcript import Blake2bTranscript
+from ..utils import profiling
 from ..witness.bytecode import extract_bytecode_witness
 from ..witness.instruction_lookups import (
     D as LK_D, extract_instruction_lookup_witness)
@@ -165,8 +172,9 @@ class JoltProof:
     # Val_init(r4_addr) (claim_reductions/program_image.rs)
     program_image_claim: int = None
     # the prover's transcript checkpoints (`PrefixProof.fs_tape` plus
-    # stage7-booleanity and stage8-reduction); not a dataclass field, so
-    # not in the wire format (a decoded proof has None)
+    # stage7-booleanity, stage8-reduction and, with a setup,
+    # stage8-openings); not a dataclass field, so not in the wire format
+    # (a decoded proof has None)
     fs_tape: ClassVar[Optional[List[dict]]] = None
 
 
@@ -316,6 +324,29 @@ def fiat_shamir_preamble(transcript: Blake2bTranscript, trace_length: int,
                           config.committed_program_image)
 
 
+def required_num_vars(padded_length: int, ram_log_K: int,
+                      bytecode_log_K: int) -> int:
+    """log2 of the largest committed-polynomial length: the PCS setup size
+    shared by prover and verifier (derivable from public proof fields).
+
+    With ra chunking (relations/ra_virtual.py) no committed one-hot exceeds
+    2^LOG_K_CHUNK = 256 rows, so the bound is 256 * T regardless of the
+    RAM / bytecode address-space sizes."""
+    del ram_log_K, bytecode_log_K
+    return LOG_K_CHUNK + (padded_length - 1).bit_length()
+
+
+def _resolve_setup(setup, padded_length, ram_log_K, bytecode_log_K):
+    """Accept the string 'dory' and size the setup from the trace; raw
+    setup objects pass through ('hyperkzg', ROADMAP A15, is refused by
+    `prove`)."""
+    if setup == "dory":
+        from ..pcs.dory import DorySetup
+        return DorySetup.generate(
+            required_num_vars(padded_length, ram_log_K, bytecode_log_K))
+    return setup
+
+
 def resolve_device(device) -> torch.device:
     """The device a caller asked for; a CUDA device must exist (no silent
     fall-back to the CPU)."""
@@ -378,13 +409,17 @@ def prove_prefix(trace: Trace, device="cuda") -> PrefixProof:
 def prove(trace: Trace, setup=None, device="cuda", zk: bool = False,
           committed_image: bool = False) -> JoltProof:
     """Prove the trace on `device` (the card unless the caller asks for the
-    CPU): stages 1 through 8 in the sumcheck-only configuration, the JAX
-    package's `prove(trace)` (`setup=None`: the proof carries the bare
-    opening claims, no commitments and no joint opening proof)."""
-    if setup is not None:
+    CPU), as the JAX package's `prove(trace, setup=setup)`: stages 1
+    through 8, and with a setup (a `DorySetup`, a `DoryScheme`, or "dory"
+    to build one sized from the trace) the stage-0 Dory commitments and
+    the joint opening proof.  `setup=None` is the sumcheck-only
+    configuration: the proof carries the bare opening claims, no
+    commitments and no joint opening proof.  The Dory work runs on the
+    host (`pcs/dory.py`, the native library of `csrc/pairing.cpp`)."""
+    if setup == "hyperkzg":
         raise NotImplementedError(
-            "a commitment setup needs Dory's commits and joint opening "
-            "(ROADMAP A11), not ported yet; pass setup=None")
+            "a HyperKZG setup needs the HyperKZG scheme (ROADMAP A15), not "
+            "ported yet")
     if zk:
         raise NotImplementedError(
             "zk=True needs the BlindFold committed rounds (ROADMAP A14), "
@@ -393,12 +428,13 @@ def prove(trace: Trace, setup=None, device="cuda", zk: bool = False,
         raise NotImplementedError(
             "committed_image=True needs the program-image claim reduction "
             "(ROADMAP A13), not ported yet")
-    return _prove(trace, resolve_device(device), full=True)
+    return _prove(trace, resolve_device(device), full=True, setup=setup)
 
 
-def _prove(trace: Trace, device: torch.device, full: bool):
+def _prove(trace: Trace, device: torch.device, full: bool, setup=None):
     """The prover's stages in `prove`'s order: through stage 6v (a
-    `PrefixProof`), or with `full` through stage 8 (a `JoltProof`)."""
+    `PrefixProof`), or with `full` through stage 8 (a `JoltProof`), with
+    the Dory commitments and joint opening when `setup` is given."""
     timer = _StageTimer(device)
     # ---- witness extraction (host) --------------------------------------
     inputs = extract_r1cs_inputs(trace)
@@ -420,6 +456,19 @@ def _prove(trace: Trace, device: torch.device, full: bool):
         kind: advice_poly_coeffs(layout, kind, bytes(
             getattr(trace.device, f"{kind}_advice", b"")))
         for kind in advice_kinds}
+    # every access matrix's index stream and width K (RAM/bytecode as their
+    # committed chunk selectors), and the dense committed columns: stage 0
+    # commits them, stages 7 and 8 prove over them
+    onehot_meta = {"wa": (reg_wit.rd_eff, 128), "ra1": (reg_wit.rs1_eff, 128),
+                   "ra2": (reg_wit.rs2_eff, 128)}
+    for i, w in enumerate(block_widths(ram_wit.log_K)):
+        onehot_meta[f"ram_ra{i}"] = (ram_chunks[i], 1 << w)
+    for i, w in enumerate(block_widths(bc_wit.log_K)):
+        onehot_meta[f"bc_ra{i}"] = (bc_chunks[i], 1 << w)
+    for i in range(LK_D):
+        onehot_meta[f"lk_ra{i}"] = (lk_wit.chunks[i], 256)
+    dense_meta = {"inc": reg_wit.inc, "ram_inc": ram_wit.inc,
+                  **{f"{k}_advice": advice_coeffs[k] for k in advice_kinds}}
     timer.mark("witness-extraction")
 
     transcript = Blake2bTranscript(b"Jolt")
@@ -437,7 +486,46 @@ def _prove(trace: Trace, device: torch.device, full: bool):
         fs_tape.append(_tape_entry(label, transcript))
         timer.mark(label)
 
-    # ---- Stage 0: no commitments in the sumcheck-only configuration -----
+    # ---- Stage 0: commit the witness polynomials -------------------------
+    # (zkvm/prover.rs:689-800 generate_and_commit_witness_polynomials --
+    # commitments absorb BEFORE any challenge so they bind the witness.)
+    commitments: Dict[str, object] = {}
+    pcs = make_scheme(_resolve_setup(setup, T_pad, ram_wit.log_K,
+                                     bc_wit.log_K))
+    # sparse committed-poly descriptors: (positions int64, values|None=ones,
+    # padded length) -- no dense K*T vector is ever materialized
+    committed_sparse: Dict[str, tuple] = {}
+    if pcs is not None:
+        # pay-per-bit commits (msm/mod.rs:16-80): one-hot access matrices
+        # are binary, committed ADDRESS-MAJOR (position = k*T + j) so the
+        # joint reduction's address phase stays sparse; tier-1 runs as
+        # native point segment-sums (commit_sparse_many).  Increments are
+        # SIGNED (negative deltas wrap mod p), so they take the full-width
+        # path (cheap: length T).
+        arange_T = np.arange(T_pad, dtype=np.int64)
+        for name, (indices, Km) in onehot_meta.items():
+            idx = np.asarray(indices, np.int64)
+            committed_sparse[name] = (idx * T_pad + arange_T, None,
+                                      Km * T_pad)
+        for name, coeffs in dense_meta.items():
+            vals = [int(v) % P for v in coeffs]
+            committed_sparse[name] = (
+                np.arange(len(vals), dtype=np.int64), vals, len(vals))
+        names = committed_poly_names(len(ram_chunks), len(bc_chunks),
+                                     advice_kinds)
+        onehot_names = [n for n in names if committed_sparse[n][1] is None]
+        prof = profiling.active()
+        with prof.span("commit.onehot"):
+            commitments.update(pcs.commit_sparse_many(
+                [(n, committed_sparse[n][0]) for n in onehot_names]))
+        with prof.span("commit.dense"):
+            for name in names:
+                if name not in commitments:
+                    commitments[name] = pcs.commit(
+                        name, committed_sparse[name][1], bits=254)
+        for name in names:
+            pcs.absorb(transcript, commitments[name])
+        finish("stage0-commit")
 
     # ---- Stage 1: Spartan outer (uni-skip + remaining sumcheck) ---------
     # tau = [tau_high (Lagrange kernel), tau_g (group bit), *tau_cyc]
@@ -692,16 +780,6 @@ def _prove(trace: Trace, device: torch.device, full: bool):
         return PrefixProof(**prefix, fs_tape=fs_tape)
 
     # ---- Stage 7: one-hot booleanity + Hamming weight (all matrices) -----
-    # every access matrix's index stream and width K; RAM/bytecode as their
-    # committed chunk selectors
-    onehot_meta = {"wa": (reg_wit.rd_eff, 128), "ra1": (reg_wit.rs1_eff, 128),
-                   "ra2": (reg_wit.rs2_eff, 128)}
-    for i, w in enumerate(block_widths(ram_wit.log_K)):
-        onehot_meta[f"ram_ra{i}"] = (ram_chunks[i], 1 << w)
-    for i, w in enumerate(block_widths(bc_wit.log_K)):
-        onehot_meta[f"bc_ra{i}"] = (bc_chunks[i], 1 << w)
-    for i in range(LK_D):
-        onehot_meta[f"lk_ra{i}"] = (lk_wit.chunks[i], 256)
     labels7 = {"wa": "reg_wa", "ra1": "reg_ra1", "ra2": "reg_ra2"}
     matrices = [(labels7.get(name, name), idx, K)
                 for name, (idx, K) in onehot_meta.items()]
@@ -740,8 +818,9 @@ def _prove(trace: Trace, device: torch.device, full: bool):
 
     # ---- Stage 8: joint opening reduction --------------------------------
     # Reduce EVERY committed-poly claim from stages 1-7 to openings at one
-    # shared point r* (zkvm/prover.rs:2097-2260); with no PCS the proof
-    # carries those openings and no joint opening proof.
+    # shared point r*, then a single homomorphic RLC PCS opening
+    # (prove_packed_openings, zkvm/prover.rs:2097-2260); with no PCS the
+    # proof carries those openings and no joint opening proof.
     entries = []          # (commitment_name, cycle-major point, claim)
     seen: Dict[object, int] = {}
     for oid, cname in stage8_entry_ids(len(ram_chunks), len(bc_chunks),
@@ -766,6 +845,7 @@ def _prove(trace: Trace, device: torch.device, full: bool):
             groups8.setdefault(key8, []).append((cname, pt, cl))
         else:
             dense8.append((cname, pt, cl))
+    entries = [e for g in groups8.values() for e in g] + dense8
     insts8 = []
     n8 = 0
     eq_tables: Dict[tuple, torch.Tensor] = {}   # by cycle point
@@ -783,8 +863,6 @@ def _prove(trace: Trace, device: torch.device, full: bool):
             [f"{n8 + i}_{c}" for i, (c, _, _) in enumerate(members)],
             booleanity=False, opening_kind="joint_opening"))
         n8 += m8
-    dense_meta = {"inc": reg_wit.inc, "ram_inc": ram_wit.inc,
-                  **{f"{k}_advice": advice_coeffs[k] for k in advice_kinds}}
     dense_dev: Dict[str, torch.Tensor] = {}     # each column packed once
     for cname, pt, cl in dense8:
         if cname not in dense_dev:
@@ -793,7 +871,7 @@ def _prove(trace: Trace, device: torch.device, full: bool):
                                    f"{n8}_{cname}", device))
         n8 += 1
     del eq_tables, dense_dev
-    stage8_polys, _ = BatchedSumcheck.prove(insts8, accumulator, transcript)
+    stage8_polys, r8 = BatchedSumcheck.prove(insts8, accumulator, transcript)
     stage8_openings: List[int] = []
     for inst in insts8:
         if isinstance(inst, GroupedOneHot):
@@ -803,6 +881,31 @@ def _prove(trace: Trace, device: torch.device, full: bool):
     del insts8
     finish("stage8-reduction")
 
+    # single RLC opening of  sum_i mu^i * P~_i  at r*
+    opening_proofs: Dict[str, object] = {}
+    if pcs is not None:
+        mu = transcript.challenge_scalar()
+        n_max = max(committed_sparse[c][2] for c, _, _ in entries)
+        assert n_max == 1 << len(r8)
+        weights: Dict[str, int] = {}
+        mup = 1
+        value = 0
+        for (cname, pt, cl), o in zip(entries, stage8_openings):
+            weights[cname] = (weights.get(cname, 0) + mup) % P
+            value = (value + mup * o % P
+                     * embedding_factor(r8, len(pt))) % P
+            mup = mup * mu % P
+        # sparse RLC as weighted PARTS [(positions, w, values|None)]:
+        # duplicate positions combine additively inside the opening, and
+        # the combined-row build runs on the native mod-r kernel without
+        # materializing per-entry weighted values
+        rlc_parts = [(committed_sparse[cname][0], w,
+                      committed_sparse[cname][1])
+                     for cname, w in weights.items()]
+        opening_proofs["joint"] = pcs.open_rlc(weights, rlc_parts, r8,
+                                               value, transcript)
+        finish("stage8-openings")
+
     proof = JoltProof(
         **{k: v for k, v in prefix.items()
            if k not in ("advice_openings", "config")},
@@ -810,8 +913,8 @@ def _prove(trace: Trace, device: torch.device, full: bool):
         stage7_openings=stage7_openings,
         stage8_polys=stage8_polys,
         stage8_openings=stage8_openings,
-        commitments={},
-        opening_proofs={},
+        commitments=commitments,
+        opening_proofs=opening_proofs,
         advice_openings=advice_openings,
         config=proof_config.as_dict())
     proof.fs_tape = fs_tape

@@ -1,17 +1,19 @@
 """The Jolt verifier: stage-sequential succinct verification.
 
 Torch-package counterpart of the JAX package's `verifier/verifier.py`
-(`crates/jolt-verifier/src/verifier.rs:176-230`), in the sumcheck-only
-configuration (`setup=None`).  `verify` validates the proof-carried
-config, replays the preamble and checks stage 1 (Spartan uni-skip +
+(`crates/jolt-verifier/src/verifier.rs:176-230`), with or without a Dory
+setup (no zk, no committed program image).  `verify` validates the
+proof-carried config, replays the preamble, absorbs the commitments (with
+a setup) and checks stage 1 (Spartan uni-skip +
 outer), stage 1s (shift), stages 2 and 3 (registers read/write checking
 and Val evaluation), stages 4 and 5 (RAM read/write + raf, then Val
 evaluation + output check, with the advice regions' Init contributions),
 stage 5i (the instruction read-raf Shout), stage 6 (bytecode read-raf and
 the register rafs), stage 6v (ra virtualization), stage 7 (booleanity +
-Hamming weight) and stage 8 (the joint opening reduction) exactly as the
-JAX package's verifier does; `verify_prefix` stops after stage 6v.  All
-of it is host work on Python ints.
+Hamming weight), stage 8 (the joint opening reduction) and, with a setup,
+the joint Dory opening of the reduced claims exactly as the JAX package's
+verifier does; `verify_prefix` stops after stage 6v.  All of it is host
+work on Python ints and the native pairing library.
 """
 
 from __future__ import annotations
@@ -21,16 +23,18 @@ from typing import Dict
 from ..config import ConfigError, ProofConfig
 from ..field.params import FR
 from ..lookups import tables as LT
+from ..pcs.scheme import make_scheme
 from ..poly.eq import eq_int
 from ..prover.prover import (BC_RA_SOURCES, LOOKUP_FLAG_COLUMNS,
                              RAM_RA_SOURCES, JoltProof, PrefixProof,
-                             advice_kinds_of, fiat_shamir_preamble,
-                             stage8_entry_ids)
+                             advice_kinds_of, committed_poly_names,
+                             fiat_shamir_preamble, stage8_entry_ids)
 from ..relations.bytecode import CLAIM_COLUMNS
 from ..relations.grouped_onehot import GroupedOneHotVerifier
 from ..relations.instruction_read_raf import InstructionReadRafVerifier
 from ..relations.opening_reduction import (OpeningReductionVerifier,
-                                           cycle_major_to_address_major_point)
+                                           cycle_major_to_address_major_point,
+                                           embedding_factor)
 from ..relations.ra_virtual import (RaVirtualVerifier, block_point,
                                     block_widths, d_chunks)
 from ..relations.ram_sparse import (SparseBytecodeReadRafVerifier,
@@ -99,26 +103,26 @@ def verify_prefix(proof: PrefixProof, io: PublicIO) -> bool:
 
 
 def verify(proof: JoltProof, io: PublicIO, setup=None) -> bool:
-    """Check every stage of `proof` (stages 1 through 8) against the public
-    statement, as the JAX package's `verify(proof, io)`; returns True or
-    raises VerificationError."""
-    if setup is not None:
-        raise NotImplementedError(
-            "a commitment setup needs Dory's joint-opening check (ROADMAP "
-            "A11), not ported yet; pass setup=None")
+    """Check every stage of `proof` (stages 1 through 8, and with a setup --
+    a `DorySetup` or `DoryScheme` -- the commitments and the joint opening)
+    against the public statement, as the JAX package's
+    `verify(proof, io, setup=setup)`; returns True or raises
+    VerificationError."""
+    pcs = make_scheme(setup)
     if proof.zk_commitments:
         raise NotImplementedError(
             "a zk proof needs the BlindFold verifier (ROADMAP A14), not "
             "ported yet")
-    transcript, accumulator = _verify_through_6v(proof, io)
+    transcript, accumulator = _verify_through_6v(proof, io, pcs)
     log_T = io.padded_length.bit_length() - 1
-    _verify_stages_7_8(proof, io, log_T, transcript, accumulator)
+    _verify_stages_7_8(proof, io, log_T, transcript, accumulator, pcs)
     return True
 
 
-def _verify_through_6v(proof, io: PublicIO):
+def _verify_through_6v(proof, io: PublicIO, pcs=None):
     """Stages 1 through 6v of a `PrefixProof` or a `JoltProof` (the fields
-    they share); returns the transcript and the accumulator."""
+    they share), after the commitments' absorption when `pcs` is given;
+    returns the transcript and the accumulator."""
     program = expand_program(io.code, io.entry, io.start)
     if proof.bytecode_log_K != bytecode_K(program).bit_length() - 1:
         raise VerificationError("bytecode_log_K inconsistent with program")
@@ -137,6 +141,13 @@ def _verify_through_6v(proof, io: PublicIO):
                          io.inputs, io.outputs, io.panic, io.code, io.entry,
                          io.start, io.memory_layout, proof.ram_log_K,
                          proof.bytecode_log_K, config=proof_config)
+    if pcs is not None:
+        for name in committed_poly_names(d_chunks(proof.ram_log_K),
+                                         d_chunks(proof.bytecode_log_K),
+                                         advice_kinds_of(io.memory_layout)):
+            if name not in proof.commitments:
+                raise VerificationError(f"missing commitment {name}")
+            pcs.absorb(transcript, proof.commitments[name])
     accumulator = OpeningAccumulator()
 
     # ---- Stage 1: Spartan outer (uni-skip + remaining sumcheck) ---------
@@ -403,9 +414,9 @@ def _verify_through_6v(proof, io: PublicIO):
 
 def _verify_stages_7_8(proof: JoltProof, io: PublicIO, log_T: int,
                        transcript: Blake2bTranscript,
-                       accumulator: OpeningAccumulator) -> None:
-    """Stages 7 and 8 (`verifier.py:484-645` of the JAX package) at
-    `setup=None`: no joint PCS opening follows the reduction."""
+                       accumulator: OpeningAccumulator, pcs=None) -> None:
+    """Stages 7 and 8 (`verifier.py:484-645` of the JAX package), and the
+    joint PCS opening when `pcs` is given."""
     # ---- Stage 7: one-hot booleanity + Hamming weight --------------------
     mat_dims = [("reg_wa", 7), ("reg_ra1", 7), ("reg_ra2", 7)]
     for i, w in enumerate(block_widths(proof.ram_log_K)):
@@ -459,8 +470,8 @@ def _verify_stages_7_8(proof: JoltProof, io: PublicIO, log_T: int,
 
     # ---- Stage 8: joint opening reduction --------------------------------
     # Every committed-poly claim from stages 1-7 must be covered by the
-    # reduction (with Dory, ROADMAP A11, one joint PCS opening then checks
-    # the reduced openings).
+    # reduction; with a setup one joint PCS opening then checks the reduced
+    # openings.
     onehot_logK = {"wa": 7, "ra1": 7, "ra2": 7}
     for i, w in enumerate(block_widths(proof.ram_log_K)):
         onehot_logK[f"ram_ra{i}"] = w
@@ -530,3 +541,20 @@ def _verify_stages_7_8(proof: JoltProof, io: PublicIO, log_T: int,
         accumulator.insert(("joint_opening", f"{n8}_{cname}"),
                            r8[max8 - len(pt):], o)
     accumulator.flush_to_transcript(transcript)
+
+    if pcs is not None:
+        mu = transcript.challenge_scalar()
+        weights = {}
+        mup = 1
+        value = 0
+        for (cname, pt, cl), o in zip(entries, proof.stage8_openings):
+            weights[cname] = (weights.get(cname, 0) + mup) % P
+            value = (value + mup * o % P
+                     * embedding_factor(r8, len(pt))) % P
+            mup = mup * mu % P
+        joint_comm = pcs.combine(proof.commitments, weights)
+        op = proof.opening_proofs.get("joint")
+        if op is None:
+            raise VerificationError("missing joint opening proof")
+        if not pcs.verify_rlc(joint_comm, r8, value, op, transcript):
+            raise VerificationError("joint opening proof invalid")

@@ -85,6 +85,25 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+def host_line() -> str:
+    """The host's CPU (model name, vendor, family and model as
+    /proc/cpuinfo gives them; a VM may report the name as unknown) and the
+    CPUs this process may use (`nproc`): the Dory stages are host work."""
+    info: Dict[str, str] = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break                       # the first processor only
+                key, _, val = line.partition(":")
+                info[key.strip()] = val.strip()
+    except OSError:
+        pass
+    return (f"{info.get('model name', 'unknown')} ({info.get('vendor_id')} "
+            f"family {info.get('cpu family')} model {info.get('model')}), "
+            f"nproc {len(os.sched_getaffinity(0))}")
+
+
 def timed_stages(fn: Callable[[], object]
                  ) -> Tuple[object, Dict[str, float], str, Dict[str, dict]]:
     """Run `fn()` with the prover's stage timing on (JOLT_TPU_STAGE_TIMING);

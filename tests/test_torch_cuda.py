@@ -5,7 +5,7 @@ stacked product message of stage 5i, the ra virtualization of stage 6v and
 the grouped one-hot and dense-opening instances of stages 7 and 8 on
 "cuda" against "cpu", and the prover on "cuda" against the prover on "cpu"
 (stages 1-6v, with and without stage-6v instances; the whole proof's bytes,
-with and without advice regions).
+with and without advice regions, and with a Dory setup).
 
 These tests need an NVIDIA GPU; without one they skip.  The machine with
 the card has no JAX, so this module imports none, and there it runs
@@ -414,3 +414,31 @@ def test_prove_card_equals_cpu(card, advice):
     on_cpu = prove(trace, device="cpu")
     assert serialize_proof(on_card) == serialize_proof(on_cpu)
     assert verify(on_card, PublicIO.from_trace(trace))
+
+
+def test_prove_with_dory_card_equals_cpu(card, tmp_path):
+    """With a Dory setup (13 variables), the whole proof of a small guest
+    -- the commitments and the joint opening proof included -- has the
+    same bytes and FS tape on the card as on the CPU, and verifies."""
+    from jolt_tpu_torch.pcs.dory import DorySetup
+    layout = MemoryLayout(max_input_size=64, max_output_size=64)
+    trace = trace_program(f"""
+        li   a1, 21
+        li   a2, 34
+        add  a3, a1, a2
+        xor  a4, a1, a2
+        and  a5, a3, a4
+        add  a3, a3, a5
+        li   t0, {layout.output_start}
+        sd   a3, 0(t0)
+        li   t1, {layout.termination}
+        li   t2, 1
+        sd   t2, 0(t1)
+    """, layout=layout, min_padded=32)
+    setup = DorySetup.generate(13, cache_dir=str(tmp_path))
+    on_card = prove(trace, setup=setup, device=card)
+    on_cpu = prove(trace, setup=setup, device="cpu")
+    assert on_card.opening_proofs and on_card.commitments
+    assert serialize_proof(on_card) == serialize_proof(on_cpu)
+    assert on_card.fs_tape == on_cpu.fs_tape
+    assert verify(on_card, PublicIO.from_trace(trace), setup=setup)

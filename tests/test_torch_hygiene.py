@@ -123,3 +123,43 @@ def test_kernel_wrapper_refuses_mixed_devices():
     a = torch.zeros((8, 4), dtype=torch.int32)
     with pytest.raises(ValueError):
         kernels.mont_mul(a, a.to("meta"))
+
+
+def test_pairing_library_builds_from_the_port_sources():
+    """The Dory pairing library is built from `jolt_tpu_torch/csrc/` into
+    the gitignored `jolt_tpu_torch/_build/`, never from or into the JAX
+    package's native directory, and the loaded library is that file."""
+    from jolt_tpu_torch.curve import native_pairing
+    src = pathlib.Path(native_pairing.SRC).resolve()
+    lib = pathlib.Path(native_pairing.library_path()).resolve()
+    assert src == PKG / "csrc" / "pairing.cpp"
+    assert lib.parent == PKG / "_build"
+    assert native_pairing.load() is not None
+    assert pathlib.Path(native_pairing.load()._name).resolve() == lib
+    assert lib.is_file()
+
+
+_LOAD_SETUP = """
+import sys, time
+from jolt_tpu_torch.pcs.dory import DorySetup
+t0 = time.perf_counter()
+setup = DorySetup.generate(6, cache_dir=sys.argv[1])
+took = time.perf_counter() - t0
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "jolt_tpu"))
+print(type(setup).__module__, setup.nu, setup.sigma, took < 0.5, bad)
+"""
+
+
+def test_cached_setup_loads_without_jax(tmp_path):
+    """A Dory setup cached by the port loads in a fresh interpreter (from
+    the cache, not rebuilt) and pulls in no JAX and nothing of the JAX
+    package."""
+    from jolt_tpu_torch.pcs.dory import DorySetup
+    DorySetup.generate(6, cache_dir=str(tmp_path))
+    res = subprocess.run([sys.executable, "-c", _LOAD_SETUP, str(tmp_path)],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["jolt_tpu_torch.pcs.dory", "3", "3",
+                                  "True", "[]"]

@@ -13,8 +13,14 @@ its stage-7/8 modules and its proof codec, on the CPU.
   * The codec: a proof holding every point type (G1, G2, GT, Dory and
     HyperKZG proofs, a BlindFold proof) written by the JAX codec decodes in
     the port and re-encodes to the same bytes, and back.
-  * `prove` refuses what is not ported (a setup, zk, the committed image),
-    naming the ROADMAP item.
+  * With a Dory setup (`DorySetup.generate(13)`, the guest of the JAX
+    package's `tests/test_full_pipeline_dory.py`): the port's `verify`
+    accepts the proof, the JAX codec decodes it and the JAX package's
+    `verify` accepts it with the JAX package's own setup, `setup="dory"`
+    sizes the same setup and gives the same proof, and a tampered
+    commitment or opening is rejected.
+  * `prove` refuses what is not ported (a HyperKZG setup, zk, the
+    committed image), naming the ROADMAP item.
 
 The fib proof itself (no advice) is held against the JAX package in
 `test_torch_prefix.py` (fields of stages 1-6v, JAX decode and verify,
@@ -47,7 +53,9 @@ from jolt_tpu.verifier.verifier import PublicIO as JPublicIO
 
 import jolt_tpu_torch as jt
 from jolt_tpu_torch import proof_io
+from jolt_tpu_torch.pcs.dory import DoryCommitment, DorySetup
 from jolt_tpu_torch.poly import eq as teq
+from jolt_tpu_torch.prover.prover import committed_poly_names
 from jolt_tpu_torch.relations import grouped_onehot as tgo
 from jolt_tpu_torch.relations import opening_reduction as tor
 from jolt_tpu_torch.riscv.emulator import MemoryLayout
@@ -133,6 +141,93 @@ def test_advice_prefix_verifies(advice):
     """`verify_prefix` checks the advice openings' stage-5 role too."""
     trace, proof, _ = advice
     assert jt.verify_prefix(proof, jt.PublicIO.from_trace(trace))
+
+
+# ---- the whole prover with a Dory setup -----------------------------------
+
+DORY_LAYOUT = MemoryLayout(max_input_size=64, max_output_size=64)
+# the JAX package's Dory pipeline guest (tests/test_full_pipeline_dory.py)
+DORY_GUEST = f"""
+    li   a1, 21
+    li   a2, 34
+    add  a3, a1, a2
+    xor  a4, a1, a2
+    and  a5, a3, a4
+    add  a3, a3, a5
+    li   t0, {DORY_LAYOUT.output_start}
+    sd   a3, 0(t0)
+    li   t1, {DORY_LAYOUT.termination}
+    li   t2, 1
+    sd   t2, 0(t1)
+"""
+
+
+@pytest.fixture(scope="module")
+def dory_srs_dir(tmp_path_factory):
+    """The port's setup cache of the Dory tests."""
+    return str(tmp_path_factory.mktemp("port_srs"))
+
+
+@pytest.fixture(scope="module")
+def dory(dory_srs_dir):
+    """The port's trace, setup (13 variables: 256 x 32, nu = 6, sigma = 7)
+    and proof of the guest on the CPU."""
+    trace = trace_program(DORY_GUEST, layout=DORY_LAYOUT, min_padded=32)
+    setup = DorySetup.generate(13, cache_dir=dory_srs_dir)
+    return trace, setup, jt.prove(trace, setup=setup, device=CPU)
+
+
+def test_dory_proof_verifies_in_both_packages(dory, tmp_path):
+    from jolt_tpu.pcs.dory import DorySetup as JDorySetup
+    trace, setup, proof = dory
+    assert (setup.nu, setup.sigma) == (6, 7)
+    assert set(proof.commitments) == set(committed_poly_names(1, 1))
+    assert all(isinstance(c, DoryCommitment)
+               for c in proof.commitments.values())
+    assert [e["stage"] for e in proof.fs_tape][0] == "stage0-commit"
+    assert proof.fs_tape[-1]["stage"] == "stage8-openings"
+    assert jt.verify(proof, jt.PublicIO.from_trace(trace), setup=setup)
+    blob = proof_io.serialize_proof(proof)
+    decoded, _ = jproof_io.deserialize_proof(blob)
+    jax_tr = j_trace_program(DORY_GUEST, layout=JaxLayout(
+        **dataclasses.asdict(DORY_LAYOUT)), min_padded=32)
+    assert j_verify(decoded, JPublicIO.from_trace(jax_tr),
+                    setup=JDorySetup.generate(13, cache_dir=str(tmp_path)))
+
+
+def test_prove_sizes_the_named_dory_setup(dory, dory_srs_dir, monkeypatch):
+    """`prove(setup="dory")` takes the setup the trace needs (13 variables
+    here, from the port's cache) and gives the proof that passing that
+    setup gives."""
+    from jolt_tpu_torch.pcs import dory as tdory
+    trace, setup, proof = dory
+    monkeypatch.setattr(tdory, "SRS_CACHE_DIR", dory_srs_dir)
+    named = jt.prove(trace, setup="dory", device=CPU)
+    assert (proof_io.serialize_proof(named)
+            == proof_io.serialize_proof(proof))
+    assert named.fs_tape == proof.fs_tape
+    assert jt.verify(named, jt.PublicIO.from_trace(trace), setup=setup)
+
+
+@pytest.mark.parametrize("change", ["commitment", "opening", "proof",
+                                    "no_setup"])
+def test_dory_tampering_is_rejected(dory, change):
+    """A tampered commitment, stage-8 opening or joint opening proof fails
+    the joint Dory check; without the setup the commitments are not
+    absorbed, so the transcript (and stage 1) diverges."""
+    trace, setup, proof = dory
+    bad = copy.deepcopy(proof)
+    if change == "commitment":
+        c = bad.commitments["inc"].c
+        bad.commitments["inc"] = DoryCommitment(c=c * c)
+    elif change == "opening":
+        bad.stage8_openings[0] = (bad.stage8_openings[0] + 1) % P
+    elif change == "proof":
+        bad.opening_proofs["joint"].b_final_s = (
+            bad.opening_proofs["joint"].b_final_s + 1) % P
+    with pytest.raises(jt.VerificationError):
+        jt.verify(bad, jt.PublicIO.from_trace(trace),
+                  setup=None if change == "no_setup" else setup)
 
 
 # ---- stage 7/8 modules against the JAX package -------------------------
@@ -293,7 +388,7 @@ def test_codec_rejects_bad_bytes():
 
 # ---- entry points --------------------------------------------------------
 
-@pytest.mark.parametrize("kwargs,item", [({"setup": "dory"}, "A11"),
+@pytest.mark.parametrize("kwargs,item", [({"setup": "hyperkzg"}, "A15"),
                                          ({"zk": True}, "A14"),
                                          ({"committed_image": True}, "A13")])
 def test_prove_refuses_what_is_not_ported(kwargs, item):
