@@ -55,17 +55,35 @@ Phases:
      K1 form vs plain again at the largest launch shape of that run and at
      the one with the most work (launches x bound), with kernel-only times
      and bounds;
+  6b. the zk and committed-image paths at full width: the same trace and
+     setup through `prove(..., zk=True, zk_rng=random.Random(SEED))` and
+     `prove(..., committed_image=True)`, each with its launch counts set to
+     0 just before and read just after; every one of the 11 batched
+     stages carries round commitments and no clear polynomial, and the zk
+     run launches K1 (per form, per stage) and K2 exactly as the plain
+     run did; the image run launches K2 as the plain run plus the image's
+     two instances (its stage-7 reduction and its stage-8 dense opening,
+     log2(image words) + 1 calls each) and K1 as the plain run outside
+     stages 7 and 8; each path's cycles/s, stage seconds beside the plain
+     run's, BlindFold's seconds, the round commitments' seconds (the
+     `zk.commit` span), and `verify`'s seconds (the image's with and
+     without its cached trusted commitment);
   7. card vs CPU: `prove` on the small fib trace gives the same
      `proof_io.serialize_proof` bytes on "cuda" and on "cpu" (stages 1-8;
      fib's RAM and bytecode spaces fit one chunk, so it has no stage-6v
      instance), and one `RaVirtual` instance (d = 2) on seeded chunks
      gives identical round polynomials, openings and transcripts on both;
+     fib with `zk=True, zk_rng=random.Random(42)` and the image guest
+     (a guest that reads its own code, so its RAM space holds the image)
+     with `committed_image=True` give the same bytes on both and verify;
+     `zk=True` with `committed_image=True` raises on the card too;
   8. card vs CPU: one seeded booleanity and one Hamming-weight
      `GroupedOneHot` of 18 members at K = 256 and T = 2^14 (stage 7's
      largest group) give identical round polynomials, openings and
      transcripts on both; the whole proof of a small guest with a Dory
      setup (13 variables) has the same bytes and FS tape on both, and
-     verifies;
+     verifies, and so do the guest with zk and the image guest with the
+     committed image at the same setup;
   9. one JSON line with every ported kernel, the card line, and the final
      `{"ok": true, "device": ...}` line.
 
@@ -78,6 +96,7 @@ import collections
 import json
 import math
 import pathlib
+import random
 import re
 import sys
 import threading
@@ -124,6 +143,27 @@ DORY_SMALL = """
     li   t2, 1
     sd   t2, 0(t1)
 """
+# a guest that loads two words of its own code through RAM, so its RAM
+# address space holds the program image (the committed-image card vs CPU
+# runs of phases 7 and 8; the JAX package's tests/test_program_image.py)
+IMAGE_GUEST = """
+    li   t0, 0x80000000
+    ld   a1, 0(t0)
+    ld   a2, 8(t0)
+    add  a3, a1, a2
+    li   t1, {output_start}
+    sd   a3, 0(t1)
+    li   t2, {termination}
+    li   t3, 1
+    sd   t3, 0(t2)
+"""
+# the batched stages' labels (zk round commitments), in `prove`'s order
+ZK_LABELS = ["s1", "s1s", "s2", "s3", "s4", "s5", "s5i", "s6", "s6v", "s7",
+             "s8"]
+CLEAR_POLYS = ["stage1_polys", "shift_polys", "stage2_polys", "stage3_polys",
+               "stage4_polys", "stage5_polys", "stage5i_polys",
+               "stage6_polys", "stage6v_polys", "stage7_polys",
+               "stage8_polys"]
 # the d = 2 ra-virtualization instance held card against CPU (phase 7)
 RA_VIRTUAL_LOG_T = 14
 RA_VIRTUAL_LOG_K = 13
@@ -490,6 +530,7 @@ def main():
     from jolt_tpu_torch.prover.prover import (BC_RA_SOURCES, RAM_RA_SOURCES,
                                               committed_poly_names)
     from jolt_tpu_torch.relations.grouped_onehot import GroupedOneHot
+    from jolt_tpu_torch.relations.program_image import image_words
     from jolt_tpu_torch.relations.ra_virtual import (RaVirtual, block_widths,
                                                      chunk_streams, d_chunks)
     from jolt_tpu_torch.riscv.emulator import MemoryLayout
@@ -501,6 +542,7 @@ def main():
     from jolt_tpu_torch.tracer import trace_program
     from jolt_tpu_torch.transcript import Blake2bTranscript
     from jolt_tpu_torch.utils import profiling
+    from jolt_tpu_torch.verifier import verifier as verifier_mod
     from jolt_tpu_torch.workload import (SHA2_CHAIN, card_line, host_line,
                                          sha2_chain_trace, stage_device_s,
                                          timed_stages)
@@ -970,6 +1012,96 @@ def main():
     head = max(k1_forms.values(),
                key=lambda e: e["heaviest"]["launches"] * e["bound_ms"])
 
+    # ---- 6b. the zk and committed-image paths at full width --------------
+    # each path's launch counts set to 0 just before it and read just after
+    def flag_path(**flags):
+        kernels.reset_launches()
+        prof = profiling.PROFILER = profiling.Profiler()
+        try:
+            t0 = time.perf_counter()
+            out, s, _, launches_s = timed_stages(
+                lambda: prove(tr, setup=setup, device="cuda", **flags))
+            t = time.perf_counter() - t0
+        finally:
+            k1 = kernels.k1_launches()
+            k2 = kernels.product_round.launches
+            profiling.PROFILER = profiling.Profiler(enabled=False)
+        return out, t, s, launches_s, k1, k2, prof
+
+    def stage_cmp(s):
+        return ", ".join(f"{k} {v:.3f}s (plain {stage_s[k]:.3f}s)"
+                         if k in stage_s else f"{k} {v:.3f}s"
+                         for k, v in s.items())
+
+    io_main = PublicIO.from_trace(tr)
+    zk_proof, t_zk, zk_s, zk_launches, zk_k1, zk_k2, zk_prof = flag_path(
+        zk=True, zk_rng=random.Random(SEED))
+    check(sorted(zk_proof.zk_commitments) == sorted(ZK_LABELS),
+          f"zk round commitments for {sorted(zk_proof.zk_commitments)}")
+    check(all(getattr(zk_proof, f) == [] for f in CLEAR_POLYS),
+          "a zk proof carries clear round polynomials")
+    check(zk_proof.zk_blindfold is not None, "the zk proof has no BlindFold")
+    check(list(zk_s) == DORY_STAGES + ["blindfold"],
+          f"zk stage lines: {zk_s}")
+    check(zk_k1 == k1_counts and zk_k2 == k2_launches
+          and all(zk_launches[k] == stage_launches[k] for k in stage_launches),
+          f"zk launched K1 {zk_k1} and K2 {zk_k2} (plain {k1_counts}, "
+          f"{k2_launches}); by stage {zk_launches}")
+    n_comms = sum(len(v) for v in zk_proof.zk_commitments.values())
+    t_commit = zk_prof.total("zk.commit")
+    t0 = time.perf_counter()
+    check(verify(zk_proof, io_main, setup=setup) is True,
+          "verify rejected the zk proof")
+    t_zk_verify = time.perf_counter() - t0
+    print(f"[zk] prove(setup, zk=True) {t_zk:.3f}s = "
+          f"{tr.length / t_zk:.1f} cycles/s (plain {t_prove:.3f}s = "
+          f"{cycles_per_s:.1f}); {n_comms} round commitments "
+          f"(zk.commit {t_commit:.4f}s), blindfold {zk_s['blindfold']:.3f}s; "
+          f"K1 {sum(zk_k1.values())} and K2 {zk_k2} launches == plain; "
+          f"verify(setup) {t_zk_verify:.3f}s (plain {t_verify:.3f}s); "
+          f"{len(serialize_proof(zk_proof))} B (plain "
+          f"{len(serialize_proof(proof))} B)", flush=True)
+    print(f"[zk] stages: {stage_cmp(zk_s)}", flush=True)
+
+    ci_proof, t_ci, ci_s, ci_launches, ci_k1, ci_k2, _ = flag_path(
+        committed_image=True)
+    pi_m = len(image_words(tr.code)).bit_length() - 1
+    check("program_image_init" in ci_proof.stage7_openings
+          and "program_image" in ci_proof.commitments
+          and ci_proof.program_image_claim is not None,
+          "the committed-image proof lacks its image claim or opening")
+    check(list(ci_s) == DORY_STAGES, f"image stage lines: {ci_s}")
+    image_k2 = {"stage7-booleanity": pi_m + 1, "stage8-reduction": pi_m + 1}
+    check(all(ci_launches[k]["k2"] == v["k2"] + image_k2.get(k, 0)
+              for k, v in stage_launches.items())
+          and ci_k2 == k2_launches + 2 * (pi_m + 1),
+          f"image run K2 {ci_k2} (plain {k2_launches} + 2 x {pi_m + 1}); "
+          f"by stage {ci_launches}")
+    check(all(ci_launches[k]["k1"] == v["k1"]
+              for k, v in stage_launches.items() if k not in image_k2),
+          f"image run K1 outside stages 7 and 8: {ci_launches}")
+    k1_extra = {k: sum(ci_launches[k]["k1"].values())
+                - sum(stage_launches[k]["k1"].values()) for k in image_k2}
+    verifier_mod._PI_COMMIT_CACHE.clear()
+    t0 = time.perf_counter()
+    check(verify(ci_proof, io_main, setup=setup) is True,
+          "verify rejected the committed-image proof")
+    t_ci_verify = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    check(verify(ci_proof, io_main, setup=setup) is True,
+          "verify rejected the committed-image proof (cached commitment)")
+    t_ci_cached = time.perf_counter() - t0
+    print(f"[image] prove(setup, committed_image=True) {t_ci:.3f}s = "
+          f"{tr.length / t_ci:.1f} cycles/s (plain {t_prove:.3f}s); image "
+          f"{len(image_words(tr.code))} words ({len(tr.code)} code bytes, "
+          f"{pi_m} rounds); K2 {ci_k2} = plain {k2_launches} + 2 x "
+          f"{pi_m + 1}; K1 {sum(ci_k1.values())} (plain {launches}; extra "
+          f"in stages 7/8: {k1_extra}); verify(setup) {t_ci_verify:.3f}s "
+          f"recomputing the image commitment, {t_ci_cached:.3f}s cached "
+          f"(plain {t_verify:.3f}s)", flush=True)
+    print(f"[image] stages: {stage_cmp(ci_s)}", flush=True)
+    del zk_proof, ci_proof
+
     # ---- 7. card vs CPU on the fib trace ---------------------------------
     fib_layout = MemoryLayout(**FIB_LAYOUT)
     fib = trace_program(FIB.format(output_start=fib_layout.output_start,
@@ -985,6 +1117,41 @@ def main():
     print(f"[card-vs-cpu] fib ({fib.length} cycles): identical proof bytes "
           f"({len(serialize_proof(on_card))} B); states "
           f"{[e['state'][:16] for e in on_card.fs_tape]}", flush=True)
+
+    def card_vs_cpu(trace, what, setup=None, **flags):
+        """The proof's bytes and FS tape on the card and on the CPU (zk
+        with the same seed), and verify; returns the proof's size."""
+        runs = {}
+        for where in ("cuda", "cpu"):
+            kw = dict(flags)
+            if flags.get("zk"):
+                kw["zk_rng"] = random.Random(42)
+            runs[where] = prove(trace, setup=setup, device=where, **kw)
+        blob = serialize_proof(runs["cuda"])
+        check(blob == serialize_proof(runs["cpu"])
+              and runs["cuda"].fs_tape == runs["cpu"].fs_tape,
+              f"prove differs between cuda and cpu: {what}")
+        check(verify(runs["cuda"], PublicIO.from_trace(trace), setup=setup)
+              is True, f"verify rejected {what}")
+        return len(blob)
+
+    n_zk = card_vs_cpu(fib, "fib with zk", zk=True)
+    image_guest = trace_program(IMAGE_GUEST.format(
+        output_start=fib_layout.output_start,
+        termination=fib_layout.termination), layout=fib_layout,
+        min_padded=32)
+    n_ci = card_vs_cpu(image_guest, "the image guest with the committed "
+                       "image", committed_image=True)
+    try:
+        prove(fib, device="cuda", zk=True, committed_image=True)
+        refused = False
+    except NotImplementedError:
+        refused = True
+    check(refused, "zk=True with committed_image=True was not refused")
+    print(f"[card-vs-cpu] fib with zk (Random(42)): identical proof bytes "
+          f"({n_zk} B); image guest ({image_guest.length} cycles) with the "
+          f"committed image: identical ({n_ci} B); both verified; zk with "
+          "the committed image refused on the card", flush=True)
     # stage 6v's instance (d = 2: three factors on K2) on seeded chunks; the
     # claim is any value, since only card == CPU is checked here
     rng = np.random.default_rng(SEED)
@@ -1057,6 +1224,15 @@ def main():
           f"{small_setup.nu} sigma={small_setup.sigma}): identical proof "
           f"bytes ({len(serialize_proof(on_card))} B) and FS tape "
           f"({len(on_card.fs_tape)} entries); verified", flush=True)
+    n_zk = card_vs_cpu(small, "the Dory guest with zk", setup=small_setup,
+                       zk=True)
+    n_ci = card_vs_cpu(image_guest, "the image guest with Dory and the "
+                       "committed image", setup=small_setup,
+                       committed_image=True)
+    print(f"[card-vs-cpu] with the 2^{DORY_SMALL_VARS} Dory setup: the Dory "
+          f"guest with zk ({n_zk} B) and the image guest with the committed "
+          f"image ({n_ci} B): identical bytes and FS tapes; verified",
+          flush=True)
 
     # ---- 9. results -------------------------------------------------------
     print(f"[total] {time.perf_counter() - t_start:.1f}s", flush=True)

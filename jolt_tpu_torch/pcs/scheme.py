@@ -56,6 +56,22 @@ class DoryScheme:
         self.setup = setup
         self._hints: Dict[str, DoryHint] = {}
 
+    def setup_digest(self) -> bytes:
+        """Stable identity of this setup's parameters (cache keying).
+        (nu, sigma) + the first tier-1 generator pins the generator set:
+        a custom/foreign setup with different generators digests apart."""
+        import hashlib as _hl
+        h = _hl.blake2b(b"dory", digest_size=16)
+        h.update(self.setup.nu.to_bytes(4, "big"))
+        h.update(self.setup.sigma.to_bytes(4, "big"))
+        g = self.setup.gamma1[0]
+        h.update(int(g[0]).to_bytes(32, "big"))
+        h.update(int(g[1]).to_bytes(32, "big"))
+        g2 = self.setup.g2star
+        for c in (g2[0].a, g2[0].b):
+            h.update(int(c).to_bytes(32, "big"))
+        return h.digest()
+
     def commit(self, name: str, coeffs: Sequence[int],
                bits: int = 254) -> DoryCommitment:
         com, hint = self.dory.commit(coeffs)

@@ -1,9 +1,8 @@
 """The Jolt prover pipeline on torch.
 
 Torch counterpart of the JAX package's `prover/prover.py`.  `prove` is its
-`prove` in the same order, with the same transcript draws (no zk, no
-committed program image): witness extraction, the Fiat-Shamir preamble,
-then
+`prove` in the same order, with the same transcript draws: witness
+extraction, the Fiat-Shamir preamble, then
 
   0   Dory commitments of the witness polynomials (with a setup; host)
   1   Spartan outer (R1CS, uni-skip first round + 1 + log T rounds)
@@ -11,17 +10,23 @@ then
   2   registers read/write checking       (sparse Twist)
   3   registers Val evaluation            (Twist prefix-sum via LT)
   4   RAM read/write checking + raf       (sparse Twist, batched)
-  5   RAM Val evaluation + output check   (batched; + advice openings)
+  5   RAM Val evaluation + output check   (batched; + advice openings
+      and the committed image's claim)
   5i  instruction-execution read-raf Shout over 2^128
   6   bytecode read-raf + register rafs + lookup-flag columns (batched)
   6v  RAM/bytecode ra virtualization to committed 8-bit chunk selectors
-  7   one-hot booleanity + Hamming weight (grouped by K)
+  7   one-hot booleanity + Hamming weight (grouped by K; + the
+      program-image claim reduction)
   8   joint opening-reduction sumcheck (grouped by (K, point)), then
       with a setup one Dory opening of the claims' random linear
       combination (host)
 
 At `setup=None` (the sumcheck-only configuration) stage 0 and the joint
 opening are left out and the proof carries the bare opening claims.
+With `zk=True` every batched stage's rounds go through the BlindFold
+committed-round sink (`blindfold/zk_sumcheck.py`) and one BlindFold proof
+follows the joint opening; `committed_image=True` commits the program
+image and proves its Init contribution (`relations/program_image.py`).
 `prove_prefix` stops after stage 6v; `prove` runs the same prefix and
 continues.
 """
@@ -31,12 +36,17 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
+import random
 import time
-from typing import ClassVar, Dict, List, Optional, Sequence
+from typing import ClassVar, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from ..blindfold.hyrax import mle_eval_host
+from ..blindfold.pedersen import PedersenBasis, point_bytes
+from ..blindfold.prove import blindfold_prove
+from ..blindfold.zk_sumcheck import zk_prove_stage
 from ..config import LOG_K_CHUNK, ProofConfig
 from ..field import kernels, ops
 from ..field.params import FR
@@ -49,6 +59,8 @@ from ..relations.instruction_read_raf import InstructionReadRaf
 from ..relations.opening_reduction import (DenseOpening,
                                            cycle_major_to_address_major_point,
                                            embedding_factor)
+from ..relations.program_image import (ProgramImageReduction, image_words,
+                                       shifted_eq_table)
 from ..relations.ra_virtual import RaVirtual, block_widths, chunk_streams
 from ..relations.ram_sparse import (RamPairSchedule, SparseOneHotTableEval,
                                     SparseRamOutputCheck,
@@ -70,7 +82,8 @@ from ..witness.bytecode import extract_bytecode_witness
 from ..witness.instruction_lookups import (
     D as LK_D, extract_instruction_lookup_witness)
 from ..witness.r1cs_inputs import extract_r1cs_inputs
-from ..witness.ram import advice_poly_coeffs, advice_subcube, extract_ram_log
+from ..witness.ram import (advice_poly_coeffs, advice_subcube,
+                           extract_ram_log, remap_address)
 from ..witness.registers import extract_register_log
 
 P = FR.modulus
@@ -172,8 +185,9 @@ class JoltProof:
     # Val_init(r4_addr) (claim_reductions/program_image.rs)
     program_image_claim: int = None
     # the prover's transcript checkpoints (`PrefixProof.fs_tape` plus
-    # stage7-booleanity, stage8-reduction and, with a setup,
-    # stage8-openings); not a dataclass field, so not in the wire format
+    # stage7-booleanity, stage8-reduction, with a setup stage8-openings
+    # and with zk blindfold); not a dataclass field, so not in the wire
+    # format
     # (a decoded proof has None)
     fs_tape: ClassVar[Optional[List[dict]]] = None
 
@@ -245,18 +259,6 @@ def stage8_entry_ids(d_ram: int = 1, d_bc: int = 1, advice_kinds=(),
     if committed_image:
         ids.append((("program_image", "init"), "program_image"))
     return ids
-
-
-def mle_eval_host(vals: Sequence[int], point: Sequence[int]) -> int:
-    """A dense MLE at a point on the host (point[0] binds the MSB), as
-    the JAX package's `blindfold/hyrax.py:mle_eval_host`."""
-    cur = [v % P for v in vals]
-    for r in point:
-        r = r % P
-        half = len(cur) // 2
-        cur = [(cur[i] + r * (cur[i + half] - cur[i])) % P
-               for i in range(half)]
-    return cur[0]
 
 
 def preprocessing_digest(code: bytes, entry: int, start: int, memory_layout,
@@ -407,34 +409,47 @@ def prove_prefix(trace: Trace, device="cuda") -> PrefixProof:
 
 
 def prove(trace: Trace, setup=None, device="cuda", zk: bool = False,
-          committed_image: bool = False) -> JoltProof:
+          zk_rng=None, committed_image: bool = False) -> JoltProof:
     """Prove the trace on `device` (the card unless the caller asks for the
-    CPU), as the JAX package's `prove(trace, setup=setup)`: stages 1
-    through 8, and with a setup (a `DorySetup`, a `DoryScheme`, or "dory"
-    to build one sized from the trace) the stage-0 Dory commitments and
-    the joint opening proof.  `setup=None` is the sumcheck-only
-    configuration: the proof carries the bare opening claims, no
-    commitments and no joint opening proof.  The Dory work runs on the
-    host (`pcs/dory.py`, the native library of `csrc/pairing.cpp`)."""
+    CPU), as the JAX package's `prove(trace, setup=setup, zk=zk,
+    zk_rng=zk_rng, committed_image=committed_image)`: stages 1 through 8,
+    and with a setup (a `DorySetup`, a `DoryScheme`, or "dory" to build
+    one sized from the trace) the stage-0 Dory commitments and the joint
+    opening proof.  `setup=None` is the sumcheck-only configuration: the
+    proof carries the bare opening claims, no commitments and no joint
+    opening proof.  The Dory work runs on the host (`pcs/dory.py`, the
+    native library of `csrc/pairing.cpp`).
+
+    zk=True Pedersen-commits every batched stage's round polynomials
+    instead of sending them, and one BlindFold proof (Nova fold + Spartan
+    over the verifier R1CS, host work) attests every round check; the
+    stage-1 uni-skip polynomial and the opening claims stay in the clear,
+    as in the JAX package.  `zk_rng` (default SystemRandom) supplies the
+    blinds; the same seed gives the JAX package's bytes.  The device work
+    is the plain prove's.  committed_image=True commits the program-image
+    words and proves the image's Init contribution through a stage-7
+    claim reduction instead of the verifier evaluating it; the image must
+    lie in the trace's RAM address space (ROADMAP C2), and zk with the
+    committed image is refused (ROADMAP C1)."""
     if setup == "hyperkzg":
         raise NotImplementedError(
             "a HyperKZG setup needs the HyperKZG scheme (ROADMAP A15), not "
             "ported yet")
-    if zk:
+    if zk and committed_image:
         raise NotImplementedError(
-            "zk=True needs the BlindFold committed rounds (ROADMAP A14), "
-            "not ported yet")
-    if committed_image:
-        raise NotImplementedError(
-            "committed_image=True needs the program-image claim reduction "
-            "(ROADMAP A13), not ported yet")
-    return _prove(trace, resolve_device(device), full=True, setup=setup)
+            "zk=True with committed_image=True is refused: the JAX "
+            "package's own verifier rejects such a proof (ROADMAP C1)")
+    return _prove(trace, resolve_device(device), full=True, setup=setup,
+                  zk=zk, zk_rng=zk_rng, committed_image=committed_image)
 
 
-def _prove(trace: Trace, device: torch.device, full: bool, setup=None):
+def _prove(trace: Trace, device: torch.device, full: bool, setup=None,
+           zk: bool = False, zk_rng=None, committed_image: bool = False):
     """The prover's stages in `prove`'s order: through stage 6v (a
     `PrefixProof`), or with `full` through stage 8 (a `JoltProof`), with
-    the Dory commitments and joint opening when `setup` is given."""
+    the Dory commitments and joint opening when `setup` is given, the
+    committed rounds and the BlindFold proof with `zk`, and the program
+    image with `committed_image`."""
     timer = _StageTimer(device)
     # ---- witness extraction (host) --------------------------------------
     inputs = extract_r1cs_inputs(trace)
@@ -469,10 +484,44 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None):
         onehot_meta[f"lk_ra{i}"] = (lk_wit.chunks[i], 256)
     dense_meta = {"inc": reg_wit.inc, "ram_inc": ram_wit.inc,
                   **{f"{k}_advice": advice_coeffs[k] for k in advice_kinds}}
+    # committed-bytecode mode: commit the program-image words polynomial
+    # (claim_reductions/program_image.rs; the verifier recomputes and
+    # caches the trusted commitment from the public program)
+    pi_words = pi_start = None
+    if committed_image:
+        pi_words = image_words(trace.code)
+        pi_start = remap_address(trace.entry, ram_wit.witness_base)
+        if pi_start >> ram_wit.log_K:
+            # eval_shifted_eq reads only the low log K bits of the start,
+            # while the table is 0 past 2^log K: the JAX package's verifier
+            # rejects such a proof at stage 7
+            raise NotImplementedError(
+                f"committed_image=True with the image at RAM index "
+                f"{pi_start}, outside the trace's 2^{ram_wit.log_K} RAM "
+                "addresses, is refused: the JAX package's own verifier "
+                "rejects such a proof (ROADMAP C2)")
+        dense_meta["program_image"] = pi_words
+        # split-verification semantics: the verifier evaluates an
+        # inputs-only Init and ADDS the image claim, while the witness
+        # OVERWRITES on overlap -- so the image range must be disjoint
+        # from the input and advice witness regions or honest proofs fail
+        pi_end = pi_start + len(pi_words)
+        regions = [("inputs", remap_address(layout.input_start,
+                                            ram_wit.witness_base),
+                    (layout.max_input_size + 7) // 8)]
+        for kind in advice_kinds:
+            a_start, a_size = layout.advice_region(kind)
+            regions.append((f"{kind} advice",
+                            remap_address(a_start, ram_wit.witness_base),
+                            (a_size + 7) // 8))
+        for rname, r0, nwords in regions:
+            assert pi_end <= r0 or r0 + nwords <= pi_start, \
+                f"committed image overlaps the {rname} region"
     timer.mark("witness-extraction")
 
     transcript = Blake2bTranscript(b"Jolt")
-    proof_config = ProofConfig.new(log_T, ram_wit.log_K)
+    proof_config = ProofConfig.new(log_T, ram_wit.log_K,
+                                   committed_image=committed_image)
     fiat_shamir_preamble(
         transcript, trace.length, trace.padded_length,
         bytes(trace.device.inputs), bytes(trace.device.outputs),
@@ -485,6 +534,25 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None):
     def finish(label: str) -> None:
         fs_tape.append(_tape_entry(label, transcript))
         timer.mark(label)
+
+    # the zk seam: every batched stage runs through `_stage`, which in zk
+    # mode gives the engine the committed-round sink and records the
+    # stage's ZkStageData for BlindFold
+    zk_stages: List[object] = []
+    zk_commit_bytes: Dict[str, List[bytes]] = {}
+    if zk:
+        zk_basis = PedersenBasis.create(8)
+        zk_rng = zk_rng or random.SystemRandom()
+
+    def _stage(insts, label):
+        if not zk:
+            return BatchedSumcheck.prove(insts, accumulator, transcript)
+        data, rs = zk_prove_stage(insts, accumulator, transcript, zk_basis,
+                                  zk_rng, label)
+        data.final_expected = data.claims[-1]
+        zk_stages.append(data)
+        zk_commit_bytes[label] = [point_bytes(c) for c in data.commitments]
+        return [], rs
 
     # ---- Stage 0: commit the witness polynomials -------------------------
     # (zkvm/prover.rs:689-800 generate_and_commit_witness_polynomials --
@@ -512,7 +580,7 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None):
             committed_sparse[name] = (
                 np.arange(len(vals), dtype=np.int64), vals, len(vals))
         names = committed_poly_names(len(ram_chunks), len(bc_chunks),
-                                     advice_kinds)
+                                     advice_kinds, committed_image)
         onehot_names = [n for n in names if committed_sparse[n][1] is None]
         prof = profiling.active()
         with prof.span("commit.onehot"):
@@ -535,7 +603,7 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None):
     outer = SpartanOuterProver(inputs, tau[1:], r0_skip, claim1, l_scale,
                                cols_dev)
     del cols_dev
-    stage1_polys, _ = BatchedSumcheck.prove([outer], accumulator, transcript)
+    stage1_polys, _ = _stage([outer], "s1")
     input_openings = list(outer.input_openings)
     del outer          # release each finished stage's device tensors
     finish("stage1-spartan")
@@ -545,8 +613,7 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None):
     gamma_sh = transcript.challenge_scalar()
     shift_cols = shift_column_values(bc_wit.table, bc_wit.pc_idx, gamma_sh)
     shift_inst = ShiftSumcheck(shift_cols, r_cycle, gamma_sh, device)
-    shift_polys, _ = BatchedSumcheck.prove([shift_inst], accumulator,
-                                           transcript)
+    shift_polys, _ = _stage([shift_inst], "s1s")
     shift_opening = shift_inst.final_openings["cols"]
     del shift_inst
     finish("stage1s-shift")
@@ -559,7 +626,7 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None):
     gamma = transcript.challenge_scalar()
     rw = SparseRegistersReadWriteChecking(reg_wit, gamma, r_cycle, claims,
                                           device)
-    stage2_polys, _ = BatchedSumcheck.prove([rw], accumulator, transcript)
+    stage2_polys, _ = _stage([rw], "s2")
     stage2_openings = dict(rw.final_openings)
     del rw
     finish("stage2-reg-rw")
@@ -570,7 +637,7 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None):
     val_claim = accumulator.get_claim(("registers", "val"))
     ve = SparseRegistersValEvaluation(reg_wit, r2_addr, r2_cyc, val_claim,
                                       device)
-    stage3_polys, _ = BatchedSumcheck.prove([ve], accumulator, transcript)
+    stage3_polys, _ = _stage([ve], "s3")
     stage3_openings = dict(ve.final_openings)
     del ve
     finish("stage3-reg-val")
@@ -588,8 +655,7 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None):
     ram_raf = SparseRamRafEvaluation(ram_sched, ram_wit.log_K,
                                      ram_wit.witness_base, r_cycle,
                                      addr_claim)
-    stage4_polys, _ = BatchedSumcheck.prove([ram_rw, ram_raf], accumulator,
-                                            transcript)
+    stage4_polys, _ = _stage([ram_rw, ram_raf], "s4")
     stage4_openings = {
         **{f"rw_{k}": v for k, v in ram_rw.final_openings.items()},
         **{f"raf_{k}": v for k, v in ram_raf.final_openings.items()}}
@@ -610,6 +676,17 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None):
         advice_openings[kind] = mle_eval_host(advice_coeffs[kind], r_low)
         accumulator.insert(("advice", kind), tuple(r_low),
                            advice_openings[kind])
+    # committed-bytecode mode: the program image's Init(r4_addr)
+    # contribution as a scalar claim (exact, on Python ints), bound to the
+    # committed image polynomial by the stage-7 reduction sumcheck
+    image_claim = None
+    if committed_image:
+        pi_table = shifted_eq_table(r4_addr, pi_start,
+                                    (len(pi_words) - 1).bit_length()
+                                    if len(pi_words) > 1 else 0)
+        image_claim = sum(t * w for t, w in zip(pi_table, pi_words)) % P
+        accumulator.insert(("program_image", "claim"), tuple(r4_addr),
+                           image_claim)
     ram_ve = SparseRamValEvaluation(ram_sched, ram_wit.log_K,
                                     ram_wit.init_vals, ram_wit.inc,
                                     r4_addr, r4_cyc, ram_val_claim)
@@ -618,8 +695,7 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None):
                                   ram_wit.init_vals, ram_wit.inc,
                                   trace.memory_layout, ram_wit.witness_base,
                                   z_out, bytes(trace.device.outputs))
-    stage5_polys, _ = BatchedSumcheck.prove([ram_ve, ram_oc], accumulator,
-                                            transcript)
+    stage5_polys, _ = _stage([ram_ve, ram_oc], "s5")
     stage5_openings = {
         **dict(ram_ve.final_openings),
         **{f"oc_{k}": v for k, v in ram_oc.final_openings.items()}}
@@ -636,8 +712,7 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None):
         accumulator.get_claim(("r1cs_input", "left_lookup_operand")),
         accumulator.get_claim(("r1cs_input", "right_lookup_operand")),
         device)
-    stage5i_polys, r5i = BatchedSumcheck.prove([lk], accumulator,
-                                               transcript)
+    stage5i_polys, r5i = _stage([lk], "s5i")
     r_lk_cyc = r5i[LT.LOG_K:]
     stage5i_openings = {f"ra{i}": lk.final_openings[f"ra{i}"]
                         for i in range(LK_D)}
@@ -703,9 +778,8 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None):
             sched_p, 7, reg_idx_tab, r_cycle, claim,
             ("registers_raf", name), opening_key="m"))
     raf_rd, raf_rs1, raf_rs2 = raf_insts
-    stage6_polys, _ = BatchedSumcheck.prove(
-        [bc, bc_flags, bc_shift, raf_rd, raf_rs1, raf_rs2], accumulator,
-        transcript)
+    stage6_polys, _ = _stage(
+        [bc, bc_flags, bc_shift, raf_rd, raf_rs1, raf_rs2], "s6")
     stage6_openings = {"ra": bc.final_openings["ra"],
                        "flags_ra": bc_flags.final_openings["ra"],
                        "shift_ra": bc_shift.final_openings["ra"],
@@ -740,8 +814,7 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None):
     stage6v_polys: List[List[int]] = []
     stage6v_openings: Dict[str, int] = {}
     if insts6v:
-        stage6v_polys, _ = BatchedSumcheck.prove(insts6v, accumulator,
-                                                 transcript)
+        stage6v_polys, _ = _stage(insts6v, "s6v")
         for inst in insts6v:
             prefix, t = inst.tag
             for i, v in enumerate(inst.final_openings):
@@ -807,13 +880,21 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None):
         insts7.append(GroupedOneHot(idx, K, E_h, [None] * m7, [1] * m7,
                                     gamma7, labs, booleanity=False,
                                     opening_kind="hamming"))
-    stage7_polys, _ = BatchedSumcheck.prove(insts7, accumulator, transcript)
+    pi_inst = None
+    if committed_image:
+        pi_inst = ProgramImageReduction(pi_words, r4_addr, pi_start,
+                                        image_claim, device)
+        insts7.append(pi_inst)
+    stage7_polys, _ = _stage(insts7, "s7")
     stage7_openings: Dict[str, int] = {}
     for inst in insts7:
+        if inst is pi_inst:
+            stage7_openings["program_image_init"] = inst.final_openings["p"]
+            continue
         kind7 = "bool" if inst.booleanity else "ham"
         for lab, v in zip(inst.labels, inst.final_openings):
             stage7_openings[f"{kind7}_{lab}"] = v
-    del insts7, E_bcyc, E_h
+    del insts7, pi_inst, E_bcyc, E_h
     finish("stage7-booleanity")
 
     # ---- Stage 8: joint opening reduction --------------------------------
@@ -824,7 +905,7 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None):
     entries = []          # (commitment_name, cycle-major point, claim)
     seen: Dict[object, int] = {}
     for oid, cname in stage8_entry_ids(len(ram_chunks), len(bc_chunks),
-                                       advice_kinds):
+                                       advice_kinds, committed_image):
         pt, cl = accumulator.openings[oid]
         if (cname, pt) in seen:
             if seen[(cname, pt)] != cl:
@@ -871,7 +952,7 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None):
                                    f"{n8}_{cname}", device))
         n8 += 1
     del eq_tables, dense_dev
-    stage8_polys, r8 = BatchedSumcheck.prove(insts8, accumulator, transcript)
+    stage8_polys, r8 = _stage(insts8, "s8")
     stage8_openings: List[int] = []
     for inst in insts8:
         if isinstance(inst, GroupedOneHot):
@@ -905,6 +986,11 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None):
         opening_proofs["joint"] = pcs.open_rlc(weights, rlc_parts, r8,
                                                value, transcript)
         finish("stage8-openings")
+    zk_blindfold = None
+    if zk:
+        zk_blindfold = blindfold_prove(zk_stages, zk_basis, transcript,
+                                       zk_rng)
+        finish("blindfold")
 
     proof = JoltProof(
         **{k: v for k, v in prefix.items()
@@ -916,6 +1002,9 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None):
         commitments=commitments,
         opening_proofs=opening_proofs,
         advice_openings=advice_openings,
-        config=proof_config.as_dict())
+        zk_commitments=zk_commit_bytes if zk else None,
+        zk_blindfold=zk_blindfold,
+        config=proof_config.as_dict(),
+        program_image_claim=image_claim)
     proof.fs_tape = fs_tape
     return proof

@@ -53,16 +53,22 @@ def cycle_major_to_address_major_point(point: Sequence[int],
 
 class DenseOpening(ProductSumcheck):
     """v = sum_x eq(q, x) * P(x) for a dense coefficient vector (a list of
-    ints, or its Montgomery limbs (8, 2^n) already on `device`)."""
+    ints, or its Montgomery limbs (8, 2^n) already on `device`).
+    `weights` (limbs (8, 2^n) on `device`) takes the place of the eq
+    table as the first factor: the program-image reduction's shifted-eq
+    slice (`program_image.ProgramImageReduction`)."""
 
     def __init__(self, coeffs, point: Sequence[int], claim: int, label: str,
-                 device="cuda"):
+                 device="cuda", weights: Optional[torch.Tensor] = None):
         device = torch.device(device)
         self.q = [x % P for x in point]
         Pv = (coeffs if isinstance(coeffs, torch.Tensor)
               else ops.pack_ints(coeffs, device))
         assert Pv.shape[-1] == 1 << len(self.q)
-        super().__init__([eq.evals(self.q, device), Pv])
+        if weights is None:
+            weights = eq.evals(self.q, device)
+        assert weights.shape == Pv.shape
+        super().__init__([weights, Pv])
         self.claim = claim % P
         self.label = label
         self.final_openings: Optional[dict] = None

@@ -20,6 +20,11 @@ Protocol (prove):
      (125-bit); update claims; active instances bind.
   5. finalize; cache openings per instance on the accumulator's id space;
      flush pending opening claims to the transcript ("opening_claim").
+
+Step 4's absorb is the `rounds` sink's: `ClearRounds` absorbs each
+compressed round polynomial and keeps it for the proof; the zk mode's
+`blindfold.zk_sumcheck.CommittedRounds` absorbs a Pedersen commitment to
+it instead.  The round loop itself is the same in both modes.
 """
 
 from __future__ import annotations
@@ -124,6 +129,28 @@ class SumcheckInstance(abc.ABC):
         return r
 
 
+class ClearRounds:
+    """The rounds of a batched sumcheck in the clear: each round's batched
+    polynomial is compressed, absorbed ("sumcheck_poly") and kept in
+    `polys` for the proof."""
+
+    def __init__(self):
+        self.polys: List[List[int]] = []
+
+    def start(self, instances: Sequence[SumcheckInstance],
+              coeffs: Sequence[int], claims: Sequence[int]) -> None:
+        """Before the first round: the batching coefficients and the
+        instances' scaled input claims."""
+
+    def send(self, batched: UniPoly, transcript: Blake2bTranscript) -> None:
+        compressed = batched.compress()
+        transcript.append_scalars(b"sumcheck_poly", compressed)
+        self.polys.append(compressed)
+
+    def bound(self, r: int, claims: Sequence[int]) -> None:
+        """After a round's challenge `r`: each instance's claim at r."""
+
+
 class BatchedSumcheck:
     """`BatchedSumcheck::{prove, verify}`."""
 
@@ -131,7 +158,11 @@ class BatchedSumcheck:
     def prove(instances: Sequence[SumcheckInstance],
               accumulator: OpeningAccumulator,
               transcript: Blake2bTranscript,
+              rounds: Optional[ClearRounds] = None,
               ) -> Tuple[List[List[int]], List[int]]:
+        """Returns the round polynomials `rounds` kept (`ClearRounds` by
+        default: the compressed polynomials) and the challenges."""
+        rounds = ClearRounds() if rounds is None else rounds
         max_rounds = max(i.num_rounds for i in instances)
 
         for inst in instances:
@@ -142,10 +173,10 @@ class BatchedSumcheck:
             (inst.input_claim(accumulator) << (max_rounds - inst.num_rounds)) % P
             for inst in instances
         ]
+        rounds.start(instances, coeffs, claims)
 
         two_inv = pow(2, -1, P)
         r_sumcheck: List[int] = []
-        compressed_polys: List[List[int]] = []
 
         for rnd in range(max_rounds):
             # 1: launch every active instance's message (async); an
@@ -180,19 +211,17 @@ class BatchedSumcheck:
             for poly, c in zip(polys, coeffs):
                 batched = batched.add(poly.scale(c))
 
-            compressed = batched.compress()
-            transcript.append_scalars(b"sumcheck_poly", compressed)
+            rounds.send(batched, transcript)
             r_j = transcript.challenge_scalar_optimized()
             r_sumcheck.append(r_j)
 
             claims = [poly.evaluate(r_j) for poly in polys]
+            rounds.bound(r_j, claims)
 
             for inst in instances:
                 off = inst.round_offset(max_rounds)
                 if off <= rnd < off + inst.num_rounds:
                     inst.ingest_challenge(r_j, rnd - off)
-
-            compressed_polys.append(compressed)
 
         for inst in instances:
             inst.finalize()
@@ -201,7 +230,7 @@ class BatchedSumcheck:
             inst.cache_openings(accumulator, r_sumcheck[off:off + inst.num_rounds])
         accumulator.flush_to_transcript(transcript)
 
-        return compressed_polys, r_sumcheck
+        return rounds.polys, r_sumcheck
 
     @staticmethod
     def verify(compressed_polys: List[List[int]],

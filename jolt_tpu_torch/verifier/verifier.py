@@ -2,25 +2,34 @@
 
 Torch-package counterpart of the JAX package's `verifier/verifier.py`
 (`crates/jolt-verifier/src/verifier.rs:176-230`), with or without a Dory
-setup (no zk, no committed program image).  `verify` validates the
-proof-carried config, replays the preamble, absorbs the commitments (with
-a setup) and checks stage 1 (Spartan uni-skip +
+setup, in clear mode, in zk mode and with the committed program image.
+`verify` validates the proof-carried config, replays the preamble, absorbs
+the commitments (with a setup; the program image's against the trusted
+commitment recomputed from the public program) and checks stage 1
+(Spartan uni-skip +
 outer), stage 1s (shift), stages 2 and 3 (registers read/write checking
 and Val evaluation), stages 4 and 5 (RAM read/write + raf, then Val
-evaluation + output check, with the advice regions' Init contributions),
-stage 5i (the instruction read-raf Shout), stage 6 (bytecode read-raf and
-the register rafs), stage 6v (ra virtualization), stage 7 (booleanity +
-Hamming weight), stage 8 (the joint opening reduction) and, with a setup,
-the joint Dory opening of the reduced claims exactly as the JAX package's
-verifier does; `verify_prefix` stops after stage 6v.  All of it is host
-work on Python ints and the native pairing library.
+evaluation + output check, with the advice regions' and the committed
+image's Init contributions), stage 5i (the instruction read-raf Shout),
+stage 6 (bytecode read-raf and the register rafs), stage 6v (ra
+virtualization), stage 7 (booleanity + Hamming weight, + the program-image
+claim reduction), stage 8 (the joint opening reduction), with a setup the
+joint Dory opening of the reduced claims and, in zk mode, the BlindFold
+proof of every committed round, exactly as the JAX package's verifier
+does; `verify_prefix` stops after stage 6v.  All of it is host work on
+Python ints and the native pairing library.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import hashlib
+from typing import Dict, List
 
+from ..blindfold.pedersen import PedersenBasis
+from ..blindfold.verify import BlindFoldError, blindfold_verify
+from ..blindfold.zk_sumcheck import ZkStageData, zk_replay_challenges
 from ..config import ConfigError, ProofConfig
+from ..curve import bn254_host
 from ..field.params import FR
 from ..lookups import tables as LT
 from ..pcs.scheme import make_scheme
@@ -35,6 +44,8 @@ from ..relations.instruction_read_raf import InstructionReadRafVerifier
 from ..relations.opening_reduction import (OpeningReductionVerifier,
                                            cycle_major_to_address_major_point,
                                            embedding_factor)
+from ..relations.program_image import (ProgramImageReductionVerifier,
+                                       image_words)
 from ..relations.ra_virtual import (RaVirtualVerifier, block_point,
                                     block_widths, d_chunks)
 from ..relations.ram_sparse import (SparseBytecodeReadRafVerifier,
@@ -61,7 +72,7 @@ from ..witness.r1cs_inputs import (NUM_VARS, V_LEFT_LOOKUP_OPERAND,
                                    V_RAM_READ_VALUE, V_RAM_WRITE_VALUE,
                                    V_RD_WRITE_VALUE, V_RIGHT_LOOKUP_OPERAND,
                                    V_RS1_VALUE, V_RS2_VALUE, VAR_NAMES)
-from ..witness.ram import advice_subcube, initial_memory_vals
+from ..witness.ram import advice_subcube, initial_memory_vals, remap_address
 
 P = FR.modulus
 
@@ -95,34 +106,130 @@ class PublicIO:
                    trace.code, trace.entry, trace.program.start)
 
 
+_PI_COMMIT_CACHE: Dict[tuple, object] = {}
+
+
+def _program_image_commitment(pcs, code: bytes):
+    """Recompute (and cache per program+scheme shape) the commitment to
+    the program-image words polynomial."""
+    digest_fn = getattr(pcs, "setup_digest", None)
+    if digest_fn is None:
+        # unknown scheme: no reliable setup identity -> never cache (a
+        # stale hit would corrupt the verifier's trust anchor)
+        return pcs.commit("program_image", image_words(code), bits=254)
+    key = (hashlib.blake2b(code, digest_size=16).digest(),
+           type(pcs).__name__, digest_fn())
+    hit = _PI_COMMIT_CACHE.get(key)
+    if hit is None:
+        hit = pcs.commit("program_image", image_words(code), bits=254)
+        if len(_PI_COMMIT_CACHE) > 64:
+            _PI_COMMIT_CACHE.clear()
+        _PI_COMMIT_CACHE[key] = hit
+    return hit
+
+
+def _pt_from_bytes(b: bytes):
+    """A zk round commitment from its 64-byte encoding (all zero is the
+    point at infinity); off-curve points are rejected."""
+    if b == b"\x00" * 64:
+        return None
+    if len(b) != 64:
+        raise VerificationError("bad zk commitment encoding")
+    pt = (int.from_bytes(b[:32], "big"), int.from_bytes(b[32:], "big"))
+    if not bn254_host.g1_is_on_curve(pt):
+        raise VerificationError("zk commitment off curve")
+    return pt
+
+
+class _Run:
+    """One verification's state across its stages: the transcript, the
+    accumulator, the committed-image flag with stage 4's address point
+    r4_addr, and the zk seam.  `stage(polys, insts, label)` checks one
+    batched stage: its clear round polynomials through the sumcheck
+    verifier or, when the proof carries round commitments, the challenges
+    replayed from the commitments, recording the stage's public
+    `ZkStageData` for BlindFold (`zk_stages`)."""
+
+    def __init__(self, proof, transcript: Blake2bTranscript, ci: bool):
+        self.transcript = transcript
+        self.accumulator = OpeningAccumulator()
+        self.ci = ci
+        self.r4_addr: List[int] = []
+        self.zk_commitments = getattr(proof, "zk_commitments", None)
+        self.zk = bool(self.zk_commitments)
+        self.zk_stages: List[ZkStageData] = []
+
+    def stage(self, polys, insts, label: str) -> List[int]:
+        accumulator, transcript = self.accumulator, self.transcript
+        if not self.zk:
+            return BatchedSumcheck.verify(polys, insts, accumulator,
+                                          transcript)
+        comm_bytes = self.zk_commitments.get(label)
+        if comm_bytes is None:
+            raise VerificationError(f"missing zk round commitments {label}")
+        max_rounds = max(i.num_rounds for i in insts)
+        if len(comm_bytes) != max_rounds:
+            raise VerificationError(f"stage {label}: zk round count")
+        input_claims = [i.input_claim(accumulator) for i in insts]
+        coeffs, rs = zk_replay_challenges(comm_bytes, input_claims,
+                                          len(insts), transcript)
+        claim0 = sum(
+            c * ((ic << (max_rounds - i.num_rounds)) % P)
+            for c, ic, i in zip(coeffs, input_claims, insts)) % P
+        expected = 0
+        for inst, c in zip(insts, coeffs):
+            off = max_rounds - inst.num_rounds
+            expected = (expected + c * inst.expected_output_claim(
+                accumulator, rs[off:off + inst.num_rounds])) % P
+        self.zk_stages.append(ZkStageData(
+            label=label, max_rounds=max_rounds,
+            max_degree=max(getattr(i, "degree", 3) for i in insts),
+            input_claim0=claim0, round_coeffs=[], blinds=[],
+            commitments=[_pt_from_bytes(cb) for cb in comm_bytes],
+            challenges=rs, claims=[], final_expected=expected))
+        return rs
+
+
 def verify_prefix(proof: PrefixProof, io: PublicIO) -> bool:
-    """Check stages 1 through 6v of `proof` against the public statement;
-    returns True or raises VerificationError."""
+    """Check stages 1 through 6v of a clear-mode `proof` against the
+    public statement; returns True or raises VerificationError."""
+    if getattr(proof, "zk_commitments", None):
+        raise VerificationError(
+            "verify_prefix checks clear rounds; a zk proof's round checks "
+            "are in its BlindFold proof (use verify)")
     _verify_through_6v(proof, io)
     return True
 
 
 def verify(proof: JoltProof, io: PublicIO, setup=None) -> bool:
-    """Check every stage of `proof` (stages 1 through 8, and with a setup --
-    a `DorySetup` or `DoryScheme` -- the commitments and the joint opening)
-    against the public statement, as the JAX package's
-    `verify(proof, io, setup=setup)`; returns True or raises
-    VerificationError."""
+    """Check every stage of `proof` (stages 1 through 8, with a setup --
+    a `DorySetup` or `DoryScheme` -- the commitments and the joint
+    opening, and in zk mode the BlindFold proof) against the public
+    statement, as the JAX package's `verify(proof, io, setup=setup)`;
+    returns True or raises VerificationError."""
     pcs = make_scheme(setup)
-    if proof.zk_commitments:
-        raise NotImplementedError(
-            "a zk proof needs the BlindFold verifier (ROADMAP A14), not "
-            "ported yet")
-    transcript, accumulator = _verify_through_6v(proof, io, pcs)
+    run = _verify_through_6v(proof, io, pcs)
     log_T = io.padded_length.bit_length() - 1
-    _verify_stages_7_8(proof, io, log_T, transcript, accumulator, pcs)
+    _verify_stages_7_8(proof, io, log_T, run, pcs)
+    if run.zk:
+        # BlindFold attests every committed round check (Nova fold +
+        # Spartan over the verifier R1CS; ref zkvm/prover.rs:1564-1610)
+        if proof.zk_blindfold is None:
+            raise VerificationError("zk proof missing BlindFold proof")
+        try:
+            ok = blindfold_verify(run.zk_stages, proof.zk_blindfold,
+                                  PedersenBasis.create(8), run.transcript)
+        except BlindFoldError as e:
+            raise VerificationError(f"blindfold: {e}") from e
+        if not ok:
+            raise VerificationError("blindfold verification failed")
     return True
 
 
-def _verify_through_6v(proof, io: PublicIO, pcs=None):
+def _verify_through_6v(proof, io: PublicIO, pcs=None) -> _Run:
     """Stages 1 through 6v of a `PrefixProof` or a `JoltProof` (the fields
     they share), after the commitments' absorption when `pcs` is given;
-    returns the transcript and the accumulator."""
+    returns the verification's state."""
     program = expand_program(io.code, io.entry, io.start)
     if proof.bytecode_log_K != bytecode_K(program).bit_length() - 1:
         raise VerificationError("bytecode_log_K inconsistent with program")
@@ -132,10 +239,7 @@ def _verify_through_6v(proof, io: PublicIO, pcs=None):
         proof_config.validate(log_T, proof.ram_log_K)
     except ConfigError as e:
         raise VerificationError(f"invalid proof config: {e}") from e
-    if proof_config.committed_program_image:
-        raise NotImplementedError(
-            "the committed program image needs the program-image claim "
-            "reduction (ROADMAP A13), not ported yet")
+    ci = proof_config.committed_program_image == 1
     transcript = Blake2bTranscript(b"Jolt")
     fiat_shamir_preamble(transcript, io.trace_length, io.padded_length,
                          io.inputs, io.outputs, io.panic, io.code, io.entry,
@@ -144,11 +248,22 @@ def _verify_through_6v(proof, io: PublicIO, pcs=None):
     if pcs is not None:
         for name in committed_poly_names(d_chunks(proof.ram_log_K),
                                          d_chunks(proof.bytecode_log_K),
-                                         advice_kinds_of(io.memory_layout)):
+                                         advice_kinds_of(io.memory_layout),
+                                         ci):
             if name not in proof.commitments:
                 raise VerificationError(f"missing commitment {name}")
             pcs.absorb(transcript, proof.commitments[name])
-    accumulator = OpeningAccumulator()
+        if ci:
+            # the image polynomial is a pure function of the public
+            # program: recompute the trusted commitment once per
+            # (program, scheme) and reject a mismatched prover commitment
+            # (program_image.rs "trusted commitment")
+            expected_c = _program_image_commitment(pcs, io.code)
+            if proof.commitments["program_image"] != expected_c:
+                raise VerificationError(
+                    "program_image commitment does not match the program")
+    run = _Run(proof, transcript, ci)
+    accumulator = run.accumulator
 
     # ---- Stage 1: Spartan outer (uni-skip + remaining sumcheck) ---------
     num_rounds = num_stage1_rounds(log_T)
@@ -167,8 +282,7 @@ def _verify_through_6v(proof, io: PublicIO, pcs=None):
     inst1 = SpartanOuterVerifier(num_rounds, tau, r0_skip,
                                  proof.r1cs_input_openings, claim1)
     try:
-        r1 = BatchedSumcheck.verify(proof.stage1_polys, [inst1], accumulator,
-                                    transcript)
+        r1 = run.stage(proof.stage1_polys, [inst1], "s1")
     except SumcheckError as e:
         raise VerificationError(f"stage1: {e}") from e
 
@@ -182,8 +296,7 @@ def _verify_through_6v(proof, io: PublicIO, pcs=None):
     gamma_sh = transcript.challenge_scalar()
     inst_sh = ShiftVerifier(log_T, gamma_sh, r_cycle, proof.shift_opening)
     try:
-        r_sh = BatchedSumcheck.verify(proof.shift_polys, [inst_sh],
-                                      accumulator, transcript)
+        r_sh = run.stage(proof.shift_polys, [inst_sh], "s1s")
     except SumcheckError as e:
         raise VerificationError(f"shift: {e}") from e
     accumulator.insert(("shift", "cols"), r_sh, proof.shift_opening)
@@ -197,8 +310,7 @@ def _verify_through_6v(proof, io: PublicIO, pcs=None):
     inst2 = SparseRegistersReadWriteCheckingVerifier(
         log_T, gamma, r_cycle, claims, proof.stage2_openings)
     try:
-        r2 = BatchedSumcheck.verify(proof.stage2_polys, [inst2], accumulator,
-                                    transcript)
+        r2 = run.stage(proof.stage2_polys, [inst2], "s2")
     except SumcheckError as e:
         raise VerificationError(f"stage2: {e}") from e
     r2_cyc, r2_addr = inst2._split(r2)
@@ -215,8 +327,7 @@ def _verify_through_6v(proof, io: PublicIO, pcs=None):
     inst3 = SparseRegistersValEvaluationVerifier(
         log_T, r2_addr, r2_cyc, val_claim, proof.stage3_openings)
     try:
-        r3 = BatchedSumcheck.verify(proof.stage3_polys, [inst3], accumulator,
-                                    transcript)
+        r3 = run.stage(proof.stage3_polys, [inst3], "s3")
     except SumcheckError as e:
         raise VerificationError(f"stage3: {e}") from e
     r3_cyc, r3_addr = inst3._split(r3)
@@ -239,12 +350,12 @@ def _verify_through_6v(proof, io: PublicIO, pcs=None):
         log_T, proof.ram_log_K, r_cycle, addr_claim,
         io.memory_layout.witness_base, {"ra": o4["raf_ra"]})
     try:
-        r4 = BatchedSumcheck.verify(proof.stage4_polys, [inst4a, inst4b],
-                                    accumulator, transcript)
+        r4 = run.stage(proof.stage4_polys, [inst4a, inst4b], "s4")
     except SumcheckError as e:
         raise VerificationError(f"stage4: {e}") from e
     # sparse tier: cycle vars bound LSB-first -> normalize to big-endian
     r4_cyc, r4_addr = inst4a._split(r4)
+    run.r4_addr = r4_addr
     r4n = r4_cyc + r4_addr
     for name in ("ra", "val"):
         accumulator.insert(("ram", name), r4n, o4[f"rw_{name}"])
@@ -254,8 +365,11 @@ def _verify_through_6v(proof, io: PublicIO, pcs=None):
 
     # ---- Stage 5: RAM Val evaluation + output check ----------------------
     # public initial image = inputs region + program image, restricted to
-    # the proof's RAM address space (same rule as the prover witness)
-    init_vals = initial_memory_vals(io.inputs, io.memory_layout, io.code,
+    # the proof's RAM address space (same rule as the prover witness);
+    # committed-image mode drops the program image from the directly
+    # evaluated Init (its contribution arrives as a proven scalar claim)
+    init_vals = initial_memory_vals(io.inputs, io.memory_layout,
+                                    b"" if ci else io.code,
                                     io.entry, K=1 << proof.ram_log_K)
     # advice contribution to Init(r4_addr): selector-scaled openings of
     # the committed advice polynomials (the regions are size-aligned
@@ -281,6 +395,12 @@ def _verify_through_6v(proof, io: PublicIO, pcs=None):
         adv_extra = (adv_extra + sel * claim) % P
         accumulator.insert(("advice", kind),
                            tuple(r4_addr[len(r4_addr) - a_vars:]), claim)
+    if ci:
+        if proof.program_image_claim is None:
+            raise VerificationError("missing program_image_claim")
+        adv_extra = (adv_extra + proof.program_image_claim) % P
+        accumulator.insert(("program_image", "claim"), tuple(r4_addr),
+                           proof.program_image_claim % P)
     o5 = proof.stage5_openings
     inst5 = SparseRamValEvaluationVerifier(
         log_T, proof.ram_log_K, r4_addr, r4_cyc, o4["rw_val"], init_vals,
@@ -291,8 +411,7 @@ def _verify_through_6v(proof, io: PublicIO, pcs=None):
         io.memory_layout.witness_base, init_vals,
         {"ra": o5["oc_ra"], "inc": o5["oc_inc"]})
     try:
-        r5 = BatchedSumcheck.verify(proof.stage5_polys, [inst5, inst5b],
-                                    accumulator, transcript)
+        r5 = run.stage(proof.stage5_polys, [inst5, inst5b], "s5")
     except SumcheckError as e:
         raise VerificationError(f"stage5: {e}") from e
     r5_cyc, r5_addr = inst5._split(r5)
@@ -312,8 +431,7 @@ def _verify_through_6v(proof, io: PublicIO, pcs=None):
         proof.r1cs_input_openings[V_LEFT_LOOKUP_OPERAND],
         proof.r1cs_input_openings[V_RIGHT_LOOKUP_OPERAND], o5i)
     try:
-        r5i = BatchedSumcheck.verify(proof.stage5i_polys, [inst5i],
-                                     accumulator, transcript)
+        r5i = run.stage(proof.stage5i_polys, [inst5i], "s5i")
     except SumcheckError as e:
         raise VerificationError(f"stage5i: {e}") from e
     r_lk_addr, r_lk_cyc = r5i[:LT.LOG_K], r5i[LT.LOG_K:]
@@ -351,8 +469,7 @@ def _verify_through_6v(proof, io: PublicIO, pcs=None):
                  for i, n in enumerate(("wa", "ra1", "ra2"))]
     stage6_insts = [inst6, inst6f, inst6s] + raf_insts
     try:
-        r6 = BatchedSumcheck.verify(proof.stage6_polys, stage6_insts,
-                                    accumulator, transcript)
+        r6 = run.stage(proof.stage6_polys, stage6_insts, "s6")
     except SumcheckError as e:
         raise VerificationError(f"stage6: {e}") from e
     max6 = max(i.num_rounds for i in stage6_insts)
@@ -398,8 +515,7 @@ def _verify_through_6v(proof, io: PublicIO, pcs=None):
                 meta6v.append((prefix, t, d, r_addr_v, log_Kv))
     if insts6v:
         try:
-            r6v = BatchedSumcheck.verify(proof.stage6v_polys, insts6v,
-                                         accumulator, transcript)
+            r6v = run.stage(proof.stage6v_polys, insts6v, "s6v")
         except SumcheckError as e:
             raise VerificationError(f"stage6v: {e}") from e
         for inst, (prefix, t, d, r_addr_v, log_Kv) in zip(insts6v, meta6v):
@@ -409,14 +525,14 @@ def _verify_through_6v(proof, io: PublicIO, pcs=None):
                     list(r6v) + block_point(r_addr_v, log_Kv, i),
                     proof.stage6v_openings[f"{prefix}_{t}_{i}"])
         accumulator.flush_to_transcript(transcript)
-    return transcript, accumulator
+    return run
 
 
 def _verify_stages_7_8(proof: JoltProof, io: PublicIO, log_T: int,
-                       transcript: Blake2bTranscript,
-                       accumulator: OpeningAccumulator, pcs=None) -> None:
+                       run: _Run, pcs=None) -> None:
     """Stages 7 and 8 (`verifier.py:484-645` of the JAX package), and the
     joint PCS opening when `pcs` is given."""
+    transcript, accumulator, ci = run.transcript, run.accumulator, run.ci
     # ---- Stage 7: one-hot booleanity + Hamming weight --------------------
     mat_dims = [("reg_wa", 7), ("reg_ra1", 7), ("reg_ra2", 7)]
     for i, w in enumerate(block_widths(proof.ram_log_K)):
@@ -454,14 +570,32 @@ def _verify_stages_7_8(proof: JoltProof, io: PublicIO, log_T: int,
             group_meta7.append(("ham", lk_m, labels))
     except KeyError as e:
         raise VerificationError(f"missing stage7 opening {e}") from e
+    if ci:
+        # committed-image claim reduction rides the stage-7 batch
+        pi_m = max(len(image_words(io.code)).bit_length() - 1, 0)
+        if pi_m > proof.ram_log_K:
+            # prover-chosen ram_log_K smaller than the image: fail closed
+            # with a VerificationError, not a downstream AssertionError
+            raise VerificationError(
+                "ram_log_K too small for the committed program image")
+        pi_start = remap_address(io.entry, io.memory_layout.witness_base)
+        if "program_image_init" not in o7:
+            raise VerificationError("missing program_image_init opening")
+        insts7.append(ProgramImageReductionVerifier(
+            pi_m, run.r4_addr, pi_start, proof.program_image_claim,
+            o7["program_image_init"]))
+        group_meta7.append(("image", pi_m, None))
     try:
-        r7 = BatchedSumcheck.verify(proof.stage7_polys, insts7, accumulator,
-                                    transcript)
+        r7 = run.stage(proof.stage7_polys, insts7, "s7")
     except SumcheckError as e:
         raise VerificationError(f"stage7: {e}") from e
     max7 = max(i.num_rounds for i in insts7)
     for inst, (kind7, lk_m, labels) in zip(insts7, group_meta7):
         r_sl = r7[max7 - inst.num_rounds:]
+        if kind7 == "image":
+            accumulator.insert(("program_image", "init"), list(r_sl),
+                               o7["program_image_init"])
+            continue
         pt = list(r_sl[lk_m:]) + list(r_sl[:lk_m])      # cycle-major order
         oid = "booleanity" if kind7 == "bool" else "hamming"
         for lab in labels:
@@ -483,7 +617,7 @@ def _verify_stages_7_8(proof: JoltProof, io: PublicIO, log_T: int,
     seen = {}
     for oid, cname in stage8_entry_ids(
             d_chunks(proof.ram_log_K), d_chunks(proof.bytecode_log_K),
-            advice_kinds_of(io.memory_layout)):
+            advice_kinds_of(io.memory_layout), ci):
         if oid not in accumulator.openings:
             raise VerificationError(f"missing stage output claim {oid}")
         pt, cl = accumulator.openings[oid]
@@ -531,8 +665,7 @@ def _verify_stages_7_8(proof: JoltProof, io: PublicIO, log_T: int,
             len(pt), pt, cl, proof.stage8_openings[pos]))
         pos += 1
     try:
-        r8 = BatchedSumcheck.verify(proof.stage8_polys, insts8, accumulator,
-                                    transcript)
+        r8 = run.stage(proof.stage8_polys, insts8, "s8")
     except SumcheckError as e:
         raise VerificationError(f"stage8: {e}") from e
     max8 = max(i.num_rounds for i in insts8)
