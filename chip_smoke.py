@@ -7,8 +7,9 @@ version, drives the port's main path once at full size, and checks it.
 Phases:
   1. the card (nvidia-smi name and power limit) and the host (CPU model,
      nproc: Dory's stages are host work);
-  2. build K1 (`jolt_tpu_torch/csrc/mont_mul.cu`) and K2
-     (`jolt_tpu_torch/csrc/product_round.cu`), one nvcc for sm_90a each, and
+  2. build K1 (`jolt_tpu_torch/csrc/mont_mul.cu`), K2
+     (`jolt_tpu_torch/csrc/product_round.cu`) and K3
+     (`jolt_tpu_torch/csrc/g1.cu`), one nvcc for sm_90a each, and
      the Dory pairing library (`jolt_tpu_torch/csrc/pairing.cpp`, g++), all
      at once; ptxas's registers and spills; then the Dory setup of the main
      path (2^26: nu = 10, sigma = 16), generated or loaded from the port's
@@ -84,6 +85,19 @@ Phases:
      setup (13 variables) has the same bytes and FS tape on both, and
      verifies, and so do the guest with zk and the image guest with the
      committed image at the same setup;
+  8b. K3, the G1 kernel (`[g1]` and `[kzg]` lines): add and double at
+     2^20 lanes (with P + P, P + (-P), infinity and same-point lanes) and
+     a 254-bit scalar_mul at 2^12 lanes bit for bit against the plain
+     versions, each form's kernel-only time beside its bound; the 2^20 KZG
+     setup on the card (its seconds; 128 powers == [tau^i] G1); the KZG
+     `prove` of the sha2-chain at chain=1 (2^20 SRS) with K3's counts set
+     to 0 just before it and read just after, its stage seconds, K3
+     launches per form and stage, the HyperKZG spans and peak memory, and
+     `verify`; one dense commitment against the host MSM; one full-width
+     2^20 commit's seconds and peak memory; card == CPU proof bytes with
+     a 2^13 KZG setup on the PCS guest; and Dory's device one-hot tier
+     (the segmented scan) on the main path's 23 matrices against the
+     native segment sums, tier 1 only;
   9. one JSON line with every ported kernel, the card line, and the final
      `{"ok": true, "device": ...}` line.
 
@@ -173,6 +187,13 @@ RA_VIRTUAL_LOG_K = 13
 ONEHOT_LOG_T = 14
 ONEHOT_M = 18
 ONEHOT_K = 256
+# K3 held against its plain version (phase 8b): add and double at 2^20
+# lanes with G1_EDGE lanes of each edge case, scalar_mul at 2^12 lanes;
+# the KZG setup of the sha2-chain at chain=1 (2^12 cycles x 2^8)
+G1_LOG_N = 20
+G1_EDGE = 64
+G1_SCALAR_LOG_N = 12
+KZG_LOG_N = 20
 
 FIB_LAYOUT = dict(max_input_size=64, max_output_size=64)
 FIB = """
@@ -485,6 +506,24 @@ def kernel_ms(fn, arg_sets, names, reps=20, tries=3):
                        f"{ {n: len(us) for n, us in seen.items()} }")
 
 
+def events_ms(fn, arg_sets, reps):
+    """Mean device time of fn(*args) in ms by CUDA events over `reps`
+    back-to-back calls cycling through `arg_sets`, after a warm-up: for
+    kernels of a millisecond and more, whose wrapper's host cost hides
+    behind the kernel before it."""
+    for args in arg_sets:
+        fn(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(reps):
+        fn(*arg_sets[i % len(arg_sets)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def time_k2(kernels, ops, polys, r, order):
     """K2 in ms: its pass kernel and its finish kernel alone (kernel-only
     device time), the wrapper with both as a live round calls it
@@ -515,6 +554,280 @@ def spill_bytes(report):
     return sum(int(n) for n in re.findall(r"(\d+) bytes spill", report))
 
 
+def g1_kzg_phase(dev, gen, dory_setup, pcs_guest, onehot_positions,
+                 card_vs_cpu):
+    """Phase 8b: (a) K3 against its plain version, bit for bit, and its
+    kernel-only times beside the bounds; (b) the 2^20 KZG setup on the
+    card; (c) the KZG `prove` of the sha2-chain at chain=1 (this slice's
+    path: K3's counts set to 0 just before it and read just after) and
+    `verify`; (d) card == CPU with a 2^13 KZG setup on the PCS guest; (e)
+    Dory's device one-hot tier at the main path's 2^18 trace against the
+    native segment sums.  Returns the kernel line's "g1" entry."""
+    import tempfile
+
+    from jolt_tpu_torch import PublicIO, prove, verify
+    from jolt_tpu_torch.curve import bn254_host as host
+    from jolt_tpu_torch.curve import g1
+    from jolt_tpu_torch.field import fq, kernels
+    from jolt_tpu_torch.pcs import scheme as scheme_mod
+    from jolt_tpu_torch.pcs.dory import Dory
+    from jolt_tpu_torch.pcs.hyperkzg import DEFAULT_TAU, KZGSetup
+    from jolt_tpu_torch.prover.prover import required_num_vars
+    from jolt_tpu_torch.utils import profiling
+    from jolt_tpu_torch.workload import (k3_bound_ms, sha2_chain_trace,
+                                         timed_stages)
+    t_phase = time.perf_counter()
+    R = host.R
+
+    # (a) K3 vs plain at 2^20 lanes: random points of general Z (a 64-bit
+    # scalar multiple of G per lane), against a second batch with edge lanes
+    n = 1 << G1_LOG_N
+    base = g1.pack_points([host.G1_GEN], dev)
+
+    def rand_words(w, top_bits=32):
+        x = torch.randint(0, 1 << 32, (w, n), generator=gen, device=dev,
+                          dtype=torch.int64)
+        x[-1] &= (1 << top_bits) - 1
+        return (x - ((x >> 31) << 32)).to(torch.int32)
+    P = g1.batch_scalar_mul(tuple(c.expand(-1, n) for c in base),
+                            rand_words(2), 64)
+    Q = [c.clone() for c in g1.jacobian_double(
+        tuple(c.roll(1, 1) for c in P))]
+    e = G1_EDGE
+    for c, pc in zip(Q, P):                       # P + P
+        c[:, :e] = pc[:, :e]
+    Q[0][:, e:2 * e] = P[0][:, e:2 * e]           # P + (-P)
+    Q[1][:, e:2 * e] = fq.sub_plain(torch.zeros_like(P[1][:, e:2 * e]),
+                                    P[1][:, e:2 * e])
+    Q[2][:, e:2 * e] = P[2][:, e:2 * e]
+    P[2][:, 2 * e:3 * e] = 0                      # P at infinity, X, Y kept
+    Q[2][:, 3 * e:4 * e] = 0                      # Q at infinity
+    P[2][:, 4 * e:5 * e] = 0                      # both
+    Q[2][:, 4 * e:5 * e] = 0
+    # the same point as P in other coordinates: (l^2 X, l^3 Y, l Z)
+    lam = fq.pack_ints([0x1234567], dev)
+    lam2 = fq.mont_mul_plain(lam, lam)
+    sl = slice(5 * e, 6 * e)
+    Q[0][:, sl] = fq.mont_mul_plain(P[0][:, sl], lam2)
+    Q[1][:, sl] = fq.mont_mul_plain(P[1][:, sl],
+                                    fq.mont_mul_plain(lam2, lam))
+    Q[2][:, sl] = fq.mont_mul_plain(P[2][:, sl], lam)
+    Q = tuple(Q)
+    generic = n - 6 * e
+
+    def max_err(got, want):
+        return max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                   for a, b in zip(got, want))
+    kernels.reset_launches()
+    S = g1.jacobian_add(P, Q)
+    err = max_err(S, g1.jacobian_add_plain(P, Q))
+    D = g1.jacobian_double(S)
+    err = max(err, max_err(D, g1.jacobian_double_plain(S)))
+    m = 1 << G1_SCALAR_LOG_N
+    sub = tuple(c[:, :m].contiguous() for c in S)
+    ks = rand_words(8, 30)[:, :m].contiguous()       # < 2^254
+    M = g1.batch_scalar_mul(sub, ks, 254)
+    err = max(err, max_err(M, g1.batch_scalar_mul_plain(sub, ks, 254)))
+    torch.cuda.synchronize()
+    check(err == 0, f"K3 differs from its plain version: {err}")
+    check(kernels.k3_launches() == {"add": 1, "double": 1, "scalar_mul": 1},
+          f"K3 launches {kernels.k3_launches()}")
+    # affine spot checks against the host
+    idx = [0, e, 2 * e, 3 * e, 4 * e, 5 * e, 6 * e, n - 1]
+    aff = g1.unpack_points(tuple(c[:, idx] for c in S))
+    pa = g1.unpack_points(tuple(c[:, idx] for c in P))
+    qa = g1.unpack_points(tuple(c[:, idx] for c in Q))
+    check(aff == [host.g1_add(a, b) for a, b in zip(pa, qa)],
+          "K3 add differs from the host on the edge lanes")
+    ki = words_to_ints(ks[:, :8])
+    check(g1.unpack_points(tuple(c[:, :8] for c in M))
+          == [host.g1_mul(p, k) for p, k in
+              zip(g1.unpack_points(tuple(c[:, :8] for c in sub)), ki)],
+          "K3 scalar_mul differs from the host")
+    print(f"[g1] K3 == its plain version bit for bit: add and double at "
+          f"2^{G1_LOG_N} lanes ({6 * e} edge lanes: P + P, P + (-P), "
+          f"infinities, equal points in other coordinates), scalar_mul of "
+          f"254 bits at 2^{G1_SCALAR_LOG_N} lanes; host spot checks "
+          "agree", flush=True)
+    forms = {}
+    t_add = events_ms(lambda *a: g1.jacobian_add(a[:3], a[3:]),
+                      cold_copies((*P, *Q)), 20)
+    t_dbl = events_ms(lambda *a: g1.jacobian_double(a), cold_copies(S), 20)
+    p_add = cuda_ms(lambda: g1.jacobian_add_plain(P, Q), 1)
+    p_dbl = cuda_ms(lambda: g1.jacobian_double_plain(S), 1)
+    p_smul = cuda_ms(lambda: g1.batch_scalar_mul_plain(sub, ks, 254), 1)
+    t_smul_m = events_ms(lambda *a: g1.batch_scalar_mul(a[:3], a[3], 254),
+                         [(*sub, ks)], 5)
+    set_m = int(sum(int(x).bit_count() for x in words_to_ints(ks)))
+    for form, t, plain_t, lanes, b in (
+            ("add", t_add, p_add, n, k3_bound_ms("add", n, generic)),
+            ("double", t_dbl, p_dbl, n, k3_bound_ms("double", n)),
+            ("scalar_mul", t_smul_m, p_smul, m,
+             k3_bound_ms("scalar_mul", m, bits=254, set_bits=set_m))):
+        forms[form] = {"ms": t, "plain_ms": plain_t, "lanes": lanes,
+                       "bound_ms": b[0], "bound_by": b[1]}
+        print(f"[g1] {form} at {lanes} lanes: {t:.4f} ms (CUDA events) "
+              f"(bound {b[0]:.4f} ms, {b[1]}; {b[0] / t:.1%} of it), "
+              f"plain {plain_t:.2f} ms", flush=True)
+    del Q, D, M
+
+    # (b) the 2^20 KZG setup on the card: one scalar_mul launch
+    srs_dir = tempfile.mkdtemp(prefix="kzg_srs_")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kzg = KZGSetup.generate(1 << KZG_LOG_N, device=dev, cache_dir=srs_dir)
+    torch.cuda.synchronize()
+    t_kzg = time.perf_counter() - t0
+    rng = random.Random(SEED)
+    picks = list(range(64)) + sorted(rng.sample(range(64, 1 << KZG_LOG_N),
+                                                64))
+    got = g1.unpack_points(tuple(c[:, picks] for c in kzg.g1_powers_dev))
+    check(got == [host.g1_mul(host.G1_GEN, pow(DEFAULT_TAU, i, R))
+                  for i in picks], "a KZG power differs from [tau^i] G1")
+    tau_words = [pow(DEFAULT_TAU, i, R) for i in range(1 << KZG_LOG_N)]
+    raw = b"".join(k.to_bytes(32, "little") for k in tau_words)
+    tw = torch.from_numpy(np.frombuffer(raw, dtype="<u4").reshape(-1, 8).T
+                          .copy().view(np.int32)).to(dev)
+    kn = 1 << KZG_LOG_N
+    gens = tuple(c.expand(-1, kn) for c in base)
+    t_smul = events_ms(lambda *a: g1.batch_scalar_mul(a[:3], a[3], 254),
+                       [(*gens, tw)], 3)
+    set_n = sum(k.bit_count() for k in tau_words)
+    b_smul = k3_bound_ms("scalar_mul", kn, bits=254, set_bits=set_n)
+    forms["scalar_mul"].update(setup_ms=t_smul, setup_lanes=kn,
+                               setup_bound_ms=b_smul[0])
+    del tw, tau_words, raw
+    print(f"[kzg] KZGSetup.generate(2^{KZG_LOG_N}, device=cuda) "
+          f"{t_kzg:.3f}s (tau powers on the host, one K3 scalar_mul of "
+          f"{t_smul:.2f} ms by CUDA events, bound {b_smul[0]:.2f} ms, "
+          f"{b_smul[0] / t_smul:.1%} of it, the cache written); 64 first and "
+          "64 seeded powers == [tau^i] G1", flush=True)
+
+    # (c) the KZG prove of the sha2-chain at chain=1 (2^20 SRS) and verify
+    kt = sha2_chain_trace(1)
+    check(required_num_vars(kt.padded_length, 0, 0) == KZG_LOG_N,
+          f"the chain=1 trace ({kt.padded_length}) does not fit 2^20")
+    dense = []
+    commit = scheme_mod.HyperKZGScheme.commit
+
+    def record(self, name, coeffs, bits=254):
+        out = commit(self, name, coeffs, bits)
+        dense.append((name, list(coeffs), out))
+        return out
+    scheme_mod.HyperKZGScheme.commit = record
+    kprof = profiling.PROFILER = profiling.Profiler()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        kproof, ks_s, _, kl = timed_stages(
+            lambda: prove(kt, setup=kzg, device=dev))
+        t_kprove = time.perf_counter() - t0
+    finally:
+        k3 = kernels.k3_launches()
+        k1 = sum(kernels.k1_launches().values())
+        k2 = kernels.product_round.launches
+        scheme_mod.HyperKZGScheme.commit = commit
+        profiling.PROFILER = profiling.Profiler(enabled=False)
+    kpeak = torch.cuda.max_memory_allocated(dev)
+    check(all(k3.values()) and k1 and k2,
+          f"the KZG prove launched K1 {k1}, K2 {k2}, K3 {k3}")
+    check(type(kproof.opening_proofs["joint"]).__name__ == "HyperKZGProof",
+          "the KZG proof carries no HyperKZG opening")
+    t0 = time.perf_counter()
+    check(verify(kproof, PublicIO.from_trace(kt), setup=kzg) is True,
+          "verify rejected the KZG proof")
+    t_kverify = time.perf_counter() - t0
+    name, coeffs, com = dense[0]
+    hp = g1.unpack_points(tuple(c[:, :len(coeffs)]
+                                for c in kzg.g1_powers_dev))
+    check(com == host.g1_msm_pippenger(hp, coeffs),
+          f"the dense commitment {name} differs from the host MSM")
+    spans = {k: kprof.total(k) for k in ("kzg.commit", "kzg.open.folds",
+                                         "kzg.open.evals",
+                                         "kzg.open.quotients")}
+    by_stage = {k: v["k3"] for k, v in kl.items() if any(v["k3"].values())}
+    print(f"[kzg] prove(sha2-chain chain=1: {kt.length} cycles, padded "
+          f"{kt.padded_length}; setup 2^{KZG_LOG_N}) {t_kprove:.3f}s: "
+          + ", ".join(f"{k} {v:.3f}s" for k, v in ks_s.items())
+          + f"; peak allocated {kpeak / 2**30:.3f} GiB; K1 {k1}, K2 {k2}, "
+          f"K3 {k3}; verify(setup) {t_kverify:.3f}s; dense commitment "
+          f"{name} ({len(coeffs)} coefficients) == the host MSM",
+          flush=True)
+    print(f"[kzg] K3 launches by stage: {by_stage}; spans (s): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in spans.items()), flush=True)
+    # one full-width 2^20 commit, timed, and its peak memory
+    rng = random.Random(SEED + 1)
+    full = [rng.randrange(R) for _ in range(1 << KZG_LOG_N)]
+    from jolt_tpu_torch.pcs.hyperkzg import HyperKZG
+    hk = HyperKZG(kzg)
+    hk.commit_ints(full[:1024])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    c_full = hk.commit_ints(full)
+    t_commit = time.perf_counter() - t0
+    cpeak = torch.cuda.max_memory_allocated(dev)
+    c_launch = kernels.k3_launches()
+    check(c_full is not None and host.g1_is_on_curve(c_full),
+          "the full-width commitment is not a curve point")
+    print(f"[kzg] one full-width 2^{KZG_LOG_N} commit {t_commit:.3f}s "
+          f"(digits on the host, Pippenger on the card: K3 {c_launch}), "
+          f"peak allocated {cpeak / 2**30:.3f} GiB", flush=True)
+    del kproof, hp, full
+
+    # (d) card == CPU with a 2^13 KZG setup on the PCS guest
+    kzg13 = KZGSetup.generate(1 << 13, device=dev, cache_dir=srs_dir)
+    n_pcs = card_vs_cpu(pcs_guest, "the PCS guest with a 2^13 KZG setup",
+                        setup=kzg13)
+    print(f"[kzg] card == CPU: the PCS guest ({pcs_guest.length} cycles) "
+          f"with a 2^13 KZG setup: identical proof bytes ({n_pcs} B) and FS "
+          "tape; verified", flush=True)
+
+    # (e) Dory's device one-hot tier at the main path's size (tier 1)
+    dory = Dory(dory_setup, dev)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    dev_rows = dory.onehot_rows(onehot_positions, device_tier=True)
+    t_scan = time.perf_counter() - t0
+    speak = torch.cuda.max_memory_allocated(dev)
+    s_launch = kernels.k3_launches()
+    t0 = time.perf_counter()
+    nat_rows = dory.onehot_rows(onehot_positions, device_tier=False)
+    t_native = time.perf_counter() - t0
+    lanes = sum(len(p) for p in onehot_positions)
+    check(dev_rows == nat_rows,
+          "the device one-hot tier differs from the native segment sums")
+    n_rows = sum(r is not None for rows in dev_rows for r in rows)
+    print(f"[g1] Dory's device one-hot tier at 2^18: "
+          f"{len(onehot_positions)} matrices, {lanes} lanes, {n_rows} row "
+          f"sums == native_pairing.g1_segment_sums point for point; device "
+          f"tier {t_scan:.3f}s (gather, segmented scan, {s_launch['add']} K3 "
+          f"adds, unpack; peak allocated {speak / 2**30:.3f} GiB), native "
+          f"{t_native:.3f}s", flush=True)
+    print(f"[g1] phase 8b {time.perf_counter() - t_phase:.1f}s", flush=True)
+    entry = {
+        "name": "g1", "route": "cuda",
+        "source": "jolt_tpu_torch/csrc/g1.cu",
+        "replaces": "jolt_tpu/curve/g1.py (jnp)",
+        "launches": sum(k3.values()), "max_abs_err": err,
+        "ms": forms["add"]["ms"], "plain_ms": forms["add"]["plain_ms"],
+        "bound_ms": forms["add"]["bound_ms"],
+        "bound_by": forms["add"]["bound_by"], "library_ms": None,
+        "form": "add", "shape": [[8, n]] * 6, "forms": forms,
+        "launches_by_form": k3, "launches_by_stage": by_stage,
+        "kzg_setup_s": t_kzg, "kzg_prove_s": t_kprove,
+        "kzg_stage_s": ks_s, "kzg_spans_s": spans,
+        "kzg_peak_gib": kpeak / 2**30, "kzg_commit_s": t_commit,
+        "kzg_commit_peak_gib": cpeak / 2**30, "onehot_device_s": t_scan,
+        "onehot_native_s": t_native}
+    return entry
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -523,6 +836,7 @@ def main():
     from jolt_tpu_torch import PublicIO, prove, verify
     from jolt_tpu_torch.curve import native_pairing
     from jolt_tpu_torch.field import kernels, ops
+    from jolt_tpu_torch.pcs import scheme as scheme_mod
     from jolt_tpu_torch.pcs.dory import SRS_CACHE_DIR, DorySetup
     from jolt_tpu_torch.prover.prover import required_num_vars
     from jolt_tpu_torch.poly import eq
@@ -575,17 +889,18 @@ def main():
     if "error" in pairing_build:
         raise pairing_build["error"]
     check(native_pairing.available(), "the pairing library did not load")
-    print(f"[build] K1 and K2 built in {t_nvcc:.2f}s; the pairing library "
-          f"({pairing_build['path']}) in {pairing_build['s']:.2f}s, all at "
-          "once", flush=True)
+    print(f"[build] K1, K2 and K3 built in {t_nvcc:.2f}s; the pairing "
+          f"library ({pairing_build['path']}) in {pairing_build['s']:.2f}s, "
+          "all at once", flush=True)
     for name, report in reports.items():
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
     k1_spills = spill_bytes(reports["K1"])
     k2_spills = spill_bytes(reports["K2"])
+    k3_spills = spill_bytes(reports["K3"])
     print(f"[build] spill bytes (stores + loads, all kernels): K1 "
-          f"{k1_spills}, K2 {k2_spills}", flush=True)
+          f"{k1_spills}, K2 {k2_spills}, K3 {k3_spills}", flush=True)
     # the main path's setup: 2^26 = 256 x 2^18, the largest committed
     # polynomial of the 2^18 trace
     t0 = time.perf_counter()
@@ -858,6 +1173,14 @@ def main():
         setattr(kernels, name, counted(name, fn))
     # Dory's spans (the span profiler that `open` and `open_rlc` report to)
     dory_prof = profiling.PROFILER = profiling.Profiler()
+    # the one-hot matrices' positions, for phase 8b's device tier
+    onehot_positions = []
+    commit_many = scheme_mod.DoryScheme.commit_sparse_many
+
+    def capture(self, named):
+        onehot_positions.extend(p for _, p in named)
+        return commit_many(self, named)
+    scheme_mod.DoryScheme.commit_sparse_many = capture
     try:
         t0 = time.perf_counter()
         proof, stage_s, stage_lines, stage_launches = timed_stages(
@@ -870,6 +1193,7 @@ def main():
         for name, fn in plain.items():
             setattr(kernels, name, fn)
         profiling.PROFILER = profiling.Profiler(enabled=False)
+        scheme_mod.DoryScheme.commit_sparse_many = commit_many
     launches = sum(k1_counts.values())
     peak = torch.cuda.max_memory_allocated(dev)
     print(stage_lines, end="")
@@ -912,9 +1236,12 @@ def main():
           f"commitments {sorted(proof.commitments)}, opening proofs "
           f"{sorted(proof.opening_proofs)}")
     check(all(stage_launches[s] == {"k1": {f: 0 for f in kernels.FORMS},
-                                    "k2": 0}
+                                    "k2": 0,
+                                    "k3": {f: 0 for f in kernels.K3_FORMS}}
               for s in ("stage0-commit", "stage8-openings")),
-          "a Dory stage launched K1 or K2")
+          "a Dory stage launched K1, K2 or K3")
+    check(not any(kernels.k3_launches().values()),
+          f"the Dory path launched K3: {kernels.k3_launches()}")
     t0 = time.perf_counter()
     ok = verify(proof, PublicIO.from_trace(tr), setup=setup)
     t_verify = time.perf_counter() - t0
@@ -1234,6 +1561,10 @@ def main():
           f"image ({n_ci} B): identical bytes and FS tapes; verified",
           flush=True)
 
+    # ---- 8b. K3, HyperKZG end to end, Dory's device one-hot tier ---------
+    g1_entry = g1_kzg_phase(dev, gen, setup, small, onehot_positions,
+                            card_vs_cpu)
+
     # ---- 9. results -------------------------------------------------------
     print(f"[total] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(card)
@@ -1269,7 +1600,7 @@ def main():
         "stage6v_instances": n6v, "ram_log_K": proof.ram_log_K,
         "bytecode_log_K": proof.bytecode_log_K,
         "launches_by_stage": {k: v["k2"] for k, v in
-                              stage_launches.items()}}]}))
+                              stage_launches.items()}}, g1_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

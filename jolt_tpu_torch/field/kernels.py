@@ -15,6 +15,11 @@
     product sumcheck of 2 or 3 factors (message evals and the bound factors
     in one pass, in one of four orders, the message finished mod p on the
     card); `product_round_deg3` is its "message_bind" order at 3 factors.
+  * K3 (``csrc/g1.cu`` on ``csrc/fq.cuh``) is the port's BN254 G1 kernel
+    (add, double, scalar multiplication over Fq); it replaces no Pallas
+    kernel but the JAX package's jnp G1.  Its wrappers and plain versions
+    live in `curve/g1.py`; it builds here, with K1 and K2, and its launch
+    counts per form are `k3_counts` (`k3_launches()`).
 
 On CPU tensors each wrapper calls its plain version (`mont_mul_plain`,
 `add_plain`, `sub_plain`, `bind_plain`, `evals_plain`, `reduce_plain`,
@@ -50,7 +55,6 @@ R = 1 << 256
 R_MOD_P = R % P
 R2_MOD_P = R * R % P
 
-P_LIMBS = [(P >> (32 * i)) & MASK32 for i in range(N_LIMBS)]
 _I32 = torch.int32
 
 
@@ -102,37 +106,81 @@ def u64_words(a: torch.Tensor) -> torch.Tensor:
     return a.to(torch.int64) & MASK32
 
 
+@functools.lru_cache(maxsize=64)
+def _limb_index(n: int, nbatch: int, device: torch.device) -> torch.Tensor:
+    return torch.arange(n, device=device).reshape((n,) + (1,) * nbatch)
+
+
+def _ripple(r: torch.Tensor, gen: torch.Tensor, stop: torch.Tensor):
+    """Carries (or borrows) of a word chain without a loop over the words:
+    word i sends one out when it generates one (`gen`, 0/1) or passes on
+    the one it takes in; `stop` marks the words whose carry out does not
+    depend on their carry in.  Each word's carry out is the `gen` of the
+    last stopping word at or below it (0 when there is none).  Returns
+    (the carry into each word, the carry out of the top)."""
+    idx = _limb_index(r.shape[0], r.dim() - 1, r.device)
+    last = torch.cummax(torch.where(stop, idx, -1), dim=0).values
+    out = torch.where(last >= 0, gen.gather(0, last.clamp(min=0)), 0)
+    return torch.cat([torch.zeros_like(out[:1]), out[:-1]]), out[-1]
+
+
 def _carry(s: torch.Tensor) -> torch.Tensor:
-    """Propagate carries of int64 limb sums (any sign, result >= 0 and
-    < 2^256) into 32-bit words; returns int64 (8, ...)."""
-    out = torch.empty_like(s)
-    c = torch.zeros_like(s[0])
-    for i in range(N_LIMBS):
-        v = s[i] + c
-        out[i] = v & MASK32
-        c = v >> 32
-    return out
+    """Propagate the carries of int64 limb sums (each in [0, 2^33), the
+    value < 2^256) into 32-bit words; returns int64 (8, ...)."""
+    r, g = s & MASK32, s >> 32
+    into, _ = _ripple(r, g, (g != 0) | (r != MASK32))
+    return (r + into) & MASK32
 
 
-def _sub_p_select(w: torch.Tensor) -> torch.Tensor:
+def _sub_words(w: torch.Tensor, v: torch.Tensor):
+    """w - v mod 2^256 for int64 words in [0, 2^32): (words, borrow out of
+    the top, 0/1)."""
+    d = w - v
+    r, g = d & MASK32, (d >> 63) & 1
+    into, out = _ripple(r, g, (g != 0) | (r != 0))
+    return (r - into) & MASK32, out
+
+
+def _sub_p_select(w: torch.Tensor, p: int = P) -> torch.Tensor:
     """w (int64 words, value < 2p) -> w - p if w >= p else w."""
-    d = torch.empty_like(w)
-    borrow = torch.zeros_like(w[0])
-    for i in range(N_LIMBS):
-        v = w[i] - P_LIMBS[i] - borrow
-        d[i] = v & MASK32
-        borrow = (v >> 63) & 1
+    pw = _p_words(w.device, p).reshape((N_LIMBS,) + (1,) * (w.dim() - 1))
+    d, borrow = _sub_words(w, pw)
     return torch.where(borrow.bool()[None], w, d)
 
 
 @functools.lru_cache(maxsize=16)
-def _p_words(device: torch.device) -> torch.Tensor:
-    """p's 8 words as int64 on `device` (the addend of `sub_plain`)."""
-    return torch.tensor(P_LIMBS, dtype=torch.int64, device=device)
+def _p_words(device: torch.device, p: int = P) -> torch.Tensor:
+    """The modulus' 8 words as int64 on `device` (the addend of
+    `sub_plain`)."""
+    return torch.tensor(_words_of(p), dtype=torch.int64, device=device)
 
 
-_N0_16 = (-pow(P, -1, 1 << 16)) % (1 << 16)
-_P16 = [(P >> (16 * i)) & 0xFFFF for i in range(16)]
+@functools.lru_cache(maxsize=4)
+def _words_of(p: int) -> Tuple[int, ...]:
+    """A modulus' 8 little-endian 32-bit words."""
+    return tuple((p >> (32 * i)) & MASK32 for i in range(N_LIMBS))
+
+
+_ONE_SHOT_SCHOOLBOOK = 1 << 14       # elements (a 32 MiB product tensor)
+
+
+@functools.lru_cache(maxsize=16)
+def _diagonals(device: torch.device) -> torch.Tensor:
+    """i + j for the 16 x 16 sub-limb products, row-major."""
+    i = torch.arange(16, device=device)
+    return (i[:, None] + i[None, :]).reshape(-1)
+
+
+@functools.lru_cache(maxsize=16)
+def _p16(p: int, device: torch.device) -> torch.Tensor:
+    return torch.tensor(_mont16(p)[1], dtype=torch.int64, device=device)
+
+
+@functools.lru_cache(maxsize=4)
+def _mont16(p: int) -> Tuple[int, List[int]]:
+    """-p^-1 mod 2^16 and p's 16 sub-limbs of 16 bits (`mont_mul_plain`)."""
+    return ((-pow(p, -1, 1 << 16)) % (1 << 16),
+            [(p >> (16 * i)) & 0xFFFF for i in range(16)])
 
 
 # ---------------------------------------------------------------------------
@@ -146,49 +194,61 @@ def _split16(a: torch.Tensor) -> torch.Tensor:
         (16,) + tuple(a.shape[1:]))
 
 
-def mont_mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a * b * 2^-256 mod p on (8, *batch) int32 words, in plain torch.
+def mont_mul_plain(a: torch.Tensor, b: torch.Tensor,
+                   p: int = P) -> torch.Tensor:
+    """a * b * 2^-256 mod p on (8, *batch) int32 words, in plain torch,
+    for the odd modulus p < 2^255 (Fr by default; `field/fq.py` passes Fq).
 
     Takes a < 2^256 and b < p (so a*b + m*p < 2^257 p, the result before the
     conditional subtract is < 2p).  Works in base 2^16 on int64: schoolbook
     columns < 16 (2^16-1)^2 < 2^36, reduction terms and carries keep every
     column < 2^38.  The result is the unique value < p, so it equals K1's
-    32-bit CIOS bit for bit."""
+    32-bit CIOS bit for bit (and K3's Fq products for p = q)."""
+    n0_16 = _mont16(p)[0]
     a, b = torch.broadcast_tensors(a, b)
     A, B = _split16(a), _split16(b)
     batch = tuple(A.shape[1:])
+    # schoolbook: the 16 x 16 sub-limb products summed on anti-diagonals,
+    # all at once for a small batch (256 int64 words an element), else row
+    # by row
     cols = torch.zeros((32,) + batch, dtype=torch.int64, device=a.device)
+    if math.prod(batch) <= _ONE_SHOT_SCHOOLBOOK:
+        cols.index_add_(0, _diagonals(a.device),
+                        (A[:, None] * B[None]).reshape((256,) + batch))
+    else:
+        for i in range(16):
+            cols[i:i + 16] += A[i] * B
+    p16 = _p16(p, a.device).reshape((16,) + (1,) * len(batch))
     for i in range(16):
-        cols[i:i + 16] += A[i] * B
-    p16 = torch.tensor(_P16, dtype=torch.int64, device=a.device).reshape(
-        (16,) + (1,) * len(batch))
-    for i in range(16):
-        m = (cols[i] * _N0_16) & 0xFFFF
+        m = (cols[i] * n0_16) & 0xFFFF
         cols[i:i + 16] += m * p16
         cols[i + 1] += cols[i] >> 16
-    r16 = torch.empty((16,) + batch, dtype=torch.int64, device=a.device)
-    c = torch.zeros(batch, dtype=torch.int64, device=a.device)
-    for i in range(16):
-        v = cols[16 + i] + c
-        r16[i] = v & 0xFFFF
-        c = v >> 16
-    w = r16[0::2] | (r16[1::2] << 16)
-    return _pack_limbs(_sub_p_select(w))
+    # the value is sum cols[16 + i] 2^(16 i) < 2p < 2^255 with every column
+    # >= 0: as 32-bit words (< 2^55), two carry-save passes leave carries
+    # of 0 or 1 (the top word's carry is 0), then one ripple
+    hi = cols[16:]
+    w = hi[0::2] + (hi[1::2] << 16)
+    for _ in range(2):
+        w = (w & MASK32) + torch.cat([torch.zeros_like(w[:1]),
+                                      (w >> 32)[:-1]])
+    return _pack_limbs(_sub_p_select(_carry(w), p))
 
 
-def add_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def add_plain(a: torch.Tensor, b: torch.Tensor, p: int = P) -> torch.Tensor:
     """(a + b) mod p: limbwise int64 sums, carries, one conditional
     subtract."""
     a, b = torch.broadcast_tensors(a, b)
-    return _pack_limbs(_sub_p_select(_carry(u64_words(a) + u64_words(b))))
+    return _pack_limbs(_sub_p_select(_carry(u64_words(a) + u64_words(b)),
+                                     p))
 
 
-def sub_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(a - b) mod p, as a + (p - b) with one conditional subtract."""
+def sub_plain(a: torch.Tensor, b: torch.Tensor, p: int = P) -> torch.Tensor:
+    """(a - b) mod p: a - b, plus p where that borrows."""
     a, b = torch.broadcast_tensors(a, b)
-    p = _p_words(a.device).reshape((N_LIMBS,) + (1,) * (a.dim() - 1))
-    # p - b in [1, p]; a + (p - b) < 2p; the cond-subtract maps p to 0
-    return _pack_limbs(_sub_p_select(_carry(u64_words(a) + p - u64_words(b))))
+    d, borrow = _sub_words(u64_words(a), u64_words(b))
+    pw = _p_words(a.device, p).reshape((N_LIMBS,) + (1,) * (a.dim() - 1))
+    # a < b: d = a - b + 2^256, and d + p drops the 2^256
+    return _pack_limbs(_carry(d + pw * borrow[None]))
 
 
 def bind_plain(lo: torch.Tensor, hi: torch.Tensor,
@@ -243,7 +303,7 @@ def reduce_plain(cols: torch.Tensor,
 _PKG_DIR = os.path.join(os.path.dirname(__file__), "..")
 _CSRC = os.path.join(_PKG_DIR, "csrc")
 _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-_HEADERS = [os.path.join(_CSRC, "fr.cuh")]
+_HEADERS = [os.path.join(_CSRC, h) for h in ("fr.cuh", "fq.cuh")]
 # kernel -> (source, shared library, {C function: (restype, argtypes)})
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -256,6 +316,9 @@ _KERNELS = {
         "jolt_product_round_blocks": (ctypes.c_int, [ctypes.c_int, _I64]),
         "jolt_product_round": (ctypes.c_int, [ctypes.c_int] * 2
                                + [_I64] + [_P] * 10)}),
+    "K3": ("g1.cu", "libjolt_g1.so", {
+        "jolt_k3_launch_size": (ctypes.c_int, []),
+        "jolt_k3": (ctypes.c_int, [_P, _P])}),
 }
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -591,10 +654,23 @@ def k1_launches() -> Dict[str, int]:
     return {form: fn.launches for form, fn in _K1.items()}
 
 
+# K3's forms (`Form` in csrc/g1.cu) and their launch counts, which the
+# wrappers in `curve/g1.py` keep
+K3_FORMS = ("add", "double", "scalar_mul")
+k3_counts: Dict[str, int] = dict.fromkeys(K3_FORMS, 0)
+
+
+def k3_launches() -> Dict[str, int]:
+    """K3's launch counts, per form."""
+    return dict(k3_counts)
+
+
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
     for fn in (*_K1.values(), product_round):
         fn.launches = 0
+    for form in K3_FORMS:
+        k3_counts[form] = 0
 
 
 # ---------------------------------------------------------------------------

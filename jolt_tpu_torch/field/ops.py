@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from . import kernels
-from .kernels import N_LIMBS, P, R, R_MOD_P, _scalar, u64_words
+from .kernels import MASK32, N_LIMBS, P, R, R_MOD_P, _scalar, u64_words
 
 R_INV = pow(R, -1, P)
 _I32 = torch.int32
@@ -109,15 +109,89 @@ def from_u32(x: torch.Tensor) -> torch.Tensor:
     return from_words(x.to(_I32)[None])
 
 
+def from_i64(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """Signed 64-bit values (two's complement, as two 32-bit words) ->
+    Montgomery form: the magnitude's `from_u64`, negated where the sign bit
+    is set."""
+    lo64, hi64 = u64_words(lo), u64_words(hi)
+    pos = from_u64(lo64, hi64)
+    sign = (hi64 >> 31).bool()
+    nlo = (~lo64 + 1) & MASK32
+    nhi = (~hi64 + (nlo == 0).to(torch.int64)) & MASK32
+    return select(sign, neg(from_u64(nlo, nhi)), pos)
+
+
 def to_canonical(a: torch.Tensor) -> torch.Tensor:
     """Montgomery -> canonical limbs (x mod p): mont_mul by plain 1 (the
     Montgomery words of the canonical scalar R^-1)."""
     return mont_mul(a, R_INV)
 
 
+# ---------------------------------------------------------------------------
+# equality / selection
+# ---------------------------------------------------------------------------
+
+def eq_mask(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Boolean mask over the batch dims: a == b (both normalized)."""
+    return torch.all(a == b, dim=0)
+
+
+def is_zero(a: torch.Tensor) -> torch.Tensor:
+    return torch.all(a == 0, dim=0)
+
+
 def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
     """Elementwise field select: mask ? a : b (mask has the batch shape)."""
     return torch.where(mask[None], a, b)
+
+
+# ---------------------------------------------------------------------------
+# pow / inverse (every product one K1 launch on the card)
+# ---------------------------------------------------------------------------
+
+def pow_const(a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e for a host-known exponent e >= 0: square-and-multiply from the
+    low bit, the multiply only at the exponent's set bits."""
+    acc = ones(a.shape[1:], a.device).contiguous()
+    base = a
+    for i in range(max(e.bit_length(), 1)):
+        if (e >> i) & 1:
+            acc = mont_mul(acc, base)
+        if i + 1 < e.bit_length():
+            base = mont_mul(base, base)
+    return acc
+
+
+def inv(a: torch.Tensor) -> torch.Tensor:
+    """Inverse per element by Fermat, a^(p-2); inv(0) = 0."""
+    return pow_const(a, P - 2)
+
+
+def _scan_mul(a: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix products over the last axis: a log-step scan, one
+    product a step over the lanes' two overlapping views."""
+    n = a.shape[-1]
+    d = 1
+    while d < n:
+        a = torch.cat([a[..., :d], mont_mul(a[..., :-d], a[..., d:])], -1)
+        d *= 2
+    return a
+
+
+def batch_inverse(a: torch.Tensor) -> torch.Tensor:
+    """Inverse of every element over the last axis by prefix products:
+    log-step scans forward and backward and one Fermat inverse of the
+    total; zeros map to zero."""
+    zmask = is_zero(a)
+    a_safe = select(zmask, ones(a.shape[1:], a.device), a)
+    prefix = _scan_mul(a_safe)
+    total_inv = inv(prefix[..., -1:])
+    suffix = _scan_mul(a_safe.flip(-1)).flip(-1)
+    one = ones(a.shape[1:-1] + (1,), a.device)
+    after = torch.cat([suffix[..., 1:], one], -1)     # prod of a[j], j > i
+    before = torch.cat([one, prefix[..., :-1]], -1)   # prod of a[j], j < i
+    out = mont_mul(mont_mul(after, total_inv), before)
+    return select(zmask, torch.zeros_like(out), out)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""Commitment schemes: Dory (`dory`, `scheme`) and the HyperKZG proof type
-of the proof format (the scheme is ROADMAP A15)."""
+"""Commitment schemes: Dory (`dory`) and HyperKZG (`hyperkzg`), behind the
+scheme seam (`scheme`)."""
 
 from .dory import Dory, DoryCommitment, DoryProof, DorySetup
-from .scheme import DoryScheme, make_scheme
+from .hyperkzg import HyperKZG, HyperKZGProof, KZGSetup
+from .scheme import DoryScheme, HyperKZGScheme, make_scheme

@@ -39,10 +39,11 @@ and the native library (`curve/native_pairing.py`), with both tiers of
     package's, written atomically, and loads only the port's own classes
     (a pickle names its classes by module path: the two packages never
     share a cache).  The values are the JAX package's.
-  * `Dory.commit_onehot_many` keeps only the native segment-sum tier and
-    raises when the Python tier was asked for: its other tier is the
-    JAX package's device G1, which waits for ROADMAP A15 together with
-    `commit_onehot` and the device copy of the generators (not copied).
+  * `Dory(setup, device="cuda")` takes the device of its device tier
+    from the caller: `commit_onehot`, and `commit_onehot_many` when the
+    Python pairing tier was asked for, run the port's device G1
+    (`curve/g1.py`, K3 on the card) there, never chosen by whether a card
+    is present.
 """
 
 from __future__ import annotations
@@ -53,6 +54,8 @@ import os
 import pickle
 import tempfile
 from typing import List, Optional, Sequence, Tuple
+
+import torch
 
 from ..curve import bn254_host as host
 from ..curve.fq_tower import Fq2, Fq12
@@ -314,8 +317,9 @@ def _eq_tensor(point: Sequence[int]) -> List[int]:
 
 
 class Dory:
-    def __init__(self, setup: DorySetup):
+    def __init__(self, setup: DorySetup, device="cuda"):
         self.setup = setup
+        self.device = torch.device(device)
 
     # ---- commit --------------------------------------------------------
 
@@ -356,6 +360,12 @@ class Dory:
         with _prof_active().span("commit.tier2"):
             return DoryCommitment(c=_tier2_gt(self, hint.rows))
 
+    def _gamma1_dev(self):
+        if getattr(self, "_g1_dev", None) is None:
+            from ..curve import g1 as g1dev
+            self._g1_dev = g1dev.pack_points(self.setup.gamma1, self.device)
+        return self._g1_dev
+
     def _gamma1_buf(self):
         from ..curve import native_pairing as npair
         from ..utils.profiling import active as _prof_active
@@ -368,10 +378,21 @@ class Dory:
         """Batched `commit_onehot`: per-matrix row sums (sum of column
         generators per hit row) then one tier-2 multi-pairing per matrix.
 
-        Tier 1 runs on the NATIVE G1 segment-sum kernel (csrc/pairing.cpp
-        jolt_g1_segment_sums -- threaded Jacobian mixed-add chains).  The
-        JAX package's other tier, a device segmented point-scan, waits
-        for ROADMAP A15: with the Python tier asked for, this raises."""
+        Tier 1 runs on the NATIVE G1 segment-sum kernel when available
+        (csrc/pairing.cpp jolt_g1_segment_sums -- threaded Jacobian
+        mixed-add chains), else on the device segmented point-scan
+        (`curve/g1.py`, K3 on the card)."""
+        hints = [DoryHint(rows=rows)
+                 for rows in self.onehot_rows(positions_list)]
+        return [(self._tier2(hint), hint) for hint in hints]
+
+    def onehot_rows(self, positions_list, device_tier: Optional[bool] = None
+                    ) -> List[List[Optional[host.Point]]]:
+        """Tier 1 of `commit_onehot_many`: each matrix's row commitments
+        (the sum of the column generators of each hit row).  On the native
+        segment sums when the library loads, else on the device segmented
+        scan; `device_tier` forces one of the two (a check holds them
+        against each other)."""
         import numpy as np
 
         s = self.setup
@@ -391,17 +412,22 @@ class Dory:
             lasts = np.nonzero(np.concatenate([heads[1:], [1]]))[0]
             metas.append((r_sorted[lasts], lasts, n))
 
-        base_buf = self._gamma1_buf()
-        if base_buf is None:
-            raise NotImplementedError(
-                "one-hot commits without the native pairing library need "
-                "the device G1 (ROADMAP A15), not ported yet")
-        from ..curve import native_pairing as npair
-        col_all = np.concatenate(c_parts).astype(np.uint32)
-        heads_all = np.concatenate(head_parts)
-        seg_off = np.concatenate([np.nonzero(heads_all)[0],
-                                  [len(col_all)]]).astype(np.uint64)
-        pts = npair.g1_segment_sums(base_buf, col_all, seg_off)
+        base_buf = None if device_tier else self._gamma1_buf()
+        if device_tier is False and base_buf is None:
+            raise RuntimeError("the native pairing library did not load")
+        if base_buf is not None:
+            from ..curve import native_pairing as npair
+            col_all = np.concatenate(c_parts).astype(np.uint32)
+            heads_all = np.concatenate(head_parts)
+            seg_off = np.concatenate([np.nonzero(heads_all)[0],
+                                      [len(col_all)]]).astype(np.uint64)
+            pts = npair.g1_segment_sums(base_buf, col_all, seg_off)
+        else:
+            offs = np.cumsum([0] + [n for _, _, n in metas])[:-1]
+            idx_all = np.concatenate(
+                [lasts + off for (_, lasts, _), off in zip(metas, offs)])
+            pts = self._segment_totals(np.concatenate(c_parts),
+                                       np.concatenate(head_parts), idx_all)
         out = []
         pos = 0
         for (rows_hit, lasts, _n) in metas:
@@ -409,9 +435,37 @@ class Dory:
             for r, pt in zip(rows_hit.tolist(), pts[pos:pos + len(lasts)]):
                 rows[r] = pt
             pos += len(lasts)
-            hint = DoryHint(rows=rows)
-            out.append((self._tier2(hint), hint))
+            out.append(rows)
         return out
+
+    def _segment_totals(self, cols, heads, lasts) -> List[host.Point]:
+        """The device tier: the generators at `cols` gathered on the
+        device, their segmented scan (segments start at `heads`), and the
+        affine sums at the segments' last lanes `lasts`."""
+        import numpy as np
+
+        from ..curve import g1 as g1dev
+        G = self._gamma1_dev()
+        take = torch.from_numpy(cols.astype(np.int64)).to(self.device)
+        P3 = tuple(a.index_select(1, take) for a in G)
+        scan = g1dev.segmented_scan_points(P3, torch.from_numpy(
+            heads.astype(np.int32)).to(self.device))
+        il = torch.from_numpy(lasts.astype(np.int64)).to(self.device)
+        return g1dev.unpack_points(tuple(a.index_select(1, il)
+                                         for a in scan))
+
+    def commit_onehot(self, positions) -> Tuple[DoryCommitment, DoryHint]:
+        """Commit a sparse 0/1 vector given its nonzero POSITIONS (numpy
+        int64, in [0, 2^num_vars)) -- O(T log T) device point adds for
+        tier 1 (no dense K*T vector is ever built), then the usual tier-2
+        multi-pairing over nonzero rows.
+
+        The one-hot fast path of the reference
+        (`poly/one_hot_polynomial.rs:119`): each row commitment is a plain
+        sum of column generators."""
+        hint = DoryHint(rows=self.onehot_rows([positions],
+                                              device_tier=True)[0])
+        return self._tier2(hint), hint
 
     # ---- open ----------------------------------------------------------
 

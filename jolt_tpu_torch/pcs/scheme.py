@@ -21,12 +21,13 @@ bit (big-endian variables), matching the stage-8 reduction's r*.
 wrapped in the matching scheme; a scheme instance passes through; None
 means sumcheck-only mode (no commitment layer).
 
-Copied from the JAX package's `pcs/scheme.py` without `HyperKZGScheme`
-(its module imports JAX; HyperKZG is ROADMAP A15): `DoryScheme` is
-unchanged but for `commit_sparse`, whose one-hot commit runs on the
-device G1 (A15) and which raises here (the prover commits one-hots
-through `commit_sparse_many`); `make_scheme` raises naming A15 for a
-HyperKZG setup.
+Copied from the JAX package's `pcs/scheme.py`.  What differs: every
+scheme takes the `device` its device work runs on (`make_scheme(setup,
+device="cuda")`; `prove` passes its own), never chosen by whether a card
+is present: HyperKZG's MSMs and Dory's device one-hot tier run there.
+`HyperKZGScheme.commit_sparse` commits the 0/1 vector by its ones
+(`HyperKZG.commit_positions`, the same commitment as the JAX package's
+dense 1-bit commit).
 """
 
 from __future__ import annotations
@@ -38,6 +39,73 @@ from ..field.params import FR_MODULUS as P
 from ..transcript import Blake2bTranscript
 from .dory import (Dory, DoryCommitment, DoryHint, DorySetup, gt_exp, gt_mul,
                    gt_to_bytes)
+from .hyperkzg import HyperKZG, KZGSetup, _absorb_point
+
+
+class HyperKZGScheme:
+    """HyperKZG behind the seam (alternative scheme; trusted setup)."""
+
+    name = "hyperkzg"
+
+    def __init__(self, setup: KZGSetup, device="cuda"):
+        self.pcs = HyperKZG(setup, device)
+        self.setup = setup
+
+    def setup_digest(self) -> bytes:
+        """Stable identity of this setup's parameters (cache keying --
+        distinct setups MUST produce distinct digests)."""
+        import hashlib as _hl
+        h = _hl.blake2b(b"hyperkzg", digest_size=16)
+        h.update(self.setup.size.to_bytes(8, "big"))
+        tg = self.setup.tau_g2
+        for c in (tg[0].a, tg[0].b, tg[1].a, tg[1].b):
+            h.update(int(c).to_bytes(32, "big"))
+        return h.digest()
+
+    def commit(self, name: str, coeffs: Sequence[int], bits: int = 254):
+        return self.pcs.commit_ints(coeffs, bits=bits)
+
+    def commit_sparse(self, name: str, positions, length: int):
+        """0/1 vector by nonzero positions: the sum of the SRS powers at
+        them (the secondary scheme has no tier structure)."""
+        assert len(positions) == 0 or int(max(positions)) < length
+        return self.pcs.commit_positions(positions)
+
+    def absorb(self, transcript: Blake2bTranscript, comm) -> None:
+        _absorb_point(transcript, b"commitment", comm)
+
+    def open_rlc(self, weights: Dict[str, int], rlc,
+                 point: Sequence[int], value: int,
+                 transcript: Blake2bTranscript):
+        if isinstance(rlc, tuple):   # sparse (positions, values)
+            positions, values = rlc
+            dense = [0] * (1 << len(point))
+            for pos, v in zip(positions.tolist(), values):
+                dense[pos] = (dense[pos] + v) % P
+            rlc = dense
+        elif isinstance(rlc, list) and rlc and isinstance(rlc[0], tuple) \
+                and len(rlc[0]) == 3:   # weighted parts (stage-8 RLC)
+            dense = [0] * (1 << len(point))
+            for positions, w, values in rlc:
+                for i, pos in enumerate(positions.tolist()):
+                    v = w if values is None else w * values[i] % P
+                    dense[pos] = (dense[pos] + v) % P
+            rlc = dense
+        return self.pcs.open(rlc, point, value, transcript)
+
+    def combine(self, commitments: Dict[str, object],
+                weights: Dict[str, int]):
+        joint = None
+        for name, w in weights.items():
+            c = commitments[name]
+            if c is not None and not host.g1_is_on_curve(c):
+                return None  # poisoned joint -> verify_rlc rejects
+            joint = host.g1_add(joint, host.g1_mul(c, w))
+        return joint
+
+    def verify_rlc(self, joint, point: Sequence[int], value: int, proof,
+                   transcript: Blake2bTranscript) -> bool:
+        return self.pcs.verify(joint, point, value, proof, transcript)
 
 
 class DoryScheme:
@@ -51,8 +119,8 @@ class DoryScheme:
 
     name = "dory"
 
-    def __init__(self, setup: DorySetup):
-        self.dory = Dory(setup)
+    def __init__(self, setup: DorySetup, device="cuda"):
+        self.dory = Dory(setup, device)
         self.setup = setup
         self._hints: Dict[str, DoryHint] = {}
 
@@ -80,10 +148,11 @@ class DoryScheme:
 
     def commit_sparse(self, name: str, positions,
                       length: int) -> DoryCommitment:
-        """One-hot fast path on the device G1 (ROADMAP A15)."""
-        raise NotImplementedError(
-            "a single one-hot commit runs on the device G1 (ROADMAP A15), "
-            "not ported yet; commit_sparse_many commits one-hots natively")
+        """One-hot fast path: device tier-1 segment sums over the nonzero
+        positions, O(T) -- no dense K*T vector exists anywhere."""
+        com, hint = self.dory.commit_onehot(positions)
+        self._hints[name] = hint
+        return com
 
     def commit_sparse_many(self, named_positions):
         """Batched one-hot commits: one device dispatch for every matrix
@@ -151,16 +220,15 @@ class DoryScheme:
                                 transcript)
 
 
-def make_scheme(setup):
-    """None | DorySetup | DoryScheme -> scheme | None."""
+def make_scheme(setup, device="cuda"):
+    """None | KZGSetup | DorySetup | scheme instance -> scheme | None; a
+    new scheme runs its device work on `device`."""
     if setup is None:
         return None
-    if isinstance(setup, DoryScheme):
+    if isinstance(setup, (HyperKZGScheme, DoryScheme)):
         return setup
+    if isinstance(setup, KZGSetup):
+        return HyperKZGScheme(setup, device)
     if isinstance(setup, DorySetup):
-        return DoryScheme(setup)
-    if type(setup).__name__ in ("KZGSetup", "HyperKZGScheme"):
-        raise NotImplementedError(
-            "a HyperKZG setup needs the HyperKZG scheme (ROADMAP A15), not "
-            "ported yet")
+        return DoryScheme(setup, device)
     raise TypeError(f"unknown PCS setup type {type(setup)!r}")

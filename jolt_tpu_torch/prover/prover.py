@@ -338,14 +338,18 @@ def required_num_vars(padded_length: int, ram_log_K: int,
     return LOG_K_CHUNK + (padded_length - 1).bit_length()
 
 
-def _resolve_setup(setup, padded_length, ram_log_K, bytecode_log_K):
-    """Accept the string 'dory' and size the setup from the trace; raw
-    setup objects pass through ('hyperkzg', ROADMAP A15, is refused by
-    `prove`)."""
+def _resolve_setup(setup, padded_length, ram_log_K, bytecode_log_K,
+                   device="cuda"):
+    """Accept 'dory' / 'hyperkzg' strings and size the setup from the trace
+    (the KZG powers built on `device`); raw setup objects pass through."""
     if setup == "dory":
         from ..pcs.dory import DorySetup
         return DorySetup.generate(
             required_num_vars(padded_length, ram_log_K, bytecode_log_K))
+    if setup == "hyperkzg":
+        from ..pcs.hyperkzg import KZGSetup
+        nv = required_num_vars(padded_length, ram_log_K, bytecode_log_K)
+        return KZGSetup.generate(1 << nv, device=device)
     return setup
 
 
@@ -368,7 +372,8 @@ class _StageTimer:
     """JOLT_TPU_STAGE_TIMING=1 prints one line per finished stage, as the
     JAX package's prover does: `[prove] <label>: <seconds>s`, plus the
     device's peak allocated memory on CUDA and the stage's kernel launches
-    (`k1=<form>:<n>,..` for each K1 form, `k2=<n>` K2 calls).  Each stage's
+    (`k1=<form>:<n>,..` for each K1 form, `k2=<n>` K2 calls,
+    `k3=<form>:<n>,..` for each K3 form).  Each stage's
     end is also a zero-length `torch.profiler` range "[prove] <label>", so
     a profile can split device time by stage (`profile_prefix.py`).  Every
     stage ends in a device-to-host copy, so the host clock covers its
@@ -382,7 +387,8 @@ class _StageTimer:
 
     @staticmethod
     def _launches() -> Dict[str, int]:
-        return {**kernels.k1_launches(), "k2": kernels.product_round.launches}
+        return {**kernels.k1_launches(), "k2": kernels.product_round.launches,
+                **{f"k3_{f}": n for f, n in kernels.k3_launches().items()}}
 
     def mark(self, label: str) -> None:
         now = time.perf_counter()
@@ -397,8 +403,9 @@ class _StageTimer:
             d = {k: n[k] - self.launches[k] for k in n}
             self.launches = n
             k1 = ",".join(f"{f}:{d[f]}" for f in kernels.FORMS)
+            k3 = ",".join(f"{f}:{d['k3_' + f]}" for f in kernels.K3_FORMS)
             print(f"[prove] {label}: {now - self.t0:.4f}s{mem} k1={k1} "
-                  f"k2={d['k2']}", flush=True)
+                  f"k2={d['k2']} k3={k3}", flush=True)
         self.t0 = now
 
 
@@ -413,12 +420,14 @@ def prove(trace: Trace, setup=None, device="cuda", zk: bool = False,
     """Prove the trace on `device` (the card unless the caller asks for the
     CPU), as the JAX package's `prove(trace, setup=setup, zk=zk,
     zk_rng=zk_rng, committed_image=committed_image)`: stages 1 through 8,
-    and with a setup (a `DorySetup`, a `DoryScheme`, or "dory" to build
-    one sized from the trace) the stage-0 Dory commitments and the joint
-    opening proof.  `setup=None` is the sumcheck-only configuration: the
-    proof carries the bare opening claims, no commitments and no joint
-    opening proof.  The Dory work runs on the host (`pcs/dory.py`, the
-    native library of `csrc/pairing.cpp`).
+    and with a setup (a `DorySetup` or `KZGSetup`, a scheme instance, or
+    "dory" / "hyperkzg" to build one sized from the trace) the stage-0
+    commitments and the joint opening proof.  `setup=None` is the
+    sumcheck-only configuration: the proof carries the bare opening
+    claims, no commitments and no joint opening proof.  The Dory work runs
+    on the host (`pcs/dory.py`, the native library of
+    `csrc/pairing.cpp`); HyperKZG's MSMs run on `device` (K3 on the card)
+    and its opening's algebra on the host (`pcs/hyperkzg.py`).
 
     zk=True Pedersen-commits every batched stage's round polynomials
     instead of sending them, and one BlindFold proof (Nova fold + Spartan
@@ -431,10 +440,6 @@ def prove(trace: Trace, setup=None, device="cuda", zk: bool = False,
     claim reduction instead of the verifier evaluating it; the image must
     lie in the trace's RAM address space (ROADMAP C2), and zk with the
     committed image is refused (ROADMAP C1)."""
-    if setup == "hyperkzg":
-        raise NotImplementedError(
-            "a HyperKZG setup needs the HyperKZG scheme (ROADMAP A15), not "
-            "ported yet")
     if zk and committed_image:
         raise NotImplementedError(
             "zk=True with committed_image=True is refused: the JAX "
@@ -559,7 +564,7 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None,
     # commitments absorb BEFORE any challenge so they bind the witness.)
     commitments: Dict[str, object] = {}
     pcs = make_scheme(_resolve_setup(setup, T_pad, ram_wit.log_K,
-                                     bc_wit.log_K))
+                                     bc_wit.log_K, device), device)
     # sparse committed-poly descriptors: (positions int64, values|None=ones,
     # padded length) -- no dense K*T vector is ever materialized
     committed_sparse: Dict[str, tuple] = {}
@@ -584,8 +589,13 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None,
         onehot_names = [n for n in names if committed_sparse[n][1] is None]
         prof = profiling.active()
         with prof.span("commit.onehot"):
-            commitments.update(pcs.commit_sparse_many(
-                [(n, committed_sparse[n][0]) for n in onehot_names]))
+            if hasattr(pcs, "commit_sparse_many"):
+                commitments.update(pcs.commit_sparse_many(
+                    [(n, committed_sparse[n][0]) for n in onehot_names]))
+            else:
+                for n in onehot_names:
+                    commitments[n] = pcs.commit_sparse(
+                        n, committed_sparse[n][0], committed_sparse[n][2])
         with prof.span("commit.dense"):
             for name in names:
                 if name not in commitments:

@@ -203,8 +203,8 @@ def verify_prefix(proof: PrefixProof, io: PublicIO) -> bool:
 
 def verify(proof: JoltProof, io: PublicIO, setup=None) -> bool:
     """Check every stage of `proof` (stages 1 through 8, with a setup --
-    a `DorySetup` or `DoryScheme` -- the commitments and the joint
-    opening, and in zk mode the BlindFold proof) against the public
+    a `DorySetup` or `KZGSetup`, or a scheme -- the commitments and the
+    joint opening, and in zk mode the BlindFold proof) against the public
     statement, as the JAX package's `verify(proof, io, setup=setup)`;
     returns True or raises VerificationError."""
     pcs = make_scheme(setup)

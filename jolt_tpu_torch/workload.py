@@ -109,7 +109,7 @@ def timed_stages(fn: Callable[[], object]
     """Run `fn()` with the prover's stage timing on (JOLT_TPU_STAGE_TIMING);
     return its result, the seconds of each stage, the printed lines, and
     each stage's kernel launches as the lines give them:
-    {label: {"k1": {form: n}, "k2": n}}."""
+    {label: {"k1": {form: n}, "k2": n, "k3": {form: n}}}."""
     buf = io.StringIO()
     os.environ["JOLT_TPU_STAGE_TIMING"] = "1"
     try:
@@ -119,13 +119,16 @@ def timed_stages(fn: Callable[[], object]
         del os.environ["JOLT_TPU_STAGE_TIMING"]
     text = buf.getvalue()
     stages, launches = {}, {}
-    line = r"\[prove\] ([\w-]+): ([0-9.]+)s.* k1=(\S+) k2=(\d+)"
+    line = r"\[prove\] ([\w-]+): ([0-9.]+)s.* k1=(\S+) k2=(\d+) k3=(\S+)"
+
+    def forms(text):
+        return {f: int(n) for f, n in (kv.split(":")
+                                       for kv in text.split(","))}
     for m in re.finditer(line, text):
         stages[m.group(1)] = float(m.group(2))
-        launches[m.group(1)] = {
-            "k1": {f: int(n) for f, n in (kv.split(":")
-                                          for kv in m.group(3).split(","))},
-            "k2": int(m.group(4))}
+        launches[m.group(1)] = {"k1": forms(m.group(3)),
+                                "k2": int(m.group(4)),
+                                "k3": forms(m.group(5))}
     return out, stages, text, launches
 
 
@@ -205,4 +208,34 @@ def k2_bound_ms(nf: int, order: str, T: int, blocks: int) -> Tuple[float, str]:
         + ((64 * nf * blocks + 32 * nf) if msg else 0)
     msg_pairs = pairs // 2 if order == "bind_message" else pairs
     products = nf * pairs * bind + (nf - 1) * nf * msg_pairs * msg
+    return bound_ms(n_bytes, products)
+
+
+# K3 (csrc/g1.cu): Fq products of each point formula (an Fq product is
+# MADS_PER_PRODUCT multiply-adds, as Fr's), and one point's bytes (X, Y, Z)
+G1_ADD_PRODUCTS = 16          # add-2007-bl, 11M + 5S
+G1_DOUBLE_PRODUCTS = 7        # dbl-2009-l, 2M + 5S
+G1_POINT_BYTES = 96
+
+
+def k3_bound_ms(form: str, lanes: int, generic_adds: int = None,
+                bits: int = 0, set_bits: int = 0,
+                words: int = 8) -> Tuple[float, str]:
+    """One K3 launch over `lanes`: its points (and scalar words) read once
+    and its points written once, and the Fq products the data needs --
+    "add": 16 for each of `generic_adds` lanes (default all; an add at
+    infinity needs none), "double": 7 a lane, "scalar_mul": 7 for each of
+    the `bits` doublings and 16 for each of the `set_bits` adds, summed
+    over the lanes."""
+    if form == "add":
+        n_bytes = 3 * G1_POINT_BYTES * lanes
+        products = G1_ADD_PRODUCTS * (lanes if generic_adds is None
+                                      else generic_adds)
+    elif form == "double":
+        n_bytes = 2 * G1_POINT_BYTES * lanes
+        products = G1_DOUBLE_PRODUCTS * lanes
+    else:
+        n_bytes = (2 * G1_POINT_BYTES + 4 * words) * lanes
+        products = G1_DOUBLE_PRODUCTS * bits * lanes \
+            + G1_ADD_PRODUCTS * set_bits
     return bound_ms(n_bytes, products)

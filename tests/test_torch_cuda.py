@@ -442,3 +442,103 @@ def test_prove_with_dory_card_equals_cpu(card, tmp_path):
     assert serialize_proof(on_card) == serialize_proof(on_cpu)
     assert on_card.fs_tape == on_cpu.fs_tape
     assert verify(on_card, PublicIO.from_trace(trace), setup=setup)
+
+
+# ---- K3: the G1 kernel (csrc/g1.cu) ---------------------------------------
+
+def _g1_points(n, seed):
+    import random
+    from jolt_tpu_torch.curve import bn254_host as host
+    rng = random.Random(seed)
+    return [host.g1_random(rng) for _ in range(n)]
+
+
+def _equal(P, Q):
+    return all(torch.equal(a, b) for a, b in zip(P, Q))
+
+
+def test_k3_matches_plain_on_card(card):
+    """K3's add (with infinity, P + P and P + (-P) lanes, and an infinity
+    whose X, Y are not 0), double and 254-bit scalar_mul equal their plain
+    versions bit for bit on the same card tensors, one launch each; a
+    halving of one tensor is one launch over its two strided halves."""
+    import random
+    from jolt_tpu_torch.curve import bn254_host as host
+    from jolt_tpu_torch.curve import g1
+    pts = _g1_points(64, 1)
+    pts[1] = None
+    other = _g1_points(64, 2)
+    other[0] = other[1] = None
+    other[2] = pts[2]
+    other[3] = host.g1_neg(pts[3])
+    P = g1.pack_points(pts, card)
+    Q = g1.pack_points(other, card)
+    mask = torch.ones(64, dtype=torch.bool, device=card)
+    mask[4] = False
+    P = g1.mask_points(g1.jacobian_double(P), mask)
+    before = kernels.k3_launches()
+    got = g1.jacobian_add(P, Q)
+    assert _equal(got, g1.jacobian_add_plain(P, Q))
+    assert _equal(g1.jacobian_double(got), g1.jacobian_double_plain(got))
+    h = g1._halve(got)
+    assert _equal(h, g1.jacobian_add_plain(tuple(c[:, :32] for c in got),
+                                           tuple(c[:, 32:] for c in got)))
+    rng = random.Random(3)
+    ks = [rng.randrange(1 << 254) for _ in range(64)]
+    words = torch.tensor([[(k >> (32 * w)) & 0xFFFFFFFF for k in ks]
+                          for w in range(8)], dtype=torch.int64)
+    words = (words - ((words >> 31) << 32)).to(torch.int32).to(card)
+    m = g1.batch_scalar_mul(Q, words, 254)
+    assert _equal(m, g1.batch_scalar_mul_plain(Q, words, 254))
+    torch.cuda.synchronize()
+    after = kernels.k3_launches()
+    assert {f: after[f] - before[f] for f in after} == {
+        "add": 2, "double": 1, "scalar_mul": 1}
+    assert g1.unpack_points(m) == [host.g1_mul(p, k)
+                                   for p, k in zip(other, ks)]
+
+
+def test_msm_and_kzg_on_card(card, tmp_path):
+    """The device Pippenger MSM at 2^12 lanes equals the host's; the KZG
+    setup built on the card has [tau^i] G1 as its powers, and a commit on
+    the card equals the same setup's commit on the CPU."""
+    import random
+    import numpy as np
+    from jolt_tpu_torch.curve import bn254_host as host
+    from jolt_tpu_torch.curve import g1
+    from jolt_tpu_torch.pcs.hyperkzg import DEFAULT_TAU, HyperKZG, KZGSetup
+    n = 1 << 12
+    pts = _g1_points(n, 4)
+    rng = random.Random(5)
+    ks = [rng.randrange(host.R) for _ in range(n)]
+    raw = b"".join(k.to_bytes(32, "little") for k in ks)
+    words = np.frombuffer(raw, dtype="<u4").reshape(n, 8).T
+    got = g1.unpack_points(g1.msm(g1.pack_points(pts, card), words, 254))
+    assert got == [host.g1_msm_pippenger(pts, ks)]
+    setup = KZGSetup.generate(64, device=card, cache_dir=str(tmp_path))
+    want = [host.g1_mul(host.G1_GEN, pow(DEFAULT_TAU, i, host.R))
+            for i in range(64)]
+    assert setup.host_powers() == want
+    coeffs = ks[:50]
+    assert (HyperKZG(setup).commit_ints(coeffs)
+            == HyperKZG(setup.to("cpu")).commit_ints(coeffs))
+
+
+def test_dory_device_tier_on_card(card, tmp_path, monkeypatch):
+    """Dory's one-hot commit on the card (the device segmented scan) gives
+    the native tier's row hints and commitments."""
+    import numpy as np
+    from jolt_tpu_torch.pcs.dory import Dory, DorySetup, gt_to_bytes
+    setup = DorySetup.generate(10, cache_dir=str(tmp_path))
+    rng = np.random.default_rng(6)
+    positions = [rng.integers(0, 16, 64).astype(np.int64) * 64
+                 + np.arange(64) for _ in range(3)]
+    native = Dory(setup, "cpu").commit_onehot_many(positions)
+    monkeypatch.setenv("JOLT_TPU_NO_NATIVE_PAIRING", "1")
+    before = kernels.k3_launches()["add"]
+    on_card = Dory(setup, card).commit_onehot_many(positions)
+    assert kernels.k3_launches()["add"] > before
+    one = Dory(setup, card).commit_onehot(positions[0])
+    for (c, h), (nc, nh) in zip(on_card + [one], native + native[:1]):
+        assert h.rows == nh.rows
+        assert gt_to_bytes(c.c) == gt_to_bytes(nc.c)

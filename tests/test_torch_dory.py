@@ -11,8 +11,9 @@
     `combine` + `verify_rlc` accept that proof and reject a changed `e1`,
     a changed `b_final_s` and a wrong value.
   * The port's native and Python tiers of `open` (JOLT_TPU_NO_NATIVE_PAIRING)
-    give identical proofs and transcript states, and the one-hot commit
-    raises on the Python tier instead of falling back.
+    give identical proofs and transcript states, and the one-hot commit's
+    Python tier (the device segmented scan, here on the CPU) gives the
+    native tier's row hints and commitments.
 """
 
 import copy
@@ -219,15 +220,29 @@ def test_native_and_python_tiers_agree(setups, opened, monkeypatch):
     # the dense commit's Python tier gives the native tier's commitment
     assert _gt("port", scheme.commit("d", dense).c) == _gt("port",
                                                            comms["d"].c)
-    # no silent fallback: the one-hot commit's other tier is A15's
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        tdory.Dory(setups[0]).commit_onehot_many(_onehot_positions(1, 1))
+    # the one-hot commit's other tier, the device segmented scan on the
+    # caller's device: the native tier's row hints (tier 1) and
+    # commitments
+    device_tier = tdory.Dory(setups[0], "cpu").commit_onehot_many(
+        list(onehot.values()))
+    for name, (com, hint) in zip(onehot, device_tier):
+        assert hint.rows == scheme._hints[name].rows
+        assert _gt("port", com.c) == _gt("port", comms[name].c)
 
 
 def test_scheme_refuses_what_is_not_ported(setups):
-    scheme = tscheme.DoryScheme(setups[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        scheme.commit_sparse("a", _onehot_positions(1, 1)[0], N)
+    """`DoryScheme.commit_sparse` (`Dory.commit_onehot`, the device tier on
+    the scheme's device; it raised before the device G1 was ported) equals
+    `commit_sparse_many` for one matrix, hint included; `make_scheme`
+    passes schemes through and refuses a setup it does not know (the JAX
+    package's)."""
+    positions = _onehot_positions(1, 1)[0]
+    scheme = tscheme.DoryScheme(setups[0], "cpu")
+    one = scheme.commit_sparse("a", positions, N)
+    rows = scheme._hints["a"].rows
+    many = scheme.commit_sparse_many([("b", positions)])["b"]
+    assert _gt("port", one.c) == _gt("port", many.c)
+    assert rows == scheme._hints["b"].rows
     assert tscheme.make_scheme(None) is None
     assert tscheme.make_scheme(scheme) is scheme
     with pytest.raises(TypeError):

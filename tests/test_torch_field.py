@@ -519,14 +519,19 @@ def test_k1_bound_counts_what_the_function_needs(form, key, n_bytes, mads):
 
 
 def test_stage_timer_lines_give_each_stages_launches(monkeypatch):
-    """The prover's stage timer prints each stage's K1 launches per form
-    and K2 calls, and `workload.timed_stages` reads them back per stage
-    (launches stood in for by bumping the counts between the marks)."""
+    """The prover's stage timer prints each stage's K1 launches per form,
+    K2 calls and K3 launches per form, and `workload.timed_stages` reads
+    them back per stage (launches stood in for by bumping the counts
+    between the marks)."""
     from jolt_tpu_torch.prover.prover import _StageTimer
 
     def bump(form, n):
         fn = kernels.product_round if form == "k2" else kernels._K1[form]
         monkeypatch.setattr(fn, "launches", fn.launches + n)
+
+    def bump_k3(form, n):
+        monkeypatch.setitem(kernels.k3_counts, form,
+                            kernels.k3_counts[form] + n)
 
     def run():
         timer = _StageTimer(torch.device("cpu"))
@@ -534,6 +539,7 @@ def test_stage_timer_lines_give_each_stages_launches(monkeypatch):
         bump("k2", 2)
         timer.mark("stage-a")
         bump("reduce", 5)
+        bump_k3("add", 7)
         timer.mark("stage-b")
         return "done"
 
@@ -541,5 +547,118 @@ def test_stage_timer_lines_give_each_stages_launches(monkeypatch):
     assert out == "done" and sorted(stages) == ["stage-a", "stage-b"]
     assert text.count("[prove] ") == 2
     zero = dict.fromkeys(kernels.FORMS, 0)
-    assert launches == {"stage-a": {"k1": {**zero, "mul": 3}, "k2": 2},
-                        "stage-b": {"k1": {**zero, "reduce": 5}, "k2": 0}}
+    zero3 = dict.fromkeys(kernels.K3_FORMS, 0)
+    assert launches == {"stage-a": {"k1": {**zero, "mul": 3}, "k2": 2,
+                                    "k3": zero3},
+                        "stage-b": {"k1": {**zero, "reduce": 5}, "k2": 0,
+                                    "k3": {**zero3, "add": 7}}}
+
+
+# ---- the Fr ops on K1 (from_i64, eq_mask, is_zero, pow_const, inv,
+# batch_inverse) and the plain Fq ops, against the JAX package ----------
+
+from jolt_tpu.field.params import FQ  # noqa: E402
+
+from jolt_tpu_torch.field import fq as tfq  # noqa: E402
+
+Q = FQ.modulus
+
+
+@pytest.mark.parametrize("n", [1, 64])
+def test_from_i64_matches_jax(n):
+    rng = np.random.default_rng(30)
+    lo = rng.integers(0, 1 << 32, size=n, dtype=np.uint64).astype(np.uint32)
+    hi = rng.integers(0, 1 << 32, size=n, dtype=np.uint64).astype(np.uint32)
+    if n > 4:   # -1, -2^63, 2^63 - 1 and 0
+        lo[:4] = [0xFFFFFFFF, 0, 0xFFFFFFFF, 0]
+        hi[:4] = [0xFFFFFFFF, 0x80000000, 0x7FFFFFFF, 0]
+    want = jops.unpack_ints(jops.from_i64(jnp.asarray(lo), jnp.asarray(hi)))
+    got = tops.unpack_ints(tops.from_i64(torch.from_numpy(lo.view(np.int32)),
+                                         torch.from_numpy(hi.view(np.int32))))
+    assert got == want
+    if n > 4:
+        assert got[:4] == [P - 1, P - (1 << 63), (1 << 63) - 1, 0]
+
+
+def test_eq_mask_and_is_zero_match_jax():
+    xs = _vals(16, 31)
+    ys = [x if i % 3 else (x + 1) % P for i, x in enumerate(xs)]
+    xs[5] = ys[5] = 0
+    (jx, tx), (jy, ty) = _both(xs), _both(ys)
+    assert (tops.eq_mask(tx, ty).tolist()
+            == np.asarray(jops.eq_mask(jx, jy)).tolist())
+    assert (tops.is_zero(tx).tolist()
+            == np.asarray(jops.is_zero(jx)).tolist())
+    assert tops.is_zero(tx).tolist() == [x == 0 for x in xs]
+
+
+@pytest.mark.parametrize("e", [0, 1, 5, (1 << 64) + 3])
+def test_pow_const_matches_jax(e):
+    ja, ta = _both(_vals(8, 32))
+    assert (tops.unpack_ints(tops.pow_const(ta, e))
+            == jops.unpack_ints(jops.pow_const(ja, e)))
+
+
+def test_inv_matches_jax():
+    xs = _vals(8, 33)
+    ja, ta = _both(xs)
+    got = tops.unpack_ints(tops.inv(ta))
+    assert got == jops.unpack_ints(jops.inv(ja))
+    assert got == [pow(x, -1, P) if x else 0 for x in xs]
+
+
+@pytest.mark.parametrize("shape", [(7,), (3, 6)])
+def test_batch_inverse_matches_jax(shape):
+    n = int(np.prod(shape))
+    xs = _vals(n, 34)
+    xs[2] = 0
+    ja, ta = _both(xs)
+    ja, ta = ja.reshape((-1,) + shape), ta.reshape((8,) + shape)
+    got = tops.unpack_ints(tops.batch_inverse(ta).reshape(8, n))
+    assert got == jops.unpack_ints(jops.batch_inverse(ja).reshape(-1, n))
+    assert got == [pow(x, -1, P) if x else 0 for x in xs]
+
+
+def _fq_vals(n, seed):
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 1 << 32, size=(n, 8), dtype=np.uint64)
+    out = [int.from_bytes(row.astype("<u4").tobytes(), "little") % Q
+           for row in words]
+    out[:3] = [Q - 1, 0, 1]
+    return out
+
+
+@pytest.mark.parametrize("op", ["mont_mul", "add", "sub"])
+def test_fq_plain_ops_match_jax(op):
+    """field/fq.py's plain Montgomery product, sum and difference against
+    jolt_tpu.field.ops.*(..., fp=FQ), as canonical ints; is_zero and select
+    on the results."""
+    xs, ys = _fq_vals(64, 35), _fq_vals(64, 36)[::-1]
+    ja, jb = jops.pack_ints(xs, FQ), jops.pack_ints(ys, FQ)
+    ta, tb = tfq.pack_ints(xs, CPU), tfq.pack_ints(ys, CPU)
+    got = getattr(tfq, f"{op}_plain")(ta, tb)
+    want = jops.unpack_ints(getattr(jops, op)(ja, jb, FQ), FQ)
+    assert tfq.unpack_ints(got) == want
+    zero = tfq.is_zero(got)
+    assert zero.tolist() == [w == 0 for w in want]
+    assert tfq.unpack_ints(tfq.select(zero, tb, got)) == [
+        y if w == 0 else w for w, y in zip(want, ys)]
+
+
+def test_fq_kernel_source_constants_match_the_field():
+    """The Fq words that K3 compiles in (`csrc/fq.cuh`) are q, R mod q,
+    R^2 mod q and -q^-1 mod 2^32, as `field/fq.py` has them."""
+    import pathlib
+    import re
+    src = (pathlib.Path(kernels.__file__).resolve().parents[1] / "csrc"
+           / "fq.cuh").read_text()
+
+    def words(name):
+        body = re.search(rf"#define {name}\s*\\\s*\{{([^}}]*)\}}", src).group(1)
+        return sum(int(w, 16) << (32 * i)
+                   for i, w in enumerate(re.findall(r"0x([0-9a-f]+)u", body)))
+    assert words("FQ_Q_WORDS") == Q == tfq.Q
+    assert words("FQ_R_WORDS") == tfq.R_MOD_Q
+    assert words("FQ_R2_WORDS") == tfq.R2_MOD_Q
+    n0 = int(re.search(r"kN0 = 0x([0-9a-f]+)u", src).group(1), 16)
+    assert n0 == tfq.N0 and n0 * Q % (1 << 32) == (1 << 32) - 1

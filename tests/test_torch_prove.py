@@ -19,8 +19,9 @@ its stage-7/8 modules and its proof codec, on the CPU.
     `verify` accepts it with the JAX package's own setup, `setup="dory"`
     sizes the same setup and gives the same proof, and a tampered
     commitment or opening is rejected.
-  * `prove` refuses what is not ported (a HyperKZG setup) and zk with
-    the committed image, naming the ROADMAP item.
+  * `prove(setup="hyperkzg")` sizes a KZG setup and its proof verifies;
+    `prove` refuses zk with the committed image, naming the ROADMAP
+    item.
 
 The fib proof itself (no advice) is held against the JAX package in
 `test_torch_prefix.py` (fields of stages 1-6v, JAX decode and verify,
@@ -389,11 +390,29 @@ def test_codec_rejects_bad_bytes():
 # ---- entry points --------------------------------------------------------
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"setup": "hyperkzg"}, "A15"),
     ({"zk": True, "committed_image": True}, "C1")])
 def test_prove_refuses_what_is_not_ported(kwargs, item):
-    """A HyperKZG setup waits for its port; zk together with the committed
-    image is refused before any work, since the JAX package's verifier
-    rejects its own proof of the two (ROADMAP C1)."""
+    """zk together with the committed image is refused before any work,
+    since the JAX package's verifier rejects its own proof of the two
+    (ROADMAP C1)."""
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         jt.prove(None, device=CPU, **kwargs)
+
+
+def test_prove_accepts_the_named_hyperkzg_setup(tmp_path, monkeypatch):
+    """`prove(setup="hyperkzg", device="cpu")` sizes a KZG setup from the
+    trace (2^13 powers for the Dory guest at 32 cycles), commits and opens
+    with HyperKZG, carries a `HyperKZGProof` under
+    `opening_proofs["joint"]`, and `verify` accepts it with that setup."""
+    from jolt_tpu_torch.pcs import hyperkzg as thkzg
+    monkeypatch.setattr(thkzg, "SRS_CACHE_DIR", str(tmp_path))
+    trace = trace_program(DORY_GUEST, layout=DORY_LAYOUT, min_padded=32)
+    proof = jt.prove(trace, setup="hyperkzg", device=CPU)
+    assert isinstance(proof.opening_proofs["joint"], thkzg.HyperKZGProof)
+    assert set(proof.commitments) == set(committed_poly_names(1, 1))
+    assert proof.fs_tape[-1]["stage"] == "stage8-openings"
+    assert trace.padded_length == 32
+    setup = thkzg.KZGSetup.generate(1 << 13, device=CPU)
+    assert [p.name for p in tmp_path.iterdir()] == [
+        f"kzg_torch_{1 << 13}_{thkzg.DEFAULT_TAU % 997_651}.npz"]
+    assert jt.verify(proof, jt.PublicIO.from_trace(trace), setup=setup)
