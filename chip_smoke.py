@@ -85,19 +85,28 @@ Phases:
      setup (13 variables) has the same bytes and FS tape on both, and
      verifies, and so do the guest with zk and the image guest with the
      committed image at the same setup;
-  8b. K3, the G1 kernel (`[g1]` and `[kzg]` lines): add and double at
-     2^20 lanes (with P + P, P + (-P), infinity and same-point lanes) and
-     a 254-bit scalar_mul at 2^12 lanes bit for bit against the plain
-     versions, each form's kernel-only time beside its bound; the 2^20 KZG
-     setup on the card (its seconds; 128 powers == [tau^i] G1); the KZG
-     `prove` of the sha2-chain at chain=1 (2^20 SRS) with K3's counts set
-     to 0 just before it and read just after, its stage seconds, K3
-     launches per form and stage, the HyperKZG spans and peak memory, and
-     `verify`; one dense commitment against the host MSM; one full-width
-     2^20 commit's seconds and peak memory; card == CPU proof bytes with
-     a 2^13 KZG setup on the PCS guest; and Dory's device one-hot tier
-     (the segmented scan) on the main path's 23 matrices against the
-     native segment sums, tier 1 only;
+  8b. K3, the G1 kernel (`[g1]`, `[msm]` and `[kzg]` lines): every form
+     bit for bit against its plain version with edge lanes -- add and
+     double at 2^20 lanes (P + P, P + (-P), infinities, equal points in
+     other coordinates), a 254-bit scalar_mul at 2^12, normalize at 2^20,
+     bucket_sum of a 2^20 commit's windows and of edge segments (every
+     lane in one, P + P, P + (-P), infinity bases, one lane, none) and
+     bucket_reduce of its buckets -- each form's time (CUDA events;
+     bucket_sum's and bucket_reduce's launches alone, their whole calls
+     apart) beside its bound, its plain version's and the first K3's
+     (PERF.md, PR 9); the 2^20 MSM
+     against the host's; the 2^20 KZG setup (one scalar_mul, one
+     normalize; 128 powers == [tau^i] G1, affine); the whole MSM at
+     2^9 .. 2^22 lanes and every window width c = 4 .. 16, beside the one
+     `g1.window_bits` picks; one 2^20 commit from device words and one from Python
+     ints, one 2^22 commit, with their peaks; the KZG `prove` of the sha2-chain at chain=1 (2^20 SRS)
+     with K3's counts set to 0 just before it and read just after, its
+     stage seconds, K3 launches per form and stage, its MSMs by lane
+     count, the HyperKZG spans,
+     peak memory and `verify`; one dense commitment against the host MSM;
+     card == CPU proof bytes with a 2^13 KZG setup on the PCS guest; and
+     Dory's device one-hot tier (one bucket_sum over the rows) on the main
+     path's 23 matrices against the native segment sums, tier 1 only;
   9. one JSON line with every ported kernel, the card line, and the final
      `{"ok": true, "device": ...}` line.
 
@@ -194,6 +203,14 @@ G1_LOG_N = 20
 G1_EDGE = 64
 G1_SCALAR_LOG_N = 12
 KZG_LOG_N = 20
+# the MSM's lane counts (log2) timed at every window width (phase 8b);
+# the first K3's times in ms, printed beside the new ones (one thread a
+# lane, points through a stack frame, generic adds: PERF.md's K3 row, PR
+# 9, H100 80GB HBM3, 700.00 W; add and double at 2^20 lanes, scalar_mul at
+# 2^12 lanes and the setup's 2^20 x 254 bits)
+MSM_SWEEP_LOG_N = range(9, 23)
+FIRST_K3_MS = {"add": 0.8101, "double": 0.2497, "scalar_mul": 10.445,
+             "scalar_mul_setup": 264.34}
 
 FIB_LAYOUT = dict(max_input_size=64, max_output_size=64)
 FIB = """
@@ -524,6 +541,83 @@ def events_ms(fn, arg_sets, reps):
     return start.elapsed_time(end) / reps
 
 
+def k3_bucket_sum_ms(g1, A, segs, reps):
+    """K3 bucket_sum's launches alone in ms, against `g1.bucket_sum`'s
+    whole call: the chunk tables of every level made first
+    (`g1.bucket_levels`, the torch plumbing with its host syncs), then
+    CUDA events around each level's launch, summed over the levels; the
+    mean over `reps` sums after a warm-up.  Returns (kernel ms, levels)."""
+    lanes, starts, ends = segs
+    starts = starts.to(torch.int64)
+    levels = g1.bucket_levels(starts, (ends - starts).clamp_min(0))
+    rows = g1._base_rows(A)
+    lanes = lanes.to(torch.int32).contiguous()
+
+    def run():
+        parts, spans = rows, []
+        for i, (beg, end) in enumerate(levels):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            parts = g1._sum_level_k3(parts, i == 0, lanes if i == 0
+                                     else None, beg, end)
+            ev[1].record()
+            spans.append(ev)
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in spans)
+    run()
+    return sum(run() for _ in range(reps)) / reps, len(levels)
+
+
+def k3_bucket_reduce_ms(g1, B, c, reps):
+    """K3 bucket_reduce's launch alone in ms: its buffers made and its
+    ticket counter zeroed outside the CUDA events; the mean over `reps`
+    launches after a warm-up."""
+    B = tuple(x.contiguous() for x in B)
+    work = g1.reduce_buffers(B[0].shape[1] >> c, B[0].device)
+    total = 0.0
+    for i in range(reps + 1):
+        work[2].zero_()
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        g1._reduce_k3(B, c, *work)
+        ev[1].record()
+        ev[1].synchronize()
+        total += ev[0].elapsed_time(ev[1]) if i else 0.0
+    return total / reps
+
+
+def msm_width_sweep(g1, A, words, log_ns, reps=3):
+    """The Pippenger MSM from device words (`g1.msm_pippenger`, the whole
+    call: digits, sort, offsets, bucket_sum, bucket_reduce) at 2^L lanes
+    for each L in `log_ns`, the bases and words the first 2^L lanes of A
+    and `words`, at each window width c from 4 to min(16, L), by CUDA
+    events (one clock for every cell); with the fastest c and the one
+    `g1.window_bits` picks.  Returns {L: {"ms": {c: ms}, "best_c": c,
+    "window_bits": c}}."""
+    from jolt_tpu_torch.workload import msm_bound_ms
+    out = {}
+    for L in log_ns:
+        n = 1 << L
+        P = tuple(x[:, :n] for x in A)
+        w = words[:, :n].contiguous()
+        ms = {c: events_ms(lambda *a: g1.msm_pippenger(P, a[0], 254, c),
+                           [(w,)], reps)
+              for c in range(4, min(16, L) + 1)}
+        best = min(ms, key=ms.get)
+        pick = g1.window_bits(n)
+        out[L] = {"ms": ms, "best_c": best, "window_bits": pick,
+                  "bound_ms": msm_bound_ms(n, 254, best)[0]}
+        print(f"[msm] 2^{L} x 254 bits by window width (ms, CUDA events, "
+              "from device words): "
+              + ", ".join(f"c={c} {t:.4f}" for c, t in ms.items())
+              + f"; fastest c = {best}; window_bits picks c = {pick}, "
+              f"{ms[pick] / ms[best] - 1:+.1%} over the fastest; bound at "
+              f"c = {best} {out[L]['bound_ms']:.4f} ms", flush=True)
+    return out
+
+
 def time_k2(kernels, ops, polys, r, order):
     """K2 in ms: its pass kernel and its finish kernel alone (kernel-only
     device time), the wrapper with both as a live round calls it
@@ -554,15 +648,24 @@ def spill_bytes(report):
     return sum(int(n) for n in re.findall(r"(\d+) bytes spill", report))
 
 
+def stack_bytes(report):
+    """The largest stack frame ptxas reports over a build."""
+    return max([int(n) for n in re.findall(r"(\d+) bytes stack frame",
+                                           report)] or [0])
+
+
 def g1_kzg_phase(dev, gen, dory_setup, pcs_guest, onehot_positions,
                  card_vs_cpu):
-    """Phase 8b: (a) K3 against its plain version, bit for bit, and its
-    kernel-only times beside the bounds; (b) the 2^20 KZG setup on the
-    card; (c) the KZG `prove` of the sha2-chain at chain=1 (this slice's
-    path: K3's counts set to 0 just before it and read just after) and
-    `verify`; (d) card == CPU with a 2^13 KZG setup on the PCS guest; (e)
-    Dory's device one-hot tier at the main path's 2^18 trace against the
-    native segment sums.  Returns the kernel line's "g1" entry."""
+    """Phase 8b: (a) every K3 form against its plain version, bit for bit
+    (edge lanes included), and its time (CUDA events) beside its bound and
+    the plain version's; the 2^20 MSM against the host's; (b) the 2^20 KZG
+    setup on the card; (c) the window width sweep and the 2^20 and 2^22
+    commits, their times and peaks; (d) the KZG `prove` of the sha2-chain
+    at chain=1 (this slice's path: K3's counts set to 0 just before it and
+    read just after) and `verify`; (e) card == CPU with a 2^13 KZG setup
+    on the PCS guest; (f) Dory's device one-hot tier at the main path's
+    2^18 trace against the native segment sums.  Returns the kernel
+    line's "g1" entry."""
     import tempfile
 
     from jolt_tpu_torch import PublicIO, prove, verify
@@ -571,24 +674,35 @@ def g1_kzg_phase(dev, gen, dory_setup, pcs_guest, onehot_positions,
     from jolt_tpu_torch.field import fq, kernels
     from jolt_tpu_torch.pcs import scheme as scheme_mod
     from jolt_tpu_torch.pcs.dory import Dory
-    from jolt_tpu_torch.pcs.hyperkzg import DEFAULT_TAU, KZGSetup
+    from jolt_tpu_torch.pcs.hyperkzg import DEFAULT_TAU, HyperKZG, KZGSetup
     from jolt_tpu_torch.prover.prover import required_num_vars
     from jolt_tpu_torch.utils import profiling
-    from jolt_tpu_torch.workload import (k3_bound_ms, sha2_chain_trace,
-                                         timed_stages)
+    from jolt_tpu_torch.workload import (k3_bound_ms, msm_bound_ms,
+                                         sha2_chain_trace, timed_stages)
     t_phase = time.perf_counter()
     R = host.R
-
-    # (a) K3 vs plain at 2^20 lanes: random points of general Z (a 64-bit
-    # scalar multiple of G per lane), against a second batch with edge lanes
     n = 1 << G1_LOG_N
     base = g1.pack_points([host.G1_GEN], dev)
 
-    def rand_words(w, top_bits=32):
-        x = torch.randint(0, 1 << 32, (w, n), generator=gen, device=dev,
+    def rand_words(w, lanes=n, top_bits=32):
+        x = torch.randint(0, 1 << 32, (w, lanes), generator=gen, device=dev,
                           dtype=torch.int64)
         x[-1] &= (1 << top_bits) - 1
         return (x - ((x >> 31) << 32)).to(torch.int32)
+
+    def max_err(got, want):
+        return max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                   for a, b in zip(got, want))
+
+    def launched(fn):
+        kernels.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {f: k for f, k in kernels.k3_launches().items() if k}
+
+    # (a) K3 vs plain.  add and double at 2^20 lanes: random points of
+    # general Z (a 64-bit scalar multiple of G per lane), against a second
+    # batch with edge lanes
     P = g1.batch_scalar_mul(tuple(c.expand(-1, n) for c in base),
                             rand_words(2), 64)
     Q = [c.clone() for c in g1.jacobian_double(
@@ -614,24 +728,25 @@ def g1_kzg_phase(dev, gen, dory_setup, pcs_guest, onehot_positions,
     Q[2][:, sl] = fq.mont_mul_plain(P[2][:, sl], lam)
     Q = tuple(Q)
     generic = n - 6 * e
-
-    def max_err(got, want):
-        return max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
-                   for a, b in zip(got, want))
-    kernels.reset_launches()
-    S = g1.jacobian_add(P, Q)
-    err = max_err(S, g1.jacobian_add_plain(P, Q))
-    D = g1.jacobian_double(S)
-    err = max(err, max_err(D, g1.jacobian_double_plain(S)))
+    errs = {}
+    S, lk = launched(lambda: g1.jacobian_add(P, Q))
+    errs["add"] = max_err(S, g1.jacobian_add_plain(P, Q))
+    D, lk2 = launched(lambda: g1.jacobian_double(S))
+    errs["double"] = max_err(D, g1.jacobian_double_plain(S))
     m = 1 << G1_SCALAR_LOG_N
     sub = tuple(c[:, :m].contiguous() for c in S)
-    ks = rand_words(8, 30)[:, :m].contiguous()       # < 2^254
-    M = g1.batch_scalar_mul(sub, ks, 254)
-    err = max(err, max_err(M, g1.batch_scalar_mul_plain(sub, ks, 254)))
-    torch.cuda.synchronize()
-    check(err == 0, f"K3 differs from its plain version: {err}")
-    check(kernels.k3_launches() == {"add": 1, "double": 1, "scalar_mul": 1},
-          f"K3 launches {kernels.k3_launches()}")
+    ks = rand_words(8, top_bits=30)[:, :m].contiguous()       # < 2^254
+    M, lk3 = launched(lambda: g1.batch_scalar_mul(sub, ks, 254))
+    errs["scalar_mul"] = max_err(M, g1.batch_scalar_mul_plain(sub, ks, 254))
+    # normalize at 2^20 (the setup's shape): S holds (0, 0, 0) lanes (P +
+    # (-P)) and infinities with X, Y kept (both at infinity)
+    A, lk4 = launched(lambda: g1.normalize(S))
+    t0 = time.perf_counter()
+    errs["normalize"] = max_err(A, g1.normalize_plain(S))
+    p_norm = (time.perf_counter() - t0) * 1e3
+    check((lk, lk2, lk3, lk4) == ({"add": 1}, {"double": 1},
+                                  {"scalar_mul": 1}, {"normalize": 1}),
+          f"K3 launches {lk} {lk2} {lk3} {lk4}")
     # affine spot checks against the host
     idx = [0, e, 2 * e, 3 * e, 4 * e, 5 * e, 6 * e, n - 1]
     aff = g1.unpack_points(tuple(c[:, idx] for c in S))
@@ -639,51 +754,152 @@ def g1_kzg_phase(dev, gen, dory_setup, pcs_guest, onehot_positions,
     qa = g1.unpack_points(tuple(c[:, idx] for c in Q))
     check(aff == [host.g1_add(a, b) for a, b in zip(pa, qa)],
           "K3 add differs from the host on the edge lanes")
+    check(g1.unpack_points(tuple(c[:, idx] for c in A)) == aff
+          and fq.unpack_ints(A[2][:, idx]) == [int(p is not None)
+                                               for p in aff],
+          "K3 normalize differs from the host")
     ki = words_to_ints(ks[:, :8])
     check(g1.unpack_points(tuple(c[:, :8] for c in M))
           == [host.g1_mul(p, k) for p, k in
               zip(g1.unpack_points(tuple(c[:, :8] for c in sub)), ki)],
           "K3 scalar_mul differs from the host")
-    print(f"[g1] K3 == its plain version bit for bit: add and double at "
-          f"2^{G1_LOG_N} lanes ({6 * e} edge lanes: P + P, P + (-P), "
-          f"infinities, equal points in other coordinates), scalar_mul of "
-          f"254 bits at 2^{G1_SCALAR_LOG_N} lanes; host spot checks "
-          "agree", flush=True)
+
+    # bucket_sum at the 2^20 commit's shape: the bases A (affine, with
+    # infinities), 254-bit scalars, the default window width; one window
+    # batch against the plain version, then every window
+    c_def = g1.window_bits(n)
+    n_win = (254 + c_def - 1) // c_def
+    words = rand_words(8, top_bits=30)
+    segs = g1.window_segments(words, 0, n_win, c_def, 254)
+    B, lk5 = launched(lambda: g1.bucket_sum(A, *segs))
+    t0 = time.perf_counter()
+    errs["bucket_sum"] = max_err(B, g1.bucket_sum_plain(A, *segs))
+    p_bsum = (time.perf_counter() - t0) * 1e3
+    # edges: one segment of every lane (equal scalars, a hot row), a point
+    # twice (the mixed add doubles), a point and its negation, infinity
+    # bases, a single lane, an empty segment
+    Aneg = tuple(c.clone() for c in A)
+    Aneg[1][:, n - 1] = fq.sub_plain(torch.zeros_like(A[1][:, n - 2:n - 1]),
+                                     A[1][:, n - 2:n - 1])[:, 0]
+    Aneg[0][:, n - 1] = A[0][:, n - 2]
+    Aneg[2][:, n - 1] = A[2][:, n - 2]
+    inf_lane = 4 * e
+    edge = [list(range(n)), [7, 7], [n - 2, n - 1], [inf_lane],
+            [inf_lane, 9, inf_lane], [11], []]
+    e_lanes = torch.tensor(sum(edge, []), dtype=torch.int32, device=dev)
+    e_offs = torch.tensor(np.cumsum([0] + [len(s) for s in edge]),
+                          device=dev)
+    E, lk6 = launched(lambda: g1.bucket_sum(Aneg, e_lanes, e_offs))
+    errs["bucket_sum"] = max(errs["bucket_sum"], max_err(
+        E, g1.bucket_sum_plain(Aneg, e_lanes, e_offs)))
+    got = g1.unpack_points(tuple(c[:, 1:] for c in E))
+    a7, a9 = g1.unpack_points(tuple(c[:, [7, 9]] for c in A))
+    a11 = g1.unpack_points(tuple(c[:, [11]] for c in A))[0]
+    check(got == [host.g1_double(a7), None, None, a9, a11, None],
+          f"K3 bucket_sum's edge segments differ from the host: {got}")
+    # bucket_reduce over those windows' buckets, and the MSM against the
+    # host's (the native MSM of the same 2^20 points and scalars)
+    Rd, lk7 = launched(lambda: g1.bucket_reduce(B, c_def))
+    t0 = time.perf_counter()
+    errs["bucket_reduce"] = max_err(Rd, g1.bucket_reduce_plain(B, c_def))
+    p_bred = (time.perf_counter() - t0) * 1e3
+    check(lk5["bucket_sum"] >= 2 and lk6["bucket_sum"] >= 3
+          and lk7 == {"bucket_reduce": 1},
+          f"K3 launches {lk5} {lk6} {lk7}")
+    torch.cuda.synchronize()
+    err = max(errs.values())
+    check(err == 0, f"K3 differs from its plain version: {errs}")
+    t0 = time.perf_counter()
+    hp = g1.unpack_points(A)
+    want = host.g1_msm_pippenger(hp, words_to_ints(words))
+    t_host = time.perf_counter() - t0
+    check(g1.unpack_points(Rd) == [want]
+          == g1.unpack_points(g1.msm(A, words, 254)),
+          "the card's 2^20 MSM differs from the host's")
+    print(f"[g1] K3 == its plain version bit for bit in every form: add and "
+          f"double at 2^{G1_LOG_N} lanes ({6 * e} edge lanes: P + P, "
+          f"P + (-P), infinities, equal points in other coordinates), "
+          f"scalar_mul of 254 bits at 2^{G1_SCALAR_LOG_N} lanes, normalize "
+          f"at 2^{G1_LOG_N} (infinities with X, Y kept), bucket_sum of "
+          f"{n_win} windows at c = {c_def} ({lk5['bucket_sum']} levels) and "
+          f"of edge segments (every lane in one, P + P, P + (-P), "
+          f"infinities, one lane, none), bucket_reduce of {n_win} x "
+          f"2^{c_def} buckets; host spot checks agree; the 2^{G1_LOG_N} MSM "
+          f"== the host's (native, {t_host:.1f}s with the unpack)",
+          flush=True)
+
     forms = {}
     t_add = events_ms(lambda *a: g1.jacobian_add(a[:3], a[3:]),
                       cold_copies((*P, *Q)), 20)
     t_dbl = events_ms(lambda *a: g1.jacobian_double(a), cold_copies(S), 20)
+    t_smul_m = events_ms(lambda *a: g1.batch_scalar_mul(a[:3], a[3], 254),
+                         [(*sub, ks)], 5)
+    t_norm = events_ms(lambda *a: g1.normalize(a), cold_copies(S), 5)
+    # bucket_sum and bucket_reduce: the kernels' launches alone, beside
+    # the wrappers' whole calls (the chunk tables, their syncs, the base
+    # rows, the buffers)
+    t_bsum, _ = k3_bucket_sum_ms(g1, A, segs, 5)
+    w_bsum = events_ms(lambda *a: g1.bucket_sum(A, *a), [segs], 5)
+    t_bred = k3_bucket_reduce_ms(g1, B, c_def, 5)
+    w_bred = events_ms(lambda *a: g1.bucket_reduce(a, c_def), [B], 5)
     p_add = cuda_ms(lambda: g1.jacobian_add_plain(P, Q), 1)
     p_dbl = cuda_ms(lambda: g1.jacobian_double_plain(S), 1)
     p_smul = cuda_ms(lambda: g1.batch_scalar_mul_plain(sub, ks, 254), 1)
-    t_smul_m = events_ms(lambda *a: g1.batch_scalar_mul(a[:3], a[3], 254),
-                         [(*sub, ks)], 5)
     set_m = int(sum(int(x).bit_count() for x in words_to_ints(ks)))
+    finite = int((~fq.is_zero(S[2])).sum())
+    entries = int((segs[2] - segs[1]).sum())
+    nonempty = int(((segs[2] - segs[1]) > 0).sum())
     for form, t, plain_t, lanes, b in (
             ("add", t_add, p_add, n, k3_bound_ms("add", n, generic)),
             ("double", t_dbl, p_dbl, n, k3_bound_ms("double", n)),
             ("scalar_mul", t_smul_m, p_smul, m,
-             k3_bound_ms("scalar_mul", m, bits=254, set_bits=set_m))):
+             k3_bound_ms("scalar_mul", m, bits=254, set_bits=set_m)),
+            ("normalize", t_norm, p_norm, n,
+             k3_bound_ms("normalize", n, finite)),
+            ("bucket_sum", t_bsum, p_bsum, n,
+             k3_bound_ms("bucket_sum", n, entries=entries,
+                         segments=nonempty, n_seg=segs[1].numel())),
+            ("bucket_reduce", t_bred, p_bred, n_win,
+             k3_bound_ms("bucket_reduce", n_win, c=c_def))):
         forms[form] = {"ms": t, "plain_ms": plain_t, "lanes": lanes,
-                       "bound_ms": b[0], "bound_by": b[1]}
-        print(f"[g1] {form} at {lanes} lanes: {t:.4f} ms (CUDA events) "
-              f"(bound {b[0]:.4f} ms, {b[1]}; {b[0] / t:.1%} of it), "
-              f"plain {plain_t:.2f} ms", flush=True)
-    del Q, D, M
+                       "bound_ms": b[0], "bound_by": b[1],
+                       "max_abs_err": errs[form]}
+        print(f"[g1] {form} at {lanes} lanes: {t:.4f} ms (CUDA events, "
+              f"the kernel alone) (bound {b[0]:.4f} ms, {b[1]}; "
+              f"{b[0] / t:.1%} of it), plain {plain_t:.2f} ms; first K3 "
+              f"(PERF.md, PR 9): {FIRST_K3_MS.get(form)} ms", flush=True)
+    forms["bucket_sum"].update(entries=entries, segments=nonempty,
+                               levels=lk5["bucket_sum"], c=c_def,
+                               wrapper_ms=w_bsum, plumbing_ms=w_bsum - t_bsum)
+    forms["bucket_reduce"].update(c=c_def, wrapper_ms=w_bred)
+    print(f"[g1] bucket_sum's whole call {w_bsum:.4f} ms (CUDA events): "
+          f"{t_bsum:.4f} ms in its {lk5['bucket_sum']} level launches, "
+          f"{w_bsum - t_bsum:.4f} ms of torch plumbing (the base rows, the "
+          f"chunk tables and a host sync a level, the scatter); "
+          f"bucket_reduce's whole call {w_bred:.4f} ms (its buffers and "
+          f"the counter's memset around the {t_bred:.4f} ms launch)",
+          flush=True)
+    del Q, D, M, E, Aneg, hp
 
-    # (b) the 2^20 KZG setup on the card: one scalar_mul launch
+    # (b) the 2^20 KZG setup on the card: one scalar_mul and one normalize
     srs_dir = tempfile.mkdtemp(prefix="kzg_srs_")
     torch.cuda.synchronize()
+    kernels.reset_launches()
     t0 = time.perf_counter()
     kzg = KZGSetup.generate(1 << KZG_LOG_N, device=dev, cache_dir=srs_dir)
     torch.cuda.synchronize()
     t_kzg = time.perf_counter() - t0
+    setup_launches = {f: k for f, k in kernels.k3_launches().items() if k}
+    check(setup_launches == {"scalar_mul": 1, "normalize": 1},
+          f"the KZG setup launched K3 {setup_launches}")
     rng = random.Random(SEED)
     picks = list(range(64)) + sorted(rng.sample(range(64, 1 << KZG_LOG_N),
                                                 64))
     got = g1.unpack_points(tuple(c[:, picks] for c in kzg.g1_powers_dev))
     check(got == [host.g1_mul(host.G1_GEN, pow(DEFAULT_TAU, i, R))
                   for i in picks], "a KZG power differs from [tau^i] G1")
+    check(fq.unpack_ints(kzg.g1_powers_dev[2][:, picks]) == [1] * 128,
+          "the KZG powers are not affine")
     tau_words = [pow(DEFAULT_TAU, i, R) for i in range(1 << KZG_LOG_N)]
     raw = b"".join(k.to_bytes(32, "little") for k in tau_words)
     tw = torch.from_numpy(np.frombuffer(raw, dtype="<u4").reshape(-1, 8).T
@@ -700,21 +916,99 @@ def g1_kzg_phase(dev, gen, dory_setup, pcs_guest, onehot_positions,
     print(f"[kzg] KZGSetup.generate(2^{KZG_LOG_N}, device=cuda) "
           f"{t_kzg:.3f}s (tau powers on the host, one K3 scalar_mul of "
           f"{t_smul:.2f} ms by CUDA events, bound {b_smul[0]:.2f} ms, "
-          f"{b_smul[0] / t_smul:.1%} of it, the cache written); 64 first and "
-          "64 seeded powers == [tau^i] G1", flush=True)
+          f"{b_smul[0] / t_smul:.1%} of it (first K3, PERF.md, PR 9: "
+          f"{FIRST_K3_MS['scalar_mul_setup']} ms), one normalize, the cache "
+          "written); 64 first and 64 seeded powers == [tau^i] G1, affine",
+          flush=True)
 
-    # (c) the KZG prove of the sha2-chain at chain=1 (2^20 SRS) and verify
+    # (c) the window width: the whole MSM from device words at 2^9 ..
+    # 2^22 lanes and c = 4 .. 16 (the bases 2^22 affine points of general
+    # value), then the default width's commits: 2^20 from device words and
+    # from Python ints, 2^22 with its peaks
+    n22 = 1 << 22
+    A22 = g1.normalize(g1.batch_scalar_mul(
+        tuple(c.expand(-1, n22) for c in base), rand_words(2, n22), 64))
+    w22 = rand_words(8, n22, top_bits=30)
+    sweep = msm_width_sweep(g1, A22, w22, MSM_SWEEP_LOG_N)
+
+    def commit_run(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        return (out, t, torch.cuda.max_memory_allocated(dev) - before,
+                {f: k for f, k in kernels.k3_launches().items() if k})
+    dense = kzg.g1_powers_dev
+    commit_run(lambda: g1.msm(dense, words, 254))
+    _, t_dev, peak_dev, l_dev = commit_run(lambda: g1.msm(dense, words,
+                                                          254))
+    rng = random.Random(SEED + 1)
+    full = [rng.randrange(R) for _ in range(1 << KZG_LOG_N)]
+    hk = HyperKZG(kzg)
+    hk.commit_ints(full[:1024])
+    c_full, t_ints, peak_ints, l_ints = commit_run(
+        lambda: hk.commit_ints(full))
+    check(c_full is not None and host.g1_is_on_curve(c_full),
+          "the full-width commitment is not a curve point")
+    b20 = msm_bound_ms(n, 254, c_def)
+    print(f"[kzg] one full-width 2^{KZG_LOG_N} commit at c = {c_def}: from "
+          f"device words {t_dev * 1e3:.3f} ms (bound {b20[0]:.3f} ms; "
+          f"K3 {l_dev}), peak {peak_dev / 2**30:.3f} GiB beyond the "
+          f"bases; from Python ints (HyperKZG.commit_ints: the words, "
+          f"the upload, the MSM, the unpack) {t_ints:.3f}s, peak "
+          f"{peak_ints / 2**30:.3f} GiB (the first K3's Pippenger: 2.464 s, "
+          "0.595 GiB)",
+          flush=True)
+    del full, words, segs, B
+    base_bytes = 3 * A22[0].numel() * 4
+    c22 = g1.window_bits(n22)
+    commit_run(lambda: g1.msm(A22, w22, 254))
+    _, t22, peak22, l22 = commit_run(lambda: g1.msm(A22, w22, 254))
+    b22 = msm_bound_ms(n22, 254, c22)
+    # one window a batch, as at 2^26 (_MSM_ENTRIES = 2^25 < 2^26 lanes):
+    # every buffer then scales with N, so 16 x this peak is 2^26's
+    batch_entries = g1._MSM_ENTRIES
+    g1._MSM_ENTRIES = n22
+    try:
+        _, t22_1, peak22_1, _ = commit_run(lambda: g1.msm(A22, w22, 254))
+    finally:
+        g1._MSM_ENTRIES = batch_entries
+    print(f"[kzg] one 2^22 commit at c = {c22} from device words: "
+          f"{t22 * 1e3:.3f} ms (bound {b22[0]:.3f} ms; K3 {l22}); peak "
+          f"{peak22 / 2**30:.3f} GiB beyond the bases ({base_bytes / 2**30:.3f}"
+          f" GiB); one window a batch (2^26's batching) {t22_1 * 1e3:.3f} "
+          f"ms, peak {peak22_1 / 2**30:.3f} GiB beyond them (host clock, "
+          f"synchronized); reckoned, not measured: 16 x that peak at 2^26, "
+          f"~{peak22_1 * 16 / 2**30:.2f} GiB beyond "
+          f"{base_bytes * 16 / 2**30:.1f} GiB of bases", flush=True)
+    del A22, w22
+
+    # (d) the KZG prove of the sha2-chain at chain=1 (2^20 SRS) and verify
     kt = sha2_chain_trace(1)
     check(required_num_vars(kt.padded_length, 0, 0) == KZG_LOG_N,
           f"the chain=1 trace ({kt.padded_length}) does not fit 2^20")
-    dense = []
+    dense_c = []
     commit = scheme_mod.HyperKZGScheme.commit
 
     def record(self, name, coeffs, bits=254):
         out = commit(self, name, coeffs, bits)
-        dense.append((name, list(coeffs), out))
+        dense_c.append((name, list(coeffs), out))
         return out
     scheme_mod.HyperKZGScheme.commit = record
+    # the prove's MSMs by lane count (ceil log2), the sizes the window
+    # width sweep covers
+    msm = g1.msm
+    msm_sizes = {}
+
+    def sized(P, scalars, bits):
+        L = (scalars.shape[-1] - 1).bit_length()
+        msm_sizes[L] = msm_sizes.get(L, 0) + 1
+        return msm(P, scalars, bits)
+    g1.msm = sized
     kprof = profiling.PROFILER = profiling.Profiler()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -729,9 +1023,11 @@ def g1_kzg_phase(dev, gen, dory_setup, pcs_guest, onehot_positions,
         k1 = sum(kernels.k1_launches().values())
         k2 = kernels.product_round.launches
         scheme_mod.HyperKZGScheme.commit = commit
+        g1.msm = msm
         profiling.PROFILER = profiling.Profiler(enabled=False)
     kpeak = torch.cuda.max_memory_allocated(dev)
-    check(all(k3.values()) and k1 and k2,
+    path_forms = ("add", "scalar_mul", "bucket_sum", "bucket_reduce")
+    check(all(k3[f] for f in path_forms) and k1 and k2,
           f"the KZG prove launched K1 {k1}, K2 {k2}, K3 {k3}")
     check(type(kproof.opening_proofs["joint"]).__name__ == "HyperKZGProof",
           "the KZG proof carries no HyperKZG opening")
@@ -739,7 +1035,7 @@ def g1_kzg_phase(dev, gen, dory_setup, pcs_guest, onehot_positions,
     check(verify(kproof, PublicIO.from_trace(kt), setup=kzg) is True,
           "verify rejected the KZG proof")
     t_kverify = time.perf_counter() - t0
-    name, coeffs, com = dense[0]
+    name, coeffs, com = dense_c[0]
     hp = g1.unpack_points(tuple(c[:, :len(coeffs)]
                                 for c in kzg.g1_powers_dev))
     check(com == host.g1_msm_pippenger(hp, coeffs),
@@ -747,38 +1043,24 @@ def g1_kzg_phase(dev, gen, dory_setup, pcs_guest, onehot_positions,
     spans = {k: kprof.total(k) for k in ("kzg.commit", "kzg.open.folds",
                                          "kzg.open.evals",
                                          "kzg.open.quotients")}
-    by_stage = {k: v["k3"] for k, v in kl.items() if any(v["k3"].values())}
+    by_stage = {k: {f: c for f, c in v["k3"].items() if c}
+                for k, v in kl.items() if any(v["k3"].values())}
     print(f"[kzg] prove(sha2-chain chain=1: {kt.length} cycles, padded "
           f"{kt.padded_length}; setup 2^{KZG_LOG_N}) {t_kprove:.3f}s: "
           + ", ".join(f"{k} {v:.3f}s" for k, v in ks_s.items())
           + f"; peak allocated {kpeak / 2**30:.3f} GiB; K1 {k1}, K2 {k2}, "
-          f"K3 {k3}; verify(setup) {t_kverify:.3f}s; dense commitment "
-          f"{name} ({len(coeffs)} coefficients) == the host MSM",
-          flush=True)
+          f"K3 {k3} ({sum(k3.values())}); verify(setup) {t_kverify:.3f}s; "
+          f"dense commitment {name} ({len(coeffs)} coefficients) == the "
+          "host MSM", flush=True)
+    print(f"[kzg] the prove's MSMs by lane count (ceil log2: calls): "
+          f"{dict(sorted(msm_sizes.items()))}", flush=True)
     print(f"[kzg] K3 launches by stage: {by_stage}; spans (s): "
           + ", ".join(f"{k} {v:.3f}" for k, v in spans.items()), flush=True)
-    # one full-width 2^20 commit, timed, and its peak memory
-    rng = random.Random(SEED + 1)
-    full = [rng.randrange(R) for _ in range(1 << KZG_LOG_N)]
-    from jolt_tpu_torch.pcs.hyperkzg import HyperKZG
-    hk = HyperKZG(kzg)
-    hk.commit_ints(full[:1024])
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    c_full = hk.commit_ints(full)
-    t_commit = time.perf_counter() - t0
-    cpeak = torch.cuda.max_memory_allocated(dev)
-    c_launch = kernels.k3_launches()
-    check(c_full is not None and host.g1_is_on_curve(c_full),
-          "the full-width commitment is not a curve point")
-    print(f"[kzg] one full-width 2^{KZG_LOG_N} commit {t_commit:.3f}s "
-          f"(digits on the host, Pippenger on the card: K3 {c_launch}), "
-          f"peak allocated {cpeak / 2**30:.3f} GiB", flush=True)
-    del kproof, hp, full
+    for f in kernels.K3_FORMS:
+        forms[f]["launches"] = k3[f]
+    del kproof, hp
 
-    # (d) card == CPU with a 2^13 KZG setup on the PCS guest
+    # (e) card == CPU with a 2^13 KZG setup on the PCS guest
     kzg13 = KZGSetup.generate(1 << 13, device=dev, cache_dir=srs_dir)
     n_pcs = card_vs_cpu(pcs_guest, "the PCS guest with a 2^13 KZG setup",
                         setup=kzg13)
@@ -786,8 +1068,11 @@ def g1_kzg_phase(dev, gen, dory_setup, pcs_guest, onehot_positions,
           f"with a 2^13 KZG setup: identical proof bytes ({n_pcs} B) and FS "
           "tape; verified", flush=True)
 
-    # (e) Dory's device one-hot tier at the main path's size (tier 1)
+    # (f) Dory's device one-hot tier at the main path's size (tier 1)
     dory = Dory(dory_setup, dev)
+    t0 = time.perf_counter()
+    dory._gamma1_dev()
+    t_pack = time.perf_counter() - t0
     kernels.reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -795,7 +1080,7 @@ def g1_kzg_phase(dev, gen, dory_setup, pcs_guest, onehot_positions,
     dev_rows = dory.onehot_rows(onehot_positions, device_tier=True)
     t_scan = time.perf_counter() - t0
     speak = torch.cuda.max_memory_allocated(dev)
-    s_launch = kernels.k3_launches()
+    s_launch = {f: k for f, k in kernels.k3_launches().items() if k}
     t0 = time.perf_counter()
     nat_rows = dory.onehot_rows(onehot_positions, device_tier=False)
     t_native = time.perf_counter() - t0
@@ -806,25 +1091,36 @@ def g1_kzg_phase(dev, gen, dory_setup, pcs_guest, onehot_positions,
     print(f"[g1] Dory's device one-hot tier at 2^18: "
           f"{len(onehot_positions)} matrices, {lanes} lanes, {n_rows} row "
           f"sums == native_pairing.g1_segment_sums point for point; device "
-          f"tier {t_scan:.3f}s (gather, segmented scan, {s_launch['add']} K3 "
-          f"adds, unpack; peak allocated {speak / 2**30:.3f} GiB), native "
-          f"{t_native:.3f}s", flush=True)
+          f"tier {t_scan:.3f}s (bucket_sum over the rows: K3 {s_launch}, "
+          f"the unpack; peak allocated {speak / 2**30:.3f} GiB; the "
+          f"segmented scan before: 1.250 s with the pack), native "
+          f"{t_native:.3f}s; Gamma1's pack to the card before {t_pack:.3f}s",
+          flush=True)
     print(f"[g1] phase 8b {time.perf_counter() - t_phase:.1f}s", flush=True)
+    head = forms["bucket_sum"]
     entry = {
         "name": "g1", "route": "cuda",
         "source": "jolt_tpu_torch/csrc/g1.cu",
         "replaces": "jolt_tpu/curve/g1.py (jnp)",
         "launches": sum(k3.values()), "max_abs_err": err,
-        "ms": forms["add"]["ms"], "plain_ms": forms["add"]["plain_ms"],
-        "bound_ms": forms["add"]["bound_ms"],
-        "bound_by": forms["add"]["bound_by"], "library_ms": None,
-        "form": "add", "shape": [[8, n]] * 6, "forms": forms,
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None, "form": "bucket_sum",
+        "shape": [[8, n]] * 3 + [[entries]], "forms": forms,
         "launches_by_form": k3, "launches_by_stage": by_stage,
+        "setup_launches": setup_launches, "msm_c_sweep": sweep,
         "kzg_setup_s": t_kzg, "kzg_prove_s": t_kprove,
         "kzg_stage_s": ks_s, "kzg_spans_s": spans,
-        "kzg_peak_gib": kpeak / 2**30, "kzg_commit_s": t_commit,
-        "kzg_commit_peak_gib": cpeak / 2**30, "onehot_device_s": t_scan,
-        "onehot_native_s": t_native}
+        "kzg_peak_gib": kpeak / 2**30,
+        "commit_2_20_device_words_ms": t_dev * 1e3,
+        "commit_2_20_python_ints_s": t_ints,
+        "commit_2_20_peak_gib": peak_ints / 2**30,
+        "commit_2_22_ms": t22 * 1e3, "commit_2_22_peak_gib": peak22 / 2**30,
+        "onehot_pack_s": t_pack, "kzg_msm_lanes": msm_sizes,
+        "commit_2_22_one_window_ms": t22_1 * 1e3,
+        "commit_2_22_one_window_peak_gib": peak22_1 / 2**30,
+        "msm_bound_ms_2_20": b20[0], "msm_bound_ms_2_22": b22[0],
+        "onehot_device_s": t_scan, "onehot_native_s": t_native}
     return entry
 
 
@@ -899,8 +1195,12 @@ def main():
     k1_spills = spill_bytes(reports["K1"])
     k2_spills = spill_bytes(reports["K2"])
     k3_spills = spill_bytes(reports["K3"])
+    k3_stack = stack_bytes(reports["K3"])
     print(f"[build] spill bytes (stores + loads, all kernels): K1 "
-          f"{k1_spills}, K2 {k2_spills}, K3 {k3_spills}", flush=True)
+          f"{k1_spills}, K2 {k2_spills}, K3 {k3_spills}; K3's largest "
+          f"stack frame {k3_stack} bytes", flush=True)
+    check(k3_spills == 0 and k3_stack == 0,
+          f"K3 spills {k3_spills} bytes or has a {k3_stack}-byte stack frame")
     # the main path's setup: 2^26 = 256 x 2^18, the largest committed
     # polynomial of the 2^18 trace
     t0 = time.perf_counter()
@@ -1564,6 +1864,7 @@ def main():
     # ---- 8b. K3, HyperKZG end to end, Dory's device one-hot tier ---------
     g1_entry = g1_kzg_phase(dev, gen, setup, small, onehot_positions,
                             card_vs_cpu)
+    g1_entry.update(spill_bytes=k3_spills, stack_bytes=k3_stack)
 
     # ---- 9. results -------------------------------------------------------
     print(f"[total] {time.perf_counter() - t_start:.1f}s", flush=True)

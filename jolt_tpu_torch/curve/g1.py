@@ -3,22 +3,29 @@
 The port's counterpart of the JAX package's `curve/g1.py`, with its names.
 A batch of N points is three Fq limb tensors (X, Y, Z), each (8, N) int32
 in the port's layout (`field/fq.py`: 8 x 32-bit limbs, Montgomery
-R = 2^256); Z == 0 encodes infinity.
+R = 2^256); Z == 0 encodes infinity.  An affine batch has Z = R mod q
+(Montgomery one) or Z = 0, and X = Y = 0 at infinity.
 
-  * `jacobian_add`, `jacobian_double`, `batch_scalar_mul` are K3's
-    wrappers (``csrc/g1.cu``): on CUDA tensors each launches K3's form
-    ("add", "double", "scalar_mul") once or raises; on CPU tensors each
-    runs its plain version (`*_plain`, the same formulas on `field/fq.py`'s
-    plain Fq).  The card's limbs equal the plain versions' bit for bit.
+  * K3's wrappers (``csrc/g1.cu``), one a form: `jacobian_add`,
+    `jacobian_double`, `batch_scalar_mul` (the JAX package's names),
+    `normalize` (Jacobian -> affine), `bucket_sum` (segment sums of affine
+    bases: mixed adds, then the partials' adds, level by level) and
+    `bucket_reduce` (Pippenger's sum_w 2^(c w) sum_k k B_{w,k} in one
+    launch).  On CUDA tensors each launches K3 or raises; on CPU tensors
+    each runs its plain version (`*_plain`: the same formulas on
+    `field/fq.py`'s plain Fq, the same additions in the same order).  The
+    card's limbs equal the plain versions' bit for bit.
   * Around them, as in the JAX package: `tree_sum` (halvings, each one K3
     launch over the two halves of one tensor), `mask_points`,
     `segmented_scan_points` (a log-step inclusive scan), `msm_binary`,
-    `msm_u8`, `msm` (the JAX package's dispatch) and `msm_pippenger`.
+    `msm_u8`, `msm` (the JAX package's dispatch) and `msm_pippenger`
+    (digits, a stable sort and the bucket offsets by torch on the points'
+    device, then `bucket_sum` and `bucket_reduce`).
   * `pack_points` / `unpack_points`: affine host points <-> a batch.
 
-Formulas (a = 0 curve): dbl-2009-l and add-2007-bl; an add at infinity
-returns the other operand, an add of equal points doubles, an add of
-opposite points gives (0, 0, 0) -- the JAX package's select order.
+Formulas (a = 0 curve): dbl-2009-l, add-2007-bl and madd-2007-bl; an add
+at infinity returns the other operand, an add of equal points doubles, an
+add of opposite points gives (0, 0, 0) -- the JAX package's select order.
 """
 
 from __future__ import annotations
@@ -100,19 +107,85 @@ def jacobian_add_plain(P: Point3, Q: Point3) -> Point3:
     X3 = _sub(_sub(rr2, J), _dbl(V))
     Y3a, S1J = _muls((rr, _sub(V, X3)), (S1, J))
     Y3 = _sub(Y3a, _dbl(S1J))
+    return _edges(P, Q, (X3, Y3, Z3), H, rr)
 
-    p_inf, q_inf = fq.is_zero(Z1), fq.is_zero(Z2)
+
+def _edges(P: Point3, Q: Point3, out: Point3, H, rr) -> Point3:
+    """The add's edge cases over its generic result `out`: same x (H = 0)
+    -> double(P) if same y (rr = 0), else (0, 0, 0); then P at infinity ->
+    Q, Q at infinity -> P."""
+    p_inf, q_inf = fq.is_zero(P[2]), fq.is_zero(Q[2])
     same_x, same_y = fq.is_zero(H), fq.is_zero(rr)
-    out = [X3, Y3, Z3]
+    out = list(out)
     if bool(same_x.any()):
         D3 = (jacobian_double_plain(P) if bool((same_x & same_y).any())
-              else (torch.zeros_like(X3),) * 3)
+              else (torch.zeros_like(out[0]),) * 3)
         # same x: double if same y, else (0, 0, 0)
         out = [fq.select(same_x, fq.select(same_y, d, torch.zeros_like(d)),
                          o) for o, d in zip(out, D3)]
     # then the infinities
     return tuple(fq.select(p_inf, q, fq.select(q_inf, p, o))
                  for o, p, q in zip(out, P, Q))
+
+
+def _one_like(a: torch.Tensor) -> torch.Tensor:
+    """Montgomery one (R mod q) as (8, 1) limbs on `a`'s device."""
+    return fq.pack_ints([1], a.device)
+
+
+def affine_bases(P: Point3) -> Point3:
+    """An affine batch as `bucket_sum` reads it: (X, Y, R) where Z != 0,
+    (0, 0, 0) where Z = 0 (its X and Y dropped)."""
+    inf = fq.is_zero(P[2])
+    zero = torch.zeros_like(P[0])
+    one = _one_like(P[0]).expand_as(P[0])
+    return (fq.select(inf, zero, P[0]), fq.select(inf, zero, P[1]),
+            fq.select(inf, zero, one))
+
+
+def jacobian_madd_plain(P: Point3, Q: Point3) -> Point3:
+    """P + Q for an affine Q (`affine_bases`: Z2 = R, or (0, 0, 0) at
+    infinity): madd-2007-bl, Z1Z1 = Z1^2, U2 = X2 Z1Z1, S2 = Y2 Z1 Z1Z1,
+    H = U2 - X1, rr = 2 (S2 - Y1), HH = H^2, I = 4 HH, J = H I, V = X1 I,
+    X3 = rr^2 - J - 2V, Y3 = rr (V - X3) - 2 Y1 J,
+    Z3 = (Z1 + H)^2 - Z1Z1 - HH (7M + 4S), with `jacobian_add_plain`'s
+    edge handling.  Each coordinate equals `jacobian_add_plain(P, Q)`'s."""
+    both = torch.broadcast_tensors(*P, *Q)
+    P, Q = tuple(both[:3]), tuple(both[3:])
+    X1, Y1, Z1 = P
+    X2, Y2, _ = Q
+    Z1Z1, Y2Z1 = _muls((Z1, Z1), (Y2, Z1))
+    U2, S2 = _muls((X2, Z1Z1), (Y2Z1, Z1Z1))
+    H = _sub(U2, X1)
+    rr = _dbl(_sub(S2, Y1))
+    ZH = _add(Z1, H)
+    HH, rr2, ZH2 = _muls((H, H), (rr, rr), (ZH, ZH))
+    I = _dbl(_dbl(HH))
+    J, V = _muls((H, I), (X1, I))
+    X3 = _sub(_sub(_sub(rr2, J), V), V)
+    Y3a, Y1J = _muls((rr, _sub(V, X3)), (Y1, J))
+    Y3 = _sub(Y3a, _dbl(Y1J))
+    Z3 = _sub(_sub(ZH2, Z1Z1), HH)
+    return _edges(P, Q, (X3, Y3, Z3), H, rr)
+
+
+_Q_MINUS_2 = fq.Q - 2
+
+
+def normalize_plain(P: Point3) -> Point3:
+    """Jacobian -> affine per lane: (X Z^-2, Y Z^-3, R), infinity ->
+    (0, 0, 0); Z^-1 = Z^(q-2), square-and-multiply from the exponent's
+    top bit down (K3's chain)."""
+    X, Y, Z = torch.broadcast_tensors(*P)
+    inv = Z
+    for k in range(_Q_MINUS_2.bit_length() - 2, -1, -1):
+        inv = fq.mont_mul_plain(inv, inv)
+        if (_Q_MINUS_2 >> k) & 1:
+            inv = fq.mont_mul_plain(inv, Z)
+    (t,) = _muls((inv, inv))
+    x, t3 = _muls((X, t), (t, inv))
+    (y,) = _muls((Y, t3))
+    return affine_bases((x, y, Z))
 
 
 def mask_points(P: Point3, mask: torch.Tensor) -> Point3:
@@ -141,7 +214,7 @@ def batch_scalar_mul_plain(P: Point3, scalar_words: torch.Tensor,
 # K3: the G1 kernel (csrc/g1.cu)
 # ---------------------------------------------------------------------------
 
-_FORM = {"add": 0, "double": 1, "scalar_mul": 2}
+_FORM = {"add": 0, "double": 1, "scalar_mul": 2, "normalize": 3}
 
 
 class _Pt(ctypes.Structure):
@@ -158,12 +231,41 @@ class _G1Launch(ctypes.Structure):
                 ("oz", ctypes.c_uint64)]
 
 
+class _BucketLaunch(ctypes.Structure):
+    _fields_ = [("bases", ctypes.c_uint64), ("lanes", ctypes.c_uint64),
+                ("px", ctypes.c_uint64), ("py", ctypes.c_uint64),
+                ("pz", ctypes.c_uint64), ("m", ctypes.c_int64),
+                ("beg", ctypes.c_uint64), ("end", ctypes.c_uint64),
+                ("n", ctypes.c_int64), ("ox", ctypes.c_uint64),
+                ("oy", ctypes.c_uint64), ("oz", ctypes.c_uint64)]
+
+
+class _ReduceLaunch(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_uint64) for f in
+                ("bx", "by", "bz", "wx", "wy", "wz", "ox", "oy", "oz",
+                 "counter")] + [(f, ctypes.c_int32) for f in
+                                ("n_win", "c", "m", "log_s")]
+
+
 def _lib() -> ctypes.CDLL:
     lib = kernels._load("K3")
-    if lib.jolt_k3_launch_size() != ctypes.sizeof(_G1Launch):
-        raise RuntimeError("K3: the launch record's layout differs between "
+    if lib.jolt_k3_launch_size() != ctypes.sizeof(_G1Launch) or \
+            lib.jolt_k3_bucket_sizes() != 1000 * ctypes.sizeof(
+                _BucketLaunch) + ctypes.sizeof(_ReduceLaunch):
+        raise RuntimeError("K3: a launch record's layout differs between "
                            "csrc/g1.cu and curve/g1.py")
     return lib
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _done(form: str, rc: int) -> None:
+    """Raise on a failed launch; count a good one."""
+    if rc != 0:
+        raise RuntimeError(f"{form}: K3 launch failed, CUDA error {rc}")
+    kernels.k3_counts[form] += 1
 
 
 def _check(form: str, *pts) -> torch.device:
@@ -224,11 +326,7 @@ def _launch(form: str, batch, a: Point3, b: Optional[Point3] = None,
     L.ox, L.oy, L.oz = (o.data_ptr() for o in outs)
     lib = _lib()
     with torch.cuda.device(dev):
-        rc = lib.jolt_k3(ctypes.byref(L),
-                         torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{form}: K3 launch failed, CUDA error {rc}")
-    kernels.k3_counts[form] += 1
+        _done(form, lib.jolt_k3(ctypes.byref(L), _stream(dev)))
     return outs
 
 
@@ -276,6 +374,279 @@ def batch_scalar_mul(P: Point3, scalar_words: torch.Tensor,
                          f"{tuple(scalar_words.shape)}")
     words = scalar_words.to(_I32).contiguous()
     return _launch("scalar_mul", batch, P, words=words, bits=bits)
+
+
+def normalize(P: Point3) -> Point3:
+    """Jacobian -> affine per lane, (X Z^-2, Y Z^-3, R), infinity ->
+    (0, 0, 0): K3's "normalize" form on CUDA tensors, `normalize_plain` on
+    CPU tensors."""
+    dev = _check("normalize", P)
+    if dev.type == "cpu":
+        return normalize_plain(P)
+    batch = torch.broadcast_shapes(*(c.shape for c in P))[1:]
+    return _launch("normalize", batch, P)
+
+
+# ---------------------------------------------------------------------------
+# bucket sums: segments of affine bases, one level of chunks at a time
+#
+# Segment s is the bases at lanes[starts[s]:ends[s]].  Level 0 cuts each
+# segment into chunks of at most _CHUNK0 entries and sums each chunk from
+# infinity, left to right, with mixed adds; each later level cuts each
+# segment's partials (contiguous, in segment order) into chunks of at most
+# _CHUNK and sums those with generic adds, until every segment has one.  A
+# thread's work is one chunk, whatever the segments' lengths: a segment
+# holding every lane (equal scalars, a hot Dory row) is as fast as many
+# short ones.  The chunk tables are torch plumbing on the lanes' device;
+# the plain version and K3 sum the same chunks.
+# ---------------------------------------------------------------------------
+
+_CHUNK0 = 32
+_CHUNK = 8
+
+
+def _chunk_table(starts: torch.Tensor, counts: torch.Tensor, size: int):
+    """Each segment's [start, start + count) cut into chunks of `size`:
+    (beg, end) int64 per chunk in segment order, the chunks a segment, and
+    the most any segment has (one sync)."""
+    dev = starts.device
+    nch = (counts + size - 1) // size
+    total, longest = (int(v) for v in torch.stack([nch.sum(), nch.max()])
+                      .tolist())
+    seg = torch.repeat_interleave(torch.arange(nch.numel(), device=dev), nch,
+                                  output_size=total)
+    first = torch.cumsum(nch, 0) - nch
+    beg = starts[seg] + (torch.arange(total, device=dev) - first[seg]) * size
+    end = torch.minimum(beg + size, (starts + counts)[seg])
+    return beg, end, nch, longest
+
+
+def bucket_levels(starts: torch.Tensor, counts: torch.Tensor):
+    """The chunk tables of every level of a bucket sum over segments
+    [start, start + count): level 0's chunks of <= _CHUNK0 lanes, then
+    levels of <= _CHUNK partials until one partial is left a segment, as
+    (beg, end) pairs (one host sync a level; [] when every segment is
+    empty).  All of them are made before the first launch, so the levels'
+    launches follow each other with no sync between."""
+    beg, end, nch, longest = _chunk_table(starts, counts, _CHUNK0)
+    if beg.numel() == 0:
+        return []
+    levels = [(beg, end)]
+    while longest > 1:
+        beg, end, nch, longest = _chunk_table(torch.cumsum(nch, 0) - nch,
+                                              nch, _CHUNK)
+        levels.append((beg, end))
+    return levels
+
+
+def _base_rows(P: Point3) -> torch.Tensor:
+    """An affine batch point-major, as K3's level 0 gathers it: (N, 16)
+    int32, X's then Y's 8 words a row, (0, 0) at infinity (64 bytes a
+    lane and no other buffer of N points)."""
+    X, Y, Z = P
+    rows = torch.empty((X.shape[-1], 2 * N_LIMBS), dtype=_I32,
+                       device=X.device)
+    rows[:, :N_LIMBS] = X.t()
+    rows[:, N_LIMBS:] = Y.t()
+    rows.masked_fill_(fq.is_zero(Z)[:, None], 0)
+    return rows
+
+
+def _bucket_source(P: Point3, plain: bool):
+    """The bases as a level-0 sum reads them: `affine_bases` for the
+    plain version, `_base_rows` for K3."""
+    return affine_bases(P) if plain else _base_rows(P)
+
+
+def _sum_level_k3(src, affine: bool, lanes, beg, end) -> Point3:
+    """One level on K3 (one launch): `src` the base rows (level 0) or the
+    level before's partials."""
+    dev = beg.device
+    n = beg.numel()
+    outs = tuple(torch.empty((N_LIMBS, n), dtype=_I32, device=dev)
+                 for _ in range(3))
+    L = _BucketLaunch()
+    if affine:
+        L.bases, L.lanes = src.data_ptr(), lanes.data_ptr()
+    else:
+        src = tuple(c.contiguous() for c in src)
+        L.px, L.py, L.pz = (c.data_ptr() for c in src)
+        L.m = src[0].shape[1]
+    L.beg, L.end, L.n = beg.data_ptr(), end.data_ptr(), n
+    L.ox, L.oy, L.oz = (o.data_ptr() for o in outs)
+    with torch.cuda.device(dev):
+        _done("bucket_sum", _lib().jolt_k3_bucket_sum(
+            ctypes.byref(L), int(affine), _stream(dev)))
+    return outs
+
+
+def _sum_level_plain(src, affine: bool, lanes, beg, end) -> Point3:
+    """One level in plain Fq: step i adds each chunk's i-th entry where
+    the chunk has one (mixed adds of `affine_bases` at level 0)."""
+    acc = tuple(torch.zeros((N_LIMBS, beg.numel()), dtype=_I32,
+                            device=beg.device) for _ in range(3))
+    for i in range(int((end - beg).max())):
+        pos = beg + i
+        live = pos < end
+        idx = torch.where(live, pos, torch.zeros_like(pos))
+        if affine:
+            take = lanes.index_select(0, idx).long()
+            new = jacobian_madd_plain(acc, tuple(c.index_select(1, take)
+                                                 for c in src))
+        else:
+            new = jacobian_add_plain(acc, tuple(c.index_select(1, idx)
+                                                for c in src))
+        acc = tuple(fq.select(live, a, b) for a, b in zip(new, acc))
+    return acc
+
+
+def _bucket_sum(src, lanes, starts, ends, plain: bool) -> Point3:
+    """`bucket_sum` over the bases as `_bucket_source` gave them."""
+    dev = lanes.device
+    starts = starts.to(dev, torch.int64).reshape(-1)
+    if ends is None:
+        starts, ends = starts[:-1], starts[1:]
+    counts = (ends.to(dev, torch.int64).reshape(-1) - starts).clamp_min(0)
+    out = tuple(torch.zeros((N_LIMBS, starts.numel()), dtype=_I32,
+                            device=dev) for _ in range(3))
+    if starts.numel() == 0:
+        return out
+    lanes = lanes.to(dev, _I32).contiguous()
+    levels = bucket_levels(starts, counts)
+    if not levels:
+        return out
+    level = _sum_level_plain if plain else _sum_level_k3
+    parts = level(src, True, lanes, *levels[0])
+    for beg, end in levels[1:]:
+        parts = level(parts, False, None, beg, end)
+    live = torch.nonzero(counts > 0).squeeze(1)
+    for o, p in zip(out, parts):
+        o.index_copy_(1, live, p)
+    return out
+
+
+def bucket_sum_plain(P: Point3, lanes: torch.Tensor, starts: torch.Tensor,
+                     ends: Optional[torch.Tensor] = None) -> Point3:
+    """`bucket_sum` in plain Fq on any device: the same chunks, the same
+    additions in the same order."""
+    return _bucket_sum(affine_bases(P), lanes.to(P[0].device), starts,
+                       ends, plain=True)
+
+
+def bucket_sum(P: Point3, lanes: torch.Tensor, starts: torch.Tensor,
+               ends: Optional[torch.Tensor] = None) -> Point3:
+    """Segment sums of the affine bases P (`affine_bases`: Z = R, or Z = 0
+    for infinity): segment s is the bases at lanes[starts[s]:ends[s]] (with
+    `ends` None, `starts` holds CSR offsets, n_seg + 1 of them) -> (8,
+    n_seg) Jacobian points, (0, 0, 0) for an empty segment.  K3's
+    "bucket_sum" form (one launch a level) on CUDA tensors, the plain
+    version on CPU tensors."""
+    dev = _check("bucket_sum", P)
+    if P[0].dim() != 2:
+        raise ValueError(f"bucket_sum: bases {tuple(P[0].shape)} (want "
+                         "(8, N))")
+    plain = dev.type == "cpu"
+    return _bucket_sum(_bucket_source(P, plain), lanes.to(dev), starts,
+                       ends, plain)
+
+
+# the most bucket-reduce threads a window (`kReduceThreads`, csrc/g1.cu)
+_REDUCE_THREADS = 256
+
+
+def _reduce_shape(c: int) -> Tuple[int, int]:
+    """Threads a window m and log2 of the buckets a thread s."""
+    m = min(1 << c, _REDUCE_THREADS)
+    return m, c - (m.bit_length() - 1)
+
+
+def bucket_reduce_plain(B: Point3, c: int) -> Point3:
+    """sum_w 2^(c w) sum_k k B_{w,k} over (8, n_win 2^c) bucket sums ->
+    (8, 1), K3's steps (csrc/g1.cu `k3_bucket_reduce`) vectorized over
+    the windows' threads: each thread's running sums over its s buckets
+    from the top down (S_i, T_i), the suffix scan G_i, the tree sums U of
+    G_1.. and V of T, W_w = V + s U, then Horner over the windows."""
+    n_win = B[0].shape[-1] >> c
+    m, log_s = _reduce_shape(c)
+    s = 1 << log_s
+    Bv = tuple(x.reshape(N_LIMBS, n_win, m, s) for x in B)
+    run = tot = _infinity((n_win, m), B[0].device)
+    for k in range(s - 1, 0, -1):
+        run = jacobian_add_plain(run, tuple(x[..., k] for x in Bv))
+        tot = jacobian_add_plain(tot, run)
+    G = jacobian_add_plain(run, tuple(x[..., 0] for x in Bv))
+    d = 1
+    while d < m:
+        head = jacobian_add_plain(tuple(g[..., :m - d] for g in G),
+                                  tuple(g[..., d:] for g in G))
+        G = tuple(torch.cat([a, g[..., m - d:]], -1)
+                  for a, g in zip(head, G))
+        d *= 2
+    G = tuple(torch.cat([torch.zeros_like(g[..., :1]), g[..., 1:]], -1)
+              for g in G)
+    h = m // 2
+    while h >= 1:
+        G = jacobian_add_plain(tuple(g[..., :h] for g in G),
+                               tuple(g[..., h:2 * h] for g in G))
+        tot = jacobian_add_plain(tuple(t[..., :h] for t in tot),
+                                 tuple(t[..., h:2 * h] for t in tot))
+        h //= 2
+    U = tuple(g[..., 0] for g in G)
+    for _ in range(log_s):
+        U = jacobian_double_plain(U)
+    W = jacobian_add_plain(tuple(t[..., 0] for t in tot), U)
+    acc = tuple(x[:, n_win - 1:] for x in W)
+    for w in range(n_win - 2, -1, -1):
+        for _ in range(c):
+            acc = jacobian_double_plain(acc)
+        acc = jacobian_add_plain(acc, tuple(x[:, w:w + 1] for x in W))
+    return acc
+
+
+def bucket_reduce(B: Point3, c: int) -> Point3:
+    """sum_w 2^(c w) sum_k k B_{w,k} from Pippenger's bucket sums B,
+    (8, n_win 2^c) Jacobian (window-major) -> (8, 1): K3's
+    "bucket_reduce" form (one launch: a block a window, the last block
+    combines) on CUDA tensors, `bucket_reduce_plain` on CPU tensors."""
+    dev = _check("bucket_reduce", B)
+    nb = B[0].shape[-1]
+    n_win = nb >> c
+    if B[0].dim() != 2 or n_win < 1 or n_win << c != nb or not 1 <= c <= 24:
+        raise ValueError(f"bucket_reduce: buckets {tuple(B[0].shape)} at "
+                         f"c = {c}")
+    if dev.type == "cpu":
+        return bucket_reduce_plain(B, c)
+    B = tuple(x.contiguous() for x in B)
+    work = reduce_buffers(n_win, dev)
+    _reduce_k3(B, c, *work)
+    return work[1]
+
+
+def reduce_buffers(n_win: int, dev) -> Tuple[Point3, Point3, torch.Tensor]:
+    """K3 bucket_reduce's buffers: the windows' sums W (8, n_win), the
+    result (8, 1) and the last block's ticket counter (zeroed)."""
+    W = tuple(torch.empty((N_LIMBS, n_win), dtype=_I32, device=dev)
+              for _ in range(3))
+    out = tuple(torch.empty((N_LIMBS, 1), dtype=_I32, device=dev)
+                for _ in range(3))
+    return W, out, torch.zeros(1, dtype=_I32, device=dev)
+
+
+def _reduce_k3(B: Point3, c: int, W: Point3, out: Point3,
+               counter: torch.Tensor) -> None:
+    """The bucket_reduce launch alone, over contiguous buckets B and the
+    buffers of `reduce_buffers` (its counter zeroed)."""
+    dev = B[0].device
+    m, log_s = _reduce_shape(c)
+    L = _ReduceLaunch()
+    L.bx, L.by, L.bz = (x.data_ptr() for x in B)
+    L.wx, L.wy, L.wz = (x.data_ptr() for x in W)
+    L.ox, L.oy, L.oz = (x.data_ptr() for x in out)
+    L.counter = counter.data_ptr()
+    L.n_win, L.c, L.m, L.log_s = W[0].shape[1], c, m, log_s
+    with torch.cuda.device(dev):
+        _done("bucket_reduce", _lib().jolt_k3_bucket_reduce(
+            ctypes.byref(L), _stream(dev)))
 
 
 # ---------------------------------------------------------------------------
@@ -347,10 +718,10 @@ def msm_u8(P: Point3, scalars: torch.Tensor) -> Point3:
 
 def msm(P: Point3, scalars, bits: int) -> Point3:
     """MSM with `bits`-bit scalars: (N,) or (W, N) little-endian u32 words
-    (a tensor on the points' device, or a numpy array for Pippenger's host
-    digits).  The JAX package's dispatch: binary scalars take the subset
-    sum, full-width ones from 512 lanes Pippenger, the rest per-lane
-    double-and-add and one tree sum."""
+    (a tensor, or a numpy array, uploaded once to the points' device).
+    The JAX package's dispatch: binary scalars take the subset
+    sum, full-width ones from 512 lanes Pippenger (whose bases must be
+    affine), the rest per-lane double-and-add and one tree sum."""
     if scalars.ndim == 1:
         scalars = scalars[None, :]
     if bits == 1:
@@ -369,127 +740,98 @@ def _on(words, P: Point3) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Pippenger (windowed bucket) MSM
-#
-# The host computes each window's digits and bucket layout (numpy); the
-# card gathers the window's points into a (stride, buckets) grid and
-# tree-reduces the stride axis (each halving one K3 add over the grid's two
-# halves); bucket reconstruction (running suffix sums) runs vectorized
-# over the windows, then the window combine.  Windows are reduced one
-# after the other, each with its own power-of-two stride over only its
-# non-empty buckets: the JAX package's one grid at a common stride would
-# hold 32 x 256 x 32,768 points (24 GiB) at 2^20 uniform scalars, since
-# the top window's 49 digits hold ~21,400 points each.
+# Pippenger (windowed bucket) MSM, on the points' device from the scalar
+# words to the final point: each window's c-bit digits by shifts and masks,
+# a stable sort of (window, digit) keys and the buckets' offsets (torch
+# plumbing), the buckets by `bucket_sum` (segments = (window, digit), digit
+# 0 left empty), then `bucket_reduce`.  Windows are sorted together as far
+# as _MSM_ENTRIES (lane, window) entries go, so the memory beyond the bases
+# is O(N): the bases' point-major copy (64 bytes a lane) and ~30 bytes an
+# entry of a window batch (digits, keys, the sort's values and
+# permutation, the lane list).
 # ---------------------------------------------------------------------------
 
-def _digits(words: np.ndarray, bits: int, c: int) -> List[np.ndarray]:
-    """Each c-bit window's digits of the (W, N) little-endian u32 words."""
-    digs = []
-    for w in range((bits + c - 1) // c):
-        lo_bit = w * c
-        word_i, off = lo_bit // 32, lo_bit % 32
-        dig = words[word_i].astype(np.uint64) >> np.uint64(off)
-        if off + c > 32 and word_i + 1 < words.shape[0]:
-            dig |= words[word_i + 1].astype(np.uint64) << np.uint64(32 - off)
-        digs.append((dig & np.uint64((1 << c) - 1)).astype(np.int64))
-    return digs
+_MSM_ENTRIES = 1 << 25
 
 
-def _window_layout(dig: np.ndarray, c: int):
-    """One window's grid: (slot_map (S, B), buckets (B,)) -- the B
-    non-empty nonzero buckets, each a column of S = a power of two >= its
-    largest count, slot (s, j) the lane of bucket j's s-th point, or N (the
-    appended infinity lane).  None when every digit is 0."""
-    n = dig.shape[0]
-    # a stable sort of 8-bit keys is numpy's radix sort
-    order = np.argsort(dig.astype(np.uint8) if c <= 8 else dig,
-                       kind="stable")
-    full = np.bincount(dig, minlength=1 << c)
-    starts = np.concatenate([[0], np.cumsum(full)])
-    counts = full.copy()
-    counts[0] = 0
-    buckets = np.nonzero(counts)[0]
-    if len(buckets) == 0:
-        return None
-    S = 1
-    while S < counts.max():
-        S *= 2
-    col = np.zeros(1 << c, dtype=np.int64)
-    col[buckets] = np.arange(len(buckets))
-    sorted_d = dig[order]
-    live = sorted_d != 0
-    lanes, d = order[live], sorted_d[live]
-    slot = np.arange(n)[live] - starts[d]
-    slot_map = np.full((S, len(buckets)), n, dtype=np.int64)
-    slot_map[slot, col[d]] = lanes
-    return slot_map, buckets
+# (ceil log2 N from which, c): the fastest window width of the whole MSM
+# from device words at 2^9 .. 2^22 lanes and c = 4 .. 16, timed by CUDA
+# events on an H100 (`chip_smoke.py` phase 8b's sweep, PERF.md section 6);
+# below 2^9 lanes as at 2^9, above 2^22 as at 2^22 (not measured there)
+_WINDOW_BITS = ((22, 15), (21, 13), (20, 12), (17, 10), (0, 8))
 
 
-def _gather_grid(P: Point3, slot_map: np.ndarray) -> Point3:
-    """The points at `slot_map`'s lanes as (8, S, B); lane N is infinity."""
-    idx = torch.from_numpy(slot_map.reshape(-1)).to(P[0].device)
-    return tuple(torch.nn.functional.pad(c, (0, 1)).index_select(1, idx)
-                 .reshape((N_LIMBS,) + slot_map.shape) for c in P)
+def window_bits(n: int) -> int:
+    """Pippenger's window width for n lanes (`_WINDOW_BITS`)."""
+    log_n = max(n - 1, 1).bit_length()
+    return next(c for lo, c in _WINDOW_BITS if log_n >= lo)
 
 
-def _reduce_stride(G: Point3) -> Point3:
-    """Tree-reduce the stride axis of an (8, S, B) grid -> (8, B): each
-    halving adds rows [:h] to rows [h:] in one launch."""
-    while G[0].shape[1] > 1:
-        h = G[0].shape[1] // 2
-        G = jacobian_add(tuple(c[:, :h] for c in G),
-                         tuple(c[:, h:] for c in G))
-    return tuple(c[:, 0] for c in G)
+def check_affine(P: Point3, what: str) -> None:
+    """Raise unless every lane's Z is R mod q or 0, the layout that
+    `bucket_sum` and `msm_pippenger` take their bases in (one sync)."""
+    one = _one_like(P[2])
+    z = P[2].reshape(N_LIMBS, -1)
+    if not bool(((z == one).all(0) | (z == 0).all(0)).all()):
+        raise ValueError(f"{what}: the points are not affine (Z must be "
+                         "R mod q, or 0 at infinity)")
 
 
-def _bucket_reconstruct(B: Point3, c: int) -> Point3:
-    """sum_k k B_k over buckets 1..2^c-1 by running suffix sums,
-    vectorized over the windows: B is (8, n_win, 2^c) -> (8, n_win)."""
-    n_win = B[0].shape[1]
-    run = tot = _infinity((n_win,), B[0].device)
-    for i in range((1 << c) - 1):
-        k = (1 << c) - 1 - i
-        run = jacobian_add(run, tuple(a[:, :, k] for a in B))
-        tot = jacobian_add(tot, run)
-    return tot
-
-
-def _window_combine(W: Point3, c: int) -> Point3:
-    """sum_w 2^(c w) W_w, the top window first: acc = 2^c acc + W_w."""
-    n_win = W[0].shape[1]
-    acc = _infinity((1,), W[0].device)
-    for i in range(n_win):
-        w = n_win - 1 - i
-        for _ in range(c):
-            acc = jacobian_double(acc)
-        acc = jacobian_add(acc, tuple(a[:, w:w + 1] for a in W))
-    return acc
+def window_segments(words: torch.Tensor, w0: int, nb: int, c: int,
+                    bits: int):
+    """Windows w0 .. w0 + nb - 1's buckets as `bucket_sum` segments of the
+    (W, N) int32 scalar words: the lanes sorted by (window, digit) with a
+    stable sort, and each bucket's (start, end), digit 0's left empty."""
+    dev = words.device
+    n_words, n = words.shape
+    win = torch.arange(w0, w0 + nb, device=dev)
+    lo = win * c
+    off = (lo % 32)[:, None]
+    width = torch.clamp(bits - lo, max=c)[:, None]
+    w_lo = lo // 32
+    hi_ok = (w_lo + 1 < n_words)[:, None]
+    low = words.index_select(0, w_lo).to(torch.int64) & 0xFFFFFFFF
+    high = words.index_select(0, torch.clamp(w_lo + 1, max=n_words - 1)) \
+        .to(torch.int64) & 0xFFFFFFFF
+    dig = ((low >> off) | torch.where(hi_ok, high << (32 - off), 0)) \
+        & (torch.bitwise_left_shift(torch.ones_like(width), width) - 1)
+    del low, high
+    key = (dig + ((win - w0) << c)[:, None]).reshape(-1).to(_I32)
+    del dig
+    perm = torch.sort(key, stable=True)[1]
+    lanes = (perm % n).to(_I32)
+    del perm
+    counts = torch.bincount(key, minlength=nb << c)
+    starts = torch.cumsum(counts, 0) - counts
+    counts.view(nb, 1 << c)[:, 0] = 0           # digit 0 adds nothing
+    return lanes, starts, starts + counts
 
 
 def msm_pippenger(P: Point3, scalar_words, bits: int,
-                  c: int = 8) -> Point3:
+                  c: Optional[int] = None) -> Point3:
     """Full-width MSM by windowed buckets -> a batch of one point.
-    `scalar_words` is (W, N) little-endian u32 words (numpy, or a tensor
-    that is copied to the host for the digits)."""
-    if isinstance(scalar_words, torch.Tensor):
-        scalar_words = scalar_words.cpu().numpy()
-    words = np.asarray(scalar_words)
-    words = words.view(np.uint32) if words.dtype == np.int32 else \
-        words.astype(np.uint32)
-    dev = P[0].device
+    `scalar_words` is (W, N) little-endian u32 words (a tensor, or numpy,
+    uploaded once); c defaults to `window_bits(N)`.  The bases are affine
+    (`check_affine`), as a KZG setup's powers and Dory's Gamma1 are."""
+    words = _on(scalar_words, P)
+    if words.dim() == 1:
+        words = words[None]
+    n = words.shape[1]
+    if not 0 < bits <= 32 * words.shape[0]:
+        raise ValueError(f"msm: {bits} bits from {words.shape[0]} words")
+    c = window_bits(n) if c is None else c
     n_win = (bits + c - 1) // c
-    buckets = tuple(torch.zeros((N_LIMBS, n_win, 1 << c), dtype=_I32,
-                                device=dev) for _ in range(3))
-    for w, dig in enumerate(_digits(words, bits, c)):
-        layout = _window_layout(dig, c)
-        if layout is None:
-            continue
-        slot_map, cols = layout
-        sums = _reduce_stride(_gather_grid(P, slot_map))
-        idx = torch.from_numpy(cols).to(dev)
-        for dst, src in zip(buckets, sums):
-            dst[:, w].index_copy_(1, idx, src)
-    return _window_combine(_bucket_reconstruct(buckets, c), c)
+    P = tuple(x.expand(N_LIMBS, n) for x in P)
+    _check("bucket_sum", P)
+    plain = P[0].device.type == "cpu"
+    src = _bucket_source(P, plain)             # once for every window
+    per = max(1, min(n_win, _MSM_ENTRIES // max(n, 1)))
+    parts = [_bucket_sum(src, *window_segments(words, w0,
+                                               min(per, n_win - w0), c,
+                                               bits), plain)
+             for w0 in range(0, n_win, per)]
+    B = tuple(torch.cat([p[i] for p in parts], 1) for i in range(3))
+    return bucket_reduce(B, c)
 
 
 # ---------------------------------------------------------------------------
@@ -513,6 +855,9 @@ def unpack_points(P: Point3) -> List[host.Point]:
     for x, y, z in zip(X, Y, Z):
         if z == 0:
             out.append(None)
+            continue
+        if z == 1:                      # affine (`normalize`'s lanes)
+            out.append((x, y))
             continue
         zinv = pow(z, -1, q)
         z2 = zinv * zinv % q

@@ -16,8 +16,9 @@
     in one pass, in one of four orders, the message finished mod p on the
     card); `product_round_deg3` is its "message_bind" order at 3 factors.
   * K3 (``csrc/g1.cu`` on ``csrc/fq.cuh``) is the port's BN254 G1 kernel
-    (add, double, scalar multiplication over Fq); it replaces no Pallas
-    kernel but the JAX package's jnp G1.  Its wrappers and plain versions
+    (add, double, scalar multiplication, normalization, Pippenger's bucket
+    sums and bucket reduction over Fq); it replaces no Pallas kernel but
+    the JAX package's jnp G1.  Its wrappers and plain versions
     live in `curve/g1.py`; it builds here, with K1 and K2, and its launch
     counts per form are `k3_counts` (`k3_launches()`).
 
@@ -318,7 +319,10 @@ _KERNELS = {
                                + [_I64] + [_P] * 10)}),
     "K3": ("g1.cu", "libjolt_g1.so", {
         "jolt_k3_launch_size": (ctypes.c_int, []),
-        "jolt_k3": (ctypes.c_int, [_P, _P])}),
+        "jolt_k3_bucket_sizes": (ctypes.c_int, []),
+        "jolt_k3": (ctypes.c_int, [_P, _P]),
+        "jolt_k3_bucket_sum": (ctypes.c_int, [_P, ctypes.c_int, _P]),
+        "jolt_k3_bucket_reduce": (ctypes.c_int, [_P, _P])}),
 }
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -656,7 +660,8 @@ def k1_launches() -> Dict[str, int]:
 
 # K3's forms (`Form` in csrc/g1.cu) and their launch counts, which the
 # wrappers in `curve/g1.py` keep
-K3_FORMS = ("add", "double", "scalar_mul")
+K3_FORMS = ("add", "double", "scalar_mul", "normalize", "bucket_sum",
+            "bucket_reduce")
 k3_counts: Dict[str, int] = dict.fromkeys(K3_FORMS, 0)
 
 

@@ -380,8 +380,8 @@ class Dory:
 
         Tier 1 runs on the NATIVE G1 segment-sum kernel when available
         (csrc/pairing.cpp jolt_g1_segment_sums -- threaded Jacobian
-        mixed-add chains), else on the device segmented point-scan
-        (`curve/g1.py`, K3 on the card)."""
+        mixed-add chains), else on the device bucket sums (`curve/g1.py`
+        `bucket_sum`, K3 on the card)."""
         hints = [DoryHint(rows=rows)
                  for rows in self.onehot_rows(positions_list)]
         return [(self._tier2(hint), hint) for hint in hints]
@@ -390,8 +390,8 @@ class Dory:
                     ) -> List[List[Optional[host.Point]]]:
         """Tier 1 of `commit_onehot_many`: each matrix's row commitments
         (the sum of the column generators of each hit row).  On the native
-        segment sums when the library loads, else on the device segmented
-        scan; `device_tier` forces one of the two (a check holds them
+        segment sums when the library loads, else on the device bucket
+        sums; `device_tier` forces one of the two (a check holds them
         against each other)."""
         import numpy as np
 
@@ -415,19 +415,15 @@ class Dory:
         base_buf = None if device_tier else self._gamma1_buf()
         if device_tier is False and base_buf is None:
             raise RuntimeError("the native pairing library did not load")
+        col_all = np.concatenate(c_parts).astype(np.uint32)
+        heads_all = np.concatenate(head_parts)
+        seg_off = np.concatenate([np.nonzero(heads_all)[0],
+                                  [len(col_all)]]).astype(np.uint64)
         if base_buf is not None:
             from ..curve import native_pairing as npair
-            col_all = np.concatenate(c_parts).astype(np.uint32)
-            heads_all = np.concatenate(head_parts)
-            seg_off = np.concatenate([np.nonzero(heads_all)[0],
-                                      [len(col_all)]]).astype(np.uint64)
             pts = npair.g1_segment_sums(base_buf, col_all, seg_off)
         else:
-            offs = np.cumsum([0] + [n for _, _, n in metas])[:-1]
-            idx_all = np.concatenate(
-                [lasts + off for (_, lasts, _), off in zip(metas, offs)])
-            pts = self._segment_totals(np.concatenate(c_parts),
-                                       np.concatenate(head_parts), idx_all)
+            pts = self._segment_totals(col_all, seg_off)
         out = []
         pos = 0
         for (rows_hit, lasts, _n) in metas:
@@ -438,26 +434,23 @@ class Dory:
             out.append(rows)
         return out
 
-    def _segment_totals(self, cols, heads, lasts) -> List[host.Point]:
-        """The device tier: the generators at `cols` gathered on the
-        device, their segmented scan (segments start at `heads`), and the
-        affine sums at the segments' last lanes `lasts`."""
+    def _segment_totals(self, cols, seg_off) -> List[host.Point]:
+        """The device tier: one `g1.bucket_sum` of the generators at
+        `cols` (K3 on the card), segment i = cols[seg_off[i]:seg_off[i +
+        1]], normalized on the device (`g1.normalize`), as affine host
+        points."""
         import numpy as np
 
         from ..curve import g1 as g1dev
-        G = self._gamma1_dev()
-        take = torch.from_numpy(cols.astype(np.int64)).to(self.device)
-        P3 = tuple(a.index_select(1, take) for a in G)
-        scan = g1dev.segmented_scan_points(P3, torch.from_numpy(
-            heads.astype(np.int32)).to(self.device))
-        il = torch.from_numpy(lasts.astype(np.int64)).to(self.device)
-        return g1dev.unpack_points(tuple(a.index_select(1, il)
-                                         for a in scan))
+        sums = g1dev.bucket_sum(
+            self._gamma1_dev(), torch.from_numpy(cols.astype(np.int32)),
+            torch.from_numpy(seg_off.astype(np.int64)))
+        return g1dev.unpack_points(g1dev.normalize(sums))
 
     def commit_onehot(self, positions) -> Tuple[DoryCommitment, DoryHint]:
         """Commit a sparse 0/1 vector given its nonzero POSITIONS (numpy
-        int64, in [0, 2^num_vars)) -- O(T log T) device point adds for
-        tier 1 (no dense K*T vector is ever built), then the usual tier-2
+        int64, in [0, 2^num_vars)) -- O(T) device mixed adds for tier 1
+        (no dense K*T vector is ever built), then the usual tier-2
         multi-pairing over nonzero rows.
 
         The one-hot fast path of the reference

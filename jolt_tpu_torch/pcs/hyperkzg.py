@@ -19,20 +19,24 @@ Dory (transparent), which replaces this scheme without touching callers.
 Copied from the JAX package's `pcs/hyperkzg.py`; `open`'s and `verify`'s
 host algebra (Python ints) is unchanged.  What differs:
 
-  * `KZGSetup` keeps its powers as a Jacobian batch of the port's G1
-    (`curve/g1.py`, 8 x 32-bit Fq limbs) on a device.  `generate(max_len,
-    tau, device)` builds them on the card with one K3 scalar-mul launch;
-    on the CPU from the host's scalar multiplications (the native library,
-    else `bn254_host`), since the plain G1 takes seconds a step there.
-    Both cache under the port's gitignored ``_build/srs/`` in the port's
-    own layout (never the JAX package's ``.srs_cache``: 20 x 13-bit limbs,
-    R = 2^260).  `to(device)` gives the same setup on another device.
-  * `commit_ints` runs the device MSM (`g1.msm`) when the powers live on
-    the card, and `bn254_host.g1_msm_pippenger` when they live on the CPU
-    (the JAX package's CPU-backend tier); it commits the coefficients as
-    given, where the JAX package zero-pads them to the SRS length to share
-    one compiled shape (zero coefficients add nothing).
-    `commit_positions` commits a 0/1 vector by its ones.
+  * `KZGSetup` keeps its powers as an affine batch of the port's G1
+    (`curve/g1.py`, 8 x 32-bit Fq limbs, Z = R mod q) on a device.
+    `generate(max_len, tau, device)` builds them on the card with one K3
+    scalar-mul launch and one K3 normalize launch; on the CPU from the
+    host's scalar multiplications (the native library, else `bn254_host`),
+    since the plain G1 takes seconds a step there.  Both cache under the
+    port's gitignored ``_build/srs/`` in the port's own layout, tagged
+    "affine" in the file name (never the JAX package's ``.srs_cache``:
+    20 x 13-bit limbs, R = 2^260).  `to(device)` gives the same setup on
+    another device.
+  * `commit_ints` runs the device MSM (`g1.msm`: Pippenger on the card
+    from the scalar words to the point) when the powers live on the card,
+    and `bn254_host.g1_msm_pippenger` when they live on the CPU (the JAX
+    package's CPU-backend tier); it commits the coefficients as given,
+    where the JAX package zero-pads them to the SRS length to share one
+    compiled shape (zero coefficients add nothing).  `commit_positions`
+    commits a 0/1 vector by its ones: on the card one `g1.bucket_sum` of
+    one segment.
   * `_scalars_to_words` is numpy (a Python loop over 2^20 scalars took
     seconds a commit).
 """
@@ -61,7 +65,7 @@ DEFAULT_TAU = 0x1234567890ABCDEF1122334455667788
 @dataclasses.dataclass
 class KZGSetup:
     g1_powers: Optional[List[host.Point]]  # host affine (lazy)
-    g1_powers_dev: tuple               # (X, Y, Z) Jacobian batch on a device
+    g1_powers_dev: tuple               # (X, Y, Z) affine batch on a device
     tau_g2: G2Point                    # [tau] G2
 
     @property
@@ -95,10 +99,12 @@ class KZGSetup:
                  cache_dir: Optional[str] = None) -> "KZGSetup":
         """Toy ceremony: derives tau in-process (INSECURE; test/dev tier).
 
-        [tau^i] G1 for i < max_len: on the card one K3 scalar-mul launch
-        over max_len lanes; on the CPU the host's scalar multiplications.
-        Cached per (size, tau) under ``_build/srs/`` (or `cache_dir`),
-        written atomically."""
+        [tau^i] G1 for i < max_len, affine: on the card one K3 scalar-mul
+        launch over max_len lanes and one normalize launch; on the CPU the
+        host's scalar multiplications.  Cached per (size, tau) under
+        ``_build/srs/`` (or `cache_dir`), written atomically; the file
+        name says the layout, so a cache of Jacobian powers is never read
+        as affine."""
         tau = tau if tau is not None else DEFAULT_TAU
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -106,12 +112,14 @@ class KZGSetup:
                                "available")
         cache_dir = SRS_CACHE_DIR if cache_dir is None else cache_dir
         cache = os.path.join(cache_dir,
-                             f"kzg_torch_{max_len}_{tau % 997_651}.npz")
+                             f"kzg_torch_affine_{max_len}_"
+                             f"{tau % 997_651}.npz")
         tau_g2 = g2_mul(G2_GEN, tau)
         if os.path.exists(cache):
             with np.load(cache) as data:
                 powers = tuple(torch.from_numpy(data[k]).to(device)
                                for k in ("x", "y", "z"))
+            g1dev.check_affine(powers, cache)
             return cls(g1_powers=None, g1_powers_dev=powers, tau_g2=tau_g2)
         scalars = []
         acc = 1
@@ -124,7 +132,8 @@ class KZGSetup:
                          g1dev.pack_points([host.G1_GEN], device))
             words = torch.from_numpy(np.array(
                 _scalars_to_words(scalars)).view(np.int32)).to(device)
-            powers = g1dev.batch_scalar_mul(base, words, 254)
+            powers = g1dev.normalize(g1dev.batch_scalar_mul(base, words,
+                                                            254))
         else:
             g1_powers = _host_mul(host.G1_GEN, scalars)
             powers = g1dev.pack_points(g1_powers, device)
@@ -231,8 +240,8 @@ class HyperKZG:
 
     def commit_positions(self, positions) -> host.Point:
         """The commitment to the 0/1 vector with ones at `positions`: the
-        sum of the SRS powers there (the card's subset sum over the
-        gathered powers, or the host's sum on the CPU)."""
+        sum of the SRS powers there (on the card one `g1.bucket_sum` of
+        one segment over the powers, on the CPU the host's sum)."""
         s = self._powers_setup()
         pos = np.unique(np.asarray(positions, np.int64))
         assert len(pos) == 0 or pos[-1] < s.size, "poly larger than SRS"
@@ -243,9 +252,10 @@ class HyperKZG:
                                              [1] * len(pos))
             if len(pos) == 0:
                 return None
-            idx = torch.from_numpy(pos).to(s.device)
-            pts = tuple(c.index_select(1, idx) for c in s.g1_powers_dev)
-            return g1dev.unpack_points(g1dev.tree_sum(pts))[0]
+            lanes = torch.from_numpy(pos.astype(np.int32))
+            total = g1dev.bucket_sum(s.g1_powers_dev, lanes,
+                                     torch.tensor([0, len(pos)]))
+            return g1dev.unpack_points(total)[0]
 
     # ---- open ----------------------------------------------------------
 

@@ -212,21 +212,35 @@ def k2_bound_ms(nf: int, order: str, T: int, blocks: int) -> Tuple[float, str]:
 
 
 # K3 (csrc/g1.cu): Fq products of each point formula (an Fq product is
-# MADS_PER_PRODUCT multiply-adds, as Fr's), and one point's bytes (X, Y, Z)
+# MADS_PER_PRODUCT multiply-adds, as Fr's), one Jacobian point's bytes
+# (X, Y, Z) and one affine base's (X, Y)
 G1_ADD_PRODUCTS = 16          # add-2007-bl, 11M + 5S
+G1_MADD_PRODUCTS = 11         # madd-2007-bl, 7M + 4S
 G1_DOUBLE_PRODUCTS = 7        # dbl-2009-l, 2M + 5S
+# Z^(q-2): 253 squarings and 109 products, then Z^-2, Z^-3, X Z^-2, Y Z^-3
+G1_NORMALIZE_PRODUCTS = 253 + 109 + 4
 G1_POINT_BYTES = 96
+G1_AFFINE_BYTES = 64
 
 
 def k3_bound_ms(form: str, lanes: int, generic_adds: int = None,
-                bits: int = 0, set_bits: int = 0,
-                words: int = 8) -> Tuple[float, str]:
-    """One K3 launch over `lanes`: its points (and scalar words) read once
-    and its points written once, and the Fq products the data needs --
-    "add": 16 for each of `generic_adds` lanes (default all; an add at
-    infinity needs none), "double": 7 a lane, "scalar_mul": 7 for each of
-    the `bits` doublings and 16 for each of the `set_bits` adds, summed
-    over the lanes."""
+                bits: int = 0, set_bits: int = 0, words: int = 8,
+                entries: int = 0, segments: int = 0, n_seg: int = 0,
+                c: int = 0) -> Tuple[float, str]:
+    """One K3 call over `lanes`: its inputs read once and its outputs
+    written once, and the Fq products the data needs --
+      "add": 16 for each of `generic_adds` lanes (default all; an add at
+        infinity needs none); "double": 7 a lane;
+      "scalar_mul": 7 for each of the `bits` doublings and 16 for each of
+        the `set_bits` adds, summed over the lanes;
+      "normalize": `G1_NORMALIZE_PRODUCTS` for each of `generic_adds`
+        finite lanes (default all);
+      "bucket_sum": `lanes` affine bases, `entries` lane-list entries in
+        `n_seg` segments, `segments` of them not empty: 11 for each entry
+        but the first of a segment (it is a copy); the partials of the
+        kernel's levels are its own and not counted;
+      "bucket_reduce": `lanes` = n_win windows of 2^c buckets: the running
+        sums' 2 adds a bucket, c doublings and an add a window."""
     if form == "add":
         n_bytes = 3 * G1_POINT_BYTES * lanes
         products = G1_ADD_PRODUCTS * (lanes if generic_adds is None
@@ -234,8 +248,37 @@ def k3_bound_ms(form: str, lanes: int, generic_adds: int = None,
     elif form == "double":
         n_bytes = 2 * G1_POINT_BYTES * lanes
         products = G1_DOUBLE_PRODUCTS * lanes
-    else:
+    elif form == "scalar_mul":
         n_bytes = (2 * G1_POINT_BYTES + 4 * words) * lanes
         products = G1_DOUBLE_PRODUCTS * bits * lanes \
             + G1_ADD_PRODUCTS * set_bits
+    elif form == "normalize":
+        n_bytes = 2 * G1_POINT_BYTES * lanes
+        products = G1_NORMALIZE_PRODUCTS * (lanes if generic_adds is None
+                                            else generic_adds)
+    elif form == "bucket_sum":
+        n_bytes = G1_AFFINE_BYTES * lanes + 4 * entries \
+            + (16 + G1_POINT_BYTES) * n_seg
+        products = G1_MADD_PRODUCTS * (entries - segments)
+    elif form == "bucket_reduce":
+        n_bytes = G1_POINT_BYTES * ((lanes << c) + 1)
+        products = G1_ADD_PRODUCTS * (2 * (lanes << c) + lanes) \
+            + G1_DOUBLE_PRODUCTS * c * (lanes - 1)
+    else:
+        raise ValueError(f"K3 has no form {form!r}")
+    return bound_ms(n_bytes, products)
+
+
+def msm_bound_ms(n: int, bits: int, c: int) -> Tuple[float, str]:
+    """A Pippenger MSM of n affine bases and n `bits`-bit scalars at window
+    width c: the bases and the scalars' words read once, the point written
+    once; one mixed add a lane and window (11 products), then the bucket
+    reduction (`k3_bound_ms("bucket_reduce")`).  2^20 x 254 bits at c = 8:
+    ~6.1 ms of products."""
+    n_win = (bits + c - 1) // c
+    n_bytes = (G1_AFFINE_BYTES + 4 * ((bits + 31) // 32)) * n \
+        + G1_POINT_BYTES
+    products = G1_MADD_PRODUCTS * n * n_win \
+        + G1_ADD_PRODUCTS * (2 * (n_win << c) + n_win) \
+        + G1_DOUBLE_PRODUCTS * c * (n_win - 1)
     return bound_ms(n_bytes, products)

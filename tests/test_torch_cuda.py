@@ -493,7 +493,8 @@ def test_k3_matches_plain_on_card(card):
     torch.cuda.synchronize()
     after = kernels.k3_launches()
     assert {f: after[f] - before[f] for f in after} == {
-        "add": 2, "double": 1, "scalar_mul": 1}
+        "add": 2, "double": 1, "scalar_mul": 1, "normalize": 0,
+        "bucket_sum": 0, "bucket_reduce": 0}
     assert g1.unpack_points(m) == [host.g1_mul(p, k)
                                    for p, k in zip(other, ks)]
 
@@ -535,10 +536,106 @@ def test_dory_device_tier_on_card(card, tmp_path, monkeypatch):
                  + np.arange(64) for _ in range(3)]
     native = Dory(setup, "cpu").commit_onehot_many(positions)
     monkeypatch.setenv("JOLT_TPU_NO_NATIVE_PAIRING", "1")
-    before = kernels.k3_launches()["add"]
+    before = kernels.k3_launches()["bucket_sum"]
     on_card = Dory(setup, card).commit_onehot_many(positions)
-    assert kernels.k3_launches()["add"] > before
+    assert kernels.k3_launches()["bucket_sum"] > before
     one = Dory(setup, card).commit_onehot(positions[0])
     for (c, h), (nc, nh) in zip(on_card + [one], native + native[:1]):
         assert h.rows == nh.rows
         assert gt_to_bytes(c.c) == gt_to_bytes(nc.c)
+
+
+def _card_points(n, seed, card):
+    """n affine points [k_i] G on the card (seeded 64-bit k_i), lane 1 at
+    infinity, and the same as host points."""
+    from jolt_tpu_torch.curve import bn254_host as host
+    from jolt_tpu_torch.curve import g1
+    gen = torch.Generator().manual_seed(seed)
+    words = torch.randint(0, 1 << 31, (2, n), generator=gen,
+                          dtype=torch.int32).to(card)
+    base = tuple(c.expand(-1, n) for c in g1.pack_points([host.G1_GEN],
+                                                          card))
+    P = g1.normalize(g1.batch_scalar_mul(base, words, 64))
+    P[2][:, 1] = 0
+    P[0][:, 1] = P[1][:, 1] = 0
+    return P, g1.unpack_points(P)
+
+
+def test_k3_new_forms_match_plain_on_card(card):
+    """normalize (infinity with X, Y kept among the lanes), bucket_sum
+    (a segment of every lane, one of a point and its negation, of a point
+    twice, of infinity bases, single-lane and empty segments, one long
+    enough for three levels) and bucket_reduce at c = 4, 8 and 12 equal
+    their plain versions bit for bit on the same card tensors."""
+    from jolt_tpu_torch.curve import bn254_host as host
+    from jolt_tpu_torch.curve import g1
+    n = 1 << 12
+    P, pts = _card_points(n, 7, card)
+    J = g1.jacobian_double(P)
+    J[2][:, 5] = 0                              # infinity, X and Y kept
+    before = kernels.k3_launches()
+    N = g1.normalize(J)
+    assert _equal(N, g1.normalize_plain(J))
+    assert g1.unpack_points(tuple(c[:, :8] for c in N)) == [
+        None if i in (1, 5) else host.g1_double(p)
+        for i, p in enumerate(pts[:8])]
+    neg = g1.pack_points([host.g1_neg(pts[2])], card)
+    Q = tuple(torch.cat([a, b], 1) for a, b in zip(P, neg))    # lane n: -P2
+    lanes = torch.cat([torch.arange(n), torch.tensor([2, n, 3, 3, 1, 1, 4]),
+                       torch.arange(0, n, 3)]).to(torch.int32)
+    offs = torch.tensor([0, n, n + 2, n + 4, n + 6, n + 7, n + 7,
+                         n + 7 + len(range(0, n, 3))])
+    S = g1.bucket_sum(Q, lanes.to(card), offs.to(card))
+    assert _equal(S, g1.bucket_sum_plain(Q, lanes.to(card), offs.to(card)))
+    got = g1.unpack_points(S)
+    assert got[1:6] == [None, host.g1_double(pts[3]), None, pts[4], None]
+    for c in (4, 8, 12):
+        B = tuple(c_.repeat(1, (4 << c) // n + 1)[:, :4 << c]
+                  for c_ in g1.jacobian_double(P))
+        R = g1.bucket_reduce(B, c)
+        assert _equal(R, g1.bucket_reduce_plain(B, c))
+    torch.cuda.synchronize()
+    after = kernels.k3_launches()
+    assert after["normalize"] - before["normalize"] == 1
+    assert after["bucket_sum"] - before["bucket_sum"] == 4        # levels
+    assert after["bucket_reduce"] - before["bucket_reduce"] == 3
+
+
+@pytest.mark.parametrize("log_n", [12, 16])
+def test_msm_on_card_equals_host(card, log_n):
+    """The card's Pippenger (digits, sort and buckets on the card) from
+    device words equals the host's MSM as an affine point, and so does a
+    commit of the same coefficients through a KZG setup."""
+    import random
+    from jolt_tpu_torch.curve import bn254_host as host
+    from jolt_tpu_torch.curve import g1
+    n = 1 << log_n
+    P, pts = _card_points(n, log_n, card)
+    rng = random.Random(log_n)
+    ks = [rng.randrange(host.R) for _ in range(n)]
+    ks[:4] = [0, 5, 5, 5]
+    raw = b"".join(k.to_bytes(32, "little") for k in ks)
+    import numpy as np
+    words = torch.from_numpy(np.frombuffer(raw, dtype="<u4").reshape(n, 8)
+                             .T.copy().view(np.int32)).to(card)
+    want = host.g1_msm_pippenger(pts, ks)
+    assert g1.unpack_points(g1.msm(P, words, 254)) == [want]
+    for c in (8, 12):
+        assert g1.unpack_points(g1.msm_pippenger(P, words, 254, c)) == [want]
+
+
+def test_kzg_setup_on_card_equals_cpu(card, tmp_path):
+    """KZGSetup.generate on the card (scalar_mul, then normalize) gives the
+    CPU's powers, affine (Z = R), and a one-hot commit equals the CPU's."""
+    import numpy as np
+    from jolt_tpu_torch.curve import g1
+    from jolt_tpu_torch.pcs.hyperkzg import HyperKZG, KZGSetup
+    on_card = KZGSetup.generate(1 << 10, device=card,
+                                cache_dir=str(tmp_path / "card"))
+    on_cpu = KZGSetup.generate(1 << 10, device="cpu",
+                               cache_dir=str(tmp_path / "cpu"))
+    g1.check_affine(on_card.g1_powers_dev, "the card's powers")
+    assert on_card.host_powers() == on_cpu.host_powers()
+    pos = np.array([0, 3, 3, 17, 1000], dtype=np.int64)
+    assert (HyperKZG(on_card).commit_positions(pos)
+            == HyperKZG(on_cpu).commit_positions(pos))

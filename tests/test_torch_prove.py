@@ -414,5 +414,5 @@ def test_prove_accepts_the_named_hyperkzg_setup(tmp_path, monkeypatch):
     assert trace.padded_length == 32
     setup = thkzg.KZGSetup.generate(1 << 13, device=CPU)
     assert [p.name for p in tmp_path.iterdir()] == [
-        f"kzg_torch_{1 << 13}_{thkzg.DEFAULT_TAU % 997_651}.npz"]
+        f"kzg_torch_affine_{1 << 13}_{thkzg.DEFAULT_TAU % 997_651}.npz"]
     assert jt.verify(proof, jt.PublicIO.from_trace(trace), setup=setup)
