@@ -6,7 +6,7 @@ version, drives the port's main path once at full size, and checks it.
 
 Phases:
   1. the card (nvidia-smi name and power limit) and the host (CPU model,
-     nproc: Dory's stages are host work);
+     nproc: tier 2, phase A and the Fr folds of Dory are host work);
   2. build K1 (`jolt_tpu_torch/csrc/mont_mul.cu`), K2
      (`jolt_tpu_torch/csrc/product_round.cu`) and K3
      (`jolt_tpu_torch/csrc/g1.cu`), one nvcc for sm_90a each, and
@@ -40,16 +40,22 @@ Phases:
      held against the plain chain;
   6. the main path: the sha2-chain guest (chain=114, ~2^18 cycles) traced
      by the port's native tracer, `prove(trace, setup=setup,
-     device="cuda")` (the stage-0 Dory commits on the host, stages 1-8 on
-     the card, the stage-8 Dory opening on the host; its end-to-end
-     cycles/s and Dory's spans) with K1's launch count per form and
-     K2's read around it, and per stage (K2 carries the shift sumcheck,
+     device="cuda")` (the stage-0 Dory commits and the stage-8 Dory
+     opening with their G1 work on K3 -- one-hot tier 1, the dense
+     commits, phase B's MSMs and Gamma1 folds -- and their pairings and Fr
+     folds on the host, stages 1-8 on the card; its end-to-end cycles/s
+     and Dory's spans) with K1's launch count per form and K2's and K3's
+     read around it, and per stage (the Dory stages launch K3 and no K1
+     or K2; K2 carries the shift sumcheck,
      stage 1s, every ra-virtualization instance of stage 6v -- log2 T + 1
      calls each -- the cycle rounds of stage 7's Hamming-weight instances
      and stage 8's one-hot groups, and stage 8's dense openings), every
      K1 launch's shapes recorded (`kernels.record`) and no call of the
-     plain versions' limb arithmetic, then `verify(..., setup=setup)`; a
-     second `prove`, at `setup=None` so its per-stage device numbers
+     plain versions' limb arithmetic, then `verify(..., setup=setup)`; the
+     same prove with Dory's G1 work on the native library (the route
+     argument of `DoryScheme`) gives the same proof bytes and FS tape,
+     with its Dory stage seconds and spans beside the K3 route's; a
+     third `prove`, at `setup=None` so its per-stage device numbers
      compare with the runs before Dory, under torch.profiler gives each
      stage's device time and busy share
      and counts the device kernels that are neither K1 nor K2; then each
@@ -61,8 +67,8 @@ Phases:
      `prove(..., committed_image=True)`, each with its launch counts set to
      0 just before and read just after; every one of the 11 batched
      stages carries round commitments and no clear polynomial, and the zk
-     run launches K1 (per form, per stage) and K2 exactly as the plain
-     run did; the image run launches K2 as the plain run plus the image's
+     run launches K1 (per form, per stage), K2 and stage 0's K3 exactly
+     as the plain run did; the image run launches K2 as the plain run plus the image's
      two instances (its stage-7 reduction and its stage-8 dense opening,
      log2(image words) + 1 calls each) and K1 as the plain run outside
      stages 7 and 8; each path's cycles/s, stage seconds beside the plain
@@ -82,13 +88,15 @@ Phases:
      `GroupedOneHot` of 18 members at K = 256 and T = 2^14 (stage 7's
      largest group) give identical round polynomials, openings and
      transcripts on both; the whole proof of a small guest with a Dory
-     setup (13 variables) has the same bytes and FS tape on both, and
+     setup (13 variables) has the same bytes and FS tape on both (Dory's
+     G1 work on K3 on the card, on the native library on the CPU), and
      verifies, and so do the guest with zk and the image guest with the
      committed image at the same setup;
   8b. K3, the G1 kernel (`[g1]`, `[msm]` and `[kzg]` lines): every form
      bit for bit against its plain version with edge lanes -- add and
      double at 2^20 lanes (P + P, P + (-P), infinities, equal points in
-     other coordinates), a 254-bit scalar_mul at 2^12, normalize at 2^20,
+     other coordinates), a 254-bit scalar_mul at 2^15 (the Dory
+     opening's first Gamma1 fold: one scalar), normalize at 2^20,
      bucket_sum of a 2^20 commit's windows and of edge segments (every
      lane in one, P + P, P + (-P), infinity bases, one lane, none) and
      bucket_reduce of its buckets -- each form's time (CUDA events;
@@ -105,9 +113,12 @@ Phases:
      count, the HyperKZG spans,
      peak memory and `verify`; one dense commitment against the host MSM;
      card == CPU proof bytes with a 2^13 KZG setup on the PCS guest; and
-     Dory's device one-hot tier (one bucket_sum over the rows) on the main
-     path's 23 matrices against the native segment sums, tier 1 only;
-  9. one JSON line with every ported kernel, the card line, and the final
+     Dory's one-hot tier 1 on the K3 route (one bucket_sum over the rows)
+     on the main path's 23 matrices against the native route's segment
+     sums, that bucket_sum alone against its plain version and timed
+     (K3's headline), and Gamma1's pack to the card timed alone;
+  9. one JSON line with every ported kernel (K3's launches are the Dory
+     prove's, by stage and form), the card line, and the final
      `{"ok": true, "device": ...}` line.
 
 Any failure raises and exits nonzero; with no CUDA device it exits 2
@@ -144,12 +155,12 @@ STAGES = ["witness-extraction", "stage1-spartan", "stage1s-shift",
 DORY_STAGES = (STAGES[:1] + ["stage0-commit"] + STAGES[1:]
                + ["stage8-openings"])
 # the spans of the Dory commits (`prover/prover.py` stage 0, and each
-# commitment's tier 2 in `pcs/dory.py`) and of the opening (`pcs/dory.py`,
-# `pcs/scheme.py`)
-DORY_SPANS = ["commit.onehot", "commit.dense", "commit.tier2",
-              "open.rlc_rows", "open.e1", "open.A.v2init", "open.A.pair",
-              "open.A.g1fold", "open.A.g2fold", "open.B.row", "open.B.msm",
-              "open.B.g1fold"]
+# commitment's tier 1 and tier 2 in `pcs/dory.py`) and of the opening
+# (`pcs/dory.py`, `pcs/scheme.py`)
+DORY_SPANS = ["commit.onehot", "commit.dense", "commit.tier1",
+              "commit.tier2", "open.rlc_rows", "open.e1", "open.A.v2init",
+              "open.A.pair", "open.A.g1fold", "open.A.g2fold", "open.B.row",
+              "open.B.msm", "open.B.g1fold"]
 # the small guest proven with Dory card against CPU (phase 8): the JAX
 # package's Dory pipeline guest, 2^13 variables (256 x 32)
 DORY_SMALL_VARS = 13
@@ -197,20 +208,21 @@ ONEHOT_LOG_T = 14
 ONEHOT_M = 18
 ONEHOT_K = 256
 # K3 held against its plain version (phase 8b): add and double at 2^20
-# lanes with G1_EDGE lanes of each edge case, scalar_mul at 2^12 lanes;
-# the KZG setup of the sha2-chain at chain=1 (2^12 cycles x 2^8)
+# lanes with G1_EDGE lanes of each edge case, scalar_mul at 2^15 lanes
+# (the Dory opening's first Gamma1 fold: Gamma1's low half of the 2^26
+# setup, one 254-bit scalar for every lane); the KZG setup of the
+# sha2-chain at chain=1 (2^12 cycles x 2^8)
 G1_LOG_N = 20
 G1_EDGE = 64
-G1_SCALAR_LOG_N = 12
+G1_SCALAR_LOG_N = 15
 KZG_LOG_N = 20
 # the MSM's lane counts (log2) timed at every window width (phase 8b);
 # the first K3's times in ms, printed beside the new ones (one thread a
-# lane, points through a stack frame, generic adds: PERF.md's K3 row, PR
-# 9, H100 80GB HBM3, 700.00 W; add and double at 2^20 lanes, scalar_mul at
-# 2^12 lanes and the setup's 2^20 x 254 bits)
+# lane, points through a stack frame, generic adds: PERF.md's findings on
+# the first K3, H100 80GB HBM3, 700.00 W; add and double at 2^20 lanes
+# and the setup's scalar_mul of 2^20 x 254 bits)
 MSM_SWEEP_LOG_N = range(9, 23)
-FIRST_K3_MS = {"add": 0.8101, "double": 0.2497, "scalar_mul": 10.445,
-             "scalar_mul_setup": 264.34}
+FIRST_K3_MS = {"add": 0.8101, "double": 0.2497, "scalar_mul_setup": 264.34}
 
 FIB_LAYOUT = dict(max_input_size=64, max_output_size=64)
 FIB = """
@@ -663,9 +675,10 @@ def g1_kzg_phase(dev, gen, dory_setup, pcs_guest, onehot_positions,
     commits, their times and peaks; (d) the KZG `prove` of the sha2-chain
     at chain=1 (this slice's path: K3's counts set to 0 just before it and
     read just after) and `verify`; (e) card == CPU with a 2^13 KZG setup
-    on the PCS guest; (f) Dory's device one-hot tier at the main path's
-    2^18 trace against the native segment sums.  Returns the kernel
-    line's "g1" entry."""
+    on the PCS guest; (f) Dory's one-hot tier 1 at the main path's 2^18
+    trace, the K3 route against the native route, and its bucket_sum
+    alone against the plain version and timed (K3's headline).  Returns
+    the kernel line's "g1" entry."""
     import tempfile
 
     from jolt_tpu_torch import PublicIO, prove, verify
@@ -734,8 +747,8 @@ def g1_kzg_phase(dev, gen, dory_setup, pcs_guest, onehot_positions,
     D, lk2 = launched(lambda: g1.jacobian_double(S))
     errs["double"] = max_err(D, g1.jacobian_double_plain(S))
     m = 1 << G1_SCALAR_LOG_N
-    sub = tuple(c[:, :m].contiguous() for c in S)
-    ks = rand_words(8, top_bits=30)[:, :m].contiguous()       # < 2^254
+    sub = tuple(c[:, :m] for c in dory_setup.gamma1_on(dev))
+    ks = rand_words(8, lanes=1, top_bits=30).expand(8, m)     # < 2^254
     M, lk3 = launched(lambda: g1.batch_scalar_mul(sub, ks, 254))
     errs["scalar_mul"] = max_err(M, g1.batch_scalar_mul_plain(sub, ks, 254))
     # normalize at 2^20 (the setup's shape): S holds (0, 0, 0) lanes (P +
@@ -819,7 +832,8 @@ def g1_kzg_phase(dev, gen, dory_setup, pcs_guest, onehot_positions,
     print(f"[g1] K3 == its plain version bit for bit in every form: add and "
           f"double at 2^{G1_LOG_N} lanes ({6 * e} edge lanes: P + P, "
           f"P + (-P), infinities, equal points in other coordinates), "
-          f"scalar_mul of 254 bits at 2^{G1_SCALAR_LOG_N} lanes, normalize "
+          f"scalar_mul of 254 bits at 2^{G1_SCALAR_LOG_N} lanes (the Dory "
+          f"opening's first Gamma1 fold, one scalar), normalize "
           f"at 2^{G1_LOG_N} (infinities with X, Y kept), bucket_sum of "
           f"{n_win} windows at c = {c_def} ({lk5['bucket_sum']} levels) and "
           f"of edge segments (every lane in one, P + P, P + (-P), "
@@ -1068,46 +1082,79 @@ def g1_kzg_phase(dev, gen, dory_setup, pcs_guest, onehot_positions,
           f"with a 2^13 KZG setup: identical proof bytes ({n_pcs} B) and FS "
           "tape; verified", flush=True)
 
-    # (f) Dory's device one-hot tier at the main path's size (tier 1)
-    dory = Dory(dory_setup, dev)
+    # (f) Dory's one-hot tier 1 at the main path's size: the K3 route
+    # against the native route (the route argument).  Gamma1's pack to the
+    # card timed alone (the setup keeps the main path's copy)
     t0 = time.perf_counter()
-    dory._gamma1_dev()
+    g1.pack_points(dory_setup.gamma1, dev)
+    torch.cuda.synchronize()
     t_pack = time.perf_counter() - t0
+    dory = Dory(dory_setup, dev)
+    dory_setup.gamma1_on(dev)
     kernels.reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    dev_rows = dory.onehot_rows(onehot_positions, device_tier=True)
+    dev_rows = dory.onehot_rows(onehot_positions)
     t_scan = time.perf_counter() - t0
     speak = torch.cuda.max_memory_allocated(dev)
     s_launch = {f: k for f, k in kernels.k3_launches().items() if k}
+    native = Dory(dory_setup, dev, _k3=False)
+    native._gamma1_buf()
     t0 = time.perf_counter()
-    nat_rows = dory.onehot_rows(onehot_positions, device_tier=False)
+    nat_rows = native.onehot_rows(onehot_positions)
     t_native = time.perf_counter() - t0
     lanes = sum(len(p) for p in onehot_positions)
     check(dev_rows == nat_rows,
           "the device one-hot tier differs from the native segment sums")
+    # its bucket_sum alone at this shape (the main path's largest K3
+    # call, K3's headline): against the plain version, and its level
+    # launches timed alone beside the bound
+    gam = dory_setup.gamma1_on(dev)
+    cols_np, off_np, _ = dory.onehot_segments(onehot_positions)
+    oh_lanes = torch.from_numpy(cols_np.astype(np.int32)).to(dev)
+    oh_off = torch.from_numpy(off_np.astype(np.int64)).to(dev)
+    OB = g1.bucket_sum(gam, oh_lanes, oh_off)
+    t0 = time.perf_counter()
+    oh_err = max_err(OB, g1.bucket_sum_plain(gam, oh_lanes, oh_off))
+    p_oh = (time.perf_counter() - t0) * 1e3
+    check(oh_err == 0, "K3 bucket_sum differs from its plain version at "
+          f"the one-hot tier's shape: {oh_err}")
+    err = max(err, oh_err)
+    n_seg = len(off_np) - 1
+    t_oh, oh_levels = k3_bucket_sum_ms(
+        g1, gam, (oh_lanes, oh_off[:-1], oh_off[1:]), 5)
+    b_oh = k3_bound_ms("bucket_sum", gam[0].shape[1], entries=len(cols_np),
+                       segments=n_seg, n_seg=n_seg)
+    print(f"[g1] bucket_sum at the one-hot tier's shape ({len(cols_np)} "
+          f"entries, {n_seg} segments over 2^{dory_setup.sigma} bases, "
+          f"{oh_levels} levels): {t_oh:.4f} ms (CUDA events, the level "
+          f"launches alone) (bound {b_oh[0]:.4f} ms, {b_oh[1]}; "
+          f"{b_oh[0] / t_oh:.1%} of it), plain {p_oh:.2f} ms; == the plain "
+          "version bit for bit", flush=True)
+    del OB
     n_rows = sum(r is not None for rows in dev_rows for r in rows)
     print(f"[g1] Dory's device one-hot tier at 2^18: "
           f"{len(onehot_positions)} matrices, {lanes} lanes, {n_rows} row "
           f"sums == native_pairing.g1_segment_sums point for point; device "
           f"tier {t_scan:.3f}s (bucket_sum over the rows: K3 {s_launch}, "
-          f"the unpack; peak allocated {speak / 2**30:.3f} GiB; the "
-          f"segmented scan before: 1.250 s with the pack), native "
-          f"{t_native:.3f}s; Gamma1's pack to the card before {t_pack:.3f}s",
+          f"the unpack; peak allocated {speak / 2**30:.3f} GiB; the first "
+          f"K3's segmented scan: 1.250 s with the pack), native "
+          f"{t_native:.3f}s (Gamma1's encoding made before); Gamma1's pack "
+          f"to the card ({len(dory_setup.gamma1)} points) {t_pack:.3f}s",
           flush=True)
     print(f"[g1] phase 8b {time.perf_counter() - t_phase:.1f}s", flush=True)
-    head = forms["bucket_sum"]
     entry = {
         "name": "g1", "route": "cuda",
         "source": "jolt_tpu_torch/csrc/g1.cu",
         "replaces": "jolt_tpu/curve/g1.py (jnp)",
-        "launches": sum(k3.values()), "max_abs_err": err,
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "kzg_launches": sum(k3.values()), "max_abs_err": err,
+        "ms": t_oh, "plain_ms": p_oh,
+        "bound_ms": b_oh[0], "bound_by": b_oh[1],
         "library_ms": None, "form": "bucket_sum",
-        "shape": [[8, n]] * 3 + [[entries]], "forms": forms,
-        "launches_by_form": k3, "launches_by_stage": by_stage,
+        "shape": [[8, gam[0].shape[1]]] * 3 + [[len(cols_np)], [n_seg + 1]],
+        "levels": oh_levels, "forms": forms,
+        "kzg_launches_by_form": k3, "kzg_launches_by_stage": by_stage,
         "setup_launches": setup_launches, "msm_c_sweep": sweep,
         "kzg_setup_s": t_kzg, "kzg_prove_s": t_kprove,
         "kzg_stage_s": ks_s, "kzg_spans_s": spans,
@@ -1489,6 +1536,7 @@ def main():
     finally:
         k1_counts = kernels.k1_launches()
         k2_launches = kernels.product_round.launches
+        k3_counts = kernels.k3_launches()
         records, kernels.record = kernels.record, None
         for name, fn in plain.items():
             setattr(kernels, name, fn)
@@ -1535,13 +1583,19 @@ def main():
           and "joint" in proof.opening_proofs,
           f"commitments {sorted(proof.commitments)}, opening proofs "
           f"{sorted(proof.opening_proofs)}")
-    check(all(stage_launches[s] == {"k1": {f: 0 for f in kernels.FORMS},
-                                    "k2": 0,
-                                    "k3": {f: 0 for f in kernels.K3_FORMS}}
-              for s in ("stage0-commit", "stage8-openings")),
-          "a Dory stage launched K1, K2 or K3")
-    check(not any(kernels.k3_launches().values()),
-          f"the Dory path launched K3: {kernels.k3_launches()}")
+    # Dory's G1 work runs on K3 (one-hot tier 1, the dense commits, the
+    # opening's phase B), and the Dory stages launch no K1 or K2
+    dory_k3 = {s: {f: c for f, c in stage_launches[s]["k3"].items() if c}
+               for s in ("stage0-commit", "stage8-openings")}
+    check(all(not any(stage_launches[s]["k1"].values())
+              and stage_launches[s]["k2"] == 0 for s in dory_k3),
+          f"a Dory stage launched K1 or K2: {stage_launches}")
+    check(all(dory_k3.values()) and set().union(*dory_k3.values()) >= {
+        "bucket_sum", "bucket_reduce", "scalar_mul", "add", "normalize"},
+          f"the Dory stages' K3 launches: {dory_k3}")
+    check(sum(k3_counts.values()) == sum(sum(v.values())
+                                         for v in dory_k3.values()),
+          f"K3 launched outside the Dory stages: {k3_counts}, {dory_k3}")
     t0 = time.perf_counter()
     ok = verify(proof, PublicIO.from_trace(tr), setup=setup)
     t_verify = time.perf_counter() - t0
@@ -1572,7 +1626,38 @@ def main():
         f"{stage_s['stage0-commit']:.3f}s, stage8-openings "
         f"{stage_s['stage8-openings']:.3f}s of prove {t_prove:.3f}s "
         f"({t_dory / t_prove:.1%}); encode.setup {t_encode:.4f}s "
-        f"({t_encode / t_prove:.1%} of prove)", flush=True)
+        f"({t_encode / t_prove:.1%} of prove, Gamma1's pack to the card "
+        "included)", flush=True)
+    print(f"[dory] K3 launches by Dory stage: {dory_k3} (K3 on the whole "
+          f"prove: {sum(k3_counts.values())})", flush=True)
+
+    # the same prove with Dory's G1 work on the native library (the route
+    # argument), held byte for byte against the K3 route's proof
+    native_scheme = scheme_mod.DoryScheme(setup, "cuda", _k3=False)
+    nprof = profiling.PROFILER = profiling.Profiler()
+    kernels.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        nat_proof, nat_s, _, nat_launches = timed_stages(
+            lambda: prove(tr, setup=native_scheme, device="cuda"))
+        t_native_prove = time.perf_counter() - t0
+    finally:
+        nat_k3 = kernels.k3_launches()
+        profiling.PROFILER = profiling.Profiler(enabled=False)
+    check(serialize_proof(nat_proof) == serialize_proof(proof)
+          and nat_proof.fs_tape == proof.fs_tape,
+          "the K3 route's proof differs from the native route's at 2^18")
+    check(not any(nat_k3.values()), f"the native route launched K3: {nat_k3}")
+    nat_spans = {name: nprof.total(name) for name in DORY_SPANS}
+    print(f"[dory] native route (the same prove, Dory's G1 work on the "
+          f"native library): prove {t_native_prove:.3f}s, stage0-commit "
+          f"{nat_s['stage0-commit']:.3f}s, stage8-openings "
+          f"{nat_s['stage8-openings']:.3f}s; spans " + ", ".join(
+              f"{n} {v:.4f}" for n, v in nat_spans.items())
+          + f", encode.setup {nprof.total('encode.setup'):.4f}; proof "
+          f"bytes and FS tape == the K3 route's ({len(serialize_proof(proof))}"
+          " B)", flush=True)
+    del nat_proof
 
     # a second run under the profiler, at setup=None so that the card's
     # stages compare with the runs before Dory: each stage's device time
@@ -1670,8 +1755,15 @@ def main():
     check(zk_proof.zk_blindfold is not None, "the zk proof has no BlindFold")
     check(list(zk_s) == DORY_STAGES + ["blindfold"],
           f"zk stage lines: {zk_s}")
+    # K1 and K2 as in the plain run, stage by stage; K3 commits the same
+    # polynomials in stage 0 (the opening's MSMs hold other scalars, so
+    # their bucket levels may differ)
     check(zk_k1 == k1_counts and zk_k2 == k2_launches
-          and all(zk_launches[k] == stage_launches[k] for k in stage_launches),
+          and all(zk_launches[k][kk] == stage_launches[k][kk]
+                  for k in stage_launches for kk in ("k1", "k2"))
+          and zk_launches["stage0-commit"]["k3"]
+          == stage_launches["stage0-commit"]["k3"]
+          and any(zk_launches["stage8-openings"]["k3"].values()),
           f"zk launched K1 {zk_k1} and K2 {zk_k2} (plain {k1_counts}, "
           f"{k2_launches}); by stage {zk_launches}")
     n_comms = sum(len(v) for v in zk_proof.zk_commitments.values())
@@ -1848,9 +1940,10 @@ def main():
     check(verify(on_card, PublicIO.from_trace(small), setup=small_setup)
           is True, "verify rejected the small Dory proof")
     print(f"[card-vs-cpu] Dory guest ({small.length} cycles, setup nu="
-          f"{small_setup.nu} sigma={small_setup.sigma}): identical proof "
-          f"bytes ({len(serialize_proof(on_card))} B) and FS tape "
-          f"({len(on_card.fs_tape)} entries); verified", flush=True)
+          f"{small_setup.nu} sigma={small_setup.sigma}), Dory's G1 work on "
+          f"K3 on the card against the native library on the CPU: "
+          f"identical proof bytes ({len(serialize_proof(on_card))} B) and "
+          f"FS tape ({len(on_card.fs_tape)} entries); verified", flush=True)
     n_zk = card_vs_cpu(small, "the Dory guest with zk", setup=small_setup,
                        zk=True)
     n_ci = card_vs_cpu(image_guest, "the image guest with Dory and the "
@@ -1864,7 +1957,22 @@ def main():
     # ---- 8b. K3, HyperKZG end to end, Dory's device one-hot tier ---------
     g1_entry = g1_kzg_phase(dev, gen, setup, small, onehot_positions,
                             card_vs_cpu)
-    g1_entry.update(spill_bytes=k3_spills, stack_bytes=k3_stack)
+    # K3's launches on the main path: the Dory prove's, by stage
+    g1_entry = {**{k: g1_entry[k] for k in ("name", "route", "source",
+                                            "replaces")},
+                "launches": sum(k3_counts.values()),
+                "launches_by_form": k3_counts, "launches_by_stage": dory_k3,
+                **g1_entry, "spill_bytes": k3_spills,
+                "stack_bytes": k3_stack,
+                "dory_native_route_prove_s": t_native_prove,
+                "dory_native_route_stage_s": {
+                    k: nat_s[k] for k in ("stage0-commit",
+                                          "stage8-openings")},
+                "dory_k3_route_stage_s": {
+                    k: stage_s[k] for k in ("stage0-commit",
+                                            "stage8-openings")},
+                "dory_k3_route_spans_s": spans,
+                "dory_native_route_spans_s": nat_spans}
 
     # ---- 9. results -------------------------------------------------------
     print(f"[total] {time.perf_counter() - t_start:.1f}s", flush=True)

@@ -18,9 +18,10 @@ R = 2^256); Z == 0 encodes infinity.  An affine batch has Z = R mod q
   * Around them, as in the JAX package: `tree_sum` (halvings, each one K3
     launch over the two halves of one tensor), `mask_points`,
     `segmented_scan_points` (a log-step inclusive scan), `msm_binary`,
-    `msm_u8`, `msm` (the JAX package's dispatch) and `msm_pippenger`
-    (digits, a stable sort and the bucket offsets by torch on the points'
-    device, then `bucket_sum` and `bucket_reduce`).
+    `msm_u8`, `msm` (the JAX package's dispatch), `msm_rows` (many MSMs
+    of one length, as Dory's row commits and folded halves take them) and
+    `msm_pippenger` (digits, a stable sort and the bucket offsets by torch
+    on the points' device, then `bucket_sum` and `bucket_reduce`).
   * `pack_points` / `unpack_points`: affine host points <-> a batch.
 
 Formulas (a = 0 curve): dbl-2009-l, add-2007-bl and madd-2007-bl; an add
@@ -118,7 +119,10 @@ def _edges(P: Point3, Q: Point3, out: Point3, H, rr) -> Point3:
     same_x, same_y = fq.is_zero(H), fq.is_zero(rr)
     out = list(out)
     if bool(same_x.any()):
-        D3 = (jacobian_double_plain(P) if bool((same_x & same_y).any())
+        # the doubling runs only when a finite lane needs it (a lane at
+        # infinity takes the other operand below)
+        dbl = same_x & same_y & ~p_inf & ~q_inf
+        D3 = (jacobian_double_plain(P) if bool(dbl.any())
               else (torch.zeros_like(out[0]),) * 3)
         # same x: double if same y, else (0, 0, 0)
         out = [fq.select(same_x, fq.select(same_y, d, torch.zeros_like(d)),
@@ -729,6 +733,26 @@ def msm(P: Point3, scalars, bits: int) -> Point3:
     if bits > 32 and scalars.shape[-1] >= 512:
         return msm_pippenger(P, scalars, bits)
     return tree_sum(batch_scalar_mul(P, _on(scalars, P).to(_I32), bits))
+
+
+def msm_rows(P: Point3, scalar_words: torch.Tensor, bits: int) -> Point3:
+    """B MSMs of N lanes at once: bases P that broadcast to (8, B, N) and
+    (W, B, N) scalar words -> the B sums, (8, B).  Each row as `msm` sums
+    it at bits > 1: from 512 lanes at full width Pippenger (one call a
+    row, whose bases must be affine), else one `batch_scalar_mul` over
+    every row's lanes and one tree sum of all rows together."""
+    words = _on(scalar_words, P)
+    n_rows, n = words.shape[1:]
+    P = tuple(c.expand(N_LIMBS, n_rows, n) for c in P)
+    if bits > 32 and n >= 512:
+        sums = [msm_pippenger(tuple(c[:, i] for c in P), words[:, i], bits)
+                for i in range(n_rows)]
+        return tuple(torch.cat([s[k] for s in sums], 1) for k in range(3))
+    prods = batch_scalar_mul(tuple(c.reshape(N_LIMBS, -1) for c in P),
+                             words.reshape(words.shape[0], -1).to(_I32),
+                             bits)
+    return tuple(c[..., 0] for c in tree_sum(
+        tuple(c.reshape(N_LIMBS, n_rows, n) for c in prods)))
 
 
 def _on(words, P: Point3) -> torch.Tensor:

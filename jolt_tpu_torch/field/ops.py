@@ -233,7 +233,7 @@ def segment_sum_mod(a: torch.Tensor, ids: torch.Tensor,
 # host <-> device conversion of Python ints
 # ---------------------------------------------------------------------------
 
-def _words_of_ints(vals) -> np.ndarray:
+def words_of_ints(vals) -> np.ndarray:
     """Canonical ints -> (8, n) uint32 words (host)."""
     n = len(vals)
     buf = b"".join((int(v) % P).to_bytes(32, "little") for v in vals)
@@ -246,14 +246,14 @@ def pack_ints(vals: Sequence[int], device="cuda") -> torch.Tensor:
     R^2 on the device."""
     if len(vals) == 1:
         return _scalar(int(vals[0]), device, 1)
-    words = torch.from_numpy(_words_of_ints(vals).astype(np.int32))
+    words = torch.from_numpy(words_of_ints(vals).astype(np.int32))
     return from_words(words.to(device))
 
 
 def pack_ints_host(vals: Sequence[int], device="cuda") -> torch.Tensor:
     """Python ints -> Montgomery limbs (8, len(vals)), converted on the
     host: one upload and no launch, for the few constants of a round."""
-    words = _words_of_ints([int(v) % P * R % P for v in vals])
+    words = words_of_ints([int(v) % P * R % P for v in vals])
     return torch.from_numpy(words.astype(np.int32)).to(device)
 
 

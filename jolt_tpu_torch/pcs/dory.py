@@ -39,11 +39,18 @@ and the native library (`curve/native_pairing.py`), with both tiers of
     package's, written atomically, and loads only the port's own classes
     (a pickle names its classes by module path: the two packages never
     share a cache).  The values are the JAX package's.
-  * `Dory(setup, device="cuda")` takes the device of its device tier
-    from the caller: `commit_onehot`, and `commit_onehot_many` when the
-    Python pairing tier was asked for, run the port's device G1
-    (`curve/g1.py`, K3 on the card) there, never chosen by whether a card
-    is present.
+  * `Dory(setup, device="cuda")` takes its device from the caller, never
+    from whether a card is present, and the device picks the route of
+    Dory's G1 work.  On a CUDA device it runs on the port's device G1
+    (`curve/g1.py`, K3): tier 1 of the one-hot commits (one `bucket_sum`
+    over every matrix's rows), the dense commits (`g1.msm_rows` over
+    Gamma1, Pippenger at 2^16 columns) and the opening's phase B (its
+    MSMs, and the Gamma1 folds as scalar_mul, add and normalize).  A
+    failed build or launch raises; nothing falls back.  On the CPU the
+    same work runs on the native library, as in the JAX package.  Tier
+    2, phase A, the opening's Fr folds and `verify` stay native on both.
+    `DorySetup.gamma1_on` keeps Gamma1's device copy with the setup, one
+    per device, out of the cached pickle.
 """
 
 from __future__ import annotations
@@ -61,9 +68,14 @@ from ..curve import bn254_host as host
 from ..curve.fq_tower import Fq2, Fq12
 from ..curve.pairing import (G2Point, g2_add, g2_in_subgroup, g2_mul,
                              g2_mul_unreduced, pairing_product, tate_pairing)
+from ..field.kernels import N_LIMBS
 from ..field.params import FQ_MODULUS as Q
 from ..field.params import FR_MODULUS as P
 from ..transcript import Blake2bTranscript
+from ..utils.profiling import active as _prof_active
+
+# the bits of an Fr scalar (the K3 route's MSMs and folds)
+FR_BITS = 254
 
 # BN254 G2 cofactor (checked at setup: clearing lands in the r-torsion)
 _G2_COFACTOR = 21888242871839275222246405745257275088844257914179612981679871602714643921549
@@ -195,6 +207,25 @@ class DorySetup:
     def num_vars(self) -> int:
         return self.nu + self.sigma
 
+    def gamma1_on(self, device):
+        """Gamma1 as an affine batch on `device` (`curve/g1.py`: Z = R mod
+        q, the layout that `bucket_sum` and Pippenger take), packed at the
+        first call for that device and kept with the setup."""
+        key = str(torch.device(device))
+        packed = self.__dict__.setdefault("_gamma1_dev", {})
+        if key not in packed:
+            from ..curve import g1 as g1dev
+            with _prof_active().span("encode.setup"):
+                packed[key] = g1dev.pack_points(self.gamma1, device)
+        return packed[key]
+
+    def __getstate__(self):
+        """The fields alone: the device copies of `gamma1_on` stay out of
+        the pickle (the cache loads only the package's own classes)."""
+        state = dict(self.__dict__)
+        state.pop("_gamma1_dev", None)
+        return state
+
     # Default aspect ratio: rows are capped at 2^10.  Tier-2 commits and
     # the reduce's pairing products scale with ROWS (the host pairing
     # tier), while tier-1 MSMs and the phase-B folds scale with COLS
@@ -317,31 +348,65 @@ def _eq_tensor(point: Sequence[int]) -> List[int]:
 
 
 class Dory:
-    def __init__(self, setup: DorySetup, device="cuda"):
+    def __init__(self, setup: DorySetup, device="cuda", _k3=None):
+        """`device` picks the route of the G1 work: K3 on a CUDA device,
+        the native library on the CPU (the module's docstring).  `_k3`
+        (True or False) forces one route whatever the device; it is only
+        for the checks that hold one route against the other (the tests
+        and `chip_smoke.py`).  On CPU tensors K3's wrappers run their
+        plain versions."""
         self.setup = setup
         self.device = torch.device(device)
+        self.k3 = self.device.type == "cuda" if _k3 is None else bool(_k3)
 
     # ---- commit --------------------------------------------------------
 
     def commit_rows(self, coeffs: Sequence[int]) -> DoryHint:
-        """Tier 1: pay-per-bit row MSMs (zero coefficients and all-zero
-        trailing rows are skipped).  Uses the process-cached pre-encoded
-        generator buffer so dense commits pay scalar encoding only."""
+        """Tier 1: the row MSMs (all-zero trailing rows are skipped).  The
+        K3 route packs the coefficients into words once and runs every
+        row's MSM on the device (`g1.msm_rows`); the native route uses the
+        process-cached pre-encoded generator buffer, so dense commits pay
+        scalar encoding only (zero coefficients are skipped)."""
         from ..curve import native_pairing as npair
         s = self.setup
         cols = 1 << s.sigma
         n_rows = min(1 << s.nu, (len(coeffs) + cols - 1) // cols)
         rows: List[Optional[host.Point]] = [None] * (1 << s.nu)
-        buf = self._gamma1_buf()
-        for i in range(n_rows):
-            row = coeffs[i * cols:(i + 1) * cols]
-            if buf is not None:
-                got = npair.g1_msm_enc(buf, row)
-                if got is not None:
-                    rows[i] = got[0]
-                    continue
-            rows[i] = host.g1_msm_pippenger(s.gamma1[:len(row)], row)
+        with _prof_active().span("commit.tier1"):
+            if self.k3:
+                rows[:n_rows] = self._rows_k3(coeffs, n_rows)
+                return DoryHint(rows=rows)
+            buf = self._gamma1_buf()
+            for i in range(n_rows):
+                row = coeffs[i * cols:(i + 1) * cols]
+                if buf is not None:
+                    got = npair.g1_msm_enc(buf, row)
+                    if got is not None:
+                        rows[i] = got[0]
+                        continue
+                rows[i] = host.g1_msm_pippenger(s.gamma1[:len(row)], row)
         return DoryHint(rows=rows)
+
+    def _rows_k3(self, coeffs: Sequence[int], n_rows: int
+                 ) -> List[Optional[host.Point]]:
+        """The first `n_rows` row commitments on K3: the coefficients as
+        canonical words (a short tail row padded with zeros), one MSM a
+        row over Gamma1 at 254 bits, as affine host points (None for
+        infinity)."""
+        import numpy as np
+
+        from ..curve import g1 as g1dev
+        from ..field.ops import words_of_ints
+        if n_rows == 0:
+            return []
+        cols = 1 << self.setup.sigma
+        words = np.zeros((N_LIMBS, n_rows * cols), np.uint32)
+        words[:, :len(coeffs)] = words_of_ints(coeffs)
+        w = torch.from_numpy(words.view(np.int32)).to(self.device)
+        gam = self.setup.gamma1_on(self.device)
+        sums = g1dev.msm_rows(tuple(c[:, None] for c in gam),
+                              w.reshape(N_LIMBS, n_rows, cols), FR_BITS)
+        return g1dev.unpack_points(sums)
 
     def commit(self, coeffs: Sequence[int]) -> Tuple[DoryCommitment, DoryHint]:
         s = self.setup
@@ -356,19 +421,13 @@ class Dory:
         # Routed through the buffer-level pairing tier (cached encoded
         # gamma2).  _tier2_gt lives at the END of this file so the line
         # numbers of the traced commit path below stay unchanged
-        from ..utils.profiling import active as _prof_active
         with _prof_active().span("commit.tier2"):
             return DoryCommitment(c=_tier2_gt(self, hint.rows))
 
-    def _gamma1_dev(self):
-        if getattr(self, "_g1_dev", None) is None:
-            from ..curve import g1 as g1dev
-            self._g1_dev = g1dev.pack_points(self.setup.gamma1, self.device)
-        return self._g1_dev
-
     def _gamma1_buf(self):
+        """Gamma1's native encoding (the native route), made once a Dory
+        instance; None on the Python pairing tier."""
         from ..curve import native_pairing as npair
-        from ..utils.profiling import active as _prof_active
         if getattr(self, "_g1_buf", None) is None and npair.available():
             with _prof_active().span("encode.setup"):
                 self._g1_buf = npair.g1_enc_bases(self.setup.gamma1)
@@ -377,22 +436,43 @@ class Dory:
     def commit_onehot_many(self, positions_list):
         """Batched `commit_onehot`: per-matrix row sums (sum of column
         generators per hit row) then one tier-2 multi-pairing per matrix.
-
-        Tier 1 runs on the NATIVE G1 segment-sum kernel when available
-        (csrc/pairing.cpp jolt_g1_segment_sums -- threaded Jacobian
-        mixed-add chains), else on the device bucket sums (`curve/g1.py`
-        `bucket_sum`, K3 on the card)."""
+        Tier 1 is `onehot_rows`."""
         hints = [DoryHint(rows=rows)
                  for rows in self.onehot_rows(positions_list)]
         return [(self._tier2(hint), hint) for hint in hints]
 
-    def onehot_rows(self, positions_list, device_tier: Optional[bool] = None
-                    ) -> List[List[Optional[host.Point]]]:
+    def onehot_rows(self, positions_list) -> List[List[Optional[host.Point]]]:
         """Tier 1 of `commit_onehot_many`: each matrix's row commitments
-        (the sum of the column generators of each hit row).  On the native
-        segment sums when the library loads, else on the device bucket
-        sums; `device_tier` forces one of the two (a check holds them
-        against each other)."""
+        (the sum of the column generators of each hit row), for every
+        matrix at once.  The K3 route takes one device `bucket_sum` over
+        the rows (`_segment_totals`); the native route the native segment
+        sums (csrc/pairing.cpp jolt_g1_segment_sums -- threaded Jacobian
+        mixed-add chains), or on the Python pairing tier the device sums
+        on this Dory's device, as the JAX package does."""
+        s = self.setup
+        with _prof_active().span("commit.tier1"):
+            col_all, seg_off, metas = self.onehot_segments(positions_list)
+            base_buf = None if self.k3 else self._gamma1_buf()
+            if base_buf is not None:
+                from ..curve import native_pairing as npair
+                pts = npair.g1_segment_sums(base_buf, col_all, seg_off)
+            else:
+                pts = self._segment_totals(col_all, seg_off)
+        out = []
+        pos = 0
+        for rows_hit, n_hit in metas:
+            rows: List[Optional[host.Point]] = [None] * (1 << s.nu)
+            for r, pt in zip(rows_hit.tolist(), pts[pos:pos + n_hit]):
+                rows[r] = pt
+            pos += n_hit
+            out.append(rows)
+        return out
+
+    def onehot_segments(self, positions_list):
+        """Tier 1's segments over every matrix at once: the column of each
+        position, grouped by (matrix, row) (uint32), the segments' offsets
+        (uint64, one more than the segments) and, per matrix, its hit rows
+        and their count."""
         import numpy as np
 
         s = self.setup
@@ -402,7 +482,10 @@ class Dory:
         for positions in positions_list:
             positions = np.asarray(positions, np.int64)
             row_idx = positions >> s.sigma
-            order = np.argsort(row_idx, kind="stable")
+            # rows < 2^nu: a stable sort of 16-bit keys (numpy's radix
+            # sort) gives the int64 sort's order
+            keys = row_idx.astype(np.uint16) if s.nu <= 16 else row_idx
+            order = np.argsort(keys, kind="stable")
             r_sorted = row_idx[order]
             c_parts.append((positions & (cols - 1))[order])
             n = len(positions)
@@ -410,54 +493,38 @@ class Dory:
             heads[1:] = (r_sorted[1:] != r_sorted[:-1]).astype(np.uint32)
             head_parts.append(heads)
             lasts = np.nonzero(np.concatenate([heads[1:], [1]]))[0]
-            metas.append((r_sorted[lasts], lasts, n))
+            metas.append((r_sorted[lasts], len(lasts)))
 
-        base_buf = None if device_tier else self._gamma1_buf()
-        if device_tier is False and base_buf is None:
-            raise RuntimeError("the native pairing library did not load")
         col_all = np.concatenate(c_parts).astype(np.uint32)
         heads_all = np.concatenate(head_parts)
         seg_off = np.concatenate([np.nonzero(heads_all)[0],
                                   [len(col_all)]]).astype(np.uint64)
-        if base_buf is not None:
-            from ..curve import native_pairing as npair
-            pts = npair.g1_segment_sums(base_buf, col_all, seg_off)
-        else:
-            pts = self._segment_totals(col_all, seg_off)
-        out = []
-        pos = 0
-        for (rows_hit, lasts, _n) in metas:
-            rows: List[Optional[host.Point]] = [None] * (1 << s.nu)
-            for r, pt in zip(rows_hit.tolist(), pts[pos:pos + len(lasts)]):
-                rows[r] = pt
-            pos += len(lasts)
-            out.append(rows)
-        return out
+        return col_all, seg_off, metas
 
     def _segment_totals(self, cols, seg_off) -> List[host.Point]:
-        """The device tier: one `g1.bucket_sum` of the generators at
-        `cols` (K3 on the card), segment i = cols[seg_off[i]:seg_off[i +
-        1]], normalized on the device (`g1.normalize`), as affine host
+        """The device sums: one `g1.bucket_sum` of the generators at `cols`
+        (K3 on the card), segment i = cols[seg_off[i]:seg_off[i + 1]],
+        normalized on the device (`g1.normalize`), as affine host
         points."""
         import numpy as np
 
         from ..curve import g1 as g1dev
         sums = g1dev.bucket_sum(
-            self._gamma1_dev(), torch.from_numpy(cols.astype(np.int32)),
+            self.setup.gamma1_on(self.device),
+            torch.from_numpy(cols.astype(np.int32)),
             torch.from_numpy(seg_off.astype(np.int64)))
         return g1dev.unpack_points(g1dev.normalize(sums))
 
     def commit_onehot(self, positions) -> Tuple[DoryCommitment, DoryHint]:
         """Commit a sparse 0/1 vector given its nonzero POSITIONS (numpy
-        int64, in [0, 2^num_vars)) -- O(T) device mixed adds for tier 1
-        (no dense K*T vector is ever built), then the usual tier-2
+        int64, in [0, 2^num_vars)) -- O(T) mixed adds for tier 1 (no
+        dense K*T vector is ever built), then the usual tier-2
         multi-pairing over nonzero rows.
 
         The one-hot fast path of the reference
         (`poly/one_hot_polynomial.rs:119`): each row commitment is a plain
         sum of column generators."""
-        hint = DoryHint(rows=self.onehot_rows([positions],
-                                              device_tier=True)[0])
+        hint = DoryHint(rows=self.onehot_rows([positions])[0])
         return self._tier2(hint), hint
 
     # ---- open ----------------------------------------------------------
@@ -472,7 +539,6 @@ class Dory:
         the opening O(nnz), never O(2^num_vars)."""
         s = self.setup
         n = s.num_vars
-        from ..utils.profiling import active as _prof_active
         prof = _prof_active()
         parts = coeffs if isinstance(coeffs, list) and coeffs \
             and isinstance(coeffs[0], tuple) and len(coeffs[0]) == 3 \
@@ -643,24 +709,33 @@ class Dory:
                                 sv[jj] = (sv[jj] + li * c) % P
             return sv
 
+        # On the K3 route Gamma1 and its folds stay on the device: each
+        # round's MSMs read sv's canonical lanes as words, and only xl and
+        # xr come back to the host, for the transcript
         b_xl, b_xr, b_yl, b_yr = [], [], [], []
+        if self.k3:
+            gamd = s.gamma1_on(self.device)
         if _np.available():
             with prof.span("open.B.row"):
                 if parts is not None:
                     svb = _np.fr_combined_row_buf(parts, L, cols, s.sigma)
                 else:
                     svb = _np.fr_enc(_sv_python())
-            gamb = self._gamma1_buf()
-            gami = b"\x00" * cols
+            if not self.k3:
+                gamb = self._gamma1_buf()
+                gami = b"\x00" * cols
             Rb = _np.fr_enc(R)
             nsv = cols
             while nsv > 1:
                 h = nsv // 2
                 with prof.span("open.B.msm"):
-                    xl = _np.g1_msm_buf(gamb[64 * h:], gami[h:],
-                                        svb[:32 * h])[0]
-                    xr = _np.g1_msm_buf(gamb[:64 * h], gami[:h],
-                                        svb[32 * h:])[0]
+                    if self.k3:
+                        xl, xr = _b_msms_k3(gamd, svb, h)
+                    else:
+                        xl = _np.g1_msm_buf(gamb[64 * h:], gami[h:],
+                                            svb[:32 * h])[0]
+                        xr = _np.g1_msm_buf(gamb[:64 * h], gami[:h],
+                                            svb[32 * h:])[0]
                 yl = _np.fr_dot_buf(svb[:32 * h], Rb[32 * h:], h)
                 yr = _np.fr_dot_buf(svb[32 * h:], Rb[:32 * h], h)
                 transcript.append_bytes(b"dory_b", _g1_bytes(xl))
@@ -675,22 +750,28 @@ class Dory:
                 ainv = pow(alpha, -1, P)
                 svb = _np.fr_fold_buf(svb[:32 * h], svb[32 * h:], alpha, h)
                 with prof.span("open.B.g1fold"):
-                    gamb, gami = _np.g1_fold_buf(gamb[64 * h:], gami[h:],
-                                                 gamb[:64 * h], gami[:h],
-                                                 h, ainv)
+                    if self.k3:
+                        gamd = _b_fold_k3(gamd, h, ainv)
+                    else:
+                        gamb, gami = _np.g1_fold_buf(
+                            gamb[64 * h:], gami[h:], gamb[:64 * h],
+                            gami[:h], h, ainv)
                 Rb = _np.fr_fold_buf(Rb[:32 * h], Rb[32 * h:], ainv, h)
                 nsv = h
             b_final_s = int.from_bytes(svb[:32], "little")
         else:
             with prof.span("open.B.row"):
                 sv = _sv_python()
-            gam = list(s.gamma1)
+            gam = None if self.k3 else list(s.gamma1)
             Rv = list(R)
             while len(sv) > 1:
                 h = len(sv) // 2
                 with prof.span("open.B.msm"):
-                    xl = host.g1_msm_pippenger(gam[h:], sv[:h])
-                    xr = host.g1_msm_pippenger(gam[:h], sv[h:])
+                    if self.k3:
+                        xl, xr = _b_msms_k3(gamd, _np.fr_enc(sv), h)
+                    else:
+                        xl = host.g1_msm_pippenger(gam[h:], sv[:h])
+                        xr = host.g1_msm_pippenger(gam[:h], sv[h:])
                 yl = sum(a * b for a, b in zip(sv[:h], Rv[h:])) % P
                 yr = sum(a * b for a, b in zip(sv[h:], Rv[:h])) % P
                 transcript.append_bytes(b"dory_b", _g1_bytes(xl))
@@ -705,8 +786,11 @@ class Dory:
                 ainv = pow(alpha, -1, P)
                 sv = [(alpha * a + b) % P for a, b in zip(sv[:h], sv[h:])]
                 with prof.span("open.B.g1fold"):
-                    gam = [host.g1_add(host.g1_mul(a, ainv), b)
-                           for a, b in zip(gam[:h], gam[h:])]
+                    if self.k3:
+                        gamd = _b_fold_k3(gamd, h, ainv)
+                    else:
+                        gam = [host.g1_add(host.g1_mul(a, ainv), b)
+                               for a, b in zip(gam[:h], gam[h:])]
                 Rv = [(ainv * a + b) % P for a, b in zip(Rv[:h], Rv[h:])]
             b_final_s = sv[0]
         transcript.append_scalar(b"dory_bs", b_final_s)
@@ -825,6 +909,38 @@ class Dory:
         return True
 
 
+def _words_on(buf: bytes, device) -> torch.Tensor:
+    """Canonical 32-byte little-endian lanes -> (8, n) int32 words on
+    `device` (no Python ints)."""
+    import numpy as np
+    lanes = np.frombuffer(buf, "<u4").view(np.int32).reshape(-1, N_LIMBS)
+    return torch.from_numpy(lanes.copy()).to(device).t()
+
+
+def _b_msms_k3(gam, svb: bytes, h: int):
+    """Phase B's xl = <gam[h:], sv[:h]> and xr = <gam[:h], sv[h:]> on K3
+    (one `g1.msm_rows` over the swapped halves of the affine batch gam,
+    sv's 2h canonical lanes `svb` as words), as affine host points."""
+    from ..curve import g1 as g1dev
+    words = _words_on(svb, gam[0].device).reshape(N_LIMBS, 2, h)
+    swapped = tuple(c.reshape(N_LIMBS, 2, h).flip(1) for c in gam)
+    xl, xr = g1dev.unpack_points(g1dev.msm_rows(swapped, words, FR_BITS))
+    return xl, xr
+
+
+def _b_fold_k3(gam, h: int, ainv: int):
+    """Phase B's Gamma1 fold gam' = ainv gam[:h] + gam[h:] on K3: one
+    scalar_mul with the scalar broadcast, one add, and a normalize (the
+    next round's MSMs take affine bases)."""
+    from ..curve import g1 as g1dev
+    words = _words_on(ainv.to_bytes(32, "little"),
+                      gam[0].device).expand(N_LIMBS, h)
+    prod = g1dev.batch_scalar_mul(tuple(c[:, :h] for c in gam), words,
+                                  FR_BITS)
+    return g1dev.normalize(g1dev.jacobian_add(
+        prod, tuple(c[:, h:] for c in gam)))
+
+
 def _tier2_gt(dory: "Dory", rows) -> Fq12:
     """Tier-2 AFGHO commitment GT element: prod e(rows_i, gamma2_i).
 
@@ -839,7 +955,6 @@ def _tier2_gt(dory: "Dory", rows) -> Fq12:
                                 if r is not None])
     enc = dory.__dict__.get("_g2l0_enc")
     if enc is None:
-        from ..utils.profiling import active as _prof_active
         with _prof_active().span("encode.setup"):
             enc = dory.__dict__["_g2l0_enc"] = _np.g2_enc_many(gamma2)
     g2b, g2i = enc

@@ -37,8 +37,9 @@ host algebra (Python ints) is unchanged.  What differs:
     compiled shape (zero coefficients add nothing).  `commit_positions`
     commits a 0/1 vector by its ones: on the card one `g1.bucket_sum` of
     one segment.
-  * `_scalars_to_words` is numpy (a Python loop over 2^20 scalars took
-    seconds a commit).
+  * the scalars' words come from `field.ops.words_of_ints`, one join of
+    the little-endian bytes (a Python loop over 2^20 scalars took seconds
+    a commit).
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ import torch
 from ..curve import bn254_host as host
 from ..curve import g1 as g1dev
 from ..curve.pairing import G2_GEN, G2Point, g2_mul, pairing_product_is_one
+from ..field.ops import words_of_ints
 from ..field.params import FR_MODULUS as P
 from ..transcript import Blake2bTranscript
 from ..utils.profiling import active as _prof_active
@@ -131,7 +133,7 @@ class KZGSetup:
             base = tuple(c.expand(-1, max_len) for c in
                          g1dev.pack_points([host.G1_GEN], device))
             words = torch.from_numpy(np.array(
-                _scalars_to_words(scalars)).view(np.int32)).to(device)
+                words_of_ints(scalars)).view(np.int32)).to(device)
             powers = g1dev.normalize(g1dev.batch_scalar_mul(base, words,
                                                             254))
         else:
@@ -164,12 +166,6 @@ class HyperKZGProof:
     fold_commitments: List[host.Point]          # commitments to f_1..f_{l-1}
     evals: List[List[int]]                      # per f_i: [f_i(r), f_i(-r), f_i(r^2)]
     witnesses: List[host.Point]                 # KZG quotients for {r, -r, r^2}
-
-
-def _scalars_to_words(scalars: Sequence[int]) -> np.ndarray:
-    """Field elements -> (8, n) little-endian uint32 words (canonical)."""
-    buf = b"".join((int(s) % P).to_bytes(32, "little") for s in scalars)
-    return np.frombuffer(buf, dtype="<u4").reshape(len(scalars), 8).T
 
 
 def _uni_eval(coeffs: Sequence[int], z: int) -> int:
@@ -235,7 +231,7 @@ class HyperKZG:
             if m == 0:
                 return None
             pts = tuple(c[:, :m] for c in s.g1_powers_dev)
-            acc = g1dev.msm(pts, _scalars_to_words(coeffs), bits)
+            acc = g1dev.msm(pts, words_of_ints(coeffs), bits)
             return g1dev.unpack_points(acc)[0]
 
     def commit_positions(self, positions) -> host.Point:

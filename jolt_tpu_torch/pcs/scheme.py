@@ -24,7 +24,9 @@ means sumcheck-only mode (no commitment layer).
 Copied from the JAX package's `pcs/scheme.py`.  What differs: every
 scheme takes the `device` its device work runs on (`make_scheme(setup,
 device="cuda")`; `prove` passes its own), never chosen by whether a card
-is present: HyperKZG's MSMs and Dory's device one-hot tier run there.
+is present: HyperKZG's MSMs run there, and Dory's G1 work (one-hot tier
+1, the dense commits, the opening's phase B) takes K3 on a CUDA device
+and the native library on the CPU (`pcs/dory.py`).
 `HyperKZGScheme.commit_sparse` commits the 0/1 vector by its ones
 (`HyperKZG.commit_positions`, the same commitment as the JAX package's
 dense 1-bit commit).
@@ -119,8 +121,11 @@ class DoryScheme:
 
     name = "dory"
 
-    def __init__(self, setup: DorySetup, device="cuda"):
-        self.dory = Dory(setup, device)
+    def __init__(self, setup: DorySetup, device="cuda", _k3=None):
+        """`device` picks the route of Dory's G1 work (`Dory`); `_k3`
+        forces one route, only for the checks that hold one route against
+        the other (the tests and `chip_smoke.py`)."""
+        self.dory = Dory(setup, device, _k3)
         self.setup = setup
         self._hints: Dict[str, DoryHint] = {}
 
@@ -148,15 +153,16 @@ class DoryScheme:
 
     def commit_sparse(self, name: str, positions,
                       length: int) -> DoryCommitment:
-        """One-hot fast path: device tier-1 segment sums over the nonzero
-        positions, O(T) -- no dense K*T vector exists anywhere."""
+        """One-hot fast path: tier-1 segment sums over the nonzero
+        positions (`Dory.onehot_rows`: K3 on a CUDA device, native on the
+        CPU), O(T) -- no dense K*T vector exists anywhere."""
         com, hint = self.dory.commit_onehot(positions)
         self._hints[name] = hint
         return com
 
     def commit_sparse_many(self, named_positions):
-        """Batched one-hot commits: one device dispatch for every matrix
-        (see Dory.commit_onehot_many)."""
+        """Batched one-hot commits: one tier-1 dispatch for every matrix
+        (see Dory.onehot_rows)."""
         names = [n for n, _ in named_positions]
         results = self.dory.commit_onehot_many([p for _, p in named_positions])
         out = {}

@@ -4,7 +4,8 @@ Torch counterpart of the JAX package's `prover/prover.py`.  `prove` is its
 `prove` in the same order, with the same transcript draws: witness
 extraction, the Fiat-Shamir preamble, then
 
-  0   Dory commitments of the witness polynomials (with a setup; host)
+  0   Dory commitments of the witness polynomials (with a setup; their
+      G1 work on `device`)
   1   Spartan outer (R1CS, uni-skip first round + 1 + log T rounds)
   1s  Spartan shift sumcheck (PC chaining via EqPlusOne)
   2   registers read/write checking       (sparse Twist)
@@ -19,7 +20,7 @@ extraction, the Fiat-Shamir preamble, then
       program-image claim reduction)
   8   joint opening-reduction sumcheck (grouped by (K, point)), then
       with a setup one Dory opening of the claims' random linear
-      combination (host)
+      combination (phase B on `device`)
 
 At `setup=None` (the sumcheck-only configuration) stage 0 and the joint
 opening are left out and the proof carries the bare opening claims.
@@ -424,8 +425,10 @@ def prove(trace: Trace, setup=None, device="cuda", zk: bool = False,
     "dory" / "hyperkzg" to build one sized from the trace) the stage-0
     commitments and the joint opening proof.  `setup=None` is the
     sumcheck-only configuration: the proof carries the bare opening
-    claims, no commitments and no joint opening proof.  The Dory work runs
-    on the host (`pcs/dory.py`, the native library of
+    claims, no commitments and no joint opening proof.  Dory's G1 work
+    (one-hot tier 1, the dense commits, the opening's phase B) runs on
+    `device` (K3 on the card, the native library on the CPU) and the rest
+    of Dory on the host (`pcs/dory.py`, the native library of
     `csrc/pairing.cpp`); HyperKZG's MSMs run on `device` (K3 on the card)
     and its opening's algebra on the host (`pcs/hyperkzg.py`).
 
@@ -571,8 +574,9 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None,
     if pcs is not None:
         # pay-per-bit commits (msm/mod.rs:16-80): one-hot access matrices
         # are binary, committed ADDRESS-MAJOR (position = k*T + j) so the
-        # joint reduction's address phase stays sparse; tier-1 runs as
-        # native point segment-sums (commit_sparse_many).  Increments are
+        # joint reduction's address phase stays sparse; tier 1 runs as
+        # point segment sums over every matrix at once (commit_sparse_many:
+        # K3's bucket sums on the card, native on the CPU).  Increments are
         # SIGNED (negative deltas wrap mod p), so they take the full-width
         # path (cheap: length T).
         arange_T = np.arange(T_pad, dtype=np.int64)

@@ -32,6 +32,7 @@ from ..config import ConfigError, ProofConfig
 from ..curve import bn254_host
 from ..field.params import FR
 from ..lookups import tables as LT
+from ..pcs.dory import DorySetup
 from ..pcs.scheme import make_scheme
 from ..poly.eq import eq_int
 from ..prover.prover import (BC_RA_SOURCES, LOOKUP_FLAG_COLUMNS,
@@ -207,7 +208,9 @@ def verify(proof: JoltProof, io: PublicIO, setup=None) -> bool:
     joint opening, and in zk mode the BlindFold proof) against the public
     statement, as the JAX package's `verify(proof, io, setup=setup)`;
     returns True or raises VerificationError."""
-    pcs = make_scheme(setup)
+    # Dory's verifier work (the image commitment included) is host work
+    pcs = make_scheme(setup, "cpu" if isinstance(setup, DorySetup)
+                      else "cuda")
     run = _verify_through_6v(proof, io, pcs)
     log_T = io.padded_length.bit_length() - 1
     _verify_stages_7_8(proof, io, log_T, run, pcs)

@@ -419,7 +419,8 @@ def test_prove_card_equals_cpu(card, advice):
 def test_prove_with_dory_card_equals_cpu(card, tmp_path):
     """With a Dory setup (13 variables), the whole proof of a small guest
     -- the commitments and the joint opening proof included -- has the
-    same bytes and FS tape on the card as on the CPU, and verifies."""
+    same bytes and FS tape on the card (Dory's G1 work on K3) as on the
+    CPU (the native library), and verifies."""
     from jolt_tpu_torch.pcs.dory import DorySetup
     layout = MemoryLayout(max_input_size=64, max_output_size=64)
     trace = trace_program(f"""
@@ -441,6 +442,48 @@ def test_prove_with_dory_card_equals_cpu(card, tmp_path):
     assert on_card.opening_proofs and on_card.commitments
     assert serialize_proof(on_card) == serialize_proof(on_cpu)
     assert on_card.fs_tape == on_cpu.fs_tape
+    assert verify(on_card, PublicIO.from_trace(trace), setup=setup)
+
+
+def test_prove_fib_with_dory_k3_route_on_card(card, tmp_path):
+    """The fib proof with a 2^16 Dory setup: on the card the K3 route
+    launches K3 (bucket_sum, scalar_mul, add, normalize) and gives the
+    bytes and FS tape of the native route on the card and of the CPU."""
+    from jolt_tpu_torch.pcs.dory import DorySetup
+    from jolt_tpu_torch.pcs.scheme import DoryScheme
+    from jolt_tpu_torch.prover.prover import required_num_vars
+    layout = MemoryLayout(max_input_size=64, max_output_size=64)
+    trace = trace_program(f"""
+        li   a0, 20
+        li   a1, 0
+        li   a2, 1
+    loop:
+        beq  a0, zero, done
+        add  a3, a1, a2
+        mv   a1, a2
+        mv   a2, a3
+        addi a0, a0, -1
+        j    loop
+    done:
+        li   t0, {layout.output_start}
+        sd   a1, 0(t0)
+        li   t1, {layout.termination}
+        li   t2, 1
+        sd   t2, 0(t1)
+    """, layout=layout)
+    setup = DorySetup.generate(required_num_vars(trace.padded_length, 0, 0),
+                               cache_dir=str(tmp_path))
+    kernels.reset_launches()
+    on_card = prove(trace, setup=setup, device=card)
+    k3 = kernels.k3_launches()
+    assert all(k3[f] for f in ("bucket_sum", "scalar_mul", "add",
+                               "normalize")), k3
+    native = prove(trace, setup=DoryScheme(setup, card, _k3=False),
+                   device=card)
+    on_cpu = prove(trace, setup=setup, device="cpu")
+    blob = serialize_proof(on_card)
+    assert blob == serialize_proof(native) == serialize_proof(on_cpu)
+    assert on_card.fs_tape == native.fs_tape == on_cpu.fs_tape
     assert verify(on_card, PublicIO.from_trace(trace), setup=setup)
 
 
@@ -525,9 +568,9 @@ def test_msm_and_kzg_on_card(card, tmp_path):
             == HyperKZG(setup.to("cpu")).commit_ints(coeffs))
 
 
-def test_dory_device_tier_on_card(card, tmp_path, monkeypatch):
-    """Dory's one-hot commit on the card (the device segmented scan) gives
-    the native tier's row hints and commitments."""
+def test_dory_device_tier_on_card(card, tmp_path):
+    """Dory's one-hot commit on the card (the K3 route: one bucket_sum over
+    the rows) gives the native route's row hints and commitments."""
     import numpy as np
     from jolt_tpu_torch.pcs.dory import Dory, DorySetup, gt_to_bytes
     setup = DorySetup.generate(10, cache_dir=str(tmp_path))
@@ -535,7 +578,6 @@ def test_dory_device_tier_on_card(card, tmp_path, monkeypatch):
     positions = [rng.integers(0, 16, 64).astype(np.int64) * 64
                  + np.arange(64) for _ in range(3)]
     native = Dory(setup, "cpu").commit_onehot_many(positions)
-    monkeypatch.setenv("JOLT_TPU_NO_NATIVE_PAIRING", "1")
     before = kernels.k3_launches()["bucket_sum"]
     on_card = Dory(setup, card).commit_onehot_many(positions)
     assert kernels.k3_launches()["bucket_sum"] > before

@@ -12,8 +12,13 @@
     a changed `b_final_s` and a wrong value.
   * The port's native and Python tiers of `open` (JOLT_TPU_NO_NATIVE_PAIRING)
     give identical proofs and transcript states, and the one-hot commit's
-    Python tier (the device segmented scan, here on the CPU) gives the
-    native tier's row hints and commitments.
+    K3 route (here on the CPU: K3's plain versions) gives the native
+    tier's row hints and commitments.
+  * The K3 route (`Dory(..., _k3=True)`, the route of a CUDA Dory, here
+    on CPU tensors) gives the native route's and the JAX package's row
+    hints and GT bytes for `commit_onehot_many`, `commit_sparse` and a
+    dense `commit` with an all-zero row and a short tail row, and
+    `open_rlc`'s proof fields and transcript state.
 """
 
 import copy
@@ -96,7 +101,7 @@ def _onehot_positions(seed, n_mats):
 def test_commit_matches_jax(setups, length):
     coeffs = _rand_vals(length, 300 + length)
     port, jax = setups
-    tc, th = tdory.Dory(port).commit(coeffs)
+    tc, th = tdory.Dory(port, "cpu").commit(coeffs)
     jc, jh = jdory.Dory(jax).commit(coeffs)
     assert _gt("port", tc.c) == _gt("jax", jc.c)
     assert th.rows == jh.rows
@@ -105,7 +110,7 @@ def test_commit_matches_jax(setups, length):
 def test_commit_onehot_many_matches_jax(setups):
     positions = _onehot_positions(310, 4)
     port, jax = setups
-    got = tdory.Dory(port).commit_onehot_many(positions)
+    got = tdory.Dory(port, "cpu").commit_onehot_many(positions)
     want = jdory.Dory(jax).commit_onehot_many(positions)
     assert len(got) == len(want) == 4
     for (tc, th), (jc, jh) in zip(got, want):
@@ -137,12 +142,13 @@ def _rlc_case(seed):
     return onehot, dense, weights, parts, point, value % P
 
 
-def _open(pkg, setup, case, label=b"dory"):
-    """Commit the case's polynomials through the package's DoryScheme and
-    open their RLC; returns the commitments, the proof and the transcript."""
+def _open(pkg, setup, case, label=b"dory", k3=False):
+    """Commit the case's polynomials through the package's DoryScheme (the
+    port's on the CPU, on its K3 route with `k3`) and open their RLC;
+    returns the commitments, the proof and the transcript."""
     onehot, dense, weights, parts, point, value = case
-    mod = tscheme if pkg == "port" else jscheme
-    scheme = mod.DoryScheme(setup)
+    scheme = (tscheme.DoryScheme(setup, "cpu", _k3=k3) if pkg == "port"
+              else jscheme.DoryScheme(setup))
     comms = scheme.commit_sparse_many(list(onehot.items()))
     comms["d"] = scheme.commit("d", dense)
     tr = (TTranscript if pkg == "port" else JTranscript)(label)
@@ -206,7 +212,7 @@ def test_native_and_python_tiers_agree(setups, opened, monkeypatch):
     case, (_, comms, native_proof, native_tr), _ = opened
     assert native_pairing.available()
     onehot, dense, weights, parts, point, value = case
-    scheme = tscheme.DoryScheme(setups[0])
+    scheme = tscheme.DoryScheme(setups[0], "cpu")
     scheme.commit_sparse_many(list(onehot.items()))     # native hints
     scheme.commit("d", dense)
     monkeypatch.setenv("JOLT_TPU_NO_NATIVE_PAIRING", "1")
@@ -220,10 +226,9 @@ def test_native_and_python_tiers_agree(setups, opened, monkeypatch):
     # the dense commit's Python tier gives the native tier's commitment
     assert _gt("port", scheme.commit("d", dense).c) == _gt("port",
                                                            comms["d"].c)
-    # the one-hot commit's other tier, the device segmented scan on the
-    # caller's device: the native tier's row hints (tier 1) and
-    # commitments
-    device_tier = tdory.Dory(setups[0], "cpu").commit_onehot_many(
+    # the one-hot commit's K3 route (K3's plain versions on the CPU): the
+    # native tier's row hints (tier 1) and commitments
+    device_tier = tdory.Dory(setups[0], "cpu", _k3=True).commit_onehot_many(
         list(onehot.values()))
     for name, (com, hint) in zip(onehot, device_tier):
         assert hint.rows == scheme._hints[name].rows
@@ -231,22 +236,82 @@ def test_native_and_python_tiers_agree(setups, opened, monkeypatch):
 
 
 def test_scheme_refuses_what_is_not_ported(setups):
-    """`DoryScheme.commit_sparse` (`Dory.commit_onehot`, the device tier on
-    the scheme's device; it raised before the device G1 was ported) equals
+    """`DoryScheme.commit_sparse` (`Dory.commit_onehot`) on the K3 route
+    (it raised before the device G1 was ported) equals the native route's
     `commit_sparse_many` for one matrix, hint included; `make_scheme`
     passes schemes through and refuses a setup it does not know (the JAX
     package's)."""
     positions = _onehot_positions(1, 1)[0]
     scheme = tscheme.DoryScheme(setups[0], "cpu")
-    one = scheme.commit_sparse("a", positions, N)
-    rows = scheme._hints["a"].rows
+    one = tscheme.DoryScheme(setups[0], "cpu", _k3=True)
+    com = one.commit_sparse("a", positions, N)
     many = scheme.commit_sparse_many([("b", positions)])["b"]
-    assert _gt("port", one.c) == _gt("port", many.c)
-    assert rows == scheme._hints["b"].rows
+    assert _gt("port", com.c) == _gt("port", many.c)
+    assert one._hints["a"].rows == scheme._hints["b"].rows
     assert tscheme.make_scheme(None) is None
     assert tscheme.make_scheme(scheme) is scheme
     with pytest.raises(TypeError):
         tscheme.make_scheme(setups[1])          # the JAX package's setup
+
+
+def test_route_follows_the_device(setups):
+    """A CUDA Dory takes the K3 route and a CPU Dory the native one; the
+    route argument overrides either; Gamma1's device copy is made once a
+    device and kept with the setup, out of its pickle."""
+    import pickle
+    port = setups[0]
+    assert tscheme.DoryScheme(port, "cuda").dory.k3
+    assert not tscheme.DoryScheme(port, "cpu").dory.k3
+    assert tdory.Dory(port, "cpu", _k3=True).k3
+    assert not tdory.Dory(port, "cuda", _k3=False).k3
+    gam = port.gamma1_on("cpu")
+    assert port.gamma1_on(torch.device("cpu")) is gam
+    assert tdory.Dory(port, "cpu", _k3=True).setup.gamma1_on("cpu") is gam
+    again = pickle.loads(pickle.dumps(port))
+    assert "_gamma1_dev" not in again.__dict__
+    assert _setup_values("port", again) == _setup_values("port", port)
+
+
+@pytest.mark.parametrize("length", [N - 11, 20])
+def test_k3_route_dense_commit_matches_jax(setups, length):
+    """A dense commit on the K3 route (one MSM a row over Gamma1, here K3's
+    plain versions): an all-zero row (a None hint) and a short tail row
+    give the native route's and the JAX package's hints and GT bytes."""
+    coeffs = _rand_vals(length, 500 + length)
+    coeffs[8:16] = [0] * 8                        # row 1 is all zero
+    port, jax = setups
+    kc, kh = tdory.Dory(port, "cpu", _k3=True).commit(coeffs)
+    nc, nh = tdory.Dory(port, "cpu").commit(coeffs)
+    jc, jh = jdory.Dory(jax).commit(coeffs)
+    assert kh.rows[1] is None and kh.rows[(length - 1) // 8] is not None
+    assert kh.rows == nh.rows == jh.rows
+    assert _gt("port", kc.c) == _gt("port", nc.c) == _gt("jax", jc.c)
+
+
+def test_k3_route_onehot_many_matches_jax(setups):
+    """`commit_onehot_many` on the K3 route (one bucket_sum over every
+    matrix's rows) gives the JAX package's row hints and GT bytes."""
+    positions = _onehot_positions(320, 3)
+    port, jax = setups
+    got = tdory.Dory(port, "cpu", _k3=True).commit_onehot_many(positions)
+    want = jdory.Dory(jax).commit_onehot_many(positions)
+    for (tc, th), (jc, jh) in zip(got, want):
+        assert th.rows == jh.rows
+        assert _gt("port", tc.c) == _gt("jax", jc.c)
+
+
+def test_k3_route_open_rlc_matches_jax(setups, opened):
+    """The K3 route's commits and `open_rlc` (phase B's MSMs and Gamma1
+    folds on K3's plain versions) give the JAX package's commitments,
+    proof fields and transcript state, and the native route's."""
+    case, (_, ncomms, nproof, ntr), (_, jcomms, jproof, jtr) = opened
+    _, comms, proof, tr = _open("port", setups[0], case, k3=True)
+    assert {n: _gt("port", c.c) for n, c in comms.items()} == \
+        {n: _gt("jax", c.c) for n, c in jcomms.items()}
+    assert _proof_values("port", proof) == _proof_values("jax", jproof) \
+        == _proof_values("port", nproof)
+    assert tr.state == jtr.state == ntr.state
+    assert tr.n_rounds == jtr.n_rounds
 
 
 def test_failed_library_build_raises(monkeypatch, tmp_path):

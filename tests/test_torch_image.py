@@ -165,11 +165,12 @@ def test_image_commitment_swap_is_rejected(image, setups6, verifier):
     fails later (this proof was made without a setup)."""
     trace, proof, jax_tr = image
     port_setup, jax_setup = setups6
-    right = make_scheme(port_setup).commit(
+    right = make_scheme(port_setup, CPU).commit(
         "program_image", tpi.image_words(trace.code))
     names = committed_poly_names(1, 1, (), True)
     errors = []
-    for image_c in (make_scheme(port_setup).commit("x", [1, 2, 3, 4]), right):
+    for image_c in (make_scheme(port_setup, CPU).commit("x", [1, 2, 3, 4]),
+                    right):
         bad = copy.deepcopy(proof)
         bad.commitments = {n: right for n in names}
         bad.commitments["program_image"] = image_c
@@ -195,12 +196,13 @@ def test_trusted_commitment_cache(setups6, tmp_path):
     port_setup, jax_setup = setups6
     code = bytes(range(64)) * 2
     tverifier._PI_COMMIT_CACHE.clear()
-    s_a = make_scheme(port_setup)
+    s_a = make_scheme(port_setup, CPU)
     got_a = tverifier._program_image_commitment(s_a, code)
     want = j_make_scheme(jax_setup).commit("x", jpi.image_words(code))
     assert tdory.gt_to_bytes(got_a.c) == tdory.gt_to_bytes(want.c)
     assert tverifier._program_image_commitment(s_a, code) is got_a
-    s_b = make_scheme(tdory.DorySetup.generate(7, cache_dir=str(tmp_path)))
+    s_b = make_scheme(tdory.DorySetup.generate(7, cache_dir=str(tmp_path)),
+                      CPU)
     assert s_b.setup_digest() != s_a.setup_digest()
     got_b = tverifier._program_image_commitment(s_b, code)
     assert got_b.c != got_a.c

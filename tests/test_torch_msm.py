@@ -211,8 +211,9 @@ def test_commit_positions_bucket_sum_matches_jax_host(tmp_path):
 
 
 def test_dory_device_tier_rows_match_native(tmp_path):
-    """Dory's device one-hot tier (one `bucket_sum`, segments = rows) on a
-    seeded small one-hot gives `native_pairing.g1_segment_sums`' rows."""
+    """Dory's one-hot tier 1 on the K3 route (one `bucket_sum`, segments =
+    rows; here K3's plain versions) on a seeded small one-hot gives the
+    native route's rows (`native_pairing.g1_segment_sums`)."""
     from jolt_tpu_torch.curve import native_pairing
     from jolt_tpu_torch.pcs.dory import Dory, DorySetup
     if not native_pairing.available():
@@ -223,9 +224,41 @@ def test_dory_device_tier_rows_match_native(tmp_path):
     positions = [rng.integers(0, 1 << 6, 40).astype(np.int64),
                  np.sort(rng.integers(0, cols, 30)).astype(np.int64)
                  + cols * 2]
-    dory = Dory(setup, CPU)
     before = kernels.k3_launches()
-    dev = dory.onehot_rows(positions, device_tier=True)
+    dev = Dory(setup, CPU, _k3=True).onehot_rows(positions)
     assert kernels.k3_launches() == before
-    assert dev == dory.onehot_rows(positions, device_tier=False)
+    assert dev == Dory(setup, CPU).onehot_rows(positions)
     assert sum(r is not None for rows in dev for r in rows) > 2
+
+
+@pytest.mark.parametrize("op", ["mont_mul", "add", "sub"])
+def test_fq_int_path_equals_the_limb_algorithm(op):
+    """A small CPU batch's plain Fq op on Python ints gives the limb
+    algorithm's words (`kernels.*_plain` with q), edge values included."""
+    rng = random.Random(17)
+    vals = [0, 1, 2, fq.Q - 1, fq.Q - 2, fq.R_MOD_Q, (1 << 255) % fq.Q]
+    vals += [rng.randrange(fq.Q) for _ in range(41)]
+    a = fq.pack_ints(vals, CPU).reshape(8, 6, 8)
+    b = fq.pack_ints(vals[::-1], CPU).reshape(8, 6, 8)
+    got = getattr(fq, f"{op}_plain")(a, b[:, :1])
+    want = getattr(kernels, f"{op}_plain")(a, b[:, :1], fq.Q)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert a[0].numel() <= fq._INT_PATH
+
+
+def test_msm_rows_matches_host():
+    """`msm_rows` below 512 lanes (one scalar_mul over every row, one tree
+    sum): each row's sum is the host MSM of that row, a row of zero
+    scalars at infinity."""
+    rng = random.Random(23)
+    pts = [host.g1_mul(host.G1_GEN, rng.randrange(1, host.R))
+           for _ in range(3)]
+    ks = [[rng.randrange(1 << 64) for _ in range(3)], [0, 0, 0],
+          [5, 0, (1 << 64) - 1]]
+    words = torch.from_numpy(np.array(
+        [[[(k >> 32 * w) & 0xFFFFFFFF for k in row] for row in ks]
+         for w in range(2)], dtype=np.uint32).view(np.int32))
+    P = tuple(c[:, None] for c in g1.pack_points(pts, CPU))
+    got = g1.unpack_points(g1.msm_rows(P, words, 64))
+    assert got == [host.g1_msm_pippenger(pts, row) for row in ks]
+    assert got[1] is None

@@ -115,3 +115,22 @@ def test_dory_fs_tape_matches_jax(dory_proofs):
     assert port_proof.fs_tape == jax_tape[1:]
     assert [e["stage"] for e in port_proof.fs_tape][::11] == [
         "stage0-commit", "stage8-openings"]
+
+
+def test_dory_k3_route_proof_bytes_match_native(fib, tmp_path):
+    """The fib proof with a 2^16 Dory setup (256 x 256): the K3 route (the
+    route of a CUDA Dory; here on CPU tensors, K3's plain versions) gives
+    the native route's `serialize_proof` bytes and FS tape, and verifies."""
+    from jolt_tpu_torch.pcs.scheme import DoryScheme
+    from jolt_tpu_torch.prover.prover import required_num_vars
+    trace = fib[1]
+    setup = DorySetup.generate(
+        required_num_vars(trace.padded_length, 0, 0),
+        cache_dir=str(tmp_path))
+    native = jt.prove(trace, setup=setup, device="cpu")
+    k3 = jt.prove(trace, setup=DoryScheme(setup, "cpu", _k3=True),
+                  device="cpu")
+    assert (setup.nu, setup.sigma) == (8, 8)
+    assert proof_io.serialize_proof(k3) == proof_io.serialize_proof(native)
+    assert k3.fs_tape == native.fs_tape
+    assert jt.verify(k3, jt.PublicIO.from_trace(trace), setup=setup)
