@@ -8,8 +8,9 @@ Phases:
   1. the card (nvidia-smi name and power limit) and the host (CPU model,
      nproc: tier 2, phase A and the Fr folds of Dory are host work);
   2. build K1 (`jolt_tpu_torch/csrc/mont_mul.cu`), K2
-     (`jolt_tpu_torch/csrc/product_round.cu`) and K3
-     (`jolt_tpu_torch/csrc/g1.cu`), one nvcc for sm_90a each, and
+     (`jolt_tpu_torch/csrc/product_round.cu`), K3
+     (`jolt_tpu_torch/csrc/g1.cu`) and K4
+     (`jolt_tpu_torch/csrc/transcript.cu`), one nvcc for sm_90a each, and
      the Dory pairing library (`jolt_tpu_torch/csrc/pairing.cpp`, g++), all
      at once; ptxas's registers and spills; then the Dory setup of the main
      path (2^26: nu = 10, sigma = 16), generated or loaded from the port's
@@ -27,10 +28,20 @@ Phases:
      factors in each pass order (message then bind, message alone, bind
      then message, bind alone): seeded inputs at T = 2^14 and 2^18, the
      values 0, 1 and r-1 (factors and challenge), and T = 8 against Python
-     ints; then per order at 2^18 the kernel-only times (torch.profiler) of
-     the pass kernel and of the on-card finish of the message, the time of
-     the wrapper that launches both (CUDA events, host cost included), and
-     that of the plain version, with the bound;
+     ints; the challenge as a device scalar (read by the kernel by pointer)
+     against the same challenge by value, in every order; then per order
+     at 2^18 the kernel-only times (torch.profiler) of the pass kernel and
+     of the on-card finish of the message, the time of the wrapper that
+     launches both (CUDA events, host cost included) with r by value and
+     with r a device scalar, and that of the plain version, with the
+     bound;
+  4b. K4 (the round tail of the device tier) vs its plain version
+     (`transcript/device.round_tail_plain`) on the card, bit for bit,
+     after every round of seeded stages of 1-4 instances of degrees 1-3
+     with inactive rounds, claims 0 and p-1, edge evals and starting
+     states from a real transcript (one of them with a squeeze whose top
+     three bits are set); K4's time per launch (kernel-only) at stage 1's
+     and stage 1s's shapes beside its bound and its plain version's time;
   5. the round-step path (`sumcheck.product.round_step`, the counterpart of
      the JAX package's round-step entry point): 18 chained rounds from
      T = 2^18 down to 2 with seeded challenges, K2's launch count read
@@ -61,7 +72,13 @@ Phases:
      and counts the device kernels that are neither K1 nor K2; then each
      K1 form vs plain again at the largest launch shape of that run and at
      the one with the most work (launches x bound), with kernel-only times
-     and bounds;
+     and bounds; stages 1 and 1s take the device tier in the main run
+     (`sumcheck/fused.py`: K4 launched rounds(s1) + rounds(s1s) times, one
+     device-to-host fetch a stage, no synchronizing CUDA call in the round
+     loop) and the host engine in the native-route run (forced through the
+     backend seam, `with_tier(slot, "host")`), whose proof bytes and FS
+     tape are the same; both tiers' s1 and s1s seconds, and their busy
+     shares from a profiled run of each at setup=None;
   6b. the zk and committed-image paths at full width: the same trace and
      setup through `prove(..., zk=True, zk_rng=random.Random(SEED))` and
      `prove(..., committed_image=True)`, each with its launch counts set to
@@ -118,7 +135,8 @@ Phases:
      sums, that bucket_sum alone against its plain version and timed
      (K3's headline), and Gamma1's pack to the card timed alone;
   9. one JSON line with every ported kernel (K3's launches are the Dory
-     prove's, by stage and form), the card line, and the final
+     prove's, by stage and form; K4's the main run's), the card line, and
+     the final
      `{"ok": true, "device": ...}` line.
 
 Any failure raises and exits nonzero; with no CUDA device it exits 2
@@ -135,6 +153,7 @@ import re
 import sys
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -222,6 +241,10 @@ KZG_LOG_N = 20
 # the first K3, H100 80GB HBM3, 700.00 W; add and double at 2^20 lanes
 # and the setup's scalar_mul of 2^20 x 254 bits)
 MSM_SWEEP_LOG_N = range(9, 23)
+# the seeded stages K4 is held against its plain version on (phase 4b):
+# tests/test_torch_cuda.py's `k4_case`, whose seed 5 squeezes a challenge
+# with the top three bits of its 128 set
+K4_SEEDS = 12
 FIRST_K3_MS = {"add": 0.8101, "double": 0.2497, "scalar_mul_setup": 264.34}
 
 FIB_LAYOUT = dict(max_input_size=64, max_output_size=64)
@@ -630,11 +653,40 @@ def msm_width_sweep(g1, A, words, log_ns, reps=3):
     return out
 
 
+def time_k4(dt, dev, gen, degree, rounds=256):
+    """K4 at one instance of `degree` (stage 1's shape at degree 3, stage
+    1s's at 2): its kernel-only ms a launch (torch.profiler), the
+    wrapper's ms a launch over back-to-back rounds (CUDA events, so its
+    host cost counts), the plain version's ms a round on the card, and the
+    bound (`workload.k4_bound_ms`)."""
+    import itertools
+    from jolt_tpu_torch.workload import k4_bound_ms
+    evals = rand_field((8, degree, 1), gen, dev)
+    claim, coeff = words_to_ints(rand_field((8, 2), gen, dev))
+
+    def fresh():
+        return dt.stage_buffers(dev, bytes(32), 0, [claim], [coeff], rounds,
+                                degree)
+    bufs, step = fresh(), itertools.count()
+
+    def one():
+        dt.round_tail([evals], [degree], bufs, next(step) % rounds, degree)
+    ms = kernel_ms(one, [()], ("k4_round_tail",), reps=50)["k4_round_tail"]
+    wrapper = cuda_ms(one, 100)
+    plain_bufs = fresh()
+    plain = cuda_ms(lambda: dt.round_tail_plain([evals], [degree],
+                                                plain_bufs, 0, degree), 3)
+    bound, by = k4_bound_ms([degree], [True], degree)
+    return {"degree": degree, "ms": ms, "wrapper_ms": wrapper,
+            "plain_ms": plain, "bound_ms": bound, "bound_by": by}
+
+
 def time_k2(kernels, ops, polys, r, order):
     """K2 in ms: its pass kernel and its finish kernel alone (kernel-only
     device time), the wrapper with both as a live round calls it
     (CUDA events over back-to-back calls with r a Python int, so the
-    wrapper's host cost counts), and the plain version; with the bound."""
+    wrapper's host cost counts, and with r a device scalar as the device
+    tier's rounds call it), and the plain version; with the bound."""
     from jolt_tpu_torch.workload import k2_bound_ms
     r_int = ops.unpack_ints(r)[0]
     names = ("round_kernel",) + (("finish_kernel",) if order != "bind"
@@ -642,6 +694,7 @@ def time_k2(kernels, ops, polys, r, order):
     dev_ms = kernel_ms(lambda *ps: kernels.product_round(ps, r_int, order),
                        cold_copies(polys), names)
     wrapper = cuda_ms(lambda: kernels.product_round(polys, r_int, order), 20)
+    wrapper_dev = cuda_ms(lambda: kernels.product_round(polys, r, order), 20)
     plain = cuda_ms(lambda: kernels.product_round_plain(polys, r, order), 3)
     partial, _ = kernels.launch_product_round(polys, r_int, order,
                                               finish=False)
@@ -651,6 +704,7 @@ def time_k2(kernels, ops, polys, r, order):
                                                             0.0)
     return {"ms": pass_ms + finish_ms, "pass_ms": pass_ms,
             "finish_ms": finish_ms, "wrapper_ms": wrapper,
+            "wrapper_dev_ms": wrapper_dev,
             "plain_ms": plain, "bound_ms": bound, "bound_by": by,
             "blocks": blocks}
 
@@ -1179,6 +1233,7 @@ def main():
     from jolt_tpu_torch import PublicIO, prove, verify
     from jolt_tpu_torch.curve import native_pairing
     from jolt_tpu_torch.field import kernels, ops
+    from jolt_tpu_torch.kernels import JoltBackend, set_backend
     from jolt_tpu_torch.pcs import scheme as scheme_mod
     from jolt_tpu_torch.pcs.dory import SRS_CACHE_DIR, DorySetup
     from jolt_tpu_torch.prover.prover import required_num_vars
@@ -1191,6 +1246,7 @@ def main():
     from jolt_tpu_torch.relations.ra_virtual import (RaVirtual, block_widths,
                                                      chunk_streams, d_chunks)
     from jolt_tpu_torch.riscv.emulator import MemoryLayout
+    from jolt_tpu_torch.sumcheck import fused
     from jolt_tpu_torch.sumcheck.engine import (BatchedSumcheck,
                                                 OpeningAccumulator)
     from jolt_tpu_torch.sumcheck.product import (ProductSumcheck,
@@ -1198,6 +1254,7 @@ def main():
                                                  round_step)
     from jolt_tpu_torch.tracer import trace_program
     from jolt_tpu_torch.transcript import Blake2bTranscript
+    from jolt_tpu_torch.transcript import device as dt
     from jolt_tpu_torch.utils import profiling
     from jolt_tpu_torch.verifier import verifier as verifier_mod
     from jolt_tpu_torch.workload import (SHA2_CHAIN, card_line, host_line,
@@ -1232,7 +1289,7 @@ def main():
     if "error" in pairing_build:
         raise pairing_build["error"]
     check(native_pairing.available(), "the pairing library did not load")
-    print(f"[build] K1, K2 and K3 built in {t_nvcc:.2f}s; the pairing "
+    print(f"[build] K1, K2, K3 and K4 built in {t_nvcc:.2f}s; the pairing "
           f"library ({pairing_build['path']}) in {pairing_build['s']:.2f}s, "
           "all at once", flush=True)
     for name, report in reports.items():
@@ -1243,9 +1300,11 @@ def main():
     k2_spills = spill_bytes(reports["K2"])
     k3_spills = spill_bytes(reports["K3"])
     k3_stack = stack_bytes(reports["K3"])
+    k4_spills = spill_bytes(reports["K4"])
     print(f"[build] spill bytes (stores + loads, all kernels): K1 "
-          f"{k1_spills}, K2 {k2_spills}, K3 {k3_spills}; K3's largest "
-          f"stack frame {k3_stack} bytes", flush=True)
+          f"{k1_spills}, K2 {k2_spills}, K3 {k3_spills}, K4 {k4_spills}; "
+          f"K3's largest stack frame {k3_stack} bytes, K4's "
+          f"{stack_bytes(reports['K4'])}", flush=True)
     check(k3_spills == 0 and k3_stack == 0,
           f"K3 spills {k3_spills} bytes or has a {k3_stack}-byte stack frame")
     # the main path's setup: 2^26 = 256 x 2^18, the largest committed
@@ -1372,15 +1431,20 @@ def main():
                 polys = tuple(rand_field((8, 1 << log_t), gen, dev)
                               for _ in range(nf))
                 r = rand_field((8, 1), gen, dev)
+                got = kernels.product_round(polys, r, order)
                 k2_err = max(k2_err, k2_error(
-                    kernels.product_round(polys, r, order),
-                    kernels.product_round_plain(polys, r, order),
+                    got, kernels.product_round_plain(polys, r, order),
                     f"({tag}, T = 2^{log_t})"))
+                k2_err = max(k2_err, k2_error(
+                    got, kernels.product_round(polys, ops.unpack_ints(r)[0],
+                                               order),
+                    f"({tag}, T = 2^{log_t}, device r vs r by value)"))
             # pass alone, pass + finish, plain at 2^18 (the last inputs)
             k2_times[(nf, order)] = t = time_k2(kernels, ops, polys, r, order)
             print(f"[kernel] product_round {tag} T=2^{K2_LOG_T}: pass "
                   f"{t['pass_ms']:.4f} ms + finish {t['finish_ms']:.4f} ms "
-                  f"(kernel-only), wrapper {t['wrapper_ms']:.4f} ms, plain "
+                  f"(kernel-only), wrapper {t['wrapper_ms']:.4f} ms (device "
+                  f"r {t['wrapper_dev_ms']:.4f} ms), plain "
                   f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
                   f"({t['bound_by']}), {t['blocks']} blocks", flush=True)
             del polys
@@ -1391,10 +1455,15 @@ def main():
                           for row in vals.tolist())
             for x in edge:
                 r = ints_to_words([x], dev)
+                got = kernels.product_round(polys, r, order)
                 k2_err = max(k2_err, k2_error(
-                    kernels.product_round(polys, r, order),
-                    kernels.product_round_plain(polys, r, order),
+                    got, kernels.product_round_plain(polys, r, order),
                     f"({tag}, 0/1/r-1, r = {x % 1000})"))
+                k2_err = max(k2_err, k2_error(
+                    got, kernels.product_round(polys, ops.unpack_ints(r)[0],
+                                               order),
+                    f"({tag}, 0/1/r-1, r = {x % 1000}, device r vs by "
+                    "value)"))
             small = tuple(rand_field((8, 8), gen, dev) for _ in range(nf))
             r = rand_field((8, 1), gen, dev)
             msg, bound = kernels.product_round(small, r, order)
@@ -1419,7 +1488,40 @@ def main():
           f"ms, {k2_small['blocks']} blocks", flush=True)
     print(f"[kernel] K2 == product_round_plain bit for bit (2 and 3 factors, "
           f"every order, T=2^{K2_SMALL_LOG_T} and 2^{K2_LOG_T}, 0/1/r-1); "
-          "T=8 == Python ints", flush=True)
+          "T=8 == Python ints; a device r (by pointer) == the same r by "
+          "value in every order", flush=True)
+
+    # ---- 4b. K4 vs plain: seeded stages, edge values; its time ----------
+    # the card tests' stages (1-4 instances of degrees 1-3, inactive rounds,
+    # claims 0 and p - 1, edge evals, states from a real transcript)
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_cuda import k4_case, run_k4_case
+    k4_err, k4_rounds, k4_top = 0, 0, 0
+    for seed in range(K4_SEEDS):
+        case = k4_case(seed)
+        got = run_k4_case(case, dev, dt.round_tail)
+        want = run_k4_case(case, dev, dt.round_tail_plain)
+        for rnd, (g, w) in enumerate(zip(got, want)):
+            k4_err = max(k4_err, int((g.to(torch.int64)
+                                      - w.to(torch.int64)).abs().max()))
+            check(torch.equal(g, w), f"K4 disagrees with its plain version "
+                  f"(seed {seed}, round {rnd})")
+            # the squeeze's first 16 bytes, little-endian: bits 125-127
+            k4_top += (int(g[3]) >> 29) & 7 == 7
+        k4_rounds += len(got)
+    check(k4_top > 0, "no seeded round squeezed a challenge whose top three "
+          "bits are set")
+    k4_times = {name: time_k4(dt, dev, gen, degree)
+                for name, degree in (("s1", 3), ("s1s", 2))}
+    for name, t in k4_times.items():
+        print(f"[kernel] K4 round tail at {name}'s shape (1 instance, degree "
+              f"{t['degree']}): {t['ms']:.5f} ms kernel-only, wrapper "
+              f"{t['wrapper_ms']:.5f} ms a launch, plain {t['plain_ms']:.3f} "
+              f"ms, bound {t['bound_ms']:.7f} ms ({t['bound_by']}; "
+              "latency-bound)", flush=True)
+    print(f"[kernel] K4 == round_tail_plain bit for bit after each of "
+          f"{k4_rounds} rounds of {K4_SEEDS} seeded stages ({k4_top} "
+          "squeezes with the top three bits set)", flush=True)
 
     # ---- 5. round-step path and a chained ProductSumcheck ----------------
     T = 1 << K2_LOG_T
@@ -1528,6 +1630,24 @@ def main():
         onehot_positions.extend(p for _, p in named)
         return commit_many(self, named)
     scheme_mod.DoryScheme.commit_sparse_many = capture
+    # the device tier's round loops (stages 1 and 1s) under the sync debug
+    # mode: every synchronizing CUDA call inside one is recorded
+    loop_syncs = []
+    real_rounds = fused._device_rounds
+
+    def watched_rounds(*args):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                real_rounds(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        loop_syncs.extend(str(w.message) for w in caught
+                          if "called a synchronizing CUDA operation"
+                          in str(w.message))
+    fused._device_rounds = watched_rounds
+    fused.fetches = 0
     try:
         t0 = time.perf_counter()
         proof, stage_s, stage_lines, stage_launches = timed_stages(
@@ -1537,6 +1657,9 @@ def main():
         k1_counts = kernels.k1_launches()
         k2_launches = kernels.product_round.launches
         k3_counts = kernels.k3_launches()
+        k4_launches = kernels.k4_launches()
+        tier_fetches = fused.fetches
+        fused._device_rounds = real_rounds
         records, kernels.record = kernels.record, None
         for name, fn in plain.items():
             setattr(kernels, name, fn)
@@ -1575,6 +1698,19 @@ def main():
     check(k2_launches == sum(v["k2"] for v in stage_launches.values()),
           f"K2 launched {k2_launches} times on the main path, "
           f"{stage_launches} by stage")
+    # stages 1 and 1s on the device tier: one K4 launch a round (1 + log T
+    # and log T rounds), one device-to-host fetch a stage, and no
+    # synchronizing call in their round loops
+    k4_by_stage = {k: v["k4"] for k, v in stage_launches.items() if v["k4"]}
+    check(k4_by_stage == {"stage1-spartan": log_t + 1,
+                          "stage1s-shift": log_t}
+          and k4_launches == 2 * log_t + 1,
+          f"K4 launched {k4_launches} times, {k4_by_stage} by stage (want "
+          f"{log_t + 1} in stage 1 and {log_t} in stage 1s)")
+    check(tier_fetches == 2, f"the device tier made {tier_fetches} "
+          "device-to-host fetches in stages 1 and 1s (want one a stage)")
+    check(not loop_syncs, f"the device tier's round loop synchronized "
+          f"{len(loop_syncs)} times: {loop_syncs[:3]}")
     check(list(stage_s) == DORY_STAGES, f"stage lines: {stage_s}")
     check([e["stage"] for e in proof.fs_tape] == DORY_STAGES[1:],
           f"FS tape: {proof.fs_tape}")
@@ -1632,22 +1768,50 @@ def main():
           f"prove: {sum(k3_counts.values())})", flush=True)
 
     # the same prove with Dory's G1 work on the native library (the route
-    # argument), held byte for byte against the K3 route's proof
+    # argument) and stages 1 and 1s on the host engine (forced through the
+    # backend seam), held byte for byte against the main run's proof
     native_scheme = scheme_mod.DoryScheme(setup, "cuda", _k3=False)
+    host_tier = (JoltBackend.default().with_tier("spartan_outer", "host")
+                 .with_tier("spartan_shift", "host"))
     nprof = profiling.PROFILER = profiling.Profiler()
     kernels.reset_launches()
+    set_backend(host_tier)
     try:
         t0 = time.perf_counter()
         nat_proof, nat_s, _, nat_launches = timed_stages(
             lambda: prove(tr, setup=native_scheme, device="cuda"))
         t_native_prove = time.perf_counter() - t0
     finally:
+        set_backend(None)
         nat_k3 = kernels.k3_launches()
+        nat_k4 = kernels.k4_launches()
         profiling.PROFILER = profiling.Profiler(enabled=False)
     check(serialize_proof(nat_proof) == serialize_proof(proof)
           and nat_proof.fs_tape == proof.fs_tape,
-          "the K3 route's proof differs from the native route's at 2^18")
+          "the main run's proof (K3 route, stages 1 and 1s on the device "
+          "tier) differs from the native route's (stages 1 and 1s on the "
+          "host engine) at 2^18")
     check(not any(nat_k3.values()), f"the native route launched K3: {nat_k3}")
+    check(nat_k4 == 0 and fused.fetches == tier_fetches,
+          f"the host-tier run launched K4 {nat_k4} times")
+    tier_stages = ("stage1-spartan", "stage1s-shift")
+    check(all(nat_launches[k]["k1"] == stage_launches[k]["k1"]
+              and nat_launches[k]["k2"] == stage_launches[k]["k2"]
+              for k in tier_stages),
+          f"K1/K2 launches of stages 1 and 1s differ between the tiers: "
+          f"{[(nat_launches[k], stage_launches[k]) for k in tier_stages]}")
+    fused_spans = {n: dory_prof.total(n) for n in
+                   ("fused.rounds", "fused.fetch", "fused.replay")}
+    print(f"[tier] device tier (main run): stage1-spartan "
+          f"{stage_s['stage1-spartan']:.4f}s, stage1s-shift "
+          f"{stage_s['stage1s-shift']:.4f}s; host engine (native-route "
+          f"run): stage1-spartan {nat_s['stage1-spartan']:.4f}s, "
+          f"stage1s-shift {nat_s['stage1s-shift']:.4f}s; K4 "
+          f"{k4_launches} launches ({k4_by_stage}), {tier_fetches} fetches, "
+          f"0 syncs in the round loops; device tier's spans (s, both "
+          "stages): " + ", ".join(f"{n} {v:.4f}"
+                                  for n, v in fused_spans.items())
+          + "; proof bytes and FS tape == the host engine's", flush=True)
     nat_spans = {name: nprof.total(name) for name in DORY_SPANS}
     print(f"[dory] native route (the same prove, Dory's G1 work on the "
           f"native library): prove {t_native_prove:.3f}s, stage0-commit "
@@ -1659,11 +1823,23 @@ def main():
           " B)", flush=True)
     del nat_proof
 
-    # a second run under the profiler, at setup=None so that the card's
-    # stages compare with the runs before Dory: each stage's device time
-    # and busy share, and the device kernels by name (those of neither
-    # kernel)
-    prove(tr, device="cuda")                  # warm, as the first run was
+    # two runs under the profiler, at setup=None so that the card's stages
+    # compare with the runs before Dory: the first, with stages 1 and 1s
+    # forced to the host engine, warms the card as the first run did and
+    # gives their busy shares on that tier; the second, the default, each
+    # stage's device time and busy share, and the device kernels by name
+    # (those of no port kernel)
+    set_backend(host_tier)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as host_prof:
+            _, host_prof_s, _, _ = timed_stages(
+                lambda: prove(tr, device="cuda"))
+            torch.cuda.synchronize()
+    finally:
+        set_backend(None)
+    host_dev_s = stage_device_s(host_prof)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1671,19 +1847,35 @@ def main():
         torch.cuda.synchronize()
     check(list(prof_s) == STAGES, f"profiled stage lines: {prof_s}")
     dev_s = stage_device_s(prof)
+    tier_busy = {}
+    for label in tier_stages:
+        tier_busy[label] = {
+            "device_tier_s": prof_s[label],
+            "device_tier_device_s": dev_s.get(label, 0.0),
+            "host_engine_s": host_prof_s[label],
+            "host_engine_device_s": host_dev_s.get(label, 0.0)}
+        b = tier_busy[label]
+        print(f"[tier] {label} profiled: device tier {b['device_tier_s']:.4f}"
+              f"s, device {b['device_tier_device_s']:.4f}s, busy "
+              f"{b['device_tier_device_s'] / b['device_tier_s']:.1%}; host "
+              f"engine {b['host_engine_s']:.4f}s, device "
+              f"{b['host_engine_device_s']:.4f}s, busy "
+              f"{b['host_engine_device_s'] / b['host_engine_s']:.1%}",
+              flush=True)
     for label in STAGES:
         n = stage_launches[label]
         print(f"[stage] {label}: {stage_s[label]:.4f}s timed; profiled "
               f"{prof_s[label]:.4f}s, device {dev_s.get(label, 0.0):.4f}s, "
               f"busy {dev_s.get(label, 0.0) / prof_s[label]:.1%}; K1 "
-              f"{sum(n['k1'].values())} {n['k1']}, K2 {n['k2']}", flush=True)
+              f"{sum(n['k1'].values())} {n['k1']}, K2 {n['k2']}, K4 "
+              f"{n['k4']}", flush=True)
     print(f"[stage] prove profiled {sum(prof_s.values()):.3f}s, busy "
           f"{sum(dev_s.values()) / sum(prof_s.values()):.1%}", flush=True)
     census = collections.Counter()
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             census[e.name] += 1
-    own = ("k1_", "round_kernel", "finish_kernel")
+    own = ("k1_", "round_kernel", "finish_kernel", "k4_round_tail")
     others = {k: c for k, c in census.items()
               if not any(o in k for o in own) and "Memcpy" not in k
               and "Memset" not in k}
@@ -1691,8 +1883,9 @@ def main():
     n_other = sum(others.values())
     print(f"[path] device kernels on prove (profiled run): "
           f"{sum(c for k, c in census.items() if 'k1_' in k)} K1, "
-          f"{sum(c for k, c in census.items() if any(o in k for o in own[1:]))}"
-          f" K2, {n_other} others, copies {copies}; the most frequent "
+          f"{sum(c for k, c in census.items() if any(o in k for o in own[1:3]))}"
+          f" K2, {sum(c for k, c in census.items() if own[3] in k)} K4, "
+          f"{n_other} others, copies {copies}; the most frequent "
           "others: " + "; ".join(
               f"{k[:70]} x{c}" for k, c in
               sorted(others.items(), key=lambda kv: -kv[1])[:6]), flush=True)
@@ -1766,6 +1959,9 @@ def main():
           and any(zk_launches["stage8-openings"]["k3"].values()),
           f"zk launched K1 {zk_k1} and K2 {zk_k2} (plain {k1_counts}, "
           f"{k2_launches}); by stage {zk_launches}")
+    # zk's stages run the host engine's committed rounds: no K4
+    check(not any(v["k4"] for v in zk_launches.values()),
+          f"the zk run launched K4: {zk_launches}")
     n_comms = sum(len(v) for v in zk_proof.zk_commitments.values())
     t_commit = zk_prof.total("zk.commit")
     t0 = time.perf_counter()
@@ -1799,6 +1995,9 @@ def main():
     check(all(ci_launches[k]["k1"] == v["k1"]
               for k, v in stage_launches.items() if k not in image_k2),
           f"image run K1 outside stages 7 and 8: {ci_launches}")
+    check(all(ci_launches[k]["k4"] == v["k4"]
+              for k, v in stage_launches.items()),
+          f"image run K4 differs from the plain run's: {ci_launches}")
     k1_extra = {k: sum(ci_launches[k]["k1"].values())
                 - sum(stage_launches[k]["k1"].values()) for k in image_k2}
     verifier_mod._PI_COMMIT_CACHE.clear()
@@ -2009,7 +2208,26 @@ def main():
         "stage6v_instances": n6v, "ram_log_K": proof.ram_log_K,
         "bytecode_log_K": proof.bytecode_log_K,
         "launches_by_stage": {k: v["k2"] for k, v in
-                              stage_launches.items()}}, g1_entry]}))
+                              stage_launches.items()}}, g1_entry, {
+        "name": "round_tail", "route": "cuda",
+        "source": "jolt_tpu_torch/csrc/transcript.cu",
+        "replaces": "jolt_tpu/transcript/device.py:103",
+        "replaces_note": "no pallas_call: the jnp Blake2b transcript "
+                         "(jolt_tpu/transcript/device.py:103-249) and the "
+                         "round tail of jolt_tpu/sumcheck/scan.py:330-363",
+        "launches": k4_launches, "max_abs_err": k4_err,
+        "ms": k4_times["s1"]["ms"], "plain_ms": k4_times["s1"]["plain_ms"],
+        "bound_ms": k4_times["s1"]["bound_ms"],
+        "bound_by": k4_times["s1"]["bound_by"], "library_ms": None,
+        "shape": "1 instance of degree 3, 3 compressed coefficients "
+                 "(stage 1)",
+        "wrapper_ms": k4_times["s1"]["wrapper_ms"], "shapes": k4_times,
+        "launches_by_stage": k4_by_stage, "rounds_checked": k4_rounds,
+        "top_bit_squeezes": k4_top, "fetches": tier_fetches,
+        "spill_bytes": k4_spills,
+        "tier_stage_s": {k: {"device_tier": stage_s[k],
+                             "host_engine": nat_s[k]} for k in tier_stages},
+        "tier_profiled": tier_busy, "device_tier_spans_s": fused_spans}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

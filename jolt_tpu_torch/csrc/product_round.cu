@@ -35,8 +35,13 @@
 //     registers, 1024 threads an SM, twice the occupancy of the first K2.
 //     The loads are opaque (volatile asm) so the compiler cannot merge them
 //     back into one long-lived copy; kBindMessage reloads its own bound
-//     values through L2 (`ld.global.cg`).  r is passed by value and sits in
-//     the kernel's parameter bank.
+//     values through L2 (`ld.global.cg`).  r comes by value (in the
+//     kernel's parameter bank) or by pointer to a device scalar: the
+//     device-transcript round loop (`sumcheck/fused.py`) binds at the
+//     challenge that K4 wrote, and the host never waits for it.  Either
+//     way a block's first 8 threads put its words in shared memory, from
+//     which each bind reads them as the parameter bank was read before:
+//     no register holds r across the loop (a thread is at its 64).
 //   * Sums: each thread's products, one 32-bit limb plane at a time, are
 //     summed over the warp exactly as 16-bit halves by `redux.sync`
 //     (< 2^21 each), then per block in shared memory, into one uint64 per
@@ -117,11 +122,11 @@ __device__ __forceinline__ void store8(uint32_t* p, uint64_t stride,
 
 // out = lo + r (hi - lo)   (out may alias lo or hi)
 __device__ __forceinline__ void bind(const uint32_t lo[8],
-                                     const uint32_t hi[8], const Scalar& r,
+                                     const uint32_t hi[8], const uint32_t* r,
                                      uint32_t out[8]) {
   uint32_t m[8];
   fr::sub8(hi, lo, m);
-  fr::mont_mul8(m, r.w, m);
+  fr::mont_mul8(m, r, m);
   fr::add8(lo, m, out);
 }
 
@@ -131,9 +136,16 @@ __device__ __forceinline__ void bind(const uint32_t lo[8],
 // eval point.
 template <int NF, int ORDER>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
-round_kernel(Factors fs, Scalar r, unsigned long long* __restrict__ partial,
-             uint32_t n) {
+round_kernel(Factors fs, Scalar r_val, const uint32_t* __restrict__ r_dev,
+             unsigned long long* __restrict__ partial, uint32_t n) {
   constexpr bool kMsg = ORDER != kBind;
+  __shared__ uint32_t r[8];                 // the challenge (Montgomery)
+  if (ORDER != kMessage) {
+    if (threadIdx.x < 8)
+      r[threadIdx.x] = r_dev != nullptr ? r_dev[threadIdx.x]
+                                        : r_val.w[threadIdx.x];
+    __syncthreads();
+  }
   constexpr int kCols = 8 * NF;
   __shared__ unsigned long long warp_sums[kMaxWarps][kCols];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -295,24 +307,24 @@ cudaError_t plan(int order, int64_t T, Plan* out) {
 
 template <int NF>
 void launch_pass(int order, const Plan& pl, const Factors& fs,
-                 const Scalar& r, unsigned long long* partial,
-                 cudaStream_t s) {
+                 const Scalar& r, const uint32_t* r_dev,
+                 unsigned long long* partial, cudaStream_t s) {
   switch (order) {
     case kMessageBind:
       round_kernel<NF, kMessageBind><<<pl.blocks, pl.threads, 0, s>>>(
-          fs, r, partial, pl.n);
+          fs, r, r_dev, partial, pl.n);
       break;
     case kMessage:
       round_kernel<NF, kMessage><<<pl.blocks, pl.threads, 0, s>>>(
-          fs, r, partial, pl.n);
+          fs, r, r_dev, partial, pl.n);
       break;
     case kBindMessage:
       round_kernel<NF, kBindMessage><<<pl.blocks, pl.threads, 0, s>>>(
-          fs, r, partial, pl.n);
+          fs, r, r_dev, partial, pl.n);
       break;
     default:
       round_kernel<NF, kBind><<<pl.blocks, pl.threads, 0, s>>>(
-          fs, r, partial, pl.n);
+          fs, r, r_dev, partial, pl.n);
   }
 }
 
@@ -328,8 +340,9 @@ extern "C" int jolt_product_round_blocks(int order, int64_t T) {
 
 // Launches K2 on `stream`.  nf in {2, 3} and order in {0..3} (`Order`),
 // checked by the caller, as are the shapes: p* (8, T) contiguous, b* (8, T/2)
-// (unused by kMessage), r_words 8 host words of r's Montgomery form (unused
-// by kMessage), partial (8 nf, jolt_product_round_blocks(order, T)) uint64
+// (unused by kMessage), r_words 8 host words of r's Montgomery form or
+// r_dev a device pointer to them (one of the two non-null; both unused by
+// kMessage), partial (8 nf, jolt_product_round_blocks(order, T)) uint64
 // (unused by kBind).  With msg (8, nf, 1) non-null and a message order, the
 // finish kernel follows and writes the message mod p; with msg null the
 // block sums stay in partial.  Returns cudaGetLastError() (0 on success).
@@ -337,7 +350,8 @@ extern "C" int jolt_product_round(int nf, int order, int64_t T,
                                   const void* p0, const void* p1,
                                   const void* p2, void* b0, void* b1,
                                   void* b2, const void* r_words,
-                                  void* partial, void* msg, void* stream) {
+                                  const void* r_dev, void* partial,
+                                  void* msg, void* stream) {
   Plan pl;
   cudaError_t err = plan(order, T, &pl);
   if (err != cudaSuccess) return (int)err;
@@ -349,10 +363,11 @@ extern "C" int jolt_product_round(int nf, int order, int64_t T,
     for (int l = 0; l < 8; ++l) r.w[l] = ((const uint32_t*)r_words)[l];
   cudaStream_t s = (cudaStream_t)stream;
   auto* sums = (unsigned long long*)partial;
+  const uint32_t* rd = (const uint32_t*)r_dev;
   if (nf == 2)
-    launch_pass<2>(order, pl, fs, r, sums, s);
+    launch_pass<2>(order, pl, fs, r, rd, sums, s);
   else
-    launch_pass<3>(order, pl, fs, r, sums, s);
+    launch_pass<3>(order, pl, fs, r, rd, sums, s);
   err = cudaGetLastError();
   if (err != cudaSuccess || order == kBind || msg == nullptr) return (int)err;
   if (nf == 2)

@@ -21,6 +21,13 @@
     the JAX package's jnp G1.  Its wrappers and plain versions
     live in `curve/g1.py`; it builds here, with K1 and K2, and its launch
     counts per form are `k3_counts` (`k3_launches()`).
+  * K4 (``csrc/transcript.cu``) is one batched sumcheck round's tail on
+    the card: the instances' coefficients from their message evals, their
+    random linear combination, the round's Blake2b transcript steps and
+    challenge, and the claims at it.  It replaces no Pallas kernel but the
+    JAX package's jnp device transcript.  Its wrapper and plain version
+    live in `transcript/device.py` (`round_tail`, `round_tail_plain`); it
+    builds and launches here (`launch_round_tail`, `k4_launches()`).
 
 On CPU tensors each wrapper calls its plain version (`mont_mul_plain`,
 `add_plain`, `sub_plain`, `bind_plain`, `evals_plain`, `reduce_plain`,
@@ -316,13 +323,16 @@ _KERNELS = {
     "K2": ("product_round.cu", "libjolt_product_round.so", {
         "jolt_product_round_blocks": (ctypes.c_int, [ctypes.c_int, _I64]),
         "jolt_product_round": (ctypes.c_int, [ctypes.c_int] * 2
-                               + [_I64] + [_P] * 10)}),
+                               + [_I64] + [_P] * 11)}),
     "K3": ("g1.cu", "libjolt_g1.so", {
         "jolt_k3_launch_size": (ctypes.c_int, []),
         "jolt_k3_bucket_sizes": (ctypes.c_int, []),
         "jolt_k3": (ctypes.c_int, [_P, _P]),
         "jolt_k3_bucket_sum": (ctypes.c_int, [_P, ctypes.c_int, _P]),
         "jolt_k3_bucket_reduce": (ctypes.c_int, [_P, _P])}),
+    "K4": ("transcript.cu", "libjolt_transcript.so", {
+        "jolt_k4_launch_size": (ctypes.c_int, []),
+        "jolt_k4": (ctypes.c_int, [_P, _P])}),
 }
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -389,6 +399,10 @@ def _load(name: str) -> ctypes.CDLL:
     if name == "K1" and lib.jolt_k1_launch_size() != ctypes.sizeof(_Launch):
         raise RuntimeError("K1: the launch record's layout differs between "
                            "csrc/mont_mul.cu and kernels.py")
+    if name == "K4" and lib.jolt_k4_launch_size() != ctypes.sizeof(
+            RoundTail):
+        raise RuntimeError("K4: the launch record's layout differs between "
+                           "csrc/transcript.cu and kernels.py")
     _libs[name] = lib
     return lib
 
@@ -672,7 +686,7 @@ def k3_launches() -> Dict[str, int]:
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    for fn in (*_K1.values(), product_round):
+    for fn in (*_K1.values(), product_round, launch_round_tail):
         fn.launches = 0
     for form in K3_FORMS:
         k3_counts[form] = 0
@@ -692,16 +706,6 @@ def _r_tensor(r, device) -> torch.Tensor:
     if isinstance(r, torch.Tensor):
         return r.to(device)
     return _scalar(int(r), device, 1)
-
-
-def _r_words(r) -> "ctypes.Array":
-    """The challenge's 8 Montgomery words for the launch, on the host: a
-    canonical int converts there, a device tensor is copied back (32 bytes,
-    which waits for the card)."""
-    if isinstance(r, torch.Tensor):
-        words = [int(w) & MASK32 for w in r.reshape(N_LIMBS).tolist()]
-        return (ctypes.c_uint32 * N_LIMBS)(*words)
-    return _mont_words(int(r))
 
 
 def _tensors(polys, r):
@@ -795,7 +799,9 @@ def product_round_deg3(p0: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
 
 def launch_product_round(polys, r, order: str, finish: bool = True):
     """Launch K2 on the factors' card's current stream; returns (msg,
-    bound) as `product_round` does.  With finish=False the finish kernel is
+    bound) as `product_round` does.  A tensor r (one element of Montgomery
+    limbs on the factors' card) is passed by pointer and read by the
+    kernel; an int r by value.  With finish=False the finish kernel is
     not launched and msg is the pass kernel's block sums instead: (8 NF,
     blocks) int64, column k * 8 + l the exact sum of limb l at the k-th eval
     point (for timing the pass alone).  Counts one launch on
@@ -817,7 +823,17 @@ def launch_product_round(polys, r, order: str, finish: bool = True):
     code = ORDERS.index(order)
     polys = tuple(p.contiguous() for p in polys)
     ptrs = [p.data_ptr() for p in polys] + [None] * (3 - nf)
-    words = None if order == "message" else _r_words(r)
+    # the challenge: a device scalar is read by the kernel where it lies (no
+    # copy back, no wait for the card), an int reaches it by value
+    words = r_dev = None
+    if order != "message" and isinstance(r, torch.Tensor):
+        if r.dtype != torch.int32 or r.numel() != N_LIMBS:
+            raise ValueError(f"product_round: r {tuple(r.shape)} {r.dtype} "
+                             "(want one element of int32 limbs)")
+        r = r.contiguous()
+        r_dev = r.data_ptr()
+    elif order != "message":
+        words = _mont_words(int(r))
     lib = _load("K2")
     msg = partial = bound = None
     with torch.cuda.device(dev):          # launch on the operands' card
@@ -838,7 +854,7 @@ def launch_product_round(polys, r, order: str, finish: bool = True):
             outs[:nf] = [x.data_ptr() for x in bound]
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.jolt_product_round(
-            nf, code, T, *ptrs, *outs, words,
+            nf, code, T, *ptrs, *outs, words, r_dev,
             None if partial is None else partial.data_ptr(),
             None if msg is None else msg.data_ptr(), stream)
     if rc != 0:
@@ -850,3 +866,45 @@ def launch_product_round(polys, r, order: str, finish: bool = True):
 
 
 product_round.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: one batched sumcheck round's tail (`transcript/device.py:round_tail`)
+# ---------------------------------------------------------------------------
+
+K4_MAX_INSTANCES = 64
+
+
+class RoundTail(ctypes.Structure):
+    """K4's launch record (`Tail` in csrc/transcript.cu)."""
+    _fields_ = [("evals", ctypes.c_uint64 * K4_MAX_INSTANCES),
+                ("degree", ctypes.c_int32 * K4_MAX_INSTANCES),
+                ("n_inst", ctypes.c_int32), ("n_c", ctypes.c_int32),
+                ("width", ctypes.c_int32), ("round", ctypes.c_int32),
+                ("state", ctypes.c_uint64), ("claims", ctypes.c_uint64),
+                ("coeffs", ctypes.c_uint64), ("comp", ctypes.c_uint64),
+                ("r", ctypes.c_uint64),
+                ("label", ctypes.c_uint32 * N_LIMBS),
+                ("inv2", ctypes.c_uint32 * N_LIMBS),
+                ("inv6", ctypes.c_uint32 * N_LIMBS)]
+
+
+def launch_round_tail(tail: RoundTail, device: torch.device) -> None:
+    """Launch K4 with the record `tail` on `device`'s current stream (the
+    caller, `transcript.device.round_tail`, fills and checks the record);
+    raises if the launch fails; counts one launch."""
+    lib = _load("K4")
+    with torch.cuda.device(device):
+        rc = lib.jolt_k4(ctypes.byref(tail),
+                         torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"round_tail: K4 launch failed, CUDA error {rc}")
+    launch_round_tail.launches += 1
+
+
+launch_round_tail.launches = 0
+
+
+def k4_launches() -> int:
+    """K4's launch count."""
+    return launch_round_tail.launches

@@ -10,10 +10,11 @@ allocator), then once under `torch.profiler`, and prints one JSON line:
 the wall time of each stage (inflated by the profiler's own cost), the
 summed device time of all kernels and copies, the device's busy share of
 the wall time, and per stage (witness extraction, s1 ... s8) its device
-time, busy share and K1 (per form) and K2 launches; K1's launches and device time per form (`k1_mul`, ..,
-`k1_reduce`), K2's launches and device time, K1's kernel-only time per
-launch shape beside that shape's bound, the device kernels that are
-neither K1 nor K2, and the ten operations with the most device time.  A
+time, busy share and K1 (per form), K2 and K4 launches; K1's launches and
+device time per form (`k1_mul`, .., `k1_reduce`), K2's and K4's launches
+and device time, K1's kernel-only time per launch shape beside that
+shape's bound, the device kernels that are none of K1, K2 and K4, and the
+ten operations with the most device time.  A
 third run under `cProfile` gives the host's split: the cumulative seconds
 of the port's functions that take the most (`host_top`; the suffix
 evaluation's worker threads are not profiled, their wait is in their
@@ -47,6 +48,7 @@ from .workload import (card_line, k1_bound_ms, sha2_chain_trace,
                        stage_device_s, timed_stages)
 
 K2_KERNELS = ("round_kernel", "finish_kernel")
+K4_KERNEL = "k4_round_tail"
 
 
 def _k1_form(name: str):
@@ -93,8 +95,9 @@ def main() -> None:
                   key=lambda r: -r[2])
     device_us = sum(us for _, _, us in rows)
     k2_rows = [r for r in rows if any(k in r[0] for k in K2_KERNELS)]
+    k4_rows = [r for r in rows if K4_KERNEL in r[0]]
     others = [r for r in rows if _k1_form(r[0]) is None
-              and not any(k in r[0] for k in K2_KERNELS)]
+              and not any(k in r[0] for k in K2_KERNELS + (K4_KERNEL,))]
     # K1 per form, and per launch shape within each form
     launches = kernels.k1_launches()
     k2_calls = kernels.product_round.launches
@@ -148,6 +151,8 @@ def main() -> None:
         "k2_calls": k2_calls,
         "k2_kernel_launches": sum(c for _, c, _ in k2_rows),
         "k2_device_s": sum(us for _, _, us in k2_rows) / 1e6,
+        "k4_launches": kernels.k4_launches(),
+        "k4_device_s": sum(us for _, _, us in k4_rows) / 1e6,
         "other_kernels": sum(c for k, c, _ in others if "Memcpy" not in k
                              and "Memset" not in k),
         "k1_shapes": k1_shapes,

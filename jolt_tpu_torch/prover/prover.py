@@ -30,6 +30,14 @@ follows the joint opening; `committed_image=True` commits the program
 image and proves its Init contribution (`relations/program_image.py`).
 `prove_prefix` stops after stage 6v; `prove` runs the same prefix and
 continues.
+
+Every relation of a batched stage is made through the backend seam
+(`kernels/registry.py`, `get_backend().make(slot, ...)`) at the JAX
+package's slot sites, and each stage runs through
+`sumcheck/fused.py:prove_fused`: stages 1 and 1s take the device tier on
+the card (the transcript's round tail on K4, one fetch a stage), every
+other stage the host engine.  Forcing a slot's tier or swapping its
+implementation leaves the proof's bytes unchanged.
 """
 
 from __future__ import annotations
@@ -51,31 +59,22 @@ from ..blindfold.zk_sumcheck import zk_prove_stage
 from ..config import LOG_K_CHUNK, ProofConfig
 from ..field import kernels, ops
 from ..field.params import FR
+from ..kernels import get_backend
 from ..lookups import tables as LT
 from ..pcs.scheme import make_scheme
 from ..poly import eq
 from ..relations.bytecode import CLAIM_COLUMNS
 from ..relations.grouped_onehot import GroupedOneHot
-from ..relations.instruction_read_raf import InstructionReadRaf
-from ..relations.opening_reduction import (DenseOpening,
-                                           cycle_major_to_address_major_point,
+from ..relations.opening_reduction import (cycle_major_to_address_major_point,
                                            embedding_factor)
-from ..relations.program_image import (ProgramImageReduction, image_words,
-                                       shifted_eq_table)
+from ..relations.program_image import image_words, shifted_eq_table
 from ..relations.ra_virtual import RaVirtual, block_widths, chunk_streams
 from ..relations.ram_sparse import (RamPairSchedule, SparseOneHotTableEval,
-                                    SparseRamOutputCheck,
-                                    SparseRamRafEvaluation,
-                                    SparseRamReadWriteChecking,
-                                    SparseRamValEvaluation,
-                                    SparseRegistersReadWriteChecking,
-                                    SparseRegistersValEvaluation,
                                     combined_table_dev, index_table)
-from ..relations.shift import (SHIFT_COLUMNS, ShiftSumcheck,
-                               shift_column_values)
-from ..relations.spartan_outer import (SpartanOuterProver, num_stage1_rounds,
-                                       prove_uniskip)
-from ..sumcheck.engine import BatchedSumcheck, OpeningAccumulator
+from ..relations.shift import SHIFT_COLUMNS, shift_column_values
+from ..relations.spartan_outer import num_stage1_rounds, prove_uniskip
+from ..sumcheck.engine import OpeningAccumulator
+from ..sumcheck.fused import prove_fused
 from ..tracer.trace import Trace
 from ..transcript import Blake2bTranscript
 from ..utils import profiling
@@ -374,7 +373,8 @@ class _StageTimer:
     JAX package's prover does: `[prove] <label>: <seconds>s`, plus the
     device's peak allocated memory on CUDA and the stage's kernel launches
     (`k1=<form>:<n>,..` for each K1 form, `k2=<n>` K2 calls,
-    `k3=<form>:<n>,..` for each K3 form).  Each stage's
+    `k3=<form>:<n>,..` for each K3 form, `k4=<n>` K4 launches).  Each
+    stage's
     end is also a zero-length `torch.profiler` range "[prove] <label>", so
     a profile can split device time by stage (`profile_prefix.py`).  Every
     stage ends in a device-to-host copy, so the host clock covers its
@@ -389,7 +389,8 @@ class _StageTimer:
     @staticmethod
     def _launches() -> Dict[str, int]:
         return {**kernels.k1_launches(), "k2": kernels.product_round.launches,
-                **{f"k3_{f}": n for f, n in kernels.k3_launches().items()}}
+                **{f"k3_{f}": n for f, n in kernels.k3_launches().items()},
+                "k4": kernels.k4_launches()}
 
     def mark(self, label: str) -> None:
         now = time.perf_counter()
@@ -406,7 +407,7 @@ class _StageTimer:
             k1 = ",".join(f"{f}:{d[f]}" for f in kernels.FORMS)
             k3 = ",".join(f"{f}:{d['k3_' + f]}" for f in kernels.K3_FORMS)
             print(f"[prove] {label}: {now - self.t0:.4f}s{mem} k1={k1} "
-                  f"k2={d['k2']} k3={k3}", flush=True)
+                  f"k2={d['k2']} k3={k3} k4={d['k4']}", flush=True)
         self.t0 = now
 
 
@@ -552,9 +553,16 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None,
         zk_basis = PedersenBasis.create(8)
         zk_rng = zk_rng or random.SystemRandom()
 
+    # every relation of a batched stage is built through the backend seam
+    # (`kernels/registry.py`) at the JAX package's slot sites; `_stage`
+    # runs a stage on the device tier or the host engine
+    # (`sumcheck/fused.py:device_tier`), the zk mode's stages on the host
+    # engine's committed rounds
+    _bk = get_backend()
+
     def _stage(insts, label):
         if not zk:
-            return BatchedSumcheck.prove(insts, accumulator, transcript)
+            return prove_fused(insts, accumulator, transcript)
         data, rs = zk_prove_stage(insts, accumulator, transcript, zk_basis,
                                   zk_rng, label)
         data.final_expected = data.claims[-1]
@@ -614,8 +622,8 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None,
     tau = transcript.challenge_vector(1 + num_stage1_rounds(log_T))
     cols_dev, s1_coeffs, r0_skip, claim1, l_scale = prove_uniskip(
         inputs, tau, transcript, device)
-    outer = SpartanOuterProver(inputs, tau[1:], r0_skip, claim1, l_scale,
-                               cols_dev)
+    outer = _bk.make("spartan_outer", inputs, tau[1:], r0_skip, claim1,
+                     l_scale, cols_dev)
     del cols_dev
     stage1_polys, _ = _stage([outer], "s1")
     input_openings = list(outer.input_openings)
@@ -626,7 +634,8 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None,
     r_cycle = list(accumulator.get_point(("r1cs_input", "rs1_value")))
     gamma_sh = transcript.challenge_scalar()
     shift_cols = shift_column_values(bc_wit.table, bc_wit.pc_idx, gamma_sh)
-    shift_inst = ShiftSumcheck(shift_cols, r_cycle, gamma_sh, device)
+    shift_inst = _bk.make("spartan_shift", shift_cols, r_cycle, gamma_sh,
+                          device)
     shift_polys, _ = _stage([shift_inst], "s1s")
     shift_opening = shift_inst.final_openings["cols"]
     del shift_inst
@@ -638,8 +647,8 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None,
               accumulator.get_claim(("r1cs_input", "rs1_value")),
               accumulator.get_claim(("r1cs_input", "rs2_value"))]
     gamma = transcript.challenge_scalar()
-    rw = SparseRegistersReadWriteChecking(reg_wit, gamma, r_cycle, claims,
-                                          device)
+    rw = _bk.make("registers_read_write", reg_wit, gamma, r_cycle, claims,
+                  device)
     stage2_polys, _ = _stage([rw], "s2")
     stage2_openings = dict(rw.final_openings)
     del rw
@@ -649,8 +658,8 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None,
     val_pt2 = accumulator.get_point(("registers", "val"))
     r2_cyc, r2_addr = list(val_pt2[:log_T]), list(val_pt2[log_T:])
     val_claim = accumulator.get_claim(("registers", "val"))
-    ve = SparseRegistersValEvaluation(reg_wit, r2_addr, r2_cyc, val_claim,
-                                      device)
+    ve = _bk.make("registers_val_evaluation", reg_wit, r2_addr, r2_cyc,
+                  val_claim, device)
     stage3_polys, _ = _stage([ve], "s3")
     stage3_openings = dict(ve.final_openings)
     del ve
@@ -663,12 +672,11 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None,
     addr_claim = accumulator.get_claim(("r1cs_input", "ram_address"))
     ram_sched = RamPairSchedule(ram_wit.cols, ram_wit.pre, ram_wit.post,
                                 ram_wit.K, device=device)
-    ram_rw = SparseRamReadWriteChecking(
-        ram_sched, ram_wit.log_K, ram_wit.init_vals, ram_wit.inc, gamma_ram,
-        r_cycle, rv_claim, wv_claim)
-    ram_raf = SparseRamRafEvaluation(ram_sched, ram_wit.log_K,
-                                     ram_wit.witness_base, r_cycle,
-                                     addr_claim)
+    ram_rw = _bk.make(
+        "ram_read_write", ram_sched, ram_wit.log_K, ram_wit.init_vals,
+        ram_wit.inc, gamma_ram, r_cycle, rv_claim, wv_claim)
+    ram_raf = _bk.make("ram_raf_evaluation", ram_sched, ram_wit.log_K,
+                       ram_wit.witness_base, r_cycle, addr_claim)
     stage4_polys, _ = _stage([ram_rw, ram_raf], "s4")
     stage4_openings = {
         **{f"rw_{k}": v for k, v in ram_rw.final_openings.items()},
@@ -701,14 +709,14 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None,
         image_claim = sum(t * w for t, w in zip(pi_table, pi_words)) % P
         accumulator.insert(("program_image", "claim"), tuple(r4_addr),
                            image_claim)
-    ram_ve = SparseRamValEvaluation(ram_sched, ram_wit.log_K,
-                                    ram_wit.init_vals, ram_wit.inc,
-                                    r4_addr, r4_cyc, ram_val_claim)
+    ram_ve = _bk.make("ram_val_check", ram_sched, ram_wit.log_K,
+                      ram_wit.init_vals, ram_wit.inc, r4_addr, r4_cyc,
+                      ram_val_claim)
     z_out = transcript.challenge_scalar()
-    ram_oc = SparseRamOutputCheck(ram_sched, ram_wit.log_K,
-                                  ram_wit.init_vals, ram_wit.inc,
-                                  trace.memory_layout, ram_wit.witness_base,
-                                  z_out, bytes(trace.device.outputs))
+    ram_oc = _bk.make("ram_output_check", ram_sched, ram_wit.log_K,
+                      ram_wit.init_vals, ram_wit.inc, trace.memory_layout,
+                      ram_wit.witness_base, z_out,
+                      bytes(trace.device.outputs))
     stage5_polys, _ = _stage([ram_ve, ram_oc], "s5")
     stage5_openings = {
         **dict(ram_ve.final_openings),
@@ -720,8 +728,8 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None,
     # Binds LookupOutput / lookup operands to the table MLEs over the
     # 2^128 interleaved-operand index space.
     gamma_lk = transcript.challenge_scalar()
-    lk = InstructionReadRaf(
-        lk_wit, gamma_lk, r_cycle,
+    lk = _bk.make(
+        "instruction_read_raf", lk_wit, gamma_lk, r_cycle,
         accumulator.get_claim(("r1cs_input", "lookup_output")),
         accumulator.get_claim(("r1cs_input", "left_lookup_operand")),
         accumulator.get_claim(("r1cs_input", "right_lookup_operand")),
@@ -888,16 +896,16 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None,
         idx = torch.from_numpy(np.stack(
             [np.asarray(s, dtype=np.int64) for _, s in members])).to(device)
         m7 = len(members)
-        insts7.append(GroupedOneHot(idx, K, E_bcyc, [r_addr] * m7, [0] * m7,
-                                    gamma7, labs, booleanity=True,
-                                    opening_kind="booleanity"))
-        insts7.append(GroupedOneHot(idx, K, E_h, [None] * m7, [1] * m7,
-                                    gamma7, labs, booleanity=False,
-                                    opening_kind="hamming"))
+        insts7.append(_bk.make(
+            "booleanity", idx, K, E_bcyc, [r_addr] * m7, [0] * m7, gamma7,
+            labs, booleanity=True, opening_kind="booleanity"))
+        insts7.append(_bk.make(
+            "ram_hamming_booleanity", idx, K, E_h, [None] * m7, [1] * m7,
+            gamma7, labs, booleanity=False, opening_kind="hamming"))
     pi_inst = None
     if committed_image:
-        pi_inst = ProgramImageReduction(pi_words, r4_addr, pi_start,
-                                        image_claim, device)
+        pi_inst = _bk.make("program_image_claim_reduction", pi_words,
+                           r4_addr, pi_start, image_claim, device)
         insts7.append(pi_inst)
     stage7_polys, _ = _stage(insts7, "s7")
     stage7_openings: Dict[str, int] = {}
@@ -962,8 +970,8 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None,
     for cname, pt, cl in dense8:
         if cname not in dense_dev:
             dense_dev[cname] = ops.pack_ints(dense_meta[cname], device)
-        insts8.append(DenseOpening(dense_dev[cname], pt, cl,
-                                   f"{n8}_{cname}", device))
+        insts8.append(_bk.make("inc_claim_reduction", dense_dev[cname], pt,
+                               cl, f"{n8}_{cname}", device))
         n8 += 1
     del eq_tables, dense_dev
     stage8_polys, r8 = _stage(insts8, "s8")

@@ -45,6 +45,7 @@ from ..field import FR, ops
 from ..poly import eq
 from ..poly.split_eq import eq_plus_one_int
 from ..sumcheck.engine import OpeningAccumulator, SumcheckInstance
+from ..sumcheck.fused import FusedInstance
 from ..sumcheck.product import ProductRounds
 
 P = FR.modulus
@@ -107,11 +108,12 @@ def shift_column_values(bc_table, pc_idx: Sequence[int],
     return [int(v) for v in tab_np[np.asarray(pc_idx, dtype=np.int64)]]
 
 
-class ShiftSumcheck(SumcheckInstance):
+class ShiftSumcheck(FusedInstance):
     """Prover instance: sum_j W'(r_cycle, j) * COL(j), degree 2, log T
     rounds, HighToLow: a two-factor product sumcheck of (W', COL), whose
     rounds run on K2 (`ProductRounds`: one pass per round binds at r_j and
-    forms round j + 1's evals at X in {0, 2})."""
+    forms round j + 1's evals at X in {0, 2}).  A `FusedInstance`: on the
+    device tier K2 binds at the device challenge, read by pointer."""
 
     degree = 2
 

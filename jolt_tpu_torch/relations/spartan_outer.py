@@ -36,6 +36,7 @@ from ..poly import dense, eq
 from ..poly import lagrange as lag
 from ..r1cs import constraints as C
 from ..sumcheck.engine import OpeningAccumulator, SumcheckInstance
+from ..sumcheck.fused import FusedInstance
 from ..witness.r1cs_inputs import (NUM_VARS, SIGNED_COLS, R1CSCycleInputs,
                                    VAR_NAMES)
 
@@ -223,10 +224,12 @@ def _bind4(E, AZ, BZ, CZ, r):
             dense.bind_high(BZ, r), dense.bind_high(CZ, r))
 
 
-class SpartanOuterProver(SumcheckInstance):
+class SpartanOuterProver(FusedInstance):
     """The post-skip sumcheck: index = g*T + j (group bit is the MSB,
     bound first, HighToLow).  E carries eq(tau_g,g)*eq(tau_cyc,j) scaled
-    by L(tau_high, r0), so the input claim is exactly s1(r0)."""
+    by L(tau_high, r0), so the input claim is exactly s1(r0).  A
+    `FusedInstance`: on the device tier each round binds the four tables
+    at the device challenge (K1's bind reads it where it lies)."""
 
     degree = 3
 

@@ -25,6 +25,11 @@ Step 4's absorb is the `rounds` sink's: `ClearRounds` absorbs each
 compressed round polynomial and keeps it for the proof; the zk mode's
 `blindfold.zk_sumcheck.CommittedRounds` absorbs a Pedersen commitment to
 it instead.  The round loop itself is the same in both modes.
+
+This is the host tier.  `prove` runs a stage through
+`fused.prove_fused`, which takes the device tier instead (the transcript
+on the card, one fetch a stage) when `fused.device_tier` says so, and
+this engine otherwise; both give the same bytes.
 """
 
 from __future__ import annotations

@@ -23,7 +23,7 @@ read-raf's 18-factor cycle rounds call `stack_message` directly.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -74,11 +74,14 @@ class ProductRounds:
     the challenge, which the next `message()` binds in the same pass
     ("bind_message"), or `flush()` alone ("bind").  The first message has
     no bind before it ("message").  So each round is one K2 call: on the
-    card at most two launches, on the CPU its plain version."""
+    card at most two launches, on the CPU its plain version.  The challenge
+    is a canonical int (by value) or a device scalar (8, 1), which K2 reads
+    where it lies."""
 
     def __init__(self, polys: Sequence[torch.Tensor]):
         self.polys: Tuple[torch.Tensor, ...] = tuple(polys)
-        self._r: Optional[int] = None        # the challenge not yet bound
+        # the challenge not yet bound
+        self._r: Optional[Union[int, torch.Tensor]] = None
 
     def message(self) -> torch.Tensor:
         if self._r is None:
@@ -89,7 +92,7 @@ class ProductRounds:
             self._r = None
         return msg
 
-    def bind(self, r: int) -> None:
+    def bind(self, r: Union[int, torch.Tensor]) -> None:
         self.flush()
         self._r = r
 

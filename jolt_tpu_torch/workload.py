@@ -109,7 +109,7 @@ def timed_stages(fn: Callable[[], object]
     """Run `fn()` with the prover's stage timing on (JOLT_TPU_STAGE_TIMING);
     return its result, the seconds of each stage, the printed lines, and
     each stage's kernel launches as the lines give them:
-    {label: {"k1": {form: n}, "k2": n, "k3": {form: n}}}."""
+    {label: {"k1": {form: n}, "k2": n, "k3": {form: n}, "k4": n}}."""
     buf = io.StringIO()
     os.environ["JOLT_TPU_STAGE_TIMING"] = "1"
     try:
@@ -119,7 +119,8 @@ def timed_stages(fn: Callable[[], object]
         del os.environ["JOLT_TPU_STAGE_TIMING"]
     text = buf.getvalue()
     stages, launches = {}, {}
-    line = r"\[prove\] ([\w-]+): ([0-9.]+)s.* k1=(\S+) k2=(\d+) k3=(\S+)"
+    line = (r"\[prove\] ([\w-]+): ([0-9.]+)s.* k1=(\S+) k2=(\d+) k3=(\S+) "
+            r"k4=(\d+)")
 
     def forms(text):
         return {f: int(n) for f, n in (kv.split(":")
@@ -128,7 +129,8 @@ def timed_stages(fn: Callable[[], object]
         stages[m.group(1)] = float(m.group(2))
         launches[m.group(1)] = {"k1": forms(m.group(3)),
                                 "k2": int(m.group(4)),
-                                "k3": forms(m.group(5))}
+                                "k3": forms(m.group(5)),
+                                "k4": int(m.group(6))}
     return out, stages, text, launches
 
 
@@ -282,3 +284,29 @@ def msm_bound_ms(n: int, bits: int, c: int) -> Tuple[float, str]:
         + G1_ADD_PRODUCTS * (2 * (n_win << c) + n_win) \
         + G1_DOUBLE_PRODUCTS * c * (n_win - 1)
     return bound_ms(n_bytes, products)
+
+
+# K4 (csrc/transcript.cu): one Blake2b compression is 12 rounds of 8 G
+# functions, each 6 additions, 4 xors and 4 rotations of 64-bit words: two
+# 32-bit operations each, counted at the multiply-add rate
+OPS_PER_COMPRESSION = 12 * 8 * 14 * 2
+
+
+def k4_bound_ms(degrees, active, n_c: int) -> Tuple[float, str]:
+    """One K4 launch (a round's tail) over instances of `degrees`, those
+    flagged in `active` sending messages, with `n_c` compressed
+    coefficients: each active instance's evals, every claim, batching
+    coefficient and the state read once, the claims, coefficients,
+    challenge and state written once; the products the round needs --
+    the coefficient recovery (0, 1, 2 at degree 1, 2, 3; one halving for an
+    inactive instance), one scaling per coefficient and the Horner steps,
+    a canonical conversion per compressed coefficient and the challenge's
+    to Montgomery form -- and 2 + n_c compressions.  Bound by neither:
+    the kernel is a chain of dependent steps (latency)."""
+    n = len(degrees)
+    coefs = [d + 1 if a else 1 for d, a in zip(degrees, active)]
+    n_bytes = (32 * sum(d for d, a in zip(degrees, active) if a)
+               + 32 * 3 * n + 36 * 2 + 32 * (n_c + 1))
+    products = (sum(d - 1 if a else 1 for d, a in zip(degrees, active))
+                + sum(coefs) + sum(c - 1 for c in coefs) + n_c + 1)
+    return bound_ms(n_bytes, products, OPS_PER_COMPRESSION * (2 + n_c))

@@ -1,6 +1,9 @@
 """The torch port on the card: K1 (every form: mul, add, sub, bind, evals,
-reduce) and K2 (every pass order, 2 and 3 factors, and its on-card finish
-of the message) against their plain versions, the segment sums and the
+reduce), K2 (every pass order, 2 and 3 factors, its on-card finish of the
+message, and a device challenge read by pointer against the same challenge
+by value) and K4 (the round tail, on seeded stages of 1-4 instances of
+degrees 1-3 with inactive rounds and edge values) against their plain
+versions, the device tier of stage 1 on "cuda" against the host engine, the segment sums and the
 stacked product message of stage 5i, the ra virtualization of stage 6v and
 the grouped one-hot and dense-opening instances of stages 7 and 8 on
 "cuda" against "cpu", and the prover on "cuda" against the prover on "cpu"
@@ -17,6 +20,7 @@ without the suite's JAX conftest:
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -32,9 +36,74 @@ from jolt_tpu_torch.sumcheck.engine import BatchedSumcheck, OpeningAccumulator
 from jolt_tpu_torch.sumcheck.product import (ProductSumcheck, round_step,
                                              stack_message)
 from jolt_tpu_torch.transcript import Blake2bTranscript
+from jolt_tpu_torch.transcript import device as dt
 from jolt_tpu_torch.tracer import trace_program
 
 pytestmark = pytest.mark.cuda
+
+
+def _field_ints(rng, n):
+    """n numpy-seeded field elements (canonical ints)."""
+    words = rng.integers(0, 1 << 63, size=(n, 4), dtype=np.uint64)
+    return [int(sum(int(w) << (64 * i) for i, w in enumerate(row))) % kernels.P
+            for row in words]
+
+
+def k4_case(seed: int) -> dict:
+    """A seeded stage for the round tail: 1-4 instances of degrees 1-3 and
+    1-4 rounds each (active in their last rounds, so inactive before),
+    scaled claims and batching coefficients with the edge values 0 and
+    p - 1 among them, each round's evals (edges too), and a starting state
+    from a real transcript.  Every value a canonical int (the CPU test
+    holds the plain version against the host transcript with it, the
+    card test K4 against the plain version)."""
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(1, 5))
+    degrees = [int(d) for d in rng.integers(1, 4, n)]
+    rounds = [int(k) for k in rng.integers(1, 5, n)]
+    max_rounds = max(rounds)
+    claims = _field_ints(rng, n)
+    claims[0] = 0
+    if n > 1:
+        claims[1] = kernels.P - 1
+    tr = Blake2bTranscript(b"Jolt")
+    for v in _field_ints(rng, int(rng.integers(0, 4))):
+        tr.append_scalar(b"k4_case", v)
+    evals = []
+    for rnd in range(max_rounds):
+        row = []
+        for d, k in zip(degrees, rounds):
+            if rnd < max_rounds - k:
+                row.append(None)
+                continue
+            vals = _field_ints(rng, d)
+            pick = int(rng.integers(0, 4))
+            if pick < d:
+                vals[pick] = (0, kernels.P - 1)[int(rng.integers(0, 2))]
+            row.append(vals)
+        evals.append(row)
+    return {"degrees": degrees, "claims": claims,
+            "coeffs": _field_ints(rng, n), "state": tr.state,
+            "n_rounds": tr.n_rounds, "evals": evals}
+
+
+def run_k4_case(case: dict, device, tail=None):
+    """The case's rounds through `tail` (`dt.round_tail` by default) on
+    `device`; returns the stage buffers after each round (host copies)."""
+    tail = tail or dt.round_tail
+    degrees = case["degrees"]
+    bufs = dt.stage_buffers(device, case["state"], case["n_rounds"],
+                            case["claims"], case["coeffs"],
+                            len(case["evals"]), max(degrees))
+    out = []
+    for rnd, row in enumerate(case["evals"]):
+        evals = [None if v is None else
+                 ops.pack_ints_host(v, device).reshape(8, d, 1)
+                 for v, d in zip(row, degrees)]
+        tail(evals, degrees, bufs, rnd,
+             dt.compressed_len([v is not None for v in row], degrees))
+        out.append(bufs.all.cpu().clone())
+    return out
 
 
 @pytest.fixture
@@ -190,6 +259,99 @@ def test_k2_every_order_matches_plain_on_card(card, nf, order):
         assert (bound is None) == (want_bound is None)
         assert bound is None or all(torch.equal(b, w)
                                     for b, w in zip(bound, want_bound))
+
+
+@pytest.mark.parametrize("order", ["message_bind", "bind_message", "bind"])
+@pytest.mark.parametrize("nf", [2, 3])
+def test_k2_device_r_equals_r_by_value_on_card(card, nf, order):
+    """K2 with the challenge as a device scalar (read by pointer) gives
+    what it gives with the same challenge by value, and what the plain
+    version gives."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(50 + nf)
+    polys = [_rand_field(gen, (8, 1 << 12), card) for _ in range(nf)]
+    for r_int in (0, 1, kernels.P - 1, 12345678901234567890):
+        r_dev = ops.pack_ints([r_int], card)
+        got = kernels.product_round(polys, r_dev, order)
+        by_value = kernels.product_round(polys, r_int, order)
+        want = kernels.product_round_plain(polys, r_int, order)
+        for g, v, w in zip(got, by_value, want):
+            assert (g is None) == (v is None) == (w is None)
+            if g is None:
+                continue
+            g, v, w = ([g] if isinstance(g, torch.Tensor) else g,
+                       [v] if isinstance(v, torch.Tensor) else v,
+                       [w] if isinstance(w, torch.Tensor) else w)
+            assert all(torch.equal(a, b) and torch.equal(a, c)
+                       for a, b, c in zip(g, v, w))
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_k4_matches_plain_on_card(card, seed):
+    """K4 equals its plain version bit for bit on the card, after every
+    round of a seeded stage, and counts one launch a round (seed 5 has a
+    squeeze with the top three bits of its 128 set:
+    tests/test_torch_transcript_device.py)."""
+    case = k4_case(seed)
+    before = kernels.k4_launches()
+    got = run_k4_case(case, card)
+    assert kernels.k4_launches() == before + len(case["evals"])
+    want = run_k4_case(case, card, dt.round_tail_plain)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_stage1_device_tier_on_card(card):
+    """Stages 1 and 1s of fib on the card take the device tier (one K4
+    launch a round, one fetch a stage, no synchronizing call in the round
+    loop) and give the proof and FS tape of the host engine, forced
+    through the backend seam."""
+    from jolt_tpu_torch.kernels import JoltBackend, set_backend
+    from jolt_tpu_torch.sumcheck import fused
+    layout = MemoryLayout(max_input_size=64, max_output_size=64)
+    trace = trace_program(f"""
+        li   a0, 20
+        li   a1, 0
+        li   a2, 1
+    loop:
+        beq  a0, zero, done
+        add  a3, a1, a2
+        mv   a1, a2
+        mv   a2, a3
+        addi a0, a0, -1
+        j    loop
+    done:
+        li   t0, {layout.output_start}
+        sd   a1, 0(t0)
+        li   t1, {layout.termination}
+        li   t2, 1
+        sd   t2, 0(t1)
+    """, layout=layout)
+    log_t = trace.padded_length.bit_length() - 1
+    k4, f0 = kernels.k4_launches(), fused.fetches
+    real = fused._device_rounds
+
+    def no_sync(*args):
+        """The round loop with any synchronizing CUDA call an error."""
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            real(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    fused._device_rounds = no_sync
+    try:
+        dev = prove_prefix(trace, device=card)
+    finally:
+        fused._device_rounds = real
+    assert kernels.k4_launches() - k4 == 2 * log_t + 1
+    assert fused.fetches - f0 == 2
+    set_backend(JoltBackend.default().with_tier("spartan_outer", "host")
+                .with_tier("spartan_shift", "host"))
+    try:
+        host = prove_prefix(trace, device=card)
+    finally:
+        set_backend(None)
+    assert kernels.k4_launches() - k4 == 2 * log_t + 1
+    assert dataclasses.asdict(dev) == dataclasses.asdict(host)
 
 
 @pytest.mark.parametrize("nf", [2, 3])

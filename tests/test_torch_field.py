@@ -520,13 +520,14 @@ def test_k1_bound_counts_what_the_function_needs(form, key, n_bytes, mads):
 
 def test_stage_timer_lines_give_each_stages_launches(monkeypatch):
     """The prover's stage timer prints each stage's K1 launches per form,
-    K2 calls and K3 launches per form, and `workload.timed_stages` reads
-    them back per stage (launches stood in for by bumping the counts
-    between the marks)."""
+    K2 calls, K3 launches per form and K4 launches, and
+    `workload.timed_stages` reads them back per stage (launches stood in
+    for by bumping the counts between the marks)."""
     from jolt_tpu_torch.prover.prover import _StageTimer
 
     def bump(form, n):
-        fn = kernels.product_round if form == "k2" else kernels._K1[form]
+        fn = {"k2": kernels.product_round,
+              "k4": kernels.launch_round_tail}.get(form) or kernels._K1[form]
         monkeypatch.setattr(fn, "launches", fn.launches + n)
 
     def bump_k3(form, n):
@@ -540,6 +541,7 @@ def test_stage_timer_lines_give_each_stages_launches(monkeypatch):
         timer.mark("stage-a")
         bump("reduce", 5)
         bump_k3("add", 7)
+        bump("k4", 4)
         timer.mark("stage-b")
         return "done"
 
@@ -549,9 +551,9 @@ def test_stage_timer_lines_give_each_stages_launches(monkeypatch):
     zero = dict.fromkeys(kernels.FORMS, 0)
     zero3 = dict.fromkeys(kernels.K3_FORMS, 0)
     assert launches == {"stage-a": {"k1": {**zero, "mul": 3}, "k2": 2,
-                                    "k3": zero3},
+                                    "k3": zero3, "k4": 0},
                         "stage-b": {"k1": {**zero, "reduce": 5}, "k2": 0,
-                                    "k3": {**zero3, "add": 7}}}
+                                    "k3": {**zero3, "add": 7}, "k4": 4}}
 
 
 # ---- the Fr ops on K1 (from_i64, eq_mask, is_zero, pow_const, inv,

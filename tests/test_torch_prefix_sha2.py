@@ -4,7 +4,10 @@ traced by each package's own tracer (the port's native one), proved by
 `jolt_tpu_torch.prove(..., device="cpu")` and by the JAX package's stage
 functions through stage 8 (`test_torch_stage1._jax_prefix`).  Every proof
 field, every FS-tape entry and the `proof_io.serialize_proof` bytes must be
-equal, and the port's `verify` and the JAX package's must accept.  Its
+equal, and the port's `verify` and the JAX package's must accept.  The
+same prefix with stages 1 and 1s forced to the device tier (the backend
+seam's `with_tier`; its round loop on the plain versions of K4 and K1/K2)
+must give the JAX package's stage-1 fields and FS tape too.  Its
 RAM and bytecode spaces (log K 13 and 12) are two 8-bit chunks each, so
 stage 6v batches seven ra-virtualization instances of three factors (the
 fib trace of the fast tier has none), and stages 7 and 8 see K = 32 and
@@ -49,6 +52,20 @@ def jax_prefix(traces):
 @pytest.fixture(scope="module")
 def port_proof(traces):
     return jt.prove(traces[1], device="cpu")
+
+
+def test_sha2_stage1_device_tier_matches_jax(traces, jax_prefix):
+    from jolt_tpu_torch.kernels import JoltBackend, set_backend
+    set_backend(JoltBackend.default().with_tier("spartan_outer", "device")
+                .with_tier("spartan_shift", "device"))
+    try:
+        dev = jt.prove_prefix(traces[1], device="cpu")
+    finally:
+        set_backend(None)
+    for field in ("stage1_uniskip", "stage1_polys", "r1cs_input_openings",
+                  "shift_polys", "shift_opening", "stage2_polys"):
+        assert getattr(dev, field) == jax_prefix[field], field
+    assert dev.fs_tape[:3] == jax_prefix["fs_tape"][:3]
 
 
 @pytest.mark.parametrize("field", [

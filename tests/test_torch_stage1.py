@@ -420,9 +420,36 @@ def fib():
     return tr, _port_trace(tr)
 
 
+def _recorded_prefix(trace, backend=None):
+    """`prove_prefix` of the trace on the CPU with `backend` installed (the
+    default if None), and each stage's (round polynomials, challenges) as
+    the stage's prover (`sumcheck/fused.py:prove_fused`) returned them."""
+    from jolt_tpu_torch.kernels import set_backend
+    from jolt_tpu_torch.prover import prover as tprover
+    stages = []
+
+    def record(insts, acc, transcript, _real=tprover.prove_fused):
+        stages.append(_real(insts, acc, transcript))
+        return stages[-1]
+    set_backend(backend)
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tprover, "prove_fused", record)
+            return jt.prove_prefix(trace, device=CPU), stages
+    finally:
+        set_backend(None)
+
+
 @pytest.fixture(scope="module")
-def port_proof(fib):
-    return jt.prove_prefix(fib[1], device=CPU)
+def port_run(fib):
+    """The port's fib prefix (stages 1 and 1s on the host engine, the
+    CPU's default) and its stages' polynomials and challenges."""
+    return _recorded_prefix(fib[1])
+
+
+@pytest.fixture(scope="module")
+def port_proof(port_run):
+    return port_run[0]
 
 
 def test_proof_header_fields(port_proof, fib):
@@ -458,6 +485,45 @@ def test_verify_stage1_rejects_tampered_rounds(port_proof, fib, part):
         poly[0] = (poly[0] + 1) % P
     with pytest.raises(jt.VerificationError):
         jt.verify_prefix(bad, jt.PublicIO.from_trace(fib[1]))
+
+
+# ---- stages 1 and 1s on the device tier (forced on the CPU) ------------
+
+@pytest.fixture(scope="module")
+def jax_stage1(fib):
+    """The JAX package's stage-1 prefix of fib (s1 and s1s)."""
+    return _jax_prefix(fib[0], last="stage1s-shift")
+
+
+@pytest.fixture(scope="module")
+def device_run(fib):
+    """The port's fib prefix with stages 1 and 1s forced to the device tier
+    through the backend seam (its round loop on the plain versions of K4
+    and K1/K2), and its stages' polynomials and challenges."""
+    from jolt_tpu_torch.kernels import JoltBackend
+    return _recorded_prefix(fib[1], JoltBackend.default()
+                            .with_tier("spartan_outer", "device")
+                            .with_tier("spartan_shift", "device"))
+
+
+@pytest.mark.parametrize("field", ["stage1_polys", "r1cs_input_openings",
+                                   "shift_polys", "shift_opening"])
+def test_stage1_device_tier_matches_host_and_jax(device_run, port_proof,
+                                                 jax_stage1, field):
+    assert (getattr(device_run[0], field) == getattr(port_proof, field)
+            == jax_stage1[field])
+
+
+@pytest.mark.parametrize("i", [0, 1], ids=["s1", "s1s"])
+def test_stage1_device_tier_challenges_and_fs_states(device_run, port_run,
+                                                     jax_stage1, i):
+    """The same round polynomials and challenges as the host engine, and
+    the FS state after the stage of the host engine and the JAX package."""
+    polys, rs = device_run[1][i]
+    assert (polys, rs) == port_run[1][i]
+    assert len(rs) == len(polys) > 0
+    assert (device_run[0].fs_tape[i] == port_run[0].fs_tape[i]
+            == jax_stage1["fs_tape"][i])
 
 
 def test_trace_from_numpy_matches(fib):
