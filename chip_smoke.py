@@ -2,7 +2,10 @@
 CUDA kernels from this checkout, holds each against its plain PyTorch
 version, drives the port's main path once at full size, and checks it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--old-k4 TREE]
+
+(`--old-k4`: an unpacked tree of commit c3a2d92, whose one-warp K4
+phase 4b times beside this one; with no argument it times this K4 alone.)
 
 Phases:
   1. the card (nvidia-smi name and power limit) and the host (CPU model,
@@ -40,8 +43,16 @@ Phases:
      after every round of seeded stages of 1-4 instances of degrees 1-3
      with inactive rounds, claims 0 and p-1, edge evals and starting
      states from a real transcript (one of them with a squeeze whose top
-     three bits are set); K4's time per launch (kernel-only) at stage 1's
-     and stage 1s's shapes beside its bound and its plain version's time;
+     three bits are set), and of 33, 47 and 64 instances (1, 2 and 3
+     compressed coefficients); K4's time per launch (kernel-only and
+     through its wrapper) at stage 1's and 1s's shapes and at 2, 8, 33
+     and 64 instances beside its bound (and the one-warp K4's, with
+     --old-k4), its plain version's time at stage 1's and 1s's shapes;
+     its parts from clock64 stamps (its build with the hooks of
+     `experiments/k4_parts.cu`), a compression's, a product's and a
+     dependent ALU instruction's cycles, an empty launch, and its
+     dependent-chain floor; ptxas must report no stack frame and no
+     spills for K4;
   5. the round-step path (`sumcheck.product.round_step`, the counterpart of
      the JAX package's round-step entry point): 18 chained rounds from
      T = 2^18 down to 2 with seeded challenges, K2's launch count read
@@ -144,6 +155,7 @@ before printing any result.  Nothing runs on the Python pairing tier:
 with JOLT_TPU_NO_NATIVE_PAIRING set the script fails.
 """
 
+import argparse
 import collections
 import json
 import math
@@ -242,8 +254,9 @@ KZG_LOG_N = 20
 # and the setup's scalar_mul of 2^20 x 254 bits)
 MSM_SWEEP_LOG_N = range(9, 23)
 # the seeded stages K4 is held against its plain version on (phase 4b):
-# tests/test_torch_cuda.py's `k4_case`, whose seed 5 squeezes a challenge
-# with the top three bits of its 128 set
+# tests/test_torch_cuda.py's `k4_case` (seeds 0-11, 1-4 instances; seed 5
+# squeezes a challenge with the top three bits of its 128 set) and its
+# wide stages `K4_WIDE` (33, 47 and 64 instances)
 K4_SEEDS = 12
 FIRST_K3_MS = {"add": 0.8101, "double": 0.2497, "scalar_mul_setup": 264.34}
 
@@ -533,12 +546,14 @@ def kernel_ms(fn, arg_sets, names, reps=20, tries=3):
     (each launched once a call), kernel-only: torch.profiler over `reps`
     calls fn(*args), cycling through `arg_sets` (`cold_copies`), after a
     warm-up, so neither the host's cost of the calls nor cached inputs are
-    in it.  The mean is over the launches the trace holds (it may miss one
-    of a run of long kernels); a trace with fewer than half is taken
-    again."""
+    in it.  The mean is over the launches the trace holds (the profiler
+    may lose launches of a run of long kernels): a trace with fewer than
+    half is taken again, and after `tries` the fullest trace counts if it
+    holds at least 3 of each (said in a line), else the run fails."""
     for args in arg_sets:
         fn(*args)
     torch.cuda.synchronize()
+    best = None
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -551,11 +566,19 @@ def kernel_ms(fn, arg_sets, names, reps=20, tries=3):
                 for name in names:
                     if name in e.name:
                         seen[name].append(e.time_range.elapsed_us())
-        if all(2 * len(us) >= reps for us in seen.values()):
+        least = min(len(us) for us in seen.values())
+        if 2 * least >= reps:
             return {name: sum(us) / len(us) / 1e3
                     for name, us in seen.items()}
-    raise SmokeFailure(f"the profiler lost launches of {names}: "
-                       f"{ {n: len(us) for n, us in seen.items()} }")
+        if best is None or least > min(len(us) for us in best.values()):
+            best = seen
+    counts = {n: len(us) for n, us in best.items()}
+    if min(counts.values()) < 3:
+        raise SmokeFailure(f"the profiler lost launches of {names}: "
+                           f"{counts} of {reps}")
+    print(f"[timing] the profiler kept {counts} of {reps} launches in its "
+          f"fullest of {tries} traces; the mean is over those", flush=True)
+    return {name: sum(us) / len(us) / 1e3 for name, us in best.items()}
 
 
 def events_ms(fn, arg_sets, reps):
@@ -653,32 +676,37 @@ def msm_width_sweep(g1, A, words, log_ns, reps=3):
     return out
 
 
-def time_k4(dt, dev, gen, degree, rounds=256):
-    """K4 at one instance of `degree` (stage 1's shape at degree 3, stage
-    1s's at 2): its kernel-only ms a launch (torch.profiler), the
-    wrapper's ms a launch over back-to-back rounds (CUDA events, so its
-    host cost counts), the plain version's ms a round on the card, and the
-    bound (`workload.k4_bound_ms`)."""
-    import itertools
+def time_k4(k4p, dt, dev, old_lib=None):
+    """K4 at each shape of `k4_parts.SHAPES` (stage 1's round, stage 1s's,
+    and 2, 8, 33 and 64 instances): kernel-only ms a launch
+    (torch.profiler) and the wrapper's ms a launch back to back (CUDA
+    events, its host cost included), twice; with `old_lib` (the one-warp
+    K4 built from its tree) the one-warp K4 through a copy of its
+    wrapper beside it, in turns old, new, new, old; the bound
+    (`workload.k4_bound_ms`); at stage 1's and 1s's shapes the plain
+    version's ms a round on the card."""
     from jolt_tpu_torch.workload import k4_bound_ms
-    evals = rand_field((8, degree, 1), gen, dev)
-    claim, coeff = words_to_ints(rand_field((8, 2), gen, dev))
-
-    def fresh():
-        return dt.stage_buffers(dev, bytes(32), 0, [claim], [coeff], rounds,
-                                degree)
-    bufs, step = fresh(), itertools.count()
-
-    def one():
-        dt.round_tail([evals], [degree], bufs, next(step) % rounds, degree)
-    ms = kernel_ms(one, [()], ("k4_round_tail",), reps=50)["k4_round_tail"]
-    wrapper = cuda_ms(one, 100)
-    plain_bufs = fresh()
-    plain = cuda_ms(lambda: dt.round_tail_plain([evals], [degree],
-                                                plain_bufs, 0, degree), 3)
-    bound, by = k4_bound_ms([degree], [True], degree)
-    return {"degree": degree, "ms": ms, "wrapper_ms": wrapper,
-            "plain_ms": plain, "bound_ms": bound, "bound_by": by}
+    if old_lib is not None:
+        runs = k4p.compare(old_lib, dev)
+    else:
+        runs = {name: {"new": [k4p.time_shape(dt.round_tail, d, dev)
+                               for _ in range(2)]}
+                for name, d in k4p.SHAPES}
+    out = {}
+    for name, degrees in k4p.SHAPES:
+        n_c = dt.compressed_len([True] * len(degrees), list(degrees))
+        bound, by = k4_bound_ms(list(degrees), [True] * len(degrees), n_c)
+        new = runs[name]["new"]
+        out[name] = {"degrees": list(degrees), "n_c": n_c,
+                     "ms": min(t["ms"] for t in new),
+                     "wrapper_ms": min(t["wrapper_ms"] for t in new),
+                     "runs": runs[name], "bound_ms": bound, "bound_by": by}
+        if name in ("s1", "s1s"):
+            evals, degs, fresh, _ = k4p.shape_case(degrees, dev)
+            bufs = fresh()
+            out[name]["plain_ms"] = cuda_ms(
+                lambda: dt.round_tail_plain(evals, degs, bufs, 0, n_c), 3)
+    return out
 
 
 def time_k2(kernels, ops, polys, r, order):
@@ -1226,6 +1254,13 @@ def g1_kzg_phase(dev, gen, dory_setup, pcs_guest, onehot_positions,
 
 
 def main():
+    ap = argparse.ArgumentParser(description="Smoke run of the torch port "
+                                 "on one NVIDIA GPU (see the module "
+                                 "docstring).")
+    ap.add_argument("--old-k4", type=pathlib.Path, default=None,
+                    help="an unpacked tree of commit c3a2d92, whose K4 "
+                    "phase 4b times beside this one")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(2)
@@ -1283,11 +1318,32 @@ def main():
         pairing_build["s"] = time.perf_counter() - t0
     builder = threading.Thread(target=build_pairing)
     builder.start()
+    # K4's stamped build (experiments/k4_parts.cu) and, with --old-k4, the
+    # one-warp K4 from its tree, beside the others
+    sys.path.insert(0, str(ROOT / "experiments"))
+    import k4_parts as k4p
+    k4_builds = {}
+
+    def build_k4_extra():
+        try:
+            k4_builds["stamped"] = k4p.build(
+                ROOT / "jolt_tpu_torch" / "csrc" / "transcript.cu", old=False)
+            if args.old_k4 is not None:
+                k4_builds["old"] = k4p.build(
+                    args.old_k4 / "jolt_tpu_torch" / "csrc" / "transcript.cu",
+                    old=True, kernel_only=True)
+        except BaseException as e:           # re-raised after the join
+            k4_builds["error"] = e
+    k4_builder = threading.Thread(target=build_k4_extra)
+    k4_builder.start()
     reports = kernels.build()
     t_nvcc = time.perf_counter() - t0
     builder.join()
+    k4_builder.join()
     if "error" in pairing_build:
         raise pairing_build["error"]
+    if "error" in k4_builds:
+        raise k4_builds["error"]
     check(native_pairing.available(), "the pairing library did not load")
     print(f"[build] K1, K2, K3 and K4 built in {t_nvcc:.2f}s; the pairing "
           f"library ({pairing_build['path']}) in {pairing_build['s']:.2f}s, "
@@ -1301,12 +1357,22 @@ def main():
     k3_spills = spill_bytes(reports["K3"])
     k3_stack = stack_bytes(reports["K3"])
     k4_spills = spill_bytes(reports["K4"])
+    k4_stack = stack_bytes(reports["K4"])
     print(f"[build] spill bytes (stores + loads, all kernels): K1 "
           f"{k1_spills}, K2 {k2_spills}, K3 {k3_spills}, K4 {k4_spills}; "
           f"K3's largest stack frame {k3_stack} bytes, K4's "
-          f"{stack_bytes(reports['K4'])}", flush=True)
+          f"{k4_stack}", flush=True)
+    if "old" in k4_builds:
+        old_report = k4_builds["old"][1]
+        print(f"[build] one-warp K4 (from {args.old_k4}): spill bytes "
+              f"{spill_bytes(old_report)}, stack frame "
+              f"{stack_bytes(old_report)} bytes; "
+              + " ".join(ln.strip() for ln in old_report.splitlines()
+                         if "registers" in ln), flush=True)
     check(k3_spills == 0 and k3_stack == 0,
           f"K3 spills {k3_spills} bytes or has a {k3_stack}-byte stack frame")
+    check(k4_spills == 0 and k4_stack == 0,
+          f"K4 spills {k4_spills} bytes or has a {k4_stack}-byte stack frame")
     # the main path's setup: 2^26 = 256 x 2^18, the largest committed
     # polynomial of the 2^18 trace
     t0 = time.perf_counter()
@@ -1493,35 +1559,83 @@ def main():
 
     # ---- 4b. K4 vs plain: seeded stages, edge values; its time ----------
     # the card tests' stages (1-4 instances of degrees 1-3, inactive rounds,
-    # claims 0 and p - 1, edge evals, states from a real transcript)
+    # claims 0 and p - 1, edge evals, states from a real transcript; and
+    # the wide ones, 33-64 instances, 1-3 compressed coefficients)
     sys.path.insert(0, str(ROOT / "tests"))
-    from test_torch_cuda import k4_case, run_k4_case
-    k4_err, k4_rounds, k4_top = 0, 0, 0
-    for seed in range(K4_SEEDS):
-        case = k4_case(seed)
+    from test_torch_cuda import K4_WIDE, k4_case, run_k4_case
+    k4_err, k4_rounds, k4_top, k4_most = 0, 0, 0, 0
+    for seed, n_inst in [(s, 0) for s in range(K4_SEEDS)] + list(K4_WIDE):
+        case = k4_case(seed, n_inst)
         got = run_k4_case(case, dev, dt.round_tail)
         want = run_k4_case(case, dev, dt.round_tail_plain)
         for rnd, (g, w) in enumerate(zip(got, want)):
             k4_err = max(k4_err, int((g.to(torch.int64)
                                       - w.to(torch.int64)).abs().max()))
             check(torch.equal(g, w), f"K4 disagrees with its plain version "
-                  f"(seed {seed}, round {rnd})")
+                  f"(seed {seed}, {len(case['degrees'])} instances, round "
+                  f"{rnd})")
             # the squeeze's first 16 bytes, little-endian: bits 125-127
             k4_top += (int(g[3]) >> 29) & 7 == 7
         k4_rounds += len(got)
+        k4_most = max(k4_most, len(case["degrees"]))
     check(k4_top > 0, "no seeded round squeezed a challenge whose top three "
           "bits are set")
-    k4_times = {name: time_k4(dt, dev, gen, degree)
-                for name, degree in (("s1", 3), ("s1s", 2))}
-    for name, t in k4_times.items():
-        print(f"[kernel] K4 round tail at {name}'s shape (1 instance, degree "
-              f"{t['degree']}): {t['ms']:.5f} ms kernel-only, wrapper "
-              f"{t['wrapper_ms']:.5f} ms a launch, plain {t['plain_ms']:.3f} "
-              f"ms, bound {t['bound_ms']:.7f} ms ({t['bound_by']}; "
-              "latency-bound)", flush=True)
+    check(k4_most == 64, "no seeded stage had 64 instances")
     print(f"[kernel] K4 == round_tail_plain bit for bit after each of "
-          f"{k4_rounds} rounds of {K4_SEEDS} seeded stages ({k4_top} "
-          "squeezes with the top three bits set)", flush=True)
+          f"{k4_rounds} rounds of {K4_SEEDS + len(K4_WIDE)} seeded stages "
+          f"(1-4 and {', '.join(str(n) for _, n in K4_WIDE)} instances; "
+          f"{k4_top} squeezes with the top three bits set)", flush=True)
+    k4_times = time_k4(k4p, dt, dev, k4_builds.get("old", (None,))[0])
+    for name, t in k4_times.items():
+        old_runs = t["runs"].get("old")
+        degs = "/".join(map(str, sorted(set(t["degrees"]))))
+
+        def runs(rs):
+            return (", ".join(f"{r['ms']:.5f}" for r in rs)
+                    + " ms kernel-only, wrapper "
+                    + ", ".join(f"{r['wrapper_ms']:.5f}" for r in rs))
+        print(f"[kernel] K4 round tail at {name} ({len(t['degrees'])} "
+              f"instance(s) of degree {degs}, n_c {t['n_c']}): "
+              + runs(t["runs"]["new"]) + " ms a launch"
+              + ("" if old_runs is None else
+                 "; one-warp K4 " + runs(old_runs)
+                 + " ms (turns: old, new, new, old)")
+              + (f"; plain {t['plain_ms']:.3f} ms" if "plain_ms" in t else "")
+              + f"; bound {t['bound_ms']:.7f} ms ({t['bound_by']}; "
+              "latency-bound)", flush=True)
+    if "old" not in k4_builds:
+        print("[kernel] the one-warp K4 is timed beside it with --old-k4 TREE "
+              "(an unpacked tree of its commit)", flush=True)
+    # K4 by part (its stamped build), the micro-kernels and the floor
+    k4_lib = k4_builds["stamped"][0]
+    k4_mhz = k4p.clock_mhz(k4_lib, dev)
+    k4_micro = k4p.micro(k4_lib, dev, old=False)
+    check(k4_micro["agree"], "K4's compressions on one and four lanes "
+          "disagree")
+    k4_launch = k4p.launch_cost(k4_lib, dev, kernels.RoundTail)
+    print(f"[k4] SM clock {k4_mhz:.0f} MHz; cycles, code warm: a "
+          f"compression unrolled on one lane {k4_micro['compress_1lane']:.1f}"
+          f", on four lanes with the rounds a loop "
+          f"{k4_micro['compress_4lanes_rolled']:.1f}, K4's own (four "
+          f"lanes, unrolled) {k4_micro['compress_k4']:.1f}; a "
+          "Montgomery product "
+          f"{k4_micro['mont_mul8']:.1f}; a dependent ALU instruction "
+          f"{k4_micro['alu_op']:.2f}; an empty kernel with K4's record "
+          f"{k4_launch['ms']:.5f} ms kernel-only, "
+          f"{k4_launch['per_launch_ms']:.5f} ms a launch back to back",
+          flush=True)
+    k4_parts, k4_floor = {}, {}
+    for name, degrees in k4p.SHAPES:
+        part = k4p.by_part(k4_lib, dev, degrees, dt.tail_record)
+        k4_parts[name] = part
+        k4_floor[name] = k4p.chain_floor(degrees, part["n_c"], k4_micro,
+                                         k4_launch["ms"], k4_mhz)
+        print(f"[k4] by part at {name}, cycles from entry: "
+              + ", ".join(f"{k} {v}" for k, v in part["cycles"].items())
+              + f"; dependent-chain floor {k4_floor[name]['ms']:.5f} ms "
+              f"({k4_floor[name]['warm_ms']:.5f} with its compressions at "
+              "their warm cycles)",
+              flush=True)
 
     # ---- 5. round-step path and a chained ProductSumcheck ----------------
     T = 1 << K2_LOG_T
@@ -2222,6 +2336,9 @@ def main():
         "shape": "1 instance of degree 3, 3 compressed coefficients "
                  "(stage 1)",
         "wrapper_ms": k4_times["s1"]["wrapper_ms"], "shapes": k4_times,
+        "by_part_cycles": k4_parts, "chain_floor": k4_floor,
+        "sm_mhz": k4_mhz, "micro_cycles": k4_micro,
+        "empty_launch": k4_launch, "stack_bytes": k4_stack,
         "launches_by_stage": k4_by_stage, "rounds_checked": k4_rounds,
         "top_bit_squeezes": k4_top, "fetches": tier_fetches,
         "spill_bytes": k4_spills,

@@ -10,118 +10,208 @@
 // `sumcheck/fused.py`).  The port's plain version is
 // `transcript/device.py:round_tail_plain`; K4 equals it bit for bit.
 //
-// One launch a round, one warp, on the stage's device buffers (`Tail`):
-//   1. lane i (i < n_inst, strided by 32) recovers instance i's round
-//      polynomial: from its evals at X in {0, 2, .., d} and its claim
-//      s(0) + s(1) the d + 1 coefficients (degree 1-3, as the host's
-//      `UniPoly.from_evals_and_hint`), or the constant claim/2 when the
-//      instance is inactive this round (evals pointer 0); it also scales
-//      them by the instance's batching coefficient;
-//   2. lane 0 sums the scaled polynomials (the random linear combination),
-//      drops the linear coefficient (compression), and runs the
-//      transcript: absorb label_with_len("sumcheck_poly", n_c), absorb each
-//      of the n_c coefficients as 32 big-endian bytes of its canonical
-//      value, squeeze; the challenge is the squeeze's first 16 bytes read
-//      little-endian with the top 3 bits of the 128 cleared
-//      (`challenge_scalar_optimized`), taken to Montgomery form; it writes
-//      the compressed coefficients and the challenge into the stage's
-//      buffers at this round and the new state and n_rounds in place;
-//   3. lane i replaces instance i's claim by its polynomial at the
-//      challenge (Horner).
-// Every absorb or squeeze is one Blake2b-256 compression of one final
-// block: state (32 B) || 28 zero bytes || n_rounds (big-endian u32) ||
-// payload (32 B, or none for a squeeze).
+// A round: each instance's polynomial from its evals at X in {0, 2, .., d}
+// and its claim s(0) + s(1) (degree 1-3, `UniPoly.from_evals_and_hint`), or
+// the constant claim/2 when it is inactive this round; their random linear
+// combination with the batching coefficients, compressed (the linear
+// coefficient dropped: n_c coefficients); the transcript -- absorb
+// label_with_len("sumcheck_poly", n_c), absorb each compressed coefficient
+// as 32 big-endian bytes of its canonical value, squeeze -- and the
+// challenge (the squeeze's first 16 bytes read little-endian, the top 3
+// bits of the 128 cleared: `challenge_scalar_optimized`) in Montgomery
+// form; each instance's claim at the challenge.  Every absorb or squeeze is
+// one Blake2b-256 compression of one final block: state (32 B) || 28 zero
+// bytes || n_rounds (big-endian u32) || payload (32 B, or none).
 //
 // What bounds it: latency.  A round reads a few hundred bytes and does
-// 2 + n_c dependent compressions (12 rounds of 8 G functions on 64-bit
-// words each) and a few dozen Montgomery products, one after another on one
-// lane: ~10^-6 ms of the card's operation and byte rates, against a few
-// microseconds of dependent instructions and the launch itself.  The
-// design keeps it to one launch a round and no host round trip; the
-// instance work is spread over the warp's lanes, the hashing is serial by
-// nature.  Fields are the port's Montgomery limbs (8 x 32 bits, R = 2^256,
-// `fr.cuh`).
+// 2 + n_c dependent compressions and a few dozen Montgomery products:
+// ~10^-6 ms at the card's byte and operation rates, against microseconds
+// of dependent steps -- and of instruction fetch: a launch runs its code
+// once, from cold caches (experiments/k4_parts.py: fully unrolled
+// products ran ~3x slower in the kernel than warm in a loop).  The design
+// shortens the chain and keeps the code small:
+//
+//   * one block of 7 warps.  Warp 3, the transcript warp (alone on its
+//     SM sub-partition), loads the state and absorbs the label at once
+//     (that needs no coefficient), while the six field warps scale the
+//     instances' polynomials: field warp 2j + h takes term j of instance
+//     i = 32h + lane.  With s and x sums of an instance's evals, the
+//     batched compressed polynomial is b0 = sum A, b2 = sum B - 3 sum C,
+//     b3 = sum C for A = c0 w, B = s w/2, C = x w/6 (w the batching
+//     coefficient, w/2 and w/6 made once a stage by the wrapper): one
+//     product a lane, by w's plain forms, gives each term's canonical
+//     value (x R * w * R^-1 = x w), which the transcript absorbs -- no
+//     canonical conversion on the chain.  A warp sums its lanes by
+//     shuffles, skipping the levels past the last instance;
+//   * the transcript warp adds the halves and runs the n_c absorbs and
+//     the squeeze through one copy of `compress`, on four lanes: lane q of
+//     a quad holds column q of the 4 x 4 state and runs its G function;
+//     the diagonal step rotates rows b, c, d across the quad by shuffles
+//     and back.  On one lane the four G functions of a half-round take
+//     ~2x the cycles of the four lanes (experiments/k4_parts.py);
+//   * meanwhile the field warps write the coefficients' Montgomery forms
+//     (b R^2 R^-1) and recover each instance's coefficient c_{j+1} (two
+//     products at every degree, so no lane waits on another's branch);
+//     after the squeeze four lanes of the transcript warp take r, r^2 and
+//     r^3 (exact below 2^375: its low 8 words and its high 4) to
+//     Montgomery form at once, and each field lane adds c_{j+1} r^{j+1} to
+//     its instance's claim: two products deep from the squeeze;
+//   * a Montgomery product's loop over its words is not unrolled (its
+//     code is fetched once a launch); no array is indexed at run time, so
+//     nothing lives in local memory.
+//
+// Fields are the port's Montgomery limbs (8 x 32 bits, R = 2^256,
+// `fr.cuh`).  `K4_STAMP` / `K4_STAMP_AFTER` are empty here;
+// experiments/k4_parts.cu defines them to take clock64 stamps.
 
 #include "fr.cuh"
+
+#ifndef K4_STAMP
+#define K4_STAMP(slot)
+#define K4_STAMP_AFTER(value, slot)
+#endif
 
 namespace {
 
 constexpr int kMaxInst = 64;
+constexpr int kWords = 3;                  // `weights` words8 an instance
+// 7 warps: warp 3 the transcript warp (alone on its SM sub-partition, as
+// warp w runs on sub-partition w % 4), the others the field warps
+constexpr int kThreads = 7 * 32;
+constexpr int kTranscriptWarp = 3;
 
-// The launch record (`kernels.RoundTail` in field/kernels.py).
+// The launch record (`kernels.RoundTail` in field/kernels.py).  The
+// wrapper fills it once a stage and writes per round only `evals`, `n_c`
+// and `round`.
 struct Tail {
-  unsigned long long evals[kMaxInst];  // instance i's evals (8, d_i), 0 if
-                                       // inactive this round
+  unsigned long long evals[kMaxInst];  // per round: instance i's evals
+                                       // (8, d_i), 0 if inactive
   int32_t degree[kMaxInst];            // d_i in 1..3
   int32_t n_inst;
-  int32_t n_c;                         // this round's compressed length
+  int32_t n_c;                         // per round: compressed length
   int32_t width;                       // comp's coefficients a round
-  int32_t round;
+  int32_t round;                       // per round
   unsigned long long state;            // uint32[9]: state words, n_rounds
-  unsigned long long claims;           // uint32[n_inst][8]
-  unsigned long long coeffs;           // uint32[n_inst][8]
+  unsigned long long claims;           // uint32[n_inst][8], Montgomery
+  unsigned long long weights;          // uint32[n_inst][3][8]: w, w/2 and
+                                       // w/6 as plain values
   unsigned long long comp;             // uint32[rounds][width][8]
   unsigned long long r;                // uint32[rounds][8]
-  uint32_t label[8];                   // label_with_len payload words
+  uint32_t label[3][8];                // label_with_len payload, n_c = 1..3
   uint32_t inv2[8];                    // 1/2, Montgomery
   uint32_t inv6[8];                    // 1/6, Montgomery
 };
 
-__device__ __forceinline__ uint64_t rotr64(uint64_t x, int n) {
-  return (x >> n) | (x << (64 - n));
+// ---- Blake2b-256 of one final block, on the four lanes of a quad --------
+
+// Blake2b-256's chaining value (the IV, word 0 xor the parameter block's
+// first word 0x01010020: digest 32, no key, fanout 1, depth 1) and the IV
+#define B2_H_WORDS                                                        \
+  {0x6A09E667F3BCC908ull ^ 0x01010020ull, 0xBB67AE8584CAA73Bull,          \
+   0x3C6EF372FE94F82Bull, 0xA54FF53A5F1D36F1ull, 0x510E527FADE682D1ull,   \
+   0x9B05688C2B3E6C1Full, 0x1F83D9ABFB41BD6Bull, 0x5BE0CD19137E2179ull}
+#define B2_IV_WORDS                                                       \
+  {0x6A09E667F3BCC908ull, 0xBB67AE8584CAA73Bull, 0x3C6EF372FE94F82Bull,   \
+   0xA54FF53A5F1D36F1ull, 0x510E527FADE682D1ull, 0x9B05688C2B3E6C1Full,   \
+   0x1F83D9ABFB41BD6Bull, 0x5BE0CD19137E2179ull}
+
+__device__ __forceinline__ uint64_t pack64(uint32_t lo, uint32_t hi) {
+  uint64_t r;
+  asm("mov.b64 %0, {%1, %2};" : "=l"(r) : "r"(lo), "r"(hi));
+  return r;
+}
+
+__device__ __forceinline__ void split64(uint64_t x, uint32_t& lo,
+                                        uint32_t& hi) {
+  asm("mov.b64 {%0, %1}, %2;" : "=r"(lo), "=r"(hi) : "l"(x));
+}
+
+// rotr(x ^ y, n) for Blake2b's rotations by 32, 24, 16 and 63
+__device__ __forceinline__ uint64_t xor_rotr32(uint64_t x, uint64_t y) {
+  uint32_t lo, hi;
+  split64(x ^ y, lo, hi);
+  return pack64(hi, lo);
+}
+
+__device__ __forceinline__ uint64_t xor_rotr24(uint64_t x, uint64_t y) {
+  uint32_t lo, hi;
+  split64(x ^ y, lo, hi);
+  return pack64(__byte_perm(lo, hi, 0x6543), __byte_perm(hi, lo, 0x6543));
+}
+
+__device__ __forceinline__ uint64_t xor_rotr16(uint64_t x, uint64_t y) {
+  uint32_t lo, hi;
+  split64(x ^ y, lo, hi);
+  return pack64(__byte_perm(lo, hi, 0x5432), __byte_perm(hi, lo, 0x5432));
+}
+
+__device__ __forceinline__ uint64_t xor_rotr63(uint64_t x, uint64_t y) {
+  uint32_t lo, hi;
+  split64(x ^ y, lo, hi);
+  return pack64(__funnelshift_l(hi, lo, 1), __funnelshift_l(lo, hi, 1));
 }
 
 __device__ __forceinline__ uint32_t bswap32(uint32_t x) {
   return __byte_perm(x, 0, 0x0123);
 }
 
-#define B2_G(a, b, c, d, x, y)          \
-  v[a] = v[a] + v[b] + (x);            \
-  v[d] = rotr64(v[d] ^ v[a], 32);      \
-  v[c] = v[c] + v[d];                  \
-  v[b] = rotr64(v[b] ^ v[c], 24);      \
-  v[a] = v[a] + v[b] + (y);            \
-  v[d] = rotr64(v[d] ^ v[a], 16);      \
-  v[c] = v[c] + v[d];                  \
-  v[b] = rotr64(v[b] ^ v[c], 63);
+// the value of lane q (0..3) of a quad: a, b, c or d
+__device__ __forceinline__ uint64_t quad_pick(int q, uint64_t a, uint64_t b,
+                                              uint64_t c, uint64_t d) {
+  return q == 0 ? a : q == 1 ? b : q == 2 ? c : d;
+}
+
+#define B2_G(a, b, c, d, x, y) \
+  a = a + b + (x);             \
+  d = xor_rotr32(d, a);        \
+  c = c + d;                   \
+  b = xor_rotr24(b, c);        \
+  a = a + b + (y);             \
+  d = xor_rotr16(d, a);        \
+  c = c + d;                   \
+  b = xor_rotr63(b, c);
 
 #define B2_ROUND(s0, s1, s2, s3, s4, s5, s6, s7, s8, s9, s10, s11, s12, s13, \
                  s14, s15)                                                   \
-  B2_G(0, 4, 8, 12, m[s0], m[s1])                                            \
-  B2_G(1, 5, 9, 13, m[s2], m[s3])                                            \
-  B2_G(2, 6, 10, 14, m[s4], m[s5])                                           \
-  B2_G(3, 7, 11, 15, m[s6], m[s7])                                           \
-  B2_G(0, 5, 10, 15, m[s8], m[s9])                                           \
-  B2_G(1, 6, 11, 12, m[s10], m[s11])                                         \
-  B2_G(2, 7, 8, 13, m[s12], m[s13])                                          \
-  B2_G(3, 4, 9, 14, m[s14], m[s15])
-
-// One transcript step: state = Blake2b-256(state || 28 zero bytes ||
-// n_rounds BE || payload), n_rounds += 1.  payload null: a squeeze.
-__device__ void step(uint64_t st[4], uint32_t& n, const uint64_t* payload) {
-  const uint64_t iv[8] = {0x6A09E667F3BCC908ull, 0xBB67AE8584CAA73Bull,
-                          0x3C6EF372FE94F82Bull, 0xA54FF53A5F1D36F1ull,
-                          0x510E527FADE682D1ull, 0x9B05688C2B3E6C1Full,
-                          0x1F83D9ABFB41BD6Bull, 0x5BE0CD19137E2179ull};
-  uint64_t m[16];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) m[j] = st[j];
-  m[4] = m[5] = m[6] = 0;
-  m[7] = (uint64_t)bswap32(n) << 32;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) m[8 + j] = payload ? payload[j] : 0;
-  m[12] = m[13] = m[14] = m[15] = 0;
-  uint64_t h[8], v[16];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    h[j] = iv[j];
-    v[8 + j] = iv[j];
+  {                                                                          \
+    const uint64_t x0 = quad_pick(q, m[s0], m[s2], m[s4], m[s6]);            \
+    const uint64_t y0 = quad_pick(q, m[s1], m[s3], m[s5], m[s7]);            \
+    const uint64_t x1 = quad_pick(q, m[s8], m[s10], m[s12], m[s14]);         \
+    const uint64_t y1 = quad_pick(q, m[s9], m[s11], m[s13], m[s15]);         \
+    B2_G(a, b, c, d, x0, y0)                                                 \
+    b = __shfl_sync(0xffffffffu, b, q + 1, 4);                               \
+    c = __shfl_sync(0xffffffffu, c, q + 2, 4);                               \
+    d = __shfl_sync(0xffffffffu, d, q + 3, 4);                               \
+    B2_G(a, b, c, d, x1, y1)                                                 \
+    b = __shfl_sync(0xffffffffu, b, q + 3, 4);                               \
+    c = __shfl_sync(0xffffffffu, c, q + 2, 4);                               \
+    d = __shfl_sync(0xffffffffu, d, q + 1, 4);                               \
   }
-  h[0] ^= 0x01010020ull;             // digest length 32, fanout 1, depth 1
-#pragma unroll
-  for (int j = 0; j < 8; ++j) v[j] = h[j];
-  v[12] ^= payload ? 96 : 64;        // the message's byte length
-  v[14] = ~v[14];                    // the final block
+
+// One transcript step on the whole warp (each quad alike): st = Blake2b-256
+// (st || 28 zero bytes || n BE || payload), of `len` bytes: 96 with the
+// 32-byte payload pl, 64 (a squeeze) without.  Lane q of a quad holds
+// column q (v[q], v[4 + q], v[8 + q], v[12 + q]) and runs its G function;
+// for the diagonal G functions (0, 5, 10, 15), (1, 6, 11, 12), .. lane q
+// takes b from lane q + 1, c from q + 2 and d from q + 3, and gives them
+// back after.  The rounds are unrolled (every message index a constant);
+// the kernel has one copy of this code for all its 2 + n_c steps, so only
+// the first waits for the instruction fetch.  Returns with every lane
+// holding the new state.
+__device__ __forceinline__ void compress(uint64_t st[4], uint32_t n,
+                                         const uint64_t pl[4], uint32_t len) {
+  const uint64_t H[8] = B2_H_WORDS, IV[8] = B2_IV_WORDS;
+  const int q = threadIdx.x & 3;
+  const bool with = len == 96;
+  const uint64_t m[16] = {st[0], st[1], st[2], st[3], 0, 0, 0,
+                          (uint64_t)bswap32(n) << 32, with ? pl[0] : 0,
+                          with ? pl[1] : 0, with ? pl[2] : 0,
+                          with ? pl[3] : 0, 0, 0, 0, 0};
+  uint64_t a = quad_pick(q, H[0], H[1], H[2], H[3]);
+  uint64_t b = quad_pick(q, H[4], H[5], H[6], H[7]);
+  uint64_t c = quad_pick(q, IV[0], IV[1], IV[2], IV[3]);
+  // v[12] ^= the message's byte length; v[14] = ~v[14]: the final block
+  uint64_t d = quad_pick(q, IV[4] ^ len, IV[5], ~IV[6], IV[7]);
   B2_ROUND(0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
   B2_ROUND(14, 10, 4, 8, 9, 15, 13, 6, 1, 12, 0, 2, 11, 7, 5, 3)
   B2_ROUND(11, 8, 12, 0, 5, 2, 15, 13, 10, 14, 3, 6, 7, 1, 9, 4)
@@ -134,146 +224,346 @@ __device__ void step(uint64_t st[4], uint32_t& n, const uint64_t* payload) {
   B2_ROUND(10, 2, 8, 4, 7, 6, 1, 5, 15, 11, 9, 14, 3, 12, 13, 0)
   B2_ROUND(0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
   B2_ROUND(14, 10, 4, 8, 9, 15, 13, 6, 1, 12, 0, 2, 11, 7, 5, 3)
+  // the new state's word q: h[q] ^ v[q] ^ v[8 + q]
+  const uint64_t w = quad_pick(q, H[0], H[1], H[2], H[3]) ^ a ^ c;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) st[j] = h[j] ^ v[j] ^ v[j + 8];
-  n += 1;
+  for (int j = 0; j < 4; ++j) st[j] = __shfl_sync(0xffffffffu, w, j, 4);
 }
 
-__device__ __forceinline__ void copy8(const uint32_t* a, uint32_t* out) {
+// ---- field helpers ------------------------------------------------------
+
+__device__ __forceinline__ void load8(const uint32_t* p, uint32_t x[8]) {
 #pragma unroll
-  for (int l = 0; l < 8; ++l) out[l] = a[l];
+  for (int l = 0; l < 8; ++l) x[l] = p[l];
 }
 
-// Instance i's round polynomial (Montgomery coefficients c[0..n)) from its
-// evals e (8, d) at X = 0, 2, .., d and its claim; returns n = d + 1.
-__device__ int recover(const uint32_t* e, int d, const uint32_t claim[8],
-                       const Tail& t, uint32_t c[4][8]) {
-  uint32_t e0[8], e1[8];
+__device__ __forceinline__ void store8(const uint32_t x[8], uint32_t* p) {
 #pragma unroll
-  for (int l = 0; l < 8; ++l) e0[l] = e[l * d];
-  fr::sub8(claim, e0, e1);
-  copy8(e0, c[0]);
-  if (d == 1) {
-    fr::sub8(e1, e0, c[1]);
-    return 2;
-  }
-  uint32_t e2[8], s[8], t2[8];
-#pragma unroll
-  for (int l = 0; l < 8; ++l) e2[l] = e[l * d + 1];
-  fr::add8(e0, e2, s);                         // s = e0 + e2 - 2 e1
-  fr::add8(e1, e1, t2);
-  fr::sub8(s, t2, s);
-  if (d == 2) {
-    fr::mont_mul8(s, t.inv2, c[2]);            // c2 = s / 2
-    fr::sub8(e1, e0, c[1]);
-    fr::sub8(c[1], c[2], c[1]);                // c1 = e1 - e0 - c2
-    return 3;
-  }
-  uint32_t e3[8], d12[8], x[8];
-#pragma unroll
-  for (int l = 0; l < 8; ++l) e3[l] = e[l * d + 2];
-  fr::sub8(e1, e2, d12);                       // c3 = (e3 - e0 + 3 d12) / 6
-  fr::sub8(e3, e0, x);
-  fr::add8(d12, d12, t2);
-  fr::add8(d12, t2, t2);
-  fr::add8(x, t2, x);
-  fr::mont_mul8(x, t.inv6, c[3]);
-  fr::mont_mul8(s, t.inv2, c[2]);              // c2 = s / 2 - 3 c3
-  fr::add8(c[3], c[3], t2);
-  fr::add8(c[3], t2, t2);
-  fr::sub8(c[2], t2, c[2]);
-  fr::sub8(e1, e0, c[1]);                      // c1 = e1 - e0 - c2 - c3
-  fr::sub8(c[1], c[2], c[1]);
-  fr::sub8(c[1], c[3], c[1]);
-  return 4;
+  for (int l = 0; l < 8; ++l) p[l] = x[l];
 }
+
+__device__ __forceinline__ void zero8(uint32_t x[8]) {
+#pragma unroll
+  for (int l = 0; l < 8; ++l) x[l] = 0;
+}
+
+__device__ __forceinline__ void copy8(const uint32_t x[8], uint32_t out[8]) {
+#pragma unroll
+  for (int l = 0; l < 8; ++l) out[l] = x[l];
+}
+
+// out = c ? a : b
+__device__ __forceinline__ void pick8(bool c, const uint32_t a[8],
+                                      const uint32_t b[8], uint32_t out[8]) {
+#pragma unroll
+  for (int l = 0; l < 8; ++l) out[l] = c ? a[l] : b[l];
+}
+
+// out = 3 x mod p
+__device__ __forceinline__ void triple8(const uint32_t x[8], uint32_t out[8]) {
+  uint32_t t[8];
+  fr::add8(x, x, t);
+  fr::add8(x, t, out);
+}
+
+// out = a b R^-1 mod p for a < 2^256, b < p (out may alias a or b):
+// `fr::mont_mul8`'s CIOS rows, with a's words shifting down through
+// registers so that the loop over them is not unrolled -- ~50
+// instructions of code for 8 passes, fetched once a launch, where the
+// unrolled product is ~300.
+__device__ __forceinline__ void mont_mul(const uint32_t a[8],
+                                         const uint32_t b[8],
+                                         uint32_t out[8]) {
+  const uint32_t p[8] = FR_P_WORDS;
+  uint32_t t[9], x[8], y[8];
+#pragma unroll
+  for (int l = 0; l < 8; ++l) {
+    x[l] = a[l];
+    y[l] = b[l];
+    t[l] = 0;
+  }
+  t[8] = 0;
+#pragma unroll 1
+  for (int i = 0; i < 8; ++i) {
+    fr::mul_add_row(t, x[0], y);
+    fr::mul_add_row(t, t[0] * fr::kN0, p);
+#pragma unroll
+    for (int l = 0; l < 8; ++l) t[l] = t[l + 1];
+    t[8] = 0;
+#pragma unroll
+    for (int l = 0; l < 7; ++l) x[l] = x[l + 1];
+    x[7] = 0;
+  }
+  uint32_t d[8];
+  const uint32_t keep = fr::sub_words(t, p, d);      // t < p: keep t
+#pragma unroll
+  for (int l = 0; l < 8; ++l) out[l] = keep ? t[l] : d[l];
+}
+
+// out[0 .. kA + kB) = a * b, exactly (schoolbook)
+template <int kA, int kB>
+__device__ __forceinline__ void mul_exact(const uint32_t a[kA],
+                                          const uint32_t b[kB],
+                                          uint32_t out[kA + kB]) {
+#pragma unroll
+  for (int l = 0; l < kA + kB; ++l) out[l] = 0;
+#pragma unroll
+  for (int i = 0; i < kA; ++i) {
+    uint32_t carry = 0;
+#pragma unroll
+    for (int j = 0; j < kB; ++j) {
+      const uint64_t v = (uint64_t)a[i] * b[j] + out[i + j] + carry;
+      out[i + j] = (uint32_t)v;
+      carry = (uint32_t)(v >> 32);
+    }
+    out[i + kB] = carry;
+  }
+}
+
+// Arrive at (and wait on) named barrier `id` with `count` threads; the
+// transcript warp and the field warps arrive from different code.
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;" : : "r"(id), "r"(count) : "memory");
+}
+
+// ---- the kernel -----------------------------------------------------------
 
 // __grid_constant__: the record stays in the parameter bank though its
 // arrays are read by address.
-__global__ void __launch_bounds__(32)
+__global__ void __launch_bounds__(kThreads)
 k4_round_tail(const __grid_constant__ Tail t) {
-  __shared__ uint32_t coef[kMaxInst][4][8];    // each instance's polynomial
-  __shared__ uint32_t scaled[kMaxInst][4][8];  // times its batching coeff
-  __shared__ int ncoef[kMaxInst];
-  __shared__ uint32_t rch[8];                  // the round's challenge
-  const int lane = threadIdx.x;
-  uint32_t* claims = (uint32_t*)t.claims;
-  const uint32_t* weights = (const uint32_t*)t.coeffs;
+  __shared__ uint32_t part[3][2][8];     // (term, half): canonical sums
+  __shared__ uint32_t rpow[3][8];        // r, r^2, r^3, Montgomery
+  __shared__ uint32_t term[2][kMaxInst][8];   // c2 r^2, c3 r^3
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  for (int i = lane; i < t.n_inst; i += 32) {
-    uint32_t claim[8], c[4][8];
-    copy8(claims + 8 * i, claim);
-    int n = 1;
-    if (t.evals[i] == 0)
-      fr::mont_mul8(claim, t.inv2, c[0]);      // inactive: claim / 2
-    else
-      n = recover((const uint32_t*)t.evals[i], t.degree[i], claim, t, c);
-    for (int k = 0; k < n; ++k) {
-      copy8(c[k], coef[i][k]);
-      fr::mont_mul8(c[k], weights + 8 * i, scaled[i][k]);
-    }
-    ncoef[i] = n;
-  }
-  __syncwarp();
-
-  if (lane == 0) {
-    uint32_t b[4][8];
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-#pragma unroll
-      for (int l = 0; l < 8; ++l) b[k][l] = 0;
-    for (int i = 0; i < t.n_inst; ++i)
-      for (int k = 0; k < ncoef[i]; ++k) fr::add8(b[k], scaled[i][k], b[k]);
+  if (warp == kTranscriptWarp) {
+    // ---- the transcript warp: 2 + n_c steps through one copy of
+    // `compress`, the label's before barrier 1 (beside the field work),
+    // the coefficients' and the squeeze after
+    K4_STAMP(0);
     const uint32_t* sw = (const uint32_t*)t.state;
-    uint64_t st[4], payload[4];
+    uint64_t st[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      st[j] = sw[2 * j] | ((uint64_t)sw[2 * j + 1] << 32);
+    for (int k = 0; k < 4; ++k) st[k] = pack64(sw[2 * k], sw[2 * k + 1]);
     uint32_t n = sw[8];
+    K4_STAMP_AFTER((uint32_t)st[3] ^ n, 1);
+    uint64_t pl[4], coef[3][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      payload[j] = t.label[2 * j] | ((uint64_t)t.label[2 * j + 1] << 32);
-    step(st, n, payload);
-    uint32_t* comp = (uint32_t*)t.comp + (uint64_t)t.round * t.width * 8;
-    const uint32_t one[8] = {1, 0, 0, 0, 0, 0, 0, 0};
-    for (int k = 0; k < t.n_c; ++k) {
-      const uint32_t* bk = b[k == 0 ? 0 : k + 1];   // [c0, c2, c3, ..]
-      uint32_t canon[8];
-      copy8(bk, comp + 8 * k);
-      fr::mont_mul8(bk, one, canon);               // x R^-1: canonical
-#pragma unroll
-      for (int j = 0; j < 4; ++j)                  // 32 big-endian bytes
-        payload[j] = bswap32(canon[7 - 2 * j])
-                     | ((uint64_t)bswap32(canon[6 - 2 * j]) << 32);
-      step(st, n, payload);
+    for (int k = 0; k < 4; ++k) {
+      const int lo = 2 * k, hi = 2 * k + 1;
+      pl[k] = t.n_c == 1 ? pack64(t.label[0][lo], t.label[0][hi])
+              : t.n_c == 2 ? pack64(t.label[1][lo], t.label[1][hi])
+                           : pack64(t.label[2][lo], t.label[2][hi]);
     }
-    step(st, n, nullptr);                          // the squeeze
-    uint32_t raw[8] = {(uint32_t)st[0], (uint32_t)(st[0] >> 32),
-                       (uint32_t)st[1],
-                       (uint32_t)(st[1] >> 32) & 0x1FFFFFFFu, 0, 0, 0, 0};
-    const uint32_t r2[8] = FR_R2_WORDS;
-    fr::mont_mul8(raw, r2, rch);                   // raw R^2 R^-1 = raw R
-    copy8(rch, (uint32_t*)t.r + 8 * (uint64_t)t.round);
-    uint32_t* so = (uint32_t*)t.state;
+    for (int step = 0;; ++step) {
+      compress(st, n, pl, step <= t.n_c ? 96 : 64);
+      n += 1;
+      if (step == 0) {
+        K4_STAMP_AFTER((uint32_t)st[3], 2);
+        named_barrier(1, kThreads);
+        // the compressed coefficients' canonical values b0, b2 = B - 3 C,
+        // b3 = C, each as its absorb payload (32 big-endian bytes)
+        uint32_t b[3][8], u[8];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      so[2 * j] = (uint32_t)st[j];
-      so[2 * j + 1] = (uint32_t)(st[j] >> 32);
+        for (int k = 0; k < 3; ++k) fr::add8(part[k][0], part[k][1], b[k]);
+        fr::add8(b[2], b[2], u);
+        fr::add8(b[2], u, u);
+        fr::sub8(b[1], u, b[1]);
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            coef[c][k] = pack64(bswap32(b[c][7 - 2 * k]),
+                                bswap32(b[c][6 - 2 * k]));
+        K4_STAMP_AFTER((uint32_t)coef[2][3], 3);
+      }
+      if (step == t.n_c) K4_STAMP_AFTER((uint32_t)st[3], 4);
+      if (step == t.n_c + 1) break;
+      // the next step's payload, picked by constant indices
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        pl[k] = step == 0 ? coef[0][k] : step == 1 ? coef[1][k] : coef[2][k];
     }
-    so[8] = n;
+    K4_STAMP_AFTER((uint32_t)st[3], 5);
+    // the challenge r: the squeeze's low 125 bits.  r, r^2 and r^3 are
+    // exact below 2^375; lanes 0-3 take r, r^2, r^3's low 8 words and its
+    // high 4 to Montgomery form at once (x R^2 R^-1 = x R, and x 2^768
+    // R^-1 = (x 2^256) R for the high words), lane 2 adds lane 3's
+    uint32_t r1[4], r2[8], r3[12];
+    r1[0] = (uint32_t)st[0];
+    r1[1] = (uint32_t)(st[0] >> 32);
+    r1[2] = (uint32_t)st[1];
+    r1[3] = (uint32_t)(st[1] >> 32) & 0x1FFFFFFFu;
+    mul_exact<4, 4>(r1, r1, r2);
+    mul_exact<4, 8>(r1, r2, r3);
+    const uint32_t k512[8] = FR_R2_WORDS;
+    const uint32_t k768[8] = {0xb4bf0040u, 0x5e94d8e1u, 0x1cfbb6b8u,
+                              0x2a489cbeu, 0xa19fcfedu, 0x893cc664u,
+                              0x7fcc657cu, 0x0cf8594bu};   // 2^768 mod p
+    uint32_t x[8], y[8], rm[8];
+#pragma unroll
+    for (int l = 0; l < 8; ++l) {
+      x[l] = lane == 1 ? r2[l] : lane == 2 ? r3[l]
+             : lane == 3 ? (l < 4 ? r3[8 + l] : 0) : (l < 4 ? r1[l] : 0);
+      y[l] = lane == 3 ? k768[l] : k512[l];
+    }
+    mont_mul(x, y, rm);
+    uint32_t hi[8];
+#pragma unroll
+    for (int l = 0; l < 8; ++l) hi[l] = __shfl_sync(0xffffffffu, rm[l], 3);
+    if (lane == 2) fr::add8(rm, hi, rm);
+    if (lane < 3) store8(rm, rpow[lane]);
+    if (lane == 0) {
+      store8(rm, (uint32_t*)t.r + 8 * (uint64_t)t.round);
+      uint32_t* so = (uint32_t*)t.state;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        so[2 * k] = (uint32_t)st[k];
+        so[2 * k + 1] = (uint32_t)(st[k] >> 32);
+      }
+      so[8] = n;
+    }
+    K4_STAMP_AFTER(rm[7], 6);
+    named_barrier(2, kThreads);
+    return;
   }
-  __syncwarp();
 
-  for (int i = lane; i < t.n_inst; i += 32) {
-    uint32_t acc[8], r[8];
-    copy8(rch, r);
-    const int n = ncoef[i];
-    copy8(coef[i][n - 1], acc);
-    for (int k = n - 2; k >= 0; --k) {             // Horner at r
-      fr::mont_mul8(acc, r, acc);
-      fr::add8(acc, coef[i][k], acc);
+  // ---- the field warps: f = 2j + h, term j of instance i = 32h + lane:
+  // with s = e0 + e2 - 2 e1 (0 at degree 1) and x = e3 - e0 + 3 (e1 - e2)
+  // (0 below degree 3) the coefficients are c0 = e0 (claim/2 inactive),
+  // c3 = x/6, c2 = s/2 - 3 c3, c1 = e1 - e0 - c2 - c3, so the batched
+  // compressed polynomial is b0 = sum A, b2 = sum B - 3 sum C, b3 = sum C
+  // with A = c0 w, B = s w/2, C = x w/6: one product a lane, by w's plain
+  // forms, gives each term's canonical value (x R * w * R^-1 = x w)
+  const int f = warp < kTranscriptWarp ? warp : warp - 1;
+  const int j = f >> 1, h = f & 1, i = 32 * h + lane;
+  const bool live = i < t.n_inst;
+  uint32_t claim[8], e0[8], e1[8], s[8], x[8];
+  bool active = false;
+  zero8(claim);
+  zero8(e0);
+  zero8(e1);
+  zero8(s);
+  zero8(x);
+  if (f == 0) K4_STAMP(32);
+  if (live) {
+    load8((const uint32_t*)t.claims + 8 * i, claim);
+    const uint32_t* e = (const uint32_t*)t.evals[i];
+    active = e != nullptr;
+    if (active) {
+      const int d = t.degree[i];
+      uint32_t e2[8], u[8];
+#pragma unroll
+      for (int l = 0; l < 8; ++l) e0[l] = e[l * d];
+      fr::sub8(claim, e0, e1);
+      if (d >= 2) {
+#pragma unroll
+        for (int l = 0; l < 8; ++l) e2[l] = e[l * d + 1];
+        fr::add8(e0, e2, s);
+        fr::add8(e1, e1, u);
+        fr::sub8(s, u, s);
+      }
+      if (d == 3) {
+#pragma unroll
+        for (int l = 0; l < 8; ++l) x[l] = e[l * d + 2];
+        fr::sub8(x, e0, x);
+        fr::sub8(e1, e2, u);
+        triple8(u, u);
+        fr::add8(x, u, x);
+      }
     }
-    copy8(acc, claims + 8 * i);
+  }
+  if (f == 0) K4_STAMP_AFTER(e0[0] ^ claim[0] ^ x[7], 33);
+  uint32_t v[8];
+  zero8(v);
+  if (live) {
+    const uint32_t* wt = (const uint32_t*)t.weights + 8 * kWords * i;
+    uint32_t a[8], w[8];
+    // A: e0 w, or claim w/2 inactive; B: s w/2; C: x w/6
+#pragma unroll
+    for (int l = 0; l < 8; ++l)
+      a[l] = j == 0 ? (active ? e0[l] : claim[l]) : j == 1 ? s[l] : x[l];
+    load8(wt + 8 * (j == 0 ? (active ? 0 : 1) : j == 1 ? 1 : 2), w);
+    mont_mul(a, w, v);
+  }
+  if (f == 0) K4_STAMP_AFTER(v[7], 34);
+  // the warp's sum over its lanes (lanes past the last instance hold 0,
+  // so levels at or past their count add nothing and are skipped)
+  const int count = min(max(t.n_inst - 32 * h, 0), 32);
+#pragma unroll
+  for (int off = 16; off >= 1; off >>= 1) {
+    if (off < count) {
+      uint32_t o[8];
+#pragma unroll
+      for (int l = 0; l < 8; ++l)
+        o[l] = __shfl_down_sync(0xffffffffu, v[l], off);
+      fr::add8(v, o, v);
+    }
+  }
+  if (lane == 0) store8(v, part[j][h]);
+  if (f == 0) K4_STAMP_AFTER(v[7], 35);
+  named_barrier(1, kThreads);
+
+  // ---- while the transcript runs: the compressed coefficients in
+  // Montgomery form into comp (field warp 5's lanes < n_c: b R^2 R^-1 =
+  // b R),
+  // and each lane's coefficient for its claim (warps j = 0: c0 and c1,
+  // j = 1: c2, j = 2: c3; the degree shows only as zeros in s and x)
+  if (f == 5 && lane < t.n_c) {
+    uint32_t b[8], u[8];
+    const int k = lane == 0 ? 0 : lane == 1 ? 1 : 2;
+    fr::add8(part[k][0], part[k][1], b);
+    if (k == 1) {                        // b2 = B - 3 C
+      uint32_t cs[8];
+      fr::add8(part[2][0], part[2][1], cs);
+      triple8(cs, u);
+      fr::sub8(b, u, b);
+    }
+    const uint32_t r2[8] = FR_R2_WORDS;
+    mont_mul(b, r2, b);
+    store8(b, (uint32_t*)t.comp + 8 * ((uint64_t)t.round * t.width + lane));
+  }
+  uint32_t c[8], c0[8];
+  {
+    const uint32_t inv2[8] = {t.inv2[0], t.inv2[1], t.inv2[2], t.inv2[3],
+                              t.inv2[4], t.inv2[5], t.inv2[6], t.inv2[7]};
+    const uint32_t inv6[8] = {t.inv6[0], t.inv6[1], t.inv6[2], t.inv6[3],
+                              t.inv6[4], t.inv6[5], t.inv6[6], t.inv6[7]};
+    uint32_t c3[8], half[8], u[8];
+    mont_mul(x, inv6, c3);
+    if (j == 2) {
+      copy8(c3, c);
+    } else {
+      pick8(active, s, claim, u);
+      mont_mul(u, inv2, half);          // s/2, or claim/2 inactive
+      pick8(active, e0, half, c0);
+      triple8(c3, u);
+      fr::sub8(half, u, c);              // c2
+      if (j == 0) {
+        fr::sub8(e1, e0, u);
+        fr::sub8(u, c, u);
+        fr::sub8(u, c3, c);              // c1
+      }
+      if (!active) zero8(c);
+    }
+  }
+  named_barrier(2, kThreads);
+
+  // ---- each claim at the challenge: c0 + c1 r + c2 r^2 + c3 r^3, one
+  // product a lane (warps j: c_{j+1} r^{j+1}), summed by warps j = 0
+  if (f == 0) K4_STAMP_AFTER(rpow[0][7], 36);
+  uint32_t pw[8];
+  load8(rpow[j], pw);
+  mont_mul(c, pw, c);
+  if (j != 0) store8(c, term[j - 1][i]);
+  named_barrier(3, kThreads - 32);
+  if (j == 0 && live) {
+    fr::add8(c, c0, c);
+    fr::add8(c, term[0][i], c);
+    fr::add8(c, term[1][i], c);
+    store8(c, (uint32_t*)t.claims + 8 * i);
+    if (f == 0) K4_STAMP_AFTER(c[7], 37);
   }
 }
 
@@ -286,6 +576,7 @@ extern "C" int jolt_k4_launch_size() { return (int)sizeof(Tail); }
 // caller: n_inst <= 64, degrees 1..3, 1 <= n_c <= width <= 3, every pointer
 // on the current device).  Returns cudaGetLastError() (0 on success).
 extern "C" int jolt_k4(const void* tail, void* stream) {
-  k4_round_tail<<<1, 32, 0, (cudaStream_t)stream>>>(*(const Tail*)tail);
+  k4_round_tail<<<1, kThreads, 0, (cudaStream_t)stream>>>(
+      *(const Tail*)tail);
   return (int)cudaGetLastError();
 }

@@ -44,6 +44,7 @@ ctypes, so nothing is compiled when this module is imported.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
@@ -873,6 +874,7 @@ product_round.launches = 0
 # ---------------------------------------------------------------------------
 
 K4_MAX_INSTANCES = 64
+K4_WEIGHTS = 3              # K4's forms of a batching coefficient (`weights`)
 
 
 class RoundTail(ctypes.Structure):
@@ -882,9 +884,9 @@ class RoundTail(ctypes.Structure):
                 ("n_inst", ctypes.c_int32), ("n_c", ctypes.c_int32),
                 ("width", ctypes.c_int32), ("round", ctypes.c_int32),
                 ("state", ctypes.c_uint64), ("claims", ctypes.c_uint64),
-                ("coeffs", ctypes.c_uint64), ("comp", ctypes.c_uint64),
+                ("weights", ctypes.c_uint64), ("comp", ctypes.c_uint64),
                 ("r", ctypes.c_uint64),
-                ("label", ctypes.c_uint32 * N_LIMBS),
+                ("label", (ctypes.c_uint32 * N_LIMBS) * 3),
                 ("inv2", ctypes.c_uint32 * N_LIMBS),
                 ("inv6", ctypes.c_uint32 * N_LIMBS)]
 
@@ -894,9 +896,15 @@ def launch_round_tail(tail: RoundTail, device: torch.device) -> None:
     caller, `transcript.device.round_tail`, fills and checks the record);
     raises if the launch fails; counts one launch."""
     lib = _load("K4")
-    with torch.cuda.device(device):
+    # the raw stream handle and no device switch when the card is current:
+    # a `torch.cuda.Stream` object and the guard cost ~10 us a launch on
+    # the H100's host, more than the kernel
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    with (contextlib.nullcontext() if torch.cuda.current_device() == index
+          else torch.cuda.device(index)):
         rc = lib.jolt_k4(ctypes.byref(tail),
-                         torch.cuda.current_stream(device).cuda_stream)
+                         torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"round_tail: K4 launch failed, CUDA error {rc}")
     launch_round_tail.launches += 1

@@ -281,7 +281,14 @@ class StageBuffers:
     (instances, 8) and `coeffs` (instances, 8) each instance's claim and
     batching coefficient; `comp` (rounds, width, 8) each round's compressed
     coefficients; `r` (rounds, 8) each round's challenge.  All Montgomery
-    limbs but the state."""
+    limbs but the state.
+
+    On a CUDA device also K4's part of the stage (up to K4's 64
+    instances): `weights` (instances, 3, 8), each batching coefficient w,
+    w/2 and w/6 as plain values (uploaded with `all`, outside it); `tail`,
+    K4's launch record with everything that holds for the stage filled
+    in; `degrees`, the instances' degrees that `tail` holds (set at the
+    first round)."""
 
     all: torch.Tensor
     state: torch.Tensor
@@ -289,6 +296,9 @@ class StageBuffers:
     coeffs: torch.Tensor
     comp: torch.Tensor
     r: torch.Tensor
+    weights: Optional[torch.Tensor] = None
+    tail: Optional[kernels.RoundTail] = None
+    degrees: Optional[List[int]] = None
 
     @property
     def device(self) -> torch.device:
@@ -299,26 +309,65 @@ class StageBuffers:
         return self.r[rnd].view(N_LIMBS, 1)
 
 
+def k4_weights(coeffs: Sequence[int]) -> List[int]:
+    """K4's forms of each batching coefficient w (canonical ints), three an
+    instance: w, w/2 and w/6 as plain values.  A Montgomery product of x R
+    by a plain value k is x k, canonical: so K4 gets each term of the
+    batched polynomial as the canonical value the transcript absorbs, in
+    one product."""
+    out = []
+    for w in coeffs:
+        out += [w % P, w * INV2 % P, w * INV6 % P]
+    return out
+
+
+def _stage_record(bufs: StageBuffers) -> kernels.RoundTail:
+    """K4's launch record for `bufs`, every field that holds for the stage
+    filled in (the per-round fields -- evals, n_c, round -- and the
+    degrees are left to `round_tail`)."""
+    tail = kernels.RoundTail()
+    tail.n_inst, tail.width = bufs.claims.shape[0], bufs.comp.shape[1]
+    tail.state, tail.claims, tail.weights, tail.comp, tail.r = (
+        t.data_ptr() for t in (bufs.state, bufs.claims, bufs.weights,
+                               bufs.comp, bufs.r))
+    for n_c in (1, 2, 3):
+        tail.label[n_c - 1] = (ctypes.c_uint32 * N_LIMBS)(
+            *label_payload_words(SUMCHECK_POLY, n_c).reshape(8).tolist())
+    tail.inv2 = kernels._mont_words(INV2)
+    tail.inv6 = kernels._mont_words(INV6)
+    return tail
+
+
 def stage_buffers(device, state32: bytes, n_rounds: int,
                   claims: Sequence[int], coeffs: Sequence[int], rounds: int,
                   width: int) -> StageBuffers:
     """A stage's buffers on `device`, from the host transcript's state and
     n_rounds, the instances' scaled input claims and batching coefficients
     (canonical ints), for `rounds` rounds of at most `width` compressed
-    coefficients: one upload."""
+    coefficients: one upload (on a CUDA device with K4's weights, and
+    K4's record filled once for the stage)."""
     n = len(claims)
+    k4 = torch.device(device).type == "cuda" and n <= kernels.K4_MAX_INSTANCES
     sizes = [9, 8 * n, 8 * n, 8 * rounds * width, 8 * rounds]
-    host = np.zeros(sum(sizes), dtype=np.uint32)
+    total = sum(sizes)
+    host = np.zeros(total + (8 * kernels.K4_WEIGHTS * n if k4 else 0),
+                    dtype=np.uint32)
     host[:8] = state_to_words(state32).reshape(8)
     host[8] = n_rounds
     mont = [c % P * R % P for c in list(claims) + list(coeffs)]
     host[9:9 + 16 * n] = words_of_ints(mont).T.reshape(-1)
+    if k4:
+        host[total:] = words_of_ints(k4_weights(coeffs)).T.reshape(-1)
     flat = torch.from_numpy(host.view(np.int32)).to(device)
-    parts = torch.split(flat, sizes)
-    return StageBuffers(flat, parts[0], parts[1].view(n, 8),
+    parts = torch.split(flat[:total], sizes)
+    bufs = StageBuffers(flat[:total], parts[0], parts[1].view(n, 8),
                         parts[2].view(n, 8),
                         parts[3].view(rounds, width, 8),
                         parts[4].view(rounds, 8))
+    if k4:
+        bufs.weights = flat[total:].view(n, kernels.K4_WEIGHTS, 8)
+        bufs.tail = _stage_record(bufs)
+    return bufs
 
 
 # ---------------------------------------------------------------------------
@@ -403,6 +452,30 @@ def round_tail_plain(evals: Sequence[Optional[torch.Tensor]],
         bufs.claims[i] = horner(cs, r).view(N_LIMBS)
 
 
+def tail_record(evals: Sequence[Optional[torch.Tensor]],
+                degrees: Sequence[int], bufs: StageBuffers, rnd: int,
+                n_c: int) -> kernels.RoundTail:
+    """K4's launch record for this round: the stage's record (`bufs.tail`)
+    with this round's evals pointers (0 for an inactive instance), n_c and
+    round written in, and the degrees at the stage's first round.  The
+    caller has checked the round (`_check_round`); the evals must stay
+    alive until the launch is enqueued."""
+    tail = bufs.tail
+    if tail is None:
+        raise ValueError(f"round tail: {bufs.claims.shape[0]} instances on "
+                         f"{bufs.device} (K4 takes at most "
+                         f"{kernels.K4_MAX_INSTANCES}, on a CUDA device)")
+    if bufs.degrees != degrees:
+        bufs.degrees = list(degrees)
+        for i, d in enumerate(degrees):
+            tail.degree[i] = d
+    ptrs = tail.evals
+    for i, e in enumerate(evals):
+        ptrs[i] = 0 if e is None else e.data_ptr()
+    tail.n_c, tail.round = n_c, rnd
+    return tail
+
+
 def round_tail(evals: Sequence[Optional[torch.Tensor]],
                degrees: Sequence[int], bufs: StageBuffers, rnd: int,
                n_c: int) -> None:
@@ -414,24 +487,7 @@ def round_tail(evals: Sequence[Optional[torch.Tensor]],
         round_tail_plain(evals, degrees, bufs, rnd, n_c)
         return
     _check_round(evals, degrees, bufs, rnd, n_c)
-    if len(evals) > kernels.K4_MAX_INSTANCES:
-        raise ValueError(f"round tail: {len(evals)} instances (K4 takes at "
-                         f"most {kernels.K4_MAX_INSTANCES})")
-    tail = kernels.RoundTail()
-    live = []
-    for i, (e, d) in enumerate(zip(evals, degrees)):
-        tail.degree[i] = d
-        if e is not None:
-            e = e.contiguous()
-            live.append(e)
-            tail.evals[i] = e.data_ptr()
-    tail.n_inst, tail.n_c, tail.width, tail.round = (
-        len(evals), n_c, bufs.comp.shape[1], rnd)
-    tail.state, tail.claims, tail.coeffs, tail.comp, tail.r = (
-        t.data_ptr() for t in (bufs.state, bufs.claims, bufs.coeffs,
-                               bufs.comp, bufs.r))
-    tail.label = (ctypes.c_uint32 * 8)(*label_payload_words(
-        SUMCHECK_POLY, n_c).reshape(8).tolist())
-    tail.inv2 = kernels._mont_words(INV2)
-    tail.inv6 = kernels._mont_words(INV6)
-    kernels.launch_round_tail(tail, bufs.device)
+    evals = [e if e is None or e.is_contiguous() else e.contiguous()
+             for e in evals]
+    kernels.launch_round_tail(tail_record(evals, degrees, bufs, rnd, n_c),
+                              bufs.device)

@@ -1,9 +1,9 @@
 """The torch port on the card: K1 (every form: mul, add, sub, bind, evals,
 reduce), K2 (every pass order, 2 and 3 factors, its on-card finish of the
 message, and a device challenge read by pointer against the same challenge
-by value) and K4 (the round tail, on seeded stages of 1-4 instances of
-degrees 1-3 with inactive rounds and edge values) against their plain
-versions, the device tier of stage 1 on "cuda" against the host engine, the segment sums and the
+by value) and K4 (the round tail, on seeded stages of 1-4 and of 33-64
+instances of degrees 1-3 with inactive rounds and edge values) against
+their plain versions, the device tier of stage 1 on "cuda" against the host engine, the segment sums and the
 stacked product message of stage 5i, the ra virtualization of stage 6v and
 the grouped one-hot and dense-opening instances of stages 7 and 8 on
 "cuda" against "cpu", and the prover on "cuda" against the prover on "cpu"
@@ -49,18 +49,34 @@ def _field_ints(rng, n):
             for row in words]
 
 
-def k4_case(seed: int) -> dict:
+# the wide seeded stages (seed, instances): past one warp's 32 lanes, up to
+# K4's 64
+K4_WIDE = ((100, 33), (101, 47), (102, 64))
+
+
+def k4_case(seed: int, n_inst: int = 0) -> dict:
     """A seeded stage for the round tail: 1-4 instances of degrees 1-3 and
     1-4 rounds each (active in their last rounds, so inactive before),
     scaled claims and batching coefficients with the edge values 0 and
     p - 1 among them, each round's evals (edges too), and a starting state
     from a real transcript.  Every value a canonical int (the CPU test
     holds the plain version against the host transcript with it, the
-    card test K4 against the plain version)."""
+    card test K4 against the plain version).
+
+    With `n_inst` (33-64), a wide stage of that many instances of mixed
+    degrees (the first three 1, 2 and 3) in three rounds, an instance of
+    degree d active in the last 4 - d: round 0 has only degree-1
+    instances active (1 compressed coefficient), round 1 degree 1-2 (2),
+    round 2 all (3)."""
     rng = np.random.default_rng(seed)
-    n = int(rng.integers(1, 5))
-    degrees = [int(d) for d in rng.integers(1, 4, n)]
-    rounds = [int(k) for k in rng.integers(1, 5, n)]
+    if n_inst:
+        n = n_inst
+        degrees = [1, 2, 3] + [int(d) for d in rng.integers(1, 4, n - 3)]
+        rounds = [4 - d for d in degrees]
+    else:
+        n = int(rng.integers(1, 5))
+        degrees = [int(d) for d in rng.integers(1, 4, n)]
+        rounds = [int(k) for k in rng.integers(1, 5, n)]
     max_rounds = max(rounds)
     claims = _field_ints(rng, n)
     claims[0] = 0
@@ -293,6 +309,20 @@ def test_k4_matches_plain_on_card(card, seed):
     squeeze with the top three bits of its 128 set:
     tests/test_torch_transcript_device.py)."""
     case = k4_case(seed)
+    before = kernels.k4_launches()
+    got = run_k4_case(case, card)
+    assert kernels.k4_launches() == before + len(case["evals"])
+    want = run_k4_case(case, card, dt.round_tail_plain)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("seed,n_inst", K4_WIDE)
+def test_k4_matches_plain_on_card_wide(card, seed, n_inst):
+    """K4 equals its plain version bit for bit on the card after every
+    round of a wide seeded stage (33-64 instances: both halves of its
+    field warps; 1, 2 and 3 compressed coefficients; inactive instances
+    of every degree), one launch a round."""
+    case = k4_case(seed, n_inst)
     before = kernels.k4_launches()
     got = run_k4_case(case, card)
     assert kernels.k4_launches() == before + len(case["evals"])

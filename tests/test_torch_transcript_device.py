@@ -13,7 +13,12 @@ package's device transcript, on the CPU.
     rounds, claims 0 and p - 1, starting states from a real transcript) ==
     the host engine's round algebra on the host `Blake2bTranscript`: each
     round's compressed polynomial, challenge, state, n_rounds and claims,
-    one stage among them with a squeeze whose top three bits are set.
+    one stage among them with a squeeze whose top three bits are set; and
+    the wide stages the card test holds K4 to (`K4_WIDE`: 33-64
+    instances, 1-3 compressed coefficients, inactive instances of every
+    degree), in three rounds;
+  * K4's forms of the batching coefficients (`k4_weights`): a Montgomery
+    product by each gives the canonical product.
 """
 
 import hashlib
@@ -26,11 +31,12 @@ import torch
 from jolt_tpu.field import ops as jops
 from jolt_tpu.transcript import device as jdt
 
+from jolt_tpu_torch.field import kernels
 from jolt_tpu_torch.field import ops as tops
 from jolt_tpu_torch.poly.univariate import UniPoly
 from jolt_tpu_torch.transcript import Blake2bTranscript
 from jolt_tpu_torch.transcript import device as dt
-from test_torch_cuda import k4_case, run_k4_case
+from test_torch_cuda import K4_WIDE, k4_case, run_k4_case
 
 torch.set_num_threads(1)
 
@@ -142,3 +148,49 @@ def test_seeded_stages_have_a_squeeze_with_top_bits_set():
     set (the bits `challenge_scalar_optimized` clears); the test above
     holds its plain round tails to the host."""
     assert any(h[5] for h in _host_rounds(k4_case(5)))
+
+
+@pytest.mark.parametrize("seed,n_inst", K4_WIDE)
+def test_plain_round_tails_match_host_transcript_wide(seed, n_inst):
+    """The plain version at K4's widths (33-64 instances) == the host
+    engine's algebra, after each of the stage's three rounds, whose
+    compressed lengths are 1, 2 and 3."""
+    case = k4_case(seed, n_inst)
+    host = _host_rounds(case)
+    assert [len(h[0]) for h in host] == [1, 2, 3]
+    got = run_k4_case(case, CPU)
+    for rnd, (want, flat) in enumerate(zip(host, got)):
+        assert _decode(flat, case, rnd, len(want[0])) == want[:5], rnd
+
+
+def _words(vals) -> torch.Tensor:
+    """Canonical ints -> their raw words (8, n) int32 (no conversion)."""
+    return torch.from_numpy(np.ascontiguousarray(
+        tops.words_of_ints(vals)).view(np.int32))
+
+
+def _ints(words: torch.Tensor):
+    """Raw words (8, n) -> ints (no conversion)."""
+    w = words.numpy().astype(np.int64) & 0xFFFFFFFF
+    return [sum(int(w[k, i]) << (32 * k) for k in range(8))
+            for i in range(w.shape[1])]
+
+
+def test_k4_weights_give_canonical_products():
+    """For each batching coefficient w, `k4_weights` gives w, w/2 and w/6
+    such that a Montgomery product (`mont_mul_plain`) of x R by each is the
+    canonical x w (x w/2, x w/6): K4 takes each term of the batched
+    polynomial as the canonical value that the transcript absorbs, in one
+    product."""
+    rng = np.random.default_rng(11)
+    ws = [0, 1, P - 1] + [int(v) % P for v in
+                          rng.integers(0, 1 << 62, 3, dtype=np.int64)]
+    xs = [0, 1, P - 1, 12345678901234567890 % P]
+    forms = dt.k4_weights(ws)
+    assert len(forms) == kernels.K4_WEIGHTS * len(ws)
+    x_mont = _words([x * kernels.R % P for x in xs])
+    for i, w in enumerate(ws):
+        for k, mult in zip(forms[3 * i:3 * i + 3],
+                           (w, w * dt.INV2, w * dt.INV6)):
+            got = kernels.mont_mul_plain(x_mont, _words([k] * len(xs)))
+            assert _ints(got) == [x * mult % P for x in xs]
