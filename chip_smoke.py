@@ -83,20 +83,28 @@ Phases:
      and counts the device kernels that are neither K1 nor K2; then each
      K1 form vs plain again at the largest launch shape of that run and at
      the one with the most work (launches x bound), with kernel-only times
-     and bounds; stages 1 and 1s take the device tier in the main run
-     (`sumcheck/fused.py`: K4 launched rounds(s1) + rounds(s1s) times, one
-     device-to-host fetch a stage, no synchronizing CUDA call in the round
-     loop) and the host engine in the native-route run (forced through the
-     backend seam, `with_tier(slot, "host")`), whose proof bytes and FS
-     tape are the same; both tiers' s1 and s1s seconds, and their busy
-     shares from a profiled run of each at setup=None;
+     and bounds; every batched stage but s5i takes the device tier in the
+     main run (`sumcheck/fused.py`: in each, K4 launched once a round of
+     its longest instance -- the rounds formula, which the proof's round
+     polynomials must also give --, one device-to-host fetch a stage, ten
+     in all, no synchronizing CUDA call from a stage's first message to
+     its fetch, under the sync debug mode) and the host engine in the
+     native-route run (every slot forced there through the backend seam,
+     `with_tier(slot, "host")`, no K4), whose proof bytes and FS tape are
+     the same and whose K1 and K2 launches are the same stage by stage;
+     both tiers' seconds a stage, the device tier's spans a stage, and
+     each stage's busy share on both tiers from a profiled run of each at
+     setup=None;
   6b. the zk and committed-image paths at full width: the same trace and
      setup through `prove(..., zk=True, zk_rng=random.Random(SEED))` and
      `prove(..., committed_image=True)`, each with its launch counts set to
      0 just before and read just after; every one of the 11 batched
      stages carries round commitments and no clear polynomial, and the zk
      run launches K1 (per form, per stage), K2 and stage 0's K3 exactly
-     as the plain run did; the image run launches K2 as the plain run plus the image's
+     as the plain run did, and no K4 (its stages take the host engine's
+     committed rounds); the image run launches K4 stage by stage as the
+     plain run (its stage 7, the image's reduction in it, on the device
+     tier) and K2 as the plain run plus the image's
      two instances (its stage-7 reduction and its stage-8 dense opening,
      log2(image words) + 1 calls each) and K1 as the plain run outside
      stages 7 and 8; each path's cycles/s, stage seconds beside the plain
@@ -222,6 +230,8 @@ IMAGE_GUEST = """
     li   t3, 1
     sd   t3, 0(t2)
 """
+# the device tier's spans (`sumcheck/fused.py`)
+FUSED_SPANS = ["fused.rounds", "fused.fetch", "fused.replay"]
 # the batched stages' labels (zk round commitments), in `prove`'s order
 ZK_LABELS = ["s1", "s1s", "s2", "s3", "s4", "s5", "s5i", "s6", "s6v", "s7",
              "s8"]
@@ -1744,23 +1754,37 @@ def main():
         onehot_positions.extend(p for _, p in named)
         return commit_many(self, named)
     scheme_mod.DoryScheme.commit_sparse_many = capture
-    # the device tier's round loops (stages 1 and 1s) under the sync debug
-    # mode: every synchronizing CUDA call inside one is recorded
+    # the device tier's stages: each one's round loop and finals (from its
+    # first message to its fetch) under the sync debug mode, every
+    # synchronizing CUDA call inside recorded with the line that made it;
+    # each batched stage's tier, rounds and the device tier's spans before
+    # it (`fused.device_tier` is asked once a stage)
     loop_syncs = []
     real_rounds = fused._device_rounds
+    tier_calls = []
+    real_tier = fused.device_tier
 
     def watched_rounds(*args):
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
             try:
-                real_rounds(*args)
+                return real_rounds(*args)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
-        loop_syncs.extend(str(w.message) for w in caught
-                          if "called a synchronizing CUDA operation"
-                          in str(w.message))
+                loop_syncs.extend(
+                    f"{w.filename}:{w.lineno}" for w in caught
+                    if "called a synchronizing CUDA operation"
+                    in str(w.message))
+
+    def watched_tier(instances):
+        on = real_tier(instances)
+        tier_calls.append((on, max(i.num_rounds for i in instances),
+                           len(instances),
+                           {n: dory_prof.total(n) for n in FUSED_SPANS}))
+        return on
     fused._device_rounds = watched_rounds
+    fused.device_tier = watched_tier
     fused.fetches = 0
     try:
         t0 = time.perf_counter()
@@ -1774,6 +1798,8 @@ def main():
         k4_launches = kernels.k4_launches()
         tier_fetches = fused.fetches
         fused._device_rounds = real_rounds
+        fused.device_tier = real_tier
+        tier_spans_end = {n: dory_prof.total(n) for n in FUSED_SPANS}
         records, kernels.record = kernels.record, None
         for name, fn in plain.items():
             setattr(kernels, name, fn)
@@ -1812,19 +1838,44 @@ def main():
     check(k2_launches == sum(v["k2"] for v in stage_launches.values()),
           f"K2 launched {k2_launches} times on the main path, "
           f"{stage_launches} by stage")
-    # stages 1 and 1s on the device tier: one K4 launch a round (1 + log T
-    # and log T rounds), one device-to-host fetch a stage, and no
-    # synchronizing call in their round loops
+    # every batched stage but s5i on the device tier: one K4 launch a round
+    # of its longest instance (the rounds formula below, which the proof's
+    # round polynomials must also give), one device-to-host fetch a stage,
+    # and no synchronizing call from a stage's first message to its fetch
+    ram_k, bc_k = proof.ram_log_K, proof.bytecode_log_K
+    tier_rounds = {"stage1-spartan": log_t + 1, "stage1s-shift": log_t,
+                   "stage2-reg-rw": log_t + 7, "stage3-reg-val": log_t + 7,
+                   "stage4-5-ram": 2 * (log_t + ram_k),
+                   "stage6-bytecode": log_t + max(bc_k, 7),
+                   "stage6v-ra-virtual": log_t if n6v else 0,
+                   "stage7-booleanity": log_t + max(widths),
+                   "stage8-reduction": log_t + max(widths)}
+    polys_rounds = {
+        "stage1-spartan": len(proof.stage1_polys),
+        "stage1s-shift": len(proof.shift_polys),
+        "stage2-reg-rw": len(proof.stage2_polys),
+        "stage3-reg-val": len(proof.stage3_polys),
+        "stage4-5-ram": len(proof.stage4_polys) + len(proof.stage5_polys),
+        "stage6-bytecode": len(proof.stage6_polys),
+        "stage6v-ra-virtual": len(proof.stage6v_polys),
+        "stage7-booleanity": len(proof.stage7_polys),
+        "stage8-reduction": len(proof.stage8_polys)}
+    check(polys_rounds == tier_rounds, f"rounds by stage: the proof's "
+          f"{polys_rounds}, the formula's {tier_rounds}")
+    tier_stages = [k for k, v in tier_rounds.items() if v]
     k4_by_stage = {k: v["k4"] for k, v in stage_launches.items() if v["k4"]}
-    check(k4_by_stage == {"stage1-spartan": log_t + 1,
-                          "stage1s-shift": log_t}
-          and k4_launches == 2 * log_t + 1,
+    check(k4_by_stage == {k: tier_rounds[k] for k in tier_stages}
+          and k4_launches == sum(tier_rounds.values()),
           f"K4 launched {k4_launches} times, {k4_by_stage} by stage (want "
-          f"{log_t + 1} in stage 1 and {log_t} in stage 1s)")
-    check(tier_fetches == 2, f"the device tier made {tier_fetches} "
-          "device-to-host fetches in stages 1 and 1s (want one a stage)")
-    check(not loop_syncs, f"the device tier's round loop synchronized "
-          f"{len(loop_syncs)} times: {loop_syncs[:3]}")
+          f"{tier_rounds})")
+    n_tier = 10 if n6v else 9
+    stage_names = ZK_LABELS if n6v else [x for x in ZK_LABELS if x != "s6v"]
+    check([on for on, *_ in tier_calls] == [x != "s5i" for x in stage_names],
+          f"the tier of each batched stage: {[c[:3] for c in tier_calls]}")
+    check(tier_fetches == n_tier, f"the device tier made {tier_fetches} "
+          f"device-to-host fetches (want one a stage, {n_tier})")
+    check(not loop_syncs, f"the device tier's stages synchronized "
+          f"{len(loop_syncs)} times, at {collections.Counter(loop_syncs)}")
     check(list(stage_s) == DORY_STAGES, f"stage lines: {stage_s}")
     check([e["stage"] for e in proof.fs_tape] == DORY_STAGES[1:],
           f"FS tape: {proof.fs_tape}")
@@ -1882,11 +1933,11 @@ def main():
           f"prove: {sum(k3_counts.values())})", flush=True)
 
     # the same prove with Dory's G1 work on the native library (the route
-    # argument) and stages 1 and 1s on the host engine (forced through the
-    # backend seam), held byte for byte against the main run's proof
+    # argument) and every stage on the host engine (every slot forced
+    # there through the backend seam), held byte for byte against the main
+    # run's proof
     native_scheme = scheme_mod.DoryScheme(setup, "cuda", _k3=False)
-    host_tier = (JoltBackend.default().with_tier("spartan_outer", "host")
-                 .with_tier("spartan_shift", "host"))
+    host_tier = JoltBackend.default().with_every_slot("host")
     nprof = profiling.PROFILER = profiling.Profiler()
     kernels.reset_launches()
     set_backend(host_tier)
@@ -1902,30 +1953,38 @@ def main():
         profiling.PROFILER = profiling.Profiler(enabled=False)
     check(serialize_proof(nat_proof) == serialize_proof(proof)
           and nat_proof.fs_tape == proof.fs_tape,
-          "the main run's proof (K3 route, stages 1 and 1s on the device "
-          "tier) differs from the native route's (stages 1 and 1s on the "
-          "host engine) at 2^18")
+          "the main run's proof (K3 route, the device tier) differs from "
+          "the native route's (every stage on the host engine) at 2^18")
     check(not any(nat_k3.values()), f"the native route launched K3: {nat_k3}")
     check(nat_k4 == 0 and fused.fetches == tier_fetches,
           f"the host-tier run launched K4 {nat_k4} times")
-    tier_stages = ("stage1-spartan", "stage1s-shift")
     check(all(nat_launches[k]["k1"] == stage_launches[k]["k1"]
               and nat_launches[k]["k2"] == stage_launches[k]["k2"]
               for k in tier_stages),
-          f"K1/K2 launches of stages 1 and 1s differ between the tiers: "
+          f"K1/K2 launches of a stage differ between the tiers: "
           f"{[(nat_launches[k], stage_launches[k]) for k in tier_stages]}")
-    fused_spans = {n: dory_prof.total(n) for n in
-                   ("fused.rounds", "fused.fetch", "fused.replay")}
-    print(f"[tier] device tier (main run): stage1-spartan "
-          f"{stage_s['stage1-spartan']:.4f}s, stage1s-shift "
-          f"{stage_s['stage1s-shift']:.4f}s; host engine (native-route "
-          f"run): stage1-spartan {nat_s['stage1-spartan']:.4f}s, "
-          f"stage1s-shift {nat_s['stage1s-shift']:.4f}s; K4 "
-          f"{k4_launches} launches ({k4_by_stage}), {tier_fetches} fetches, "
-          f"0 syncs in the round loops; device tier's spans (s, both "
-          "stages): " + ", ".join(f"{n} {v:.4f}"
-                                  for n, v in fused_spans.items())
-          + "; proof bytes and FS tape == the host engine's", flush=True)
+    fused_spans = {n: dory_prof.total(n) for n in FUSED_SPANS}
+    print(f"[tier] K4 {k4_launches} launches ({k4_by_stage}) == the "
+          f"longest instance's rounds; {tier_fetches} fetches; 0 syncs from "
+          "a stage's first message to its fetch; proof bytes and FS tape == "
+          f"the host engine's; peak allocated {peak / 2**30:.3f} GiB; "
+          "device tier's spans (s, all stages): " + ", ".join(
+              f"{n} {v:.4f}" for n, v in fused_spans.items()), flush=True)
+    for label in tier_stages:
+        print(f"[tier] {label}: device tier (main run) {stage_s[label]:.4f}"
+              f"s, host engine (native-route run) {nat_s[label]:.4f}s; K4 "
+              f"{stage_launches[label]['k4']}, K1 "
+              f"{sum(stage_launches[label]['k1'].values())}, K2 "
+              f"{stage_launches[label]['k2']} (both tiers)", flush=True)
+    ends = [c[3] for c in tier_calls[1:]] + [tier_spans_end]
+    tier_stage_spans = {}
+    for name, (on, rounds, n_inst, before), after in zip(
+            stage_names, tier_calls, ends):
+        tier_stage_spans[name] = {n: after[n] - before[n] for n in FUSED_SPANS}
+        print(f"[tier] {name}: {'device tier' if on else 'host engine'}, "
+              f"{n_inst} instances, {rounds} rounds; spans (s) " + ", ".join(
+                  f"{n} {v:.4f}" for n, v in tier_stage_spans[name].items()),
+              flush=True)
     nat_spans = {name: nprof.total(name) for name in DORY_SPANS}
     print(f"[dory] native route (the same prove, Dory's G1 work on the "
           f"native library): prove {t_native_prove:.3f}s, stage0-commit "
@@ -1938,7 +1997,7 @@ def main():
     del nat_proof
 
     # two runs under the profiler, at setup=None so that the card's stages
-    # compare with the runs before Dory: the first, with stages 1 and 1s
+    # compare with the runs before Dory: the first, with every stage
     # forced to the host engine, warms the card as the first run did and
     # gives their busy shares on that tier; the second, the default, each
     # stage's device time and busy share, and the device kernels by name
@@ -2110,7 +2169,8 @@ def main():
               for k, v in stage_launches.items() if k not in image_k2),
           f"image run K1 outside stages 7 and 8: {ci_launches}")
     check(all(ci_launches[k]["k4"] == v["k4"]
-              for k, v in stage_launches.items()),
+              for k, v in stage_launches.items())
+          and ci_launches["stage7-booleanity"]["k4"] > 0,
           f"image run K4 differs from the plain run's: {ci_launches}")
     k1_extra = {k: sum(ci_launches[k]["k1"].values())
                 - sum(stage_launches[k]["k1"].values()) for k in image_k2}
@@ -2340,6 +2400,7 @@ def main():
         "sm_mhz": k4_mhz, "micro_cycles": k4_micro,
         "empty_launch": k4_launch, "stack_bytes": k4_stack,
         "launches_by_stage": k4_by_stage, "rounds_checked": k4_rounds,
+        "stage_spans_s": tier_stage_spans,
         "top_bit_squeezes": k4_top, "fetches": tier_fetches,
         "spill_bytes": k4_spills,
         "tier_stage_s": {k: {"device_tier": stage_s[k],

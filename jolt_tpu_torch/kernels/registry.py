@@ -26,6 +26,17 @@ that tier.  A stage takes the device tier only when all its instances can
 (`sumcheck/fused.py:device_tier`), so the granularity within a stage is
 the stage.  `with_tier` is the one way to force a tier: the JAX package's
 `JOLT_TPU_BACKEND_TIER` environment parse is not ported.
+
+`prove` builds some relations directly, as the JAX package does: stage
+6's `SparseOneHotTableEval`s, stage 6v's `RaVirtual`s and stage 8's
+`GroupedOneHot`s.  `apply_tier(slot, inst)` gives each of them the tier of
+the slot that names its class here ("bytecode_read_raf",
+"ram_ra_virtualization" and "hamming_weight_claim_reduction"), exactly as
+`make` gives its own.  `with_every_slot(tier)` is `with_tier` on every
+slot that can take the tier: with "device" it runs every batched stage's
+loop on the device tier but stage 5i's (`InstructionReadRaf`, whose
+address rounds are host work in the JAX package too), with "host" it
+sends every stage to the host engine.
 """
 
 from __future__ import annotations
@@ -40,12 +51,16 @@ _PKG = __name__.split(".")[0]
 TIERS = ("host", "device")
 
 
+def _class(path: str) -> type:
+    """The class of a 'module:Class' target, imported."""
+    mod_name, cls_name = path.split(":")
+    return getattr(importlib.import_module(f"{_PKG}.{mod_name}"), cls_name)
+
+
 def _lazy(path: str) -> Callable:
     """Import-on-first-use factory for a 'module:Class' target."""
     def make(*args, **kwargs):
-        mod_name, cls_name = path.split(":")
-        mod = importlib.import_module(f"{_PKG}.{mod_name}")
-        return getattr(mod, cls_name)(*args, **kwargs)
+        return _class(path)(*args, **kwargs)
     make.target = path
     return make
 
@@ -176,8 +191,26 @@ class JoltBackend:
         t[slot] = tier
         return JoltBackend(dict(self.factories), t)
 
+    def with_every_slot(self, tier: str) -> "JoltBackend":
+        """Every slot whose instances can take `tier` forced to it: every
+        slot to "host"; to "device", each slot whose class is a
+        `FusedInstance` (all but stage 5i's `InstructionReadRaf`, the
+        commitment scheme and the classes not ported)."""
+        b = self
+        for slot, target in _CLASS_SLOTS.items():
+            if tier == "device" and (slot in NOT_PORTED or not issubclass(
+                    _class(target), FusedInstance)):
+                continue
+            b = b.with_tier(slot, tier)
+        return b
+
     def make(self, slot: str, *args, **kwargs):
-        inst = self.factories[slot](*args, **kwargs)
+        return self.apply_tier(slot, self.factories[slot](*args, **kwargs))
+
+    def apply_tier(self, slot: str, inst):
+        """Give `inst` the slot's tier (`force_host` / `force_device`), as
+        `make` does; for an instance `prove` builds directly, of a class
+        that `SLOTS` names for the slot.  Returns `inst`."""
         tier = self.tiers.get(slot)
         if tier == "host":
             # its whole batched stage takes the host engine

@@ -33,10 +33,14 @@ continues.
 
 Every relation of a batched stage is made through the backend seam
 (`kernels/registry.py`, `get_backend().make(slot, ...)`) at the JAX
-package's slot sites, and each stage runs through
-`sumcheck/fused.py:prove_fused`: stages 1 and 1s take the device tier on
-the card (the transcript's round tail on K4, one fetch a stage), every
-other stage the host engine.  Forcing a slot's tier or swapping its
+package's slot sites; the few it builds directly, as the JAX package
+does (stages 6, 6v and 8), take their slot's tier through
+`apply_tier`.  Each stage runs through `sumcheck/fused.py:prove_fused`,
+which picks its tier by one rule (`device_tier`): on the card stages 1,
+1s, 2-6, 6v, 7 and 8 take the device tier (the transcript's round tail on
+K4, one fetch a stage), stage 5i the host engine (its address rounds are
+host work, as in the JAX package), and the zk mode's stages the host
+engine's committed rounds.  Forcing a slot's tier or swapping its
 implementation leaves the proof's bytes unchanged.
 """
 
@@ -774,21 +778,25 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None,
     def _bc_table(gamma, columns=None):
         return combined_table_dev(bc_wit.table, bc_wit.entry, bc_wit.K,
                                   gamma, columns=columns, device=device)
-    bc = SparseOneHotTableEval(bc_sched, bc_wit.log_K, _bc_table(gamma_bc),
-                               r_cycle, _combine(bc_claims),
-                               ("bytecode", "ra"))
+    # built directly, as in the JAX package, with the tier of the slot
+    # that names their class
+    def _bc(inst):
+        return _bk.apply_tier("bytecode_read_raf", inst)
+    bc = _bc(SparseOneHotTableEval(bc_sched, bc_wit.log_K,
+                                   _bc_table(gamma_bc), r_cycle,
+                                   _combine(bc_claims), ("bytecode", "ra")))
     flag_claims = [accumulator.get_claim(("instr_flag", n))
                    for n in LT.TABLE_NAMES]
     flag_claims.append(accumulator.get_claim(("instr_flag", "raf")))
-    bc_flags = SparseOneHotTableEval(
+    bc_flags = _bc(SparseOneHotTableEval(
         bc_sched, bc_wit.log_K, _bc_table(gamma_bc, LOOKUP_FLAG_COLUMNS),
-        r_lk_cyc, _combine(flag_claims), ("bytecode_flags", "ra"))
+        r_lk_cyc, _combine(flag_claims), ("bytecode_flags", "ra")))
     # shift-output claim: the gamma_sh-combined current-row columns at the
     # shift sumcheck's bound point reduce to the same public table
-    bc_shift = SparseOneHotTableEval(
+    bc_shift = _bc(SparseOneHotTableEval(
         bc_sched, bc_wit.log_K, _bc_table(gamma_sh, SHIFT_COLUMNS),
         list(accumulator.get_point(("shift", "cols"))),
-        accumulator.get_claim(("shift", "cols")), ("bytecode_shift", "ra"))
+        accumulator.get_claim(("shift", "cols")), ("bytecode_shift", "ra")))
     reg_idx_tab = index_table(128, device)
     raf_insts = []
     for idx_stream, claim, name in ((reg_wit.rd_eff, idx_claims[0], "wa"),
@@ -796,9 +804,9 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None,
                                     (reg_wit.rs2_eff, idx_claims[2], "ra2")):
         sched_p = RamPairSchedule(idx_stream, zeros_T, zeros_T, 128,
                                   device=device)
-        raf_insts.append(SparseOneHotTableEval(
+        raf_insts.append(_bc(SparseOneHotTableEval(
             sched_p, 7, reg_idx_tab, r_cycle, claim,
-            ("registers_raf", name), opening_key="m"))
+            ("registers_raf", name), opening_key="m")))
     raf_rd, raf_rs1, raf_rs2 = raf_insts
     stage6_polys, _ = _stage(
         [bc, bc_flags, bc_shift, raf_rd, raf_rs1, raf_rs2], "s6")
@@ -830,8 +838,10 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None,
                 accumulator.insert((f"{prefix}_virt", (t, 0)),
                                    r_cyc_v + r_addr_v, cl)
             else:
-                insts6v.append(RaVirtual(chunks, log_Kv, r_cyc_v, r_addr_v,
-                                         cl, (prefix, t), device))
+                insts6v.append(_bk.apply_tier(
+                    "ram_ra_virtualization",
+                    RaVirtual(chunks, log_Kv, r_cyc_v, r_addr_v, cl,
+                              (prefix, t), device)))
         del chunks
     stage6v_polys: List[List[int]] = []
     stage6v_openings: Dict[str, int] = {}
@@ -960,11 +970,13 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None,
         if q_cyc not in eq_tables:
             eq_tables[q_cyc] = eq.evals(list(q_cyc), device)
         m8 = len(members)
-        insts8.append(GroupedOneHot(
-            [onehot_meta[c][0] for c, _, _ in members], K, eq_tables[q_cyc],
-            [q[:log_Km]] * m8, [cl for _, _, cl in members], gamma8,
-            [f"{n8 + i}_{c}" for i, (c, _, _) in enumerate(members)],
-            booleanity=False, opening_kind="joint_opening"))
+        insts8.append(_bk.apply_tier(
+            "hamming_weight_claim_reduction", GroupedOneHot(
+                [onehot_meta[c][0] for c, _, _ in members], K,
+                eq_tables[q_cyc], [q[:log_Km]] * m8,
+                [cl for _, _, cl in members], gamma8,
+                [f"{n8 + i}_{c}" for i, (c, _, _) in enumerate(members)],
+                booleanity=False, opening_kind="joint_opening")))
         n8 += m8
     dense_dev: Dict[str, torch.Tensor] = {}     # each column packed once
     for cname, pt, cl in dense8:

@@ -35,13 +35,21 @@ K1 reduce), and runs the address rounds over (L, M, K):
 The port keeps the products G = H S U (and H S U^2 for booleanity) over
 (L, M, K) and multiplies them a round by chi(rho_b, bit_b(k)) (squared
 for U^2) over chi(q_{b+1}, bit_{b+1}(k)): U takes the new challenge and S
-is divided as the JAX package divides it (two host inverses a member a
-round; no point coordinate in {0, 1}).  A_q, chiX_q(X) = chi(q_b, X) and
-chi(X, bit) are host ints, folded into one coefficient per (point, kind,
-member, bit b of k) that multiplies G before one sum: an address round is
-3 K1 launches on (L, M, K), K <= 256, for the same field values as the
-JAX package's.  U itself is needed once, at the end of the address
-phase: eq(rho, k) over the K addresses, built on the host.
+is divided as the JAX package divides it (no point coordinate in {0, 1}).
+What does not depend on the challenges is made once, before the first
+round, and uploaded in one copy, as the JAX package's scan hooks do: per
+round the static part of the message coefficient, chiX_q(X) = chi(q_b, X)
+times chi(X, bit), per (point, kind, member, bit b of k); the inverses
+of chi(q_{b+1}, 0/1); and the affine chi_q(r) = c0 + c1 r of each
+member's address factor (as its two ends chi(q_b, 0), chi(q_b, 1)).  What
+does depend on them runs on the device from the challenge, an int by
+value or the device tier's device scalar: (1 - r, r) (one K1 bind), its
+square, A_q *= chi_q(r) (a bind and a product over the M members), the
+coefficients A_q times their static part, and G's update.  An address
+round's message is 3 K1 launches on (L, M, K), K <= 256, for the same
+field values as the JAX package's.  U itself is needed once, at the end
+of the address phase: eq(rho, k) over the K addresses (`eq.evals` of the
+address challenges).
 
 After the last address round the cycle phase starts from E = w and
 V_q(j) = U(c_q(j)) (one gather, (L, M, T)).  The value kind's message is
@@ -51,8 +59,10 @@ the V stack bound on K1 for the members' openings.  Booleanity's message
 (V^2 - V) runs on the V stack through K1 (evals, products, one reduce
 with the A_q as its scale).
 
-The JAX package's `scan_*` / `fused_*` hooks are the stage-fused tier
-(ROADMAP A16) and are not ported.
+Nothing in a round waits for the card, so `GroupedOneHot` is a
+`FusedInstance` and its stages (7 and 8) run on the device tier
+(`sumcheck/fused.py`), the counterpart of the JAX package's scan hooks;
+its finals are the bound V_q, the members' openings.
 """
 
 from __future__ import annotations
@@ -63,8 +73,9 @@ import numpy as np
 import torch
 
 from ..field import FR, kernels, ops
-from ..poly import dense
+from ..poly import dense, eq
 from ..sumcheck.engine import OpeningAccumulator, SumcheckInstance
+from ..sumcheck.fused import FusedInstance
 from ..sumcheck.product import ProductRounds
 
 P = FR.modulus
@@ -79,7 +90,7 @@ def _index_tensor(streams, device) -> torch.Tensor:
         [np.asarray(s, dtype=np.int64) for s in streams])).to(device)
 
 
-class GroupedOneHot(SumcheckInstance):
+class GroupedOneHot(FusedInstance):
     """m one-hot matrices over a shared (K, T) as one instance (see the
     module notes); num_rounds = log_K + log_T.
 
@@ -158,9 +169,8 @@ class GroupedOneHot(SumcheckInstance):
         # G = [HS U^2, HS U] (booleanity) or [HS U] (value): (L, kinds M, K)
         self.kinds = 2 if booleanity else 1
         self.G = HS.repeat(1, self.kinds, 1) if booleanity else HS
-        self.rho: List[int] = []                   # address challenges
-        # A_q = gamma^q prod_{i<b} chi(q_i, rho_i), host ints
-        self.A = [pow(self.gamma, q, P) for q in range(self.M)]
+        self.rho: list = []                        # address challenges
+        self._upload_round_consts()
         self.V: Optional[torch.Tensor] = None      # (L, M, T) cycle phase
         self.E: Optional[torch.Tensor] = None      # (L, T), booleanity
         self._rounds: Optional[ProductRounds] = None   # value kind: E, V_c
@@ -180,25 +190,58 @@ class GroupedOneHot(SumcheckInstance):
             gam = gam * self.gamma % P
         return acc
 
+    def _upload_round_consts(self) -> None:
+        """The address rounds' challenge-free constants, in one upload:
+        per round b the message coefficients' static part `_coef[b]`
+        (L, npts, kinds, M, 2) -- chiX_q(X) times chi(X, bit)^2 (HS U^2)
+        and -chi(X, bit) (HS U) in booleanity, chi(X, bit) in the value
+        kind --, the ends (chi(q_b, 0), chi(q_b, 1)) of each member's
+        affine address factor `_ends[b]` (L, 2, M), and the inverses of
+        chi(q_{b+1}, 0/1) `_dinv[b]` (L, M, 2); then A_q = gamma^q
+        (L, M) and the ends of (1 - r, r) `_unit` (L, 2, 2)."""
+        M, npts = self.M, self.npts
+        vals = []
+        for b in range(self.log_K):
+            on, off = self._chi_on[b], self._chi_off[b]
+            for X in [0, 2, 3][:npts]:
+                for kind in range(self.kinds):
+                    for q in range(M):
+                        w = (off[q] + (on[q] - off[q]) * X) % P
+                        for cx in (1 - X, X):
+                            vals.append(
+                                w * cx * cx if kind < self.kinds - 1
+                                else -w * cx if self.booleanity
+                                else w * cx)
+            vals += off + on
+            if b + 1 < self.log_K:
+                for q in range(M):
+                    vals += [pow(self._chi_off[b + 1][q], -1, P),
+                             pow(self._chi_on[b + 1][q], -1, P)]
+        vals += [pow(self.gamma, q, P) for q in range(M)] + [1, 0, 0, 1]
+        c = ops.pack_ints_host(vals, self.device)
+        L = kernels.N_LIMBS
+        n_coef, at = npts * self.kinds * M * 2, 0
+        self._coef, self._ends, self._dinv = [], [], []
+        for b in range(self.log_K):
+            self._coef.append(c[:, at:at + n_coef].view(
+                L, npts, self.kinds, M, 2))
+            at += n_coef
+            self._ends.append(c[:, at:at + 2 * M].view(L, 2, M))
+            at += 2 * M
+            if b + 1 < self.log_K:
+                self._dinv.append(c[:, at:at + 2 * M].view(L, M, 2))
+                at += 2 * M
+        self.A = c[:, at:at + M]                   # (L, M)
+        self._unit = c[:, at + M:].view(L, 2, 2)
+
     def _address_message(self, b: int) -> torch.Tensor:
         L, kM, K = self.G.shape
         n = self.log_K - 1 - b                 # address bits below bit b
-        # coefficient per (point, kind, member, bit b of k): A_q chiX_q(X)
-        # times chi(X, bit)^2 (HS U^2) and -chi(X, bit) (HS U) in
-        # booleanity, chi(X, bit) in the value kind
-        coef = []
-        for X in [0, 2, 3][:self.npts]:
-            for kind in range(self.kinds):
-                for q in range(self.M):
-                    on, off = self._chi_on[b][q], self._chi_off[b][q]
-                    w = self.A[q] * ((off + (on - off) * X) % P) % P
-                    for cx in (1 - X, X):
-                        coef.append(w * cx * cx if kind < self.kinds - 1
-                                    else -w * cx if self.booleanity
-                                    else w * cx)
-        coef = ops.pack_ints_host(coef, self.device).view(
-            L, self.npts, kM, 1, 2, 1)
-        t = ops.mont_mul(self.G.view(L, 1, kM, 1 << b, 2, 1 << n), coef)
+        # coefficient per (point, kind, member, bit b of k): A_q times its
+        # static part
+        coef = ops.mont_mul(self._coef[b], self.A.view(L, 1, 1, self.M, 1))
+        t = ops.mont_mul(self.G.view(L, 1, kM, 1 << b, 2, 1 << n),
+                         coef.view(L, self.npts, kM, 1, 2, 1))
         return ops.sum_mod(t.reshape(L, self.npts, -1))     # (L, npts, 1)
 
     def message_evals_dev(self, round: int) -> torch.Tensor:
@@ -212,7 +255,7 @@ class GroupedOneHot(SumcheckInstance):
         cols = kernels.u64_words(t).sum(dim=-1)             # (L, 3, M)
         return ops.sum_mod(ops.reduce_cols(cols, self._A_dev))
 
-    def ingest_challenge(self, r: int, round: int) -> None:
+    def ingest_challenge(self, r, round: int) -> None:
         if round >= self.log_K:
             if self._rounds is not None:
                 self._rounds.bind(r)
@@ -222,40 +265,33 @@ class GroupedOneHot(SumcheckInstance):
                 self.V = dense.bind_high(self.V, r)
             return
         b = round
-        self.rho.append(r % P)
+        self.rho.append(r)
+        L = kernels.N_LIMBS
         if b + 1 < self.log_K:
             # G *= chi(rho_b, bit_b(k))^e / chi(q_{b+1}, bit_{b+1}(k)), e = 2
             # for HS U^2 and 1 for HS U: U takes bit b, S drops bit b + 1
-            # (host inverses)
-            f = []
-            for kind in range(self.kinds):
-                e = 2 if kind < self.kinds - 1 else 1
-                for q in range(self.M):
-                    d = (pow(self._chi_off[b + 1][q], -1, P),
-                         pow(self._chi_on[b + 1][q], -1, P))
-                    for cr in ((1 - r) % P, r % P):
-                        f += [pow(cr, e, P) * d[0], pow(cr, e, P) * d[1]]
-            L, kM, K = self.G.shape
+            cr = ops.bind(self._unit[:, 0], self._unit[:, 1], r)  # 1 - r, r
+            if self.kinds == 2:
+                cr = torch.stack([ops.mont_mul(cr, cr), cr], dim=1)
+            f = ops.mont_mul(cr.view(L, self.kinds, 1, 2, 1),
+                             self._dinv[b].view(L, 1, self.M, 1, 2))
+            _, kM, K = self.G.shape
             n = self.log_K - 1 - b
-            f = ops.pack_ints_host(f, self.device).view(L, kM, 1, 2, 2, 1)
             self.G = ops.mont_mul(
-                self.G.view(L, kM, 1 << b, 2, 2, 1 << (n - 1)), f
-            ).view(L, kM, K)
+                self.G.view(L, kM, 1 << b, 2, 2, 1 << (n - 1)),
+                f.view(L, kM, 1, 2, 2, 1)).view(L, kM, K)
         # A_q *= chi_q(r) = off + (on - off) r
-        self.A = [a * ((off + (on - off) * r) % P) % P for a, on, off in
-                  zip(self.A, self._chi_on[b], self._chi_off[b])]
+        self.A = ops.mont_mul(self.A, ops.bind(self._ends[b][:, 0],
+                                               self._ends[b][:, 1], r))
         if b + 1 == self.log_K:
             self._start_cycle_phase()
 
     def _start_cycle_phase(self) -> None:
-        """V_q(j) = U(c_q(j)) = eq(rho, c_q(j)) (U's K entries on the
-        host); E = w."""
+        """V_q(j) = U(c_q(j)) = eq(rho, c_q(j)); E = w."""
         L = kernels.N_LIMBS
-        U = [1]
-        for r in self.rho:                     # eq table, rho[0] the MSB
-            U = [u * c % P for u in U for c in ((1 - r) % P, r)]
-        self.V = ops.pack_ints_host(U, self.device)[:, self.idx]   # (L,M,T)
-        A = ops.pack_ints_host(self.A, self.device)          # (L, M)
+        U = eq.evals(self.rho, self.device)    # (L, K), rho[0] the MSB
+        self.V = U[:, self.idx]                                    # (L,M,T)
+        A = self.A                                           # (L, M)
         if self.booleanity:
             self.E = self.W
             self._A_dev = A.view(L, 1, self.M)
@@ -271,9 +307,12 @@ class GroupedOneHot(SumcheckInstance):
             self._rounds = ProductRounds([self.W, Vc])
         self.G = None
 
-    def finalize(self) -> None:
+    def fused_finals(self) -> List[torch.Tensor]:
         V = self.V if self.V is not None else self._rounds.flush()[1][:, None]
-        self.final_openings = ops.unpack_ints(V[:, :, 0])        # M ints
+        return [V[:, :, 0]]                                      # (L, M)
+
+    def fused_store(self, values: List[int]) -> None:
+        self.final_openings = list(values)                       # M ints
         self.V = self.E = self._rounds = None
 
     def cache_openings(self, accumulator: OpeningAccumulator,

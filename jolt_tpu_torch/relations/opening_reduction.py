@@ -76,8 +76,8 @@ class DenseOpening(ProductSumcheck):
     def input_claim(self, accumulator: OpeningAccumulator) -> int:
         return self.claim
 
-    def finalize(self) -> None:
-        super().finalize()
+    def fused_store(self, values: List[int]) -> None:
+        super().fused_store(values)
         self.final_openings = {"p": self.final_claims[1]}
 
     def cache_openings(self, accumulator: OpeningAccumulator,

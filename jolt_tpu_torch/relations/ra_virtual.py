@@ -23,9 +23,10 @@ claim points batch into one stage.  The d + 1 factors [eq, ra_0..ra_{d-1}]
 form a degree-(d+1) HighToLow product sumcheck, so `RaVirtual` is a
 `sumcheck.product.ProductSumcheck`: with d + 1 <= 3 factors (every
 instance of the main path: RAM and bytecode spaces of 9-16 address bits)
-its rounds run on K2, with more on the factor stack through K1.  The JAX
-package's scan hooks are the stage-fused tier (ROADMAP A16) and are not
-ported.
+its rounds run on K2, with more on the factor stack through K1.  As a
+`ProductSumcheck` it is a `FusedInstance`: with d + 1 <= 3 its stage takes
+the device tier (`sumcheck/fused.py`), the counterpart of the JAX
+package's scan hooks.
 """
 
 from __future__ import annotations
@@ -103,8 +104,8 @@ class RaVirtual(ProductSumcheck):
     def input_claim(self, accumulator: OpeningAccumulator) -> int:
         return self._claim
 
-    def finalize(self) -> None:
-        super().finalize()
+    def fused_store(self, values: List[int]) -> None:
+        super().fused_store(values)
         self.final_openings = self.final_claims[1:]   # the chunk factors
 
     def cache_openings(self, accumulator: OpeningAccumulator,

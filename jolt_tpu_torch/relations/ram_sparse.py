@@ -22,9 +22,17 @@ the phase structure of `zkvm/ram/read_write_checking.rs`):
 The pairing pattern over all rounds depends only on the access positions,
 NOT on the challenges, so the whole merge schedule precomputes on the host
 with numpy (`RamPairSchedule`, logic unchanged) and uploads its index
-tensors to the device once; per-round device work is gathers + field ops
-over at most T lanes, and every Fr op goes through K1 (challenges and
-gamma powers by value).
+tensors and implicit-Val fills to the device once, when it is built;
+per-round device work is gathers + field ops over at most T lanes, and
+every Fr op goes through K1 (gamma powers by value; the challenge by
+value on the host engine, as a device scalar on the device tier).
+
+Every relation here is a `FusedInstance` (the counterpart of the JAX
+package's scan hooks): nothing in a round's message or bind reads a
+value back or copies to or from the host -- the address phase's tables
+and the public per-column constants are made before the first round --
+so a stage of them runs on the device tier (`sumcheck/fused.py`), its
+finals (`final_tensors`) fetched with the stage's one copy.
 
 Relations (all degree <= 3):
   registers rw:  sum eq(r_cyc,j) [wa (inc + Val) + (g ra1 + g^2 ra2) Val]
@@ -57,6 +65,7 @@ import torch
 from ..field import FR, ops
 from ..poly import dense, eq, lt
 from ..sumcheck.engine import OpeningAccumulator, SumcheckInstance
+from ..sumcheck.fused import FusedInstance
 from ..witness.registers import LOG_K as REG_LOG_K
 from .ram import (RamOutputCheckVerifier, RamRafEvaluationVerifier,
                   RamReadWriteCheckingVerifier, RamValEvaluationVerifier,
@@ -88,45 +97,23 @@ def _next_pow2(n: int) -> int:
 
 
 class _Round:
-    """One cycle-phase merge round.  Index tensors live on the device; the
-    implicit-Val fills stay raw u64 words ((2, Epad) uint32 lo/hi) on the
-    host and lift to field form on the device at first use."""
+    """One cycle-phase merge round.  Index tensors and the implicit-Val
+    fills (field form) live on the device; the columns stay on the host."""
 
-    __slots__ = ("even_src", "odd_src", "has_e", "has_o", "imp_e_u32",
-                 "imp_o_u32", "rows", "cols", "n_real", "device",
-                 "_imp_e_dev", "_imp_o_dev")
+    __slots__ = ("even_src", "odd_src", "has_e", "has_o", "imp_e", "imp_o",
+                 "rows", "cols", "n_real")
 
-    def __init__(self, even_src, odd_src, has_e, has_o, imp_e_u32,
-                 imp_o_u32, rows, cols, n_real, device):
+    def __init__(self, even_src, odd_src, has_e, has_o, imp_e, imp_o, rows,
+                 cols, n_real):
         self.even_src = even_src    # (Epad,) int64 into previous entries
         self.odd_src = odd_src
         self.has_e = has_e          # (Epad,) bool
         self.has_o = has_o
-        self.imp_e_u32 = imp_e_u32  # (2, Epad) uint32: lo/hi words (host)
-        self.imp_o_u32 = imp_o_u32
+        self.imp_e = imp_e          # (L, Epad) field: the implicit Val fills
+        self.imp_o = imp_o
         self.rows = rows            # (Epad,) int64 merged row index g
         self.cols = cols            # (Epad,) int64 column, host (K = pad)
         self.n_real = n_real
-        self.device = device
-        self._imp_e_dev = None
-        self._imp_o_dev = None
-
-    def _lift(self, w: np.ndarray) -> torch.Tensor:
-        return ops.from_u64(
-            torch.from_numpy(w[0].view(np.int32)).to(self.device),
-            torch.from_numpy(w[1].view(np.int32)).to(self.device))
-
-    @property
-    def imp_e(self) -> torch.Tensor:    # (L, Epad) field, lifted lazily
-        if self._imp_e_dev is None:
-            self._imp_e_dev = self._lift(self.imp_e_u32)
-        return self._imp_e_dev
-
-    @property
-    def imp_o(self) -> torch.Tensor:
-        if self._imp_o_dev is None:
-            self._imp_o_dev = self._lift(self.imp_o_u32)
-        return self._imp_o_dev
 
 
 class RamPairSchedule:
@@ -187,27 +174,24 @@ class RamPairSchedule:
             has_o = odd_src >= 0
             imp_e_u64 = np.where(~has_e, o_prev, 0).astype(np.uint64)
             imp_o_u64 = np.where(~has_o, e_next, 0).astype(np.uint64)
+            imp = _u64_field(np.concatenate([imp_e_u64, imp_o_u64]),
+                             self.device)
 
             rows_pair = np.zeros(Epad, dtype=np.int64)
             rows_pair[gid] = g_s
             cols_pair = np.full(Epad, self.K, dtype=np.int64)
             cols_pair[gid] = col_s
 
-            def u32_words(a):
-                return np.stack([(a & _M32).astype(np.uint32),
-                                 (a >> np.uint64(32)).astype(np.uint32)])
-
             self.rounds.append(_Round(
                 even_src=dev(np.maximum(even_src, 0), torch.int64),
                 odd_src=dev(np.maximum(odd_src, 0), torch.int64),
                 has_e=dev(has_e, torch.bool),
                 has_o=dev(has_o, torch.bool),
-                imp_e_u32=u32_words(imp_e_u64),
-                imp_o_u32=u32_words(imp_o_u64),
+                imp_e=imp[:, :Epad],
+                imp_o=imp[:, Epad:],
                 rows=dev(rows_pair, torch.int64),
                 cols=cols_pair,
                 n_real=n_pairs,
-                device=self.device,
             ))
 
             # next round's entries = this round's pairs
@@ -294,9 +278,7 @@ def _prod_addr_message(RA_K, TAB_K, scale):
 def _materialize(vals: torch.Tensor, cols: torch.Tensor,
                  base: torch.Tensor) -> torch.Tensor:
     """Scatter (L,E) entry values into a copy of the (L,K) base table."""
-    out = base.clone()
-    out[:, cols] = vals
-    return out
+    return base.index_copy(1, cols, vals)
 
 
 def _reg_rw_cycle_message(WA, RA1, RA2, VAL, EQ, INC, src_e, src_o, has_e,
@@ -332,8 +314,10 @@ def _reg_rw_addr_message(WA_K, RA1_K, RA2_K, VAL_K, incc, g1, g2, scale):
 # shared prover base
 # ---------------------------------------------------------------------------
 
-class _SparseRamBase(SumcheckInstance):
-    """Cycle phase on the pair schedule, address phase on dense K tensors."""
+class _SparseRamBase(FusedInstance):
+    """Cycle phase on the pair schedule, address phase on dense K tensors.
+    Its finals are `final_tensors()`: name -> fully bound tensor, whose
+    values become `final_openings` by name."""
 
     degree = 3
 
@@ -393,6 +377,15 @@ class _SparseRamBase(SumcheckInstance):
             self.RA_K = dense.bind_high(self.RA_K, r)
             self._addr_bind(r)
 
+    def final_tensors(self) -> Dict[str, torch.Tensor]:
+        raise NotImplementedError
+
+    def fused_finals(self) -> List[torch.Tensor]:
+        return [t[:, :1] for t in self.final_tensors().values()]
+
+    def fused_store(self, values: List[int]) -> None:
+        self.final_openings = dict(zip(self.final_tensors(), values))
+
     def _col_consts(self, TAB_K: torch.Tensor) -> List[torch.Tensor]:
         """Per cycle round, the public table's value at each pair's column
         (0 at padding pairs)."""
@@ -417,13 +410,6 @@ def _norm_split(r: Sequence[int], log_T: int):
     return list(reversed(r[:log_T])), list(r[log_T:])
 
 
-def _finals(**named: torch.Tensor) -> Dict[str, int]:
-    """Fully bound (8, 1) tensors -> their ints, in one device-to-host copy."""
-    vals = ops.unpack_ints(torch.cat([t[:, :1] for t in named.values()],
-                                     dim=1))
-    return dict(zip(named, vals))
-
-
 # ---------------------------------------------------------------------------
 # the four RAM relations
 # ---------------------------------------------------------------------------
@@ -442,11 +428,17 @@ class SparseRamReadWriteChecking(_SparseRamBase):
         self.gamma = gamma % P
         self.r_cycle = [x % P for x in r_cycle]
         self.rv_claim, self.wv_claim = rv_claim % P, wv_claim % P
-        self.init_vals = init_vals
         self.VAL = sched.initial_val()
         self.EQ = eq.evals(self.r_cycle, dev)
         self.INC = ops.pack_ints(inc, dev)
         self.one_pg = (1 + self.gamma) % P
+        # untouched columns: Val(k, *) == Init(k) (constant in j, so its
+        # cycle binding is itself)
+        base = np.zeros(self.K, dtype=np.uint64)
+        for k, v in init_vals.items():
+            if k < self.K:
+                base[k] = v
+        self._init_K = _u64_field(base, dev)
         self.VAL_K: Optional[torch.Tensor] = None
         self.ginc: Optional[torch.Tensor] = None
 
@@ -466,15 +458,9 @@ class SparseRamReadWriteChecking(_SparseRamBase):
         self.INC = dense.bind_low(self.INC, r)
 
     def _enter_addr_phase(self) -> None:
-        # untouched columns: Val(k, *) == Init(k) (constant in j, so its
-        # cycle binding is itself)
-        base = np.zeros(self.K, dtype=np.uint64)
-        for k, v in self.init_vals.items():
-            if k < self.K:
-                base[k] = v
         n = len(self.sched.final_cols)
         self.VAL_K = _materialize(self.VAL[:, :n], self.sched.final_cols_dev,
-                                  _u64_field(base, self.device))
+                                  self._init_K)
         self.ginc = ops.mont_mul(self.INC[:, :1], self.gamma)   # (L, 1)
 
     def _addr_message(self, scale) -> torch.Tensor:
@@ -487,9 +473,8 @@ class SparseRamReadWriteChecking(_SparseRamBase):
     def _addr_scale(self) -> torch.Tensor:
         return self.EQ[:, :1]                  # fully bound eq factor
 
-    def finalize(self) -> None:
-        self.final_openings = _finals(ra=self.RA_K, val=self.VAL_K,
-                                      inc=self.INC)
+    def final_tensors(self) -> Dict[str, torch.Tensor]:
+        return {"ra": self.RA_K, "val": self.VAL_K, "inc": self.INC}
 
     def cache_openings(self, accumulator: OpeningAccumulator,
                        r_slice: Sequence[int]) -> None:
@@ -533,8 +518,8 @@ class SparseRamRafEvaluation(_SparseRamBase):
     def _addr_scale(self) -> torch.Tensor:
         return self.EQ[:, :1]
 
-    def finalize(self) -> None:
-        self.final_openings = _finals(ra=self.RA_K)
+    def final_tensors(self) -> Dict[str, torch.Tensor]:
+        return {"ra": self.RA_K}
 
     def cache_openings(self, accumulator: OpeningAccumulator,
                        r_slice: Sequence[int]) -> None:
@@ -580,8 +565,8 @@ class SparseRamValEvaluation(_SparseRamBase):
     def _addr_scale(self) -> torch.Tensor:
         return ops.mont_mul(self.LT[:, :1], self.INC[:, :1])
 
-    def finalize(self) -> None:
-        self.final_openings = _finals(ra=self.RA_K, inc=self.INC)
+    def final_tensors(self) -> Dict[str, torch.Tensor]:
+        return {"ra": self.RA_K, "inc": self.INC}
 
     def cache_openings(self, accumulator: OpeningAccumulator,
                        r_slice: Sequence[int]) -> None:
@@ -639,8 +624,8 @@ class SparseRamOutputCheck(_SparseRamBase):
     def _addr_scale(self) -> torch.Tensor:
         return self.INC[:, :1]
 
-    def finalize(self) -> None:
-        self.final_openings = _finals(ra=self.RA_K, inc=self.INC)
+    def final_tensors(self) -> Dict[str, torch.Tensor]:
+        return {"ra": self.RA_K, "inc": self.INC}
 
     def cache_openings(self, accumulator: OpeningAccumulator,
                        r_slice: Sequence[int]) -> None:
@@ -695,8 +680,8 @@ class SparseOneHotTableEval(_SparseRamBase):
     def _addr_scale(self) -> torch.Tensor:
         return self.EQ[:, :1]
 
-    def finalize(self) -> None:
-        self.final_openings = _finals(**{self.opening_key: self.RA_K})
+    def final_tensors(self) -> Dict[str, torch.Tensor]:
+        return {self.opening_key: self.RA_K}
 
     def cache_openings(self, accumulator: OpeningAccumulator,
                        r_slice: Sequence[int]) -> None:
@@ -797,10 +782,9 @@ class SparseRegistersReadWriteChecking(_SparseRamBase):
     def _addr_scale(self) -> torch.Tensor:
         return self.EQ[:, :1]
 
-    def finalize(self) -> None:
-        self.final_openings = _finals(wa=self.WA_K, ra1=self.RA1_K,
-                                      ra2=self.RA2_K, val=self.VAL_K,
-                                      inc=self.INC)
+    def final_tensors(self) -> Dict[str, torch.Tensor]:
+        return {"wa": self.WA_K, "ra1": self.RA1_K, "ra2": self.RA2_K,
+                "val": self.VAL_K, "inc": self.INC}
 
     def cache_openings(self, accumulator: OpeningAccumulator,
                        r_slice: Sequence[int]) -> None:
@@ -825,10 +809,8 @@ class SparseRegistersValEvaluation(SparseRamValEvaluation):
         super().__init__(sched, REG_LOG_K, {}, log.inc, r_addr, r_cyc,
                          val_claim)
 
-    def finalize(self) -> None:
-        super().finalize()
-        self.final_openings = {"wa": self.final_openings["ra"],
-                               "inc": self.final_openings["inc"]}
+    def final_tensors(self) -> Dict[str, torch.Tensor]:
+        return {"wa": self.RA_K, "inc": self.INC}
 
     def cache_openings(self, accumulator: OpeningAccumulator,
                        r_slice: Sequence[int]) -> None:

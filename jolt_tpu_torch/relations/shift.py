@@ -142,9 +142,11 @@ class ShiftSumcheck(FusedInstance):
     def ingest_challenge(self, r: int, round: int) -> None:
         self.rounds.bind(r)
 
-    def finalize(self) -> None:
-        _, cols = self.rounds.flush()
-        self.final_openings = {"cols": ops.unpack_ints(cols)[0]}
+    def fused_finals(self) -> List[torch.Tensor]:
+        return [self.rounds.flush()[1]]                # the bound COL
+
+    def fused_store(self, values: List[int]) -> None:
+        self.final_openings = {"cols": values[0]}
 
     def cache_openings(self, accumulator: OpeningAccumulator,
                        r_slice: Sequence[int]) -> None:

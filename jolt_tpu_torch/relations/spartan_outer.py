@@ -261,6 +261,7 @@ class SpartanOuterProver(FusedInstance):
         e0 = ops.mont_mul(E_cyc, (1 - tau_g) % P * l_scale % P)
         e1 = ops.mont_mul(E_cyc, tau_g * l_scale % P)
         self.E = torch.cat([e0, e1], dim=-1)
+        self._r: list = []          # the challenges bound so far
         self.input_openings: List[int] = None
 
     @property
@@ -273,24 +274,28 @@ class SpartanOuterProver(FusedInstance):
     def message_evals_dev(self, round: int):
         return _outer_message(self.E, self.AZ, self.BZ, self.CZ)
 
-    def ingest_challenge(self, r: int, round: int) -> None:
+    def ingest_challenge(self, r, round: int) -> None:
+        self._r.append(r)
         self.E, self.AZ, self.BZ, self.CZ = _bind4(
             self.E, self.AZ, self.BZ, self.CZ, r)
 
+    def fused_finals(self) -> List[torch.Tensor]:
+        """All 38 R1CS input MLEs at r_cycle (the cycle rounds' challenges,
+        ints or device scalars): one eq table and one dot, (L, 38)."""
+        Ecyc = eq.evals(self._r[1:], self.device)
+        sums = ops.dot(self.cols_dev, Ecyc[:, None, :])   # (L, 38, 1)
+        return [sums.reshape(sums.shape[0], NUM_VARS)]
+
+    def fused_store(self, values: List[int]) -> None:
+        self.input_openings = list(values)
+
     def cache_openings(self, accumulator: OpeningAccumulator,
                        r_slice: Sequence[int]) -> None:
-        """Evaluate all 38 R1CS input MLEs at r_cycle and cache the claims
-        (these feed later stages / the PCS opening)."""
+        """Cache the 38 input openings at r_cycle (they feed later stages
+        and the PCS opening)."""
         r_cycle = list(r_slice[1:])
-        Ecyc = eq.evals(r_cycle, self.device)
-        sums = ops.dot(self.cols_dev, Ecyc[:, None, :])   # (L, 38, 1)
-        vals = ops.unpack_ints(sums.reshape(sums.shape[0], NUM_VARS))
-        openings = []
-        for v in range(NUM_VARS):
-            val = vals[v]
-            openings.append(val)
-            accumulator.insert(("r1cs_input", VAR_NAMES[v]), r_cycle, val)
-        self.input_openings = openings
+        for name, val in zip(VAR_NAMES, self.input_openings):
+            accumulator.insert(("r1cs_input", name), r_cycle, val)
 
     def expected_output_claim(self, accumulator, r):  # prover-side unused
         raise NotImplementedError

@@ -15,14 +15,18 @@ waits for it inside the loop:
      updates the claims;
   3. each active instance's bind at that device challenge (`fused_bind`).
 
-After the last round ONE device-to-host fetch (`_fetch`) returns every
-round's compressed coefficients, the challenges and the final transcript
-state.  The host then replays its own transcript over the fetched
-coefficients, as the JAX package's scan tier does: every challenge it
-draws must equal the device's, and the final state too, or
-`TranscriptDivergence` names the round.  So the proof's bytes are the host
-engine's by construction.  `finalize`, `cache_openings` and
-`flush_to_transcript` then run as in the engine.
+After the last round each instance enqueues its final tensors
+(`fused_finals`: the fully bound values its openings are read from), and
+ONE device-to-host fetch (`_fetch`) returns every round's compressed
+coefficients, the challenges, the final transcript state and those
+finals: the JAX package's `fused_finals` / `fused_store`.  The host then
+replays its own transcript over the fetched coefficients, as the JAX
+package's scan tier does: every challenge it draws must equal the
+device's, and the final state too, or `TranscriptDivergence` names the
+round.  So the proof's bytes are the host engine's by construction.  Each
+instance takes its fetched finals (`fused_store`, in place of the
+engine's `finalize`, which copies them itself), then `cache_openings` and
+`flush_to_transcript` run as in the engine.
 
 PyTorch runs eagerly, so the stage is a Python loop over rounds; the JAX
 scan tier's pair order, shrink plans and segments exist only to keep XLA's
@@ -32,12 +36,13 @@ its own tensors and updates them in place.
 
 Tier choice, in one place (`device_tier`), as the JAX package's
 `_supports_scan`: a stage takes this tier when every instance is a
-`FusedInstance` of degree 3 or less, no instance was forced to the host
+`FusedInstance` of degree 3 or less, the stage has at most K4's 64
+instances (`kernels.K4_MAX_INSTANCES`), no instance was forced to the host
 tier through the backend seam (`kernels/registry.py`), and the stage's
 tensors are on CUDA or its slots were forced to the device tier (how the
 CPU tests run this loop on the plain versions).  Otherwise the stage takes
-the host engine.  On the device tier a kernel that fails to build or
-launch raises.
+the host engine.  The rule reads only the instances, before any launch;
+on the device tier a kernel that fails to build or launch raises.
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..field import ops
+from ..field import kernels, ops
 from ..field.params import FR
 from ..transcript import Blake2bTranscript
 from ..transcript import device as dt
@@ -67,11 +72,27 @@ class TranscriptDivergence(RuntimeError):
 
 class FusedInstance(SumcheckInstance):
     """A sumcheck instance the device tier can run: `degree` (1-3) and
-    `device` attributes, `message_evals_dev` that never returns None and
-    never waits for the card, and `fused_bind`."""
+    `device` attributes, `message_evals_dev` that never returns None,
+    `fused_bind`, and its finals (`fused_finals`, `fused_store`).  None of
+    them waits for the card: no copy to or from the host, no value read
+    back, no mask indexing."""
 
     degree: int
     device: torch.device
+
+    def fused_finals(self) -> List[torch.Tensor]:
+        """After the last bind: the device tensors (8, ...) whose values
+        `fused_store` takes, enqueued and not read."""
+        raise NotImplementedError
+
+    def fused_store(self, values: List[int]) -> None:
+        """Take the finals' values (canonical ints, each tensor's elements
+        in order, tensor after tensor) for `cache_openings`."""
+        raise NotImplementedError
+
+    def finalize(self) -> None:
+        """The host engine's end: the finals in one copy of their own."""
+        self.fused_store(ops.unpack_ints(_flat(self.fused_finals())))
 
     def fused_bind(self, r_dev: torch.Tensor, round: int) -> None:
         """Bind the round's variable at the challenge r_dev, a device scalar
@@ -88,17 +109,20 @@ def device_tier(instances: Sequence[SumcheckInstance]) -> bool:
     if not all(isinstance(i, FusedInstance) and 1 <= i.degree <= 3
                for i in instances):
         return False
+    if len(instances) > kernels.K4_MAX_INSTANCES:
+        return False
     if any(getattr(i, "force_host", False) for i in instances):
         return False
     return all(i.device.type == "cuda" or getattr(i, "force_device", False)
                for i in instances)
 
 
-def _device_rounds(instances, offs, active, n_c,
-                   bufs: dt.StageBuffers) -> None:
+def _device_rounds(instances, offs, active, n_c, bufs: dt.StageBuffers
+                   ) -> Tuple[torch.Tensor, List[int]]:
     """The round loop: per round the active instances' messages, the round
-    tail into `bufs`, and their binds at its device challenge.  Enqueued
-    on the card's stream, it never waits for the card."""
+    tail into `bufs`, and their binds at its device challenge; then the
+    instances' finals as one (8, n) tensor and each instance's count of
+    them.  Enqueued on the card's stream, it never waits for the card."""
     degrees = [inst.degree for inst in instances]
     for rnd, row in enumerate(active):
         evals: List[Optional[torch.Tensor]] = [
@@ -109,6 +133,14 @@ def _device_rounds(instances, offs, active, n_c,
         for inst, off, a in zip(instances, offs, row):
             if a:
                 inst.fused_bind(r_dev, rnd - off)
+    finals = [inst.fused_finals() for inst in instances]
+    counts = [sum(f[0].numel() for f in fs) for fs in finals]
+    return _flat([f for fs in finals for f in fs]), counts
+
+
+def _flat(finals: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Final tensors (8, ...) as one (8, n) tensor, elements in order."""
+    return torch.cat([f.reshape(f.shape[0], -1) for f in finals], dim=1)
 
 
 def _fetch(buffers: torch.Tensor) -> np.ndarray:
@@ -154,9 +186,12 @@ def prove_fused(instances: Sequence[SumcheckInstance],
         bufs = dt.stage_buffers(devices.pop(), transcript.state,
                                 transcript.n_rounds, claims, coeffs,
                                 max_rounds, max(degrees))
-        _device_rounds(instances, offs, active, n_c, bufs)
+        flat, counts = _device_rounds(instances, offs, active, n_c, bufs)
     with prof.span("fused.fetch"):
-        host = _fetch(bufs.all)
+        host = _fetch(torch.cat([bufs.all, flat.reshape(-1)]))
+    n_all = bufs.all.numel()
+    final_ints = ops.np_unpack_ints(host[n_all:].reshape(8, -1))
+    host = host[:n_all]
 
     with prof.span("fused.replay"):
         sizes = [t.numel() for t in (bufs.state, bufs.claims, bufs.coeffs,
@@ -185,8 +220,9 @@ def prove_fused(instances: Sequence[SumcheckInstance],
                 f"{max_rounds}: final state or n_rounds differs from the "
                 "host's")
 
-    for inst in instances:
-        inst.finalize()
+    at = np.cumsum([0] + counts)
+    for k, inst in enumerate(instances):
+        inst.fused_store(final_ints[at[k]:at[k + 1]])
     for inst, off in zip(instances, offs):
         inst.cache_openings(accumulator,
                             r_sumcheck[off:off + inst.num_rounds])

@@ -17,8 +17,16 @@ binds at r_j and forms round j + 1's message, then the last bind alone.
 sumcheck, `relations/shift.py`); with any other factor count it holds
 its factors as one stack (L, F, T) whose message is `stack_message` on K1
 and whose bind is one `dense.bind_high`.  The ra virtualization of stage
-6v (`relations/ra_virtual.py`) is a `ProductSumcheck`; the instruction
+6v (`relations/ra_virtual.py`), the dense opening reduction of stage 8 and
+the program-image reduction of stage 7 (`relations/opening_reduction.py`,
+`relations/program_image.py`) are `ProductSumcheck`s; the instruction
 read-raf's 18-factor cycle rounds call `stack_message` directly.
+
+`ProductSumcheck` is a `FusedInstance`: K2 and K1's bind read a device
+challenge where it lies, so its rounds run on the device tier as they
+run on the host engine.  Its degree is its factor count, so with 4 or
+more factors (degree above K4's 3) its stage takes the host engine
+(`sumcheck/fused.py:device_tier`).
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import torch
 from ..field import FR, kernels, ops
 from ..poly import dense
 from .engine import OpeningAccumulator, SumcheckInstance
+from .fused import FusedInstance
 
 P = FR.modulus
 
@@ -104,10 +113,11 @@ class ProductRounds:
         return self.polys
 
 
-class ProductSumcheck(SumcheckInstance):
+class ProductSumcheck(FusedInstance):
     """Prover instance for sum_x prod_k P_k(x) over the full hypercube.
     With 2 or 3 factors its rounds run on K2 (`ProductRounds`); with any
-    other count on the stack (L, F, T) through K1 (`stack_message`)."""
+    other count on the stack (L, F, T) through K1 (`stack_message`).  Its
+    finals are the bound factors (`final_claims`)."""
 
     def __init__(self, polys: Sequence[torch.Tensor]):
         T = polys[0].shape[-1]
@@ -153,14 +163,14 @@ class ProductSumcheck(SumcheckInstance):
         else:
             self.S = dense.bind_high(self.S, r)
 
-    def finalize(self) -> None:
+    def fused_finals(self) -> List[torch.Tensor]:
         if self._rounds is not None:
-            bound = torch.cat(self._rounds.flush(), dim=1)    # (L, F)
-            self._rounds = None
-        else:
-            bound = self.S.reshape(self.S.shape[0], -1)
-            self.S = None
-        self.final_claims = ops.unpack_ints(bound)
+            return [torch.cat(self._rounds.flush(), dim=1)]    # (L, F)
+        return [self.S.reshape(self.S.shape[0], -1)]
+
+    def fused_store(self, values: List[int]) -> None:
+        self.final_claims = list(values)
+        self._rounds = self.S = None
 
     def cache_openings(self, accumulator: OpeningAccumulator,
                        r_slice: Sequence[int]) -> None:

@@ -53,8 +53,8 @@ import torch
 
 from ..field import kernels
 from ..field.kernels import (MASK32, N_LIMBS, P, R, R_MOD_P, _pack_limbs,
-                             _scalar, add_plain, mont_mul_plain, sub_plain,
-                             u64_words)
+                             _scalar, add_plain, mont_mul_plain, reduce_plain,
+                             sub_plain, u64_words)
 from ..field.ops import words_of_ints
 
 INV2 = pow(2, -1, P)
@@ -239,7 +239,9 @@ def coeffs_from_evals(evals: torch.Tensor, claim: torch.Tensor,
     """A round polynomial's coefficients (degree + 1 Montgomery scalars (8,
     1)) from its evals (8, degree, 1) at X in {0, 2, .., degree} and the
     claim s(0) + s(1) (8, 1): `UniPoly.from_evals_and_hint` on K1's plain
-    versions (the JAX package's `sumcheck/fused.py:_coeffs_from_evals`)."""
+    versions (the JAX package's `sumcheck/fused.py:_coeffs_from_evals`).
+    For n polynomials at once: evals (8, degree, n), claims (8, n), and
+    coefficients (8, n)."""
     e0 = evals[:, 0]
     e1 = sub_plain(claim, e0)
     if degree == 1:
@@ -415,41 +417,45 @@ def round_tail_plain(evals: Sequence[Optional[torch.Tensor]],
     """K4's function in plain torch, in place on `bufs` (see the module
     docstring): `evals[i]` is instance i's (8, d_i, 1) message evals, or
     None when it is inactive this round; `n_c` is the round's compressed
-    length (`compressed_len`)."""
+    length (`compressed_len`).  The instances' coefficients are worked
+    together, those of one degree as one batch, into an (8, n, 4) table
+    zero above each instance's degree: the batched sum and each claim's
+    Horner step then run over the whole table (a zero leading coefficient
+    leaves both unchanged)."""
     _check_round(evals, degrees, bufs, rnd, n_c)
     dev = bufs.device
-    inv2 = _scalar(INV2, dev, 1)
-    inst_coeffs, batched = [], []
-    for i, (e, d) in enumerate(zip(evals, degrees)):
-        claim = bufs.claims[i].view(N_LIMBS, 1)
-        cs = ([mont_mul_plain(claim, inv2)] if e is None
-              else coeffs_from_evals(e.reshape(N_LIMBS, d, 1), claim, d))
-        inst_coeffs.append(cs)
-        weight = bufs.coeffs[i].view(N_LIMBS, 1)
-        for k, c in enumerate(cs):
-            term = mont_mul_plain(c, weight)
-            if k < len(batched):
-                batched[k] = add_plain(batched[k], term)
-            else:
-                batched.append(term)
-    zero = torch.zeros((N_LIMBS, 1), dtype=torch.int32, device=dev)
-    batched += [zero] * (n_c + 1 - len(batched))
-    compressed = [batched[0]] + batched[2:n_c + 1]
+    n = len(evals)
+    claims = bufs.claims.T                                    # (8, n)
+    table = torch.zeros((N_LIMBS, n, 4), dtype=torch.int32, device=dev)
+    idle = [i for i, e in enumerate(evals) if e is None]
+    if idle:
+        table[:, idle, 0] = mont_mul_plain(claims[:, idle],
+                                           _scalar(INV2, dev, 1))
+    for d in sorted(set(degrees)):
+        idx = [i for i, e in enumerate(evals) if e is not None
+               and degrees[i] == d]
+        if idx:
+            ev = torch.cat([evals[i].reshape(N_LIMBS, d, 1) for i in idx],
+                           dim=2)
+            for k, c in enumerate(coeffs_from_evals(ev, claims[:, idx], d)):
+                table[:, idx, k] = c
+    terms = mont_mul_plain(table, bufs.coeffs.T[:, :, None])
+    batched = reduce_plain(u64_words(terms).sum(dim=1))       # (8, 4)
+    compressed = [batched[:, k:k + 1] for k in [0] + list(range(2, n_c + 1))]
     state = u64_words(bufs.state[:8]).view(4, 2)
-    n = u64_words(bufs.state[8])
-    state, n = absorb32(state, n, torch.from_numpy(label_payload_words(
+    n_r = u64_words(bufs.state[8])
+    state, n_r = absorb32(state, n_r, torch.from_numpy(label_payload_words(
         SUMCHECK_POLY, n_c).astype(np.int64)).to(dev))
     for c in compressed:
-        state, n = absorb32(state, n, canonical_words_be(c))
-    state, n = squeeze(state, n)
+        state, n_r = absorb32(state, n_r, canonical_words_be(c))
+    state, n_r = squeeze(state, n_r)
     r = challenge125_to_mont(state)
     for k, c in enumerate(compressed):
         bufs.comp[rnd, k] = c.view(N_LIMBS)
     bufs.r[rnd] = r.view(N_LIMBS)
     bufs.state[:8] = _pack_limbs(state.reshape(8))
-    bufs.state[8] = _pack_limbs(n)
-    for i, cs in enumerate(inst_coeffs):
-        bufs.claims[i] = horner(cs, r).view(N_LIMBS)
+    bufs.state[8] = _pack_limbs(n_r)
+    bufs.claims[:] = horner(list(table.unbind(2)), r).T
 
 
 def tail_record(evals: Sequence[Optional[torch.Tensor]],

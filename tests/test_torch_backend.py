@@ -11,7 +11,11 @@ tier with every slot wrapped (swapped) give the default's bytes.  The
 default's bytes are held to the JAX package's by the port's other tests,
 so no JAX `prove` runs here; stage 1's slots forced to the device tier
 are held to the host engine and the JAX package in
-`tests/test_torch_stage1.py`.
+`tests/test_torch_stage1.py`, every stage's in
+`tests/test_torch_fused_stages.py`.  `apply_tier` gives the instances
+`prove` builds directly (stages 6, 6v and 8) their slot's tier: forcing
+the slots of stages 6 and 8 to the device tier takes those two stages,
+and no other, onto it with the default's bytes.
 """
 
 import importlib
@@ -26,6 +30,8 @@ from jolt_tpu_torch.kernels import JoltBackend, SLOTS, get_backend, set_backend
 from jolt_tpu_torch.kernels.registry import NOT_PORTED
 from jolt_tpu_torch.proof_io import serialize_proof
 from jolt_tpu_torch.riscv.emulator import MemoryLayout
+from jolt_tpu_torch.sumcheck import fused
+from jolt_tpu_torch.sumcheck.fused import FusedInstance
 from jolt_tpu_torch.tracer import trace_program
 
 torch.set_num_threads(1)
@@ -48,6 +54,24 @@ PROVE_SLOTS = {"spartan_outer", "spartan_shift", "registers_read_write",
                "ram_raf_evaluation", "ram_val_check", "ram_output_check",
                "instruction_read_raf", "booleanity",
                "ram_hamming_booleanity", "inc_claim_reduction"}
+
+
+class FusedProbe(FusedInstance):
+    """An instance of no relation, for the tier flags alone."""
+
+    num_rounds = 0
+
+    def input_claim(self, accumulator):  # pragma: no cover
+        return 0
+
+    def message_evals_dev(self, round):  # pragma: no cover
+        raise NotImplementedError
+
+    def ingest_challenge(self, r, round):  # pragma: no cover
+        raise NotImplementedError
+
+    def expected_output_claim(self, accumulator, r):  # pragma: no cover
+        raise NotImplementedError
 
 
 def test_slots_equal_the_jax_packages():
@@ -79,6 +103,17 @@ def test_tiers_are_host_or_device():
                .with_tier("registers_read_write", "device"))
     with pytest.raises(ValueError, match="no device tier"):
         backend.make("registers_read_write")
+
+
+def test_with_every_slot_forces_each_slot_that_can_take_the_tier():
+    from jolt_tpu_torch.kernels.registry import _CLASS_SLOTS
+    device = JoltBackend.default().with_every_slot("device").tiers
+    assert set(device) == (set(_CLASS_SLOTS) - set(NOT_PORTED)
+                           - {"instruction_read_raf", "commitment"})
+    assert set(device.values()) == {"device"}
+    host = JoltBackend.default().with_every_slot("host").tiers
+    assert set(host) == set(_CLASS_SLOTS)
+    assert set(host.values()) == {"host"}
 
 
 def test_set_backend_installs_and_resets():
@@ -130,3 +165,35 @@ def test_prove_makes_the_jax_packages_slots(mixed):
     """`prove` made its relations through the seam, at the slots of the
     JAX package's sites."""
     assert set(mixed[1]) == PROVE_SLOTS
+
+
+def test_apply_tier_gives_a_directly_built_instance_its_slots_tier():
+    backend = (JoltBackend.default().with_tier("bytecode_read_raf", "device")
+               .with_tier("ram_ra_virtualization", "host"))
+    for slot, tier in (("bytecode_read_raf", "device"),
+                       ("ram_ra_virtualization", "host"),
+                       ("hamming_weight_claim_reduction", None)):
+        inst = backend.apply_tier(slot, FusedProbe())
+        assert getattr(inst, "force_device", False) == (tier == "device")
+        assert getattr(inst, "force_host", False) == (tier == "host")
+    with pytest.raises(ValueError, match="no device tier"):
+        backend.apply_tier("bytecode_read_raf", object())
+
+
+def test_prove_forces_the_directly_built_classes(guest):
+    """Stage 6's `SparseOneHotTableEval`s and stage 8's `GroupedOneHot`s
+    are built outside `make`: forcing their slots (and stage 8's dense
+    openings') to the device tier sends stages 6 and 8, and no other, to
+    it, with the default's bytes."""
+    backend = JoltBackend.default()
+    for slot in ("bytecode_read_raf", "hamming_weight_claim_reduction",
+                 "inc_claim_reduction"):
+        backend = backend.with_tier(slot, "device")
+    set_backend(backend)
+    f0 = fused.fetches
+    try:
+        proof = jt.prove(guest[0], device="cpu")
+    finally:
+        set_backend(None)
+    assert fused.fetches - f0 == 2
+    assert serialize_proof(proof) == serialize_proof(guest[1])

@@ -3,7 +3,9 @@ reduce), K2 (every pass order, 2 and 3 factors, its on-card finish of the
 message, and a device challenge read by pointer against the same challenge
 by value) and K4 (the round tail, on seeded stages of 1-4 and of 33-64
 instances of degrees 1-3 with inactive rounds and edge values) against
-their plain versions, the device tier of stage 1 on "cuda" against the host engine, the segment sums and the
+their plain versions, the device tier of every batched stage but s5i
+on "cuda" against the host engine (fib's prefix and whole proof, the
+round loops under the sync debug mode "error"), the segment sums and the
 stacked product message of stage 5i, the ra virtualization of stage 6v and
 the grouped one-hot and dense-opening instances of stages 7 and 8 on
 "cuda" against "cpu", and the prover on "cuda" against the prover on "cpu"
@@ -330,15 +332,7 @@ def test_k4_matches_plain_on_card_wide(card, seed, n_inst):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
-def test_stage1_device_tier_on_card(card):
-    """Stages 1 and 1s of fib on the card take the device tier (one K4
-    launch a round, one fetch a stage, no synchronizing call in the round
-    loop) and give the proof and FS tape of the host engine, forced
-    through the backend seam."""
-    from jolt_tpu_torch.kernels import JoltBackend, set_backend
-    from jolt_tpu_torch.sumcheck import fused
-    layout = MemoryLayout(max_input_size=64, max_output_size=64)
-    trace = trace_program(f"""
+FIB20 = """
         li   a0, 20
         li   a1, 0
         li   a2, 1
@@ -350,38 +344,93 @@ def test_stage1_device_tier_on_card(card):
         addi a0, a0, -1
         j    loop
     done:
-        li   t0, {layout.output_start}
+        li   t0, {output_start}
         sd   a1, 0(t0)
-        li   t1, {layout.termination}
+        li   t1, {termination}
         li   t2, 1
         sd   t2, 0(t1)
-    """, layout=layout)
-    log_t = trace.padded_length.bit_length() - 1
+"""
+
+
+def _fib20():
+    layout = MemoryLayout(max_input_size=64, max_output_size=64)
+    return trace_program(FIB20.format(output_start=layout.output_start,
+                                      termination=layout.termination),
+                         layout=layout)
+
+
+def _on_device_tier(fn):
+    """fn() with each device-tier stage's round loop and finals under the
+    sync debug mode "error" (a synchronizing CUDA call raises); returns its
+    result, the K4 launches and the fetches it made."""
+    from jolt_tpu_torch.sumcheck import fused
     k4, f0 = kernels.k4_launches(), fused.fetches
     real = fused._device_rounds
 
     def no_sync(*args):
-        """The round loop with any synchronizing CUDA call an error."""
         torch.cuda.set_sync_debug_mode("error")
         try:
-            real(*args)
+            return real(*args)
         finally:
             torch.cuda.set_sync_debug_mode("default")
     fused._device_rounds = no_sync
     try:
-        dev = prove_prefix(trace, device=card)
+        out = fn()
     finally:
         fused._device_rounds = real
-    assert kernels.k4_launches() - k4 == 2 * log_t + 1
-    assert fused.fetches - f0 == 2
-    set_backend(JoltBackend.default().with_tier("spartan_outer", "host")
-                .with_tier("spartan_shift", "host"))
+    return out, kernels.k4_launches() - k4, fused.fetches - f0
+
+
+def _rounds(proof, fields):
+    return sum(len(getattr(proof, f)) for f in fields)
+
+
+PREFIX_TIER_POLYS = ["stage1_polys", "shift_polys", "stage2_polys",
+                     "stage3_polys", "stage4_polys", "stage5_polys",
+                     "stage6_polys"]
+
+
+def test_stage1_device_tier_on_card(card):
+    """fib's prefix on the card takes the device tier in every batched
+    stage but s5i (one K4 launch a round of the stage's longest instance,
+    one fetch a stage, no synchronizing call from a stage's first message
+    to its fetch; fib's stage 6v has no sumcheck) and gives the proof and
+    FS tape of the host engine, every slot forced there through the
+    backend seam."""
+    from jolt_tpu_torch.kernels import JoltBackend, set_backend
+    trace = _fib20()
+    dev, k4, fetches = _on_device_tier(lambda: prove_prefix(trace,
+                                                            device=card))
+    assert not dev.stage6v_polys
+    assert k4 == _rounds(dev, PREFIX_TIER_POLYS)
+    assert fetches == len(PREFIX_TIER_POLYS)
+    set_backend(JoltBackend.default().with_every_slot("host"))
     try:
-        host = prove_prefix(trace, device=card)
+        host, k4, fetches = _on_device_tier(
+            lambda: prove_prefix(trace, device=card))
     finally:
         set_backend(None)
-    assert kernels.k4_launches() - k4 == 2 * log_t + 1
+    assert k4 == 0 and fetches == 0
     assert dataclasses.asdict(dev) == dataclasses.asdict(host)
+
+
+def test_prove_device_tier_on_card_equals_host_forced(card):
+    """fib's whole proof on the card's device tier (s1-s8 but s5i) has the
+    bytes and FS tape of the all-host-forced run, with no synchronizing
+    call from a stage's first message to its fetch, and verifies."""
+    from jolt_tpu_torch.kernels import JoltBackend, set_backend
+    trace = _fib20()
+    dev, k4, fetches = _on_device_tier(lambda: prove(trace, device=card))
+    tier_polys = PREFIX_TIER_POLYS + ["stage7_polys", "stage8_polys"]
+    assert k4 == _rounds(dev, tier_polys) and fetches == len(tier_polys)
+    set_backend(JoltBackend.default().with_every_slot("host"))
+    try:
+        host = prove(trace, device=card)
+    finally:
+        set_backend(None)
+    assert serialize_proof(dev) == serialize_proof(host)
+    assert dev.fs_tape == host.fs_tape
+    assert verify(dev, PublicIO.from_trace(trace))
 
 
 @pytest.mark.parametrize("nf", [2, 3])

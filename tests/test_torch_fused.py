@@ -18,7 +18,9 @@ import torch
 
 from jolt_tpu_torch.field import ops
 from jolt_tpu_torch.sumcheck import fused
-from jolt_tpu_torch.sumcheck.engine import BatchedSumcheck, OpeningAccumulator
+from jolt_tpu_torch.sumcheck.engine import (BatchedSumcheck,
+                                            OpeningAccumulator,
+                                            SumcheckInstance)
 from jolt_tpu_torch.sumcheck.fused import (FusedInstance, TranscriptDivergence,
                                            device_tier, prove_fused)
 from jolt_tpu_torch.sumcheck.product import ProductSumcheck
@@ -29,9 +31,30 @@ torch.set_num_threads(1)
 CPU = "cpu"
 
 
-class FusedProduct(ProductSumcheck, FusedInstance):
-    """A product sumcheck the device tier can run (its bind takes a device
-    challenge as it takes an int, so `fused_bind` is the default)."""
+class HostOnly(SumcheckInstance):
+    """A product sumcheck that is no `FusedInstance`: the host engine's
+    interface alone, delegated."""
+
+    def __init__(self, polys):
+        self.inner = ProductSumcheck(polys)
+        self.device = self.inner.device
+        self.degree = self.inner.degree
+
+    @property
+    def num_rounds(self):
+        return self.inner.num_rounds
+
+    def input_claim(self, accumulator):
+        return self.inner.input_claim(accumulator)
+
+    def message_evals_dev(self, round):
+        return self.inner.message_evals_dev(round)
+
+    def ingest_challenge(self, r, round):
+        self.inner.ingest_challenge(r, round)
+
+    def expected_output_claim(self, accumulator, r):  # pragma: no cover
+        raise NotImplementedError
 
 
 def _instances(force_device=True):
@@ -42,7 +65,7 @@ def _instances(force_device=True):
         polys = [ops.pack_ints([int(v) for v in rng.integers(
             0, 1 << 62, 1 << log_t, dtype=np.int64)], CPU)
             for _ in range(nf)]
-        inst = FusedProduct(polys)
+        inst = ProductSumcheck(polys)
         inst.force_device = force_device
         out.append(inst)
     return out
@@ -89,6 +112,11 @@ def test_tier_choice():
     assert not device_tier(_instances(False))      # CPU tensors, not forced
     insts[1].force_host = True                     # a host-forced slot
     assert not device_tier(insts)
-    plain = ProductSumcheck(_instances()[0].S.unbind(1))
+    plain = HostOnly(_instances()[0].S.unbind(1))
     plain.force_device = True                      # not a FusedInstance
     assert not device_tier([plain])
+    rng = np.random.default_rng(12)
+    wide = ProductSumcheck([ops.pack_ints([int(v) for v in rng.integers(
+        0, 1 << 62, 8, dtype=np.int64)], CPU) for _ in range(4)])
+    wide.force_device = True                       # degree 4, above K4's 3
+    assert isinstance(wide, FusedInstance) and not device_tier([wide])

@@ -6,7 +6,9 @@ stage functions (`test_torch_stage1._jax_prefix`: one accumulator, one
 transcript, `prove`'s order, every instance through the backend registry
 and `prove_scan`) and through `jolt_tpu_torch.prove(..., device="cpu")`.
 Every stage-1/1s and `stage2..6v` field of the proof and the FS-tape state
-after each of the eight stages must be equal; `verify_prefix` must accept
+after each of the eight stages must be equal, and so must those of the
+port's prefix with every stage it can on the device tier (every slot but
+s5i's forced there, `with_tier`: one fetch a stage); `verify_prefix` must accept
 the proof and reject it with a tampered round polynomial or opening in
 each stage.  The whole proof (stages 1-8), written by the port's codec,
 must decode in the JAX package's codec and pass its `verify`; the port's
@@ -69,6 +71,7 @@ from jolt_tpu.witness.registers import extract_register_log
 
 import jolt_tpu_torch as jt
 from jolt_tpu_torch import proof_io
+from jolt_tpu_torch.kernels import JoltBackend, set_backend
 from jolt_tpu_torch.field import ops as tops
 from jolt_tpu_torch.interop import from_jax_limbs
 from jolt_tpu_torch.lookups import tables as tLT
@@ -79,6 +82,7 @@ from jolt_tpu_torch.relations import instruction_read_raf as tir
 from jolt_tpu_torch.relations import ra_virtual as trv
 from jolt_tpu_torch.relations import ram_sparse as trs
 from jolt_tpu_torch.riscv.emulator import MemoryLayout
+from jolt_tpu_torch.sumcheck import fused
 from jolt_tpu_torch.sumcheck import product as tproduct
 from jolt_tpu_torch.sumcheck.engine import BatchedSumcheck as TBatched
 from jolt_tpu_torch.sumcheck.engine import OpeningAccumulator as TAcc
@@ -161,6 +165,36 @@ def test_stage6_claims_match_jax(port_proof, jax_prefix):
 def test_prefix_fs_tape_matches_jax(port_proof, jax_prefix, i, stage):
     assert port_proof.fs_tape[i]["stage"] == stage
     assert port_proof.fs_tape[i] == jax_prefix["fs_tape"][i]
+
+
+@pytest.fixture(scope="module")
+def device_prefix(fib):
+    """fib's prefix with every slot whose class has the device tier forced
+    to it, and the fetches it made."""
+    set_backend(JoltBackend.default().with_every_slot("device"))
+    f0 = fused.fetches
+    try:
+        proof = jt.prove_prefix(fib[1], device=CPU)
+    finally:
+        set_backend(None)
+    return proof, fused.fetches - f0
+
+
+@pytest.mark.parametrize("stage", STAGES)
+def test_device_tier_prefix_matches_jax(device_prefix, jax_prefix, stage):
+    """Each stage's relations on the device tier (s5i on the host engine)
+    give the JAX package's round polynomials and openings on fib."""
+    proof = device_prefix[0]
+    for part in ("polys", "openings"):
+        field = f"stage{stage}_{part}"
+        assert getattr(proof, field) == jax_prefix[field]
+
+
+def test_device_tier_prefix_fs_tape_matches_jax(device_prefix, jax_prefix):
+    proof, fetches = device_prefix
+    assert proof.fs_tape == jax_prefix["fs_tape"]
+    # s1, s1s, s2, s3, s4, s5 and s6 (fib's stage 6v has no sumcheck)
+    assert fetches == 7
 
 
 def test_prefix_openings_keys(port_proof):

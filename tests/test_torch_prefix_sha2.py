@@ -7,7 +7,10 @@ field, every FS-tape entry and the `proof_io.serialize_proof` bytes must be
 equal, and the port's `verify` and the JAX package's must accept.  The
 same prefix with stages 1 and 1s forced to the device tier (the backend
 seam's `with_tier`; its round loop on the plain versions of K4 and K1/K2)
-must give the JAX package's stage-1 fields and FS tape too.  Its
+must give the JAX package's stage-1 fields and FS tape too, and the
+whole proof with every slot whose class has the device tier forced there
+(every batched stage but s5i, ten fetches) must give every JAX field, the
+FS tape and the JAX package's bytes.  Its
 RAM and bytecode spaces (log K 13 and 12) are two 8-bit chunks each, so
 stage 6v batches seven ra-virtualization instances of three factors (the
 fib trace of the fast tier has none), and stages 7 and 8 see K = 32 and
@@ -68,14 +71,42 @@ def test_sha2_stage1_device_tier_matches_jax(traces, jax_prefix):
     assert dev.fs_tape[:3] == jax_prefix["fs_tape"][:3]
 
 
-@pytest.mark.parametrize("field", [
+@pytest.fixture(scope="module")
+def device_proof(traces):
+    """The whole proof with every slot whose class has the device tier
+    forced there, and the fetches it made."""
+    from jolt_tpu_torch.kernels import JoltBackend, set_backend
+    from jolt_tpu_torch.sumcheck import fused
+    set_backend(JoltBackend.default().with_every_slot("device"))
+    f0 = fused.fetches
+    try:
+        proof = jt.prove(traces[1], device="cpu")
+    finally:
+        set_backend(None)
+    return proof, fused.fetches - f0
+
+
+def test_sha2_device_tier_proof_matches_jax(device_proof, jax_prefix,
+                                            traces):
+    proof, fetches = device_proof
+    assert fetches == 10
+    for field in FIELDS:
+        assert getattr(proof, field) == jax_prefix[field], field
+    assert proof_io.serialize_proof(proof) == jproof_io.serialize_proof(
+        _jax_proof(traces[0], jax_prefix))
+
+
+FIELDS = [
     "stage1_uniskip", "stage1_polys", "r1cs_input_openings", "shift_polys",
     "shift_opening", "stage2_polys", "stage2_openings", "stage3_polys",
     "stage3_openings", "stage4_polys", "stage4_openings", "stage5_polys",
     "stage5_openings", "stage5i_polys", "stage5i_openings", "stage6_polys",
     "stage6_openings", "stage6_claims", "stage6v_polys", "stage6v_openings",
     "stage7_polys", "stage7_openings", "stage8_polys", "stage8_openings",
-    "fs_tape"])
+    "fs_tape"]
+
+
+@pytest.mark.parametrize("field", FIELDS)
 def test_sha2_prefix_matches_jax(port_proof, jax_prefix, field):
     assert getattr(port_proof, field) == jax_prefix[field]
 
