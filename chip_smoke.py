@@ -93,7 +93,7 @@ Phases:
      `with_tier(slot, "host")`, no K4), whose proof bytes and FS tape are
      the same and whose K1 and K2 launches are the same stage by stage;
      both tiers' seconds a stage, the device tier's spans a stage, and
-     each stage's busy share on both tiers from a profiled run of each at
+     each stage's busy share on the device tier from a profiled run at
      setup=None;
   6b. the zk and committed-image paths at full width: the same trace and
      setup through `prove(..., zk=True, zk_rng=random.Random(SEED))` and
@@ -111,6 +111,18 @@ Phases:
      run's, BlindFold's seconds, the round commitments' seconds (the
      `zk.commit` span), and `verify`'s seconds (the image's with and
      without its cached trusted commitment);
+  6c. stage 1's streaming tier (`[stream]` lines): the main path's
+     `prove` again, forced to stream (`_stream_stage1=True`: four chunks
+     of 2^16 cycles), with its launch counts set to 0 just before it and
+     read just after: the main run's proof bytes and FS tape, one fetch a
+     device-tier stage and no synchronizing call from a stage's first
+     message to its fetch (s1's streamed openings included), K4 as the
+     main run; stage 1's seconds and its own peak allocated memory (reset
+     as its uni-skip round starts, read at its end) beside the main
+     run's.  Then the sha2-chain at `SHA2_CHAIN_2_20` (1,028,514 cycles,
+     padded 2^20) through `prove(setup=None, device="cuda")`, which
+     streams unforced (16 chunks), and `verify`: each stage's seconds and
+     K1 launches, stage 1's peak and the whole `prove`'s;
   7. card vs CPU: `prove` on the small fib trace gives the same
      `proof_io.serialize_proof` bytes on "cuda" and on "cpu" (stages 1-8;
      fib's RAM and bytecode spaces fit one chunk, so it has no stage-6v
@@ -120,6 +132,19 @@ Phases:
      (a guest that reads its own code, so its RAM space holds the image)
      with `committed_image=True` give the same bytes on both and verify;
      `zk=True` with `committed_image=True` raises on the card too;
+  7b. the alternative tiers (`[a19]` lines), on fib and on the
+     sha2-chain at chain=1: `Booleanity`, `HammingWeight` and
+     `SparseOneHotOpening` over each trace's register, bytecode and RAM
+     index streams as one stage, on the card's device tier (one K4 launch
+     a round, no synchronizing call in the loop) == the card's host
+     engine == the CPU; the dense Twist provers (registers and RAM) card
+     == CPU on fib (at chain=1 their CPU side alone takes minutes: K x T
+     = 2^19 register and 2^25 RAM entries); the naive interpreter == a
+     `DenseOpening` on the card;
+  7c. the entry point (`[cli]` lines): `python -m jolt_tpu_torch.cli prove
+     examples/fibonacci.s` in a subprocess with the default device (the
+     card), then `cli verify` prints its accept line, and the proof file's
+     bytes equal `prove(trace, device="cuda")`'s in this process;
   8. card vs CPU: one seeded booleanity and one Hamming-weight
      `GroupedOneHot` of 18 members at K = 256 and T = 2^14 (stage 7's
      largest group) give identical round polynomials, openings and
@@ -165,12 +190,16 @@ with JOLT_TPU_NO_NATIVE_PAIRING set the script fails.
 
 import argparse
 import collections
+import contextlib
 import json
 import math
+import os
 import pathlib
 import random
 import re
+import subprocess
 import sys
+import tempfile
 import threading
 import time
 import warnings
@@ -1263,6 +1292,195 @@ def g1_kzg_phase(dev, gen, dory_setup, pcs_guest, onehot_positions,
     return entry
 
 
+@contextlib.contextmanager
+def stage1_peaks(prover_mod, out):
+    """Inside: the card's peak allocated memory before stage 1
+    (out["before_s1"]) and over stage 1 alone (out["s1"]: reset as its
+    uni-skip round starts, read at the stage's mark).  The caller resets
+    the peak before and reads it after; the whole run's peak is the larger
+    of out["before_s1"] and that reading."""
+    real_uniskip, real_mark = prover_mod.prove_uniskip, \
+        prover_mod._StageTimer.mark
+
+    def uniskip(*args, **kwargs):
+        out["before_s1"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        return real_uniskip(*args, **kwargs)
+
+    def mark(self, label):
+        if label == "stage1-spartan":
+            out["s1"] = torch.cuda.max_memory_allocated()
+        return real_mark(self, label)
+    prover_mod.prove_uniskip, prover_mod._StageTimer.mark = uniskip, mark
+    try:
+        yield out
+    finally:
+        prover_mod.prove_uniskip = real_uniskip
+        prover_mod._StageTimer.mark = real_mark
+
+
+@contextlib.contextmanager
+def watch_loop_syncs(fused, syncs):
+    """Inside: each device-tier stage's loop and finals
+    (`fused._device_rounds`) under the sync debug mode "warn", the
+    file:line of every synchronizing CUDA call there appended to
+    `syncs`."""
+    real = fused._device_rounds
+
+    def rounds(*args):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return real(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                syncs.extend(f"{w.filename}:{w.lineno}" for w in caught
+                             if "called a synchronizing CUDA operation"
+                             in str(w.message))
+    fused._device_rounds = rounds
+    try:
+        yield syncs
+    finally:
+        fused._device_rounds = real
+
+
+def watched_prove(fn, kernels, fused, prover_mod, so):
+    """fn() (a `prove`) with the launch counts and fetches set to 0 just
+    before and read just after, every device-tier stage's loop and finals
+    under the sync debug mode (each synchronizing call's file:line kept),
+    stage 1's tier (`stream_chunk`'s answers), and the card's peaks over
+    the run and over stage 1 (`stage1_peaks`)."""
+    from jolt_tpu_torch.workload import timed_stages
+    out = {"syncs": [], "chunks": []}
+    real_chunk = so.stream_chunk
+
+    def chunk(*args):
+        out["chunks"].append(real_chunk(*args))
+        return out["chunks"][-1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    fused.fetches = 0
+    so.stream_chunk = chunk
+    peaks = {}
+    try:
+        with stage1_peaks(prover_mod, peaks), \
+                watch_loop_syncs(fused, out["syncs"]):
+            t0 = time.perf_counter()
+            out["proof"], out["stage_s"], _, out["launches"] = \
+                timed_stages(fn)
+            out["s"] = time.perf_counter() - t0
+    finally:
+        so.stream_chunk = real_chunk
+    out["fetches"], out["k4"] = fused.fetches, kernels.k4_launches()
+    out["k1"] = sum(kernels.k1_launches().values())
+    out["peak"] = max(peaks["before_s1"], torch.cuda.max_memory_allocated())
+    out["s1_peak"] = peaks["s1"]
+    return out
+
+
+def k1_by_stage(launches):
+    return {k: sum(v["k1"].values()) for k, v in launches.items()}
+
+
+def a19_phase(traces, dev, kernels, fused):
+    """Phase 7b: the alternative tiers on each (name, trace), card against
+    the host engine and the CPU (tests/test_torch_cuda.py's builders); the
+    dense Twist provers on fib only."""
+    from test_torch_cuda import (dense_stages, onehot_stage, run_stage,
+                                 test_naive_expr_equals_dense_opening_on_card)
+    out = {}
+    for name, trace in traces:
+        syncs = []
+        f0 = fused.fetches
+        with watch_loop_syncs(fused, syncs):
+            t0 = time.perf_counter()
+            on_tier, k4 = run_stage(onehot_stage(trace, dev), "device")
+            t_tier = time.perf_counter() - t0
+        fetches = fused.fetches - f0
+        t0 = time.perf_counter()
+        on_host, k4_host = run_stage(onehot_stage(trace, dev), "host")
+        t_host = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on_cpu, _ = run_stage(onehot_stage(trace, "cpu"), "host")
+        t_cpu = time.perf_counter() - t0
+        insts = onehot_stage(trace, "cpu")
+        rounds_ = max(i.num_rounds for i in insts)
+        check(on_tier == on_host == on_cpu, f"{name}: the one-hot relations "
+              "differ between the device tier, the host engine and the CPU")
+        check(k4 == rounds_ and k4_host == 0 and fetches == 1,
+              f"{name}: K4 {k4} (want {rounds_}), host engine K4 {k4_host}, "
+              f"fetches {fetches}")
+        check(not syncs, f"{name}: the one-hot stage synchronized at "
+              f"{collections.Counter(syncs)}")
+        print(f"[a19] {name} (T = {trace.padded_length}): Booleanity, "
+              f"HammingWeight, SparseOneHotOpening x {len(insts) // 3} "
+              f"streams (K = {[i.K for i in insts[::3]]}), {rounds_} rounds: "
+              f"device tier {t_tier:.3f}s (K4 {k4}, one fetch, no sync) == "
+              f"host engine {t_host:.3f}s == CPU {t_cpu:.3f}s", flush=True)
+        out[name] = {"onehot_rounds": rounds_, "k4": k4,
+                     "device_tier_s": t_tier, "host_engine_s": t_host,
+                     "cpu_s": t_cpu}
+        if name != "fib":
+            continue
+        for which, card_st, cpu_st in zip(("registers", "ram"),
+                                          dense_stages(trace, dev),
+                                          dense_stages(trace, "cpu")):
+            t0 = time.perf_counter()
+            got = run_stage(card_st, "host")
+            t_card = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = run_stage(cpu_st, "host")
+            check(got == want, f"{name}: the dense {which} provers differ "
+                  "between cuda and cpu")
+            print(f"[a19] {name}: dense {which} provers ({len(card_st)}), "
+                  f"card {t_card:.3f}s == CPU {time.perf_counter() - t0:.3f}s",
+                  flush=True)
+    test_naive_expr_equals_dense_opening_on_card(dev)
+    print("[a19] the naive interpreter == a DenseOpening on the card "
+          "(round polynomials)", flush=True)
+    return out
+
+
+def cli_phase(prove, serialize_proof, trace_program, MemoryLayout):
+    """Phase 7c: the CLI's prove (default device) and verify in
+    subprocesses; the proof file's bytes == `prove` in this process."""
+    guest, inputs = "examples/fibonacci.s", "0a00000000000000"
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fib.proof")
+        cmd = [sys.executable, "-m", "jolt_tpu_torch.cli"]
+        t0 = time.perf_counter()
+        p = subprocess.run(cmd + ["prove", guest, "--input", inputs, "-o",
+                                  path], cwd=ROOT, capture_output=True,
+                           text=True, timeout=900)
+        t_prove = time.perf_counter() - t0
+        check(p.returncode == 0, f"cli prove failed: {p.stderr[-2000:]}")
+        v = subprocess.run(cmd + ["verify", guest, path, "--input", inputs],
+                           cwd=ROOT, capture_output=True, text=True,
+                           timeout=900)
+        accept = [ln for ln in v.stdout.splitlines() if "verified in" in ln]
+        check(v.returncode == 0 and accept and accept[0].endswith(": True"),
+              f"cli verify: {v.stdout[-2000:]} {v.stderr[-2000:]}")
+        blob = open(path, "rb").read()
+    layout = MemoryLayout(max_input_size=64, max_output_size=64)
+    tr = trace_program((ROOT / guest).read_text(),
+                       inputs=bytes.fromhex(inputs), layout=layout)
+    proof = prove(tr, device="cuda")
+    statement = {"trace_length": tr.length,
+                 "padded_length": tr.padded_length,
+                 "outputs": bytes(tr.device.outputs),
+                 "panic": tr.device.panic}
+    check(blob == serialize_proof(proof, statement),
+          "the CLI's proof file differs from prove(trace, device='cuda')")
+    print(f"[cli] python -m jolt_tpu_torch.cli prove {guest} (default "
+          f"device, the card): {t_prove:.2f}s with the process's start; "
+          f"[{p.stdout.strip().splitlines()[0]}]; cli verify: "
+          f"[{accept[0]}]; proof file ({len(blob)} B) == prove(trace, "
+          "device='cuda')", flush=True)
+    return {"cli_prove_s": t_prove, "proof_bytes": len(blob)}
+
+
 def main():
     ap = argparse.ArgumentParser(description="Smoke run of the torch port "
                                  "on one NVIDIA GPU (see the module "
@@ -1302,9 +1520,12 @@ def main():
     from jolt_tpu_torch.transcript import device as dt
     from jolt_tpu_torch.utils import profiling
     from jolt_tpu_torch.verifier import verifier as verifier_mod
-    from jolt_tpu_torch.workload import (SHA2_CHAIN, card_line, host_line,
-                                         sha2_chain_trace, stage_device_s,
-                                         timed_stages)
+    from jolt_tpu_torch.prover import prover as prover_mod
+    from jolt_tpu_torch.relations import spartan_outer as so
+    from jolt_tpu_torch.workload import (SHA2_CHAIN, SHA2_CHAIN_2_20,
+                                         SHA2_CHAIN_2_20_CYCLES, card_line,
+                                         host_line, sha2_chain_trace,
+                                         stage_device_s, timed_stages)
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -1317,6 +1538,8 @@ def main():
           "JOLT_TPU_NO_NATIVE_PAIRING is set: Dory would run its Python tier")
 
     # ---- 2. build K1, K2 and the pairing library; the Dory setup --------
+    print(f"[phase] 2 starts at {time.perf_counter() - t_start:.1f}s",
+          flush=True)
     t0 = time.perf_counter()
     pairing_build = {}
 
@@ -1396,6 +1619,8 @@ def main():
           flush=True)
 
     # ---- 3. K1 vs plain in every form: 2^20, edge values, Python ints ----
+    print(f"[phase] 3 starts at {time.perf_counter() - t_start:.1f}s",
+          flush=True)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     P = kernels.P
@@ -1498,6 +1723,8 @@ def main():
           "2^20, 0/1/r-1); 512-element samples == Python ints", flush=True)
 
     # ---- 4. K2 vs plain: 2 and 3 factors, every order --------------------
+    print(f"[phase] 4 starts at {time.perf_counter() - t_start:.1f}s",
+          flush=True)
     k2_err = 0
     k2_times = {}
     for nf in (2, 3):
@@ -1568,6 +1795,8 @@ def main():
           "value in every order", flush=True)
 
     # ---- 4b. K4 vs plain: seeded stages, edge values; its time ----------
+    print(f"[phase] 4b starts at {time.perf_counter() - t_start:.1f}s",
+          flush=True)
     # the card tests' stages (1-4 instances of degrees 1-3, inactive rounds,
     # claims 0 and p - 1, edge evals, states from a real transcript; and
     # the wide ones, 33-64 instances, 1-3 compressed coefficients)
@@ -1648,6 +1877,8 @@ def main():
               flush=True)
 
     # ---- 5. round-step path and a chained ProductSumcheck ----------------
+    print(f"[phase] 5 starts at {time.perf_counter() - t_start:.1f}s",
+          flush=True)
     T = 1 << K2_LOG_T
     chain = [tuple(rand_field((8, T), gen, dev) for _ in range(3))]
     rs = [rand_field((8, 1), gen, dev) for _ in range(K2_LOG_T)]
@@ -1718,6 +1949,8 @@ def main():
     del factors, inst, card_msgs, plain_msgs, polys
 
     # ---- 6. main path: sha2-chain through prove on the card --------------
+    print(f"[phase] 6 starts at {time.perf_counter() - t_start:.1f}s",
+          flush=True)
     t0 = time.perf_counter()
     tr = sha2_chain_trace()          # raises if the chain's output is wrong
     t_trace = time.perf_counter() - t0
@@ -1759,23 +1992,9 @@ def main():
     # synchronizing CUDA call inside recorded with the line that made it;
     # each batched stage's tier, rounds and the device tier's spans before
     # it (`fused.device_tier` is asked once a stage)
-    loop_syncs = []
-    real_rounds = fused._device_rounds
+    main_syncs = []
     tier_calls = []
     real_tier = fused.device_tier
-
-    def watched_rounds(*args):
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                return real_rounds(*args)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-                loop_syncs.extend(
-                    f"{w.filename}:{w.lineno}" for w in caught
-                    if "called a synchronizing CUDA operation"
-                    in str(w.message))
 
     def watched_tier(instances):
         on = real_tier(instances)
@@ -1783,21 +2002,22 @@ def main():
                            len(instances),
                            {n: dory_prof.total(n) for n in FUSED_SPANS}))
         return on
-    fused._device_rounds = watched_rounds
     fused.device_tier = watched_tier
     fused.fetches = 0
+    main_peaks = {}
     try:
-        t0 = time.perf_counter()
-        proof, stage_s, stage_lines, stage_launches = timed_stages(
-            lambda: prove(tr, setup=setup, device="cuda"))
-        t_prove = time.perf_counter() - t0
+        with stage1_peaks(prover_mod, main_peaks), \
+                watch_loop_syncs(fused, main_syncs):
+            t0 = time.perf_counter()
+            proof, stage_s, stage_lines, stage_launches = timed_stages(
+                lambda: prove(tr, setup=setup, device="cuda"))
+            t_prove = time.perf_counter() - t0
     finally:
         k1_counts = kernels.k1_launches()
         k2_launches = kernels.product_round.launches
         k3_counts = kernels.k3_launches()
         k4_launches = kernels.k4_launches()
         tier_fetches = fused.fetches
-        fused._device_rounds = real_rounds
         fused.device_tier = real_tier
         tier_spans_end = {n: dory_prof.total(n) for n in FUSED_SPANS}
         records, kernels.record = kernels.record, None
@@ -1806,7 +2026,7 @@ def main():
         profiling.PROFILER = profiling.Profiler(enabled=False)
         scheme_mod.DoryScheme.commit_sparse_many = commit_many
     launches = sum(k1_counts.values())
-    peak = torch.cuda.max_memory_allocated(dev)
+    peak = max(main_peaks["before_s1"], torch.cuda.max_memory_allocated(dev))
     print(stage_lines, end="")
     log_t = tr.padded_length.bit_length() - 1
     check(all(k1_counts.values()),
@@ -1874,8 +2094,8 @@ def main():
           f"the tier of each batched stage: {[c[:3] for c in tier_calls]}")
     check(tier_fetches == n_tier, f"the device tier made {tier_fetches} "
           f"device-to-host fetches (want one a stage, {n_tier})")
-    check(not loop_syncs, f"the device tier's stages synchronized "
-          f"{len(loop_syncs)} times, at {collections.Counter(loop_syncs)}")
+    check(not main_syncs, f"the device tier's stages synchronized "
+          f"{len(main_syncs)} times, at {collections.Counter(main_syncs)}")
     check(list(stage_s) == DORY_STAGES, f"stage lines: {stage_s}")
     check([e["stage"] for e in proof.fs_tape] == DORY_STAGES[1:],
           f"FS tape: {proof.fs_tape}")
@@ -1996,23 +2216,10 @@ def main():
           " B)", flush=True)
     del nat_proof
 
-    # two runs under the profiler, at setup=None so that the card's stages
-    # compare with the runs before Dory: the first, with every stage
-    # forced to the host engine, warms the card as the first run did and
-    # gives their busy shares on that tier; the second, the default, each
-    # stage's device time and busy share, and the device kernels by name
-    # (those of no port kernel)
-    set_backend(host_tier)
-    try:
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as host_prof:
-            _, host_prof_s, _, _ = timed_stages(
-                lambda: prove(tr, device="cuda"))
-            torch.cuda.synchronize()
-    finally:
-        set_backend(None)
-    host_dev_s = stage_device_s(host_prof)
+    # a run under the profiler, at setup=None so that the card's stages
+    # compare with the runs before Dory: each stage's device time and busy
+    # share on the device tier, and the device kernels by name (those of
+    # no port kernel)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2024,16 +2231,11 @@ def main():
     for label in tier_stages:
         tier_busy[label] = {
             "device_tier_s": prof_s[label],
-            "device_tier_device_s": dev_s.get(label, 0.0),
-            "host_engine_s": host_prof_s[label],
-            "host_engine_device_s": host_dev_s.get(label, 0.0)}
+            "device_tier_device_s": dev_s.get(label, 0.0)}
         b = tier_busy[label]
         print(f"[tier] {label} profiled: device tier {b['device_tier_s']:.4f}"
               f"s, device {b['device_tier_device_s']:.4f}s, busy "
-              f"{b['device_tier_device_s'] / b['device_tier_s']:.1%}; host "
-              f"engine {b['host_engine_s']:.4f}s, device "
-              f"{b['host_engine_device_s']:.4f}s, busy "
-              f"{b['host_engine_device_s'] / b['host_engine_s']:.1%}",
+              f"{b['device_tier_device_s'] / b['device_tier_s']:.1%}",
               flush=True)
     for label in STAGES:
         n = stage_launches[label]
@@ -2091,6 +2293,8 @@ def main():
                key=lambda e: e["heaviest"]["launches"] * e["bound_ms"])
 
     # ---- 6b. the zk and committed-image paths at full width --------------
+    print(f"[phase] 6b starts at {time.perf_counter() - t_start:.1f}s",
+          flush=True)
     # each path's launch counts set to 0 just before it and read just after
     def flag_path(**flags):
         kernels.reset_launches()
@@ -2194,7 +2398,82 @@ def main():
     print(f"[image] stages: {stage_cmp(ci_s)}", flush=True)
     del zk_proof, ci_proof
 
+    # ---- 6c. stage 1 streamed: 2^18 forced, 2^20 at its threshold --------
+    print(f"[phase] 6c starts at {time.perf_counter() - t_start:.1f}s",
+          flush=True)
+    w18 = watched_prove(lambda: prove(tr, setup=setup, device="cuda",
+                                      _stream_stage1=True),
+                        kernels, fused, prover_mod, so)
+    check(serialize_proof(w18["proof"]) == serialize_proof(proof)
+          and w18["proof"].fs_tape == proof.fs_tape,
+          "the forced-stream prove differs from the main run at 2^18")
+    check(w18["chunks"] == [so.STREAM_CHUNK]
+          and tr.padded_length // so.STREAM_CHUNK == 4,
+          f"the forced run's stage-1 chunks: {w18['chunks']}")
+    check(not w18["syncs"], f"the forced-stream run synchronized at "
+          f"{collections.Counter(w18['syncs'])}")
+    check(w18["fetches"] == tier_fetches and w18["k4"] == k4_launches,
+          f"the forced-stream run: {w18['fetches']} fetches, K4 "
+          f"{w18['k4']} (main {tier_fetches}, {k4_launches})")
+    s1 = "stage1-spartan"
+    k1_main = k1_by_stage(stage_launches)
+    k1_stream = k1_by_stage(w18["launches"])
+    print(f"[stream] 2^18 forced (4 chunks of {so.STREAM_CHUNK}), Dory: "
+          f"proof bytes and FS tape == the main run's; {w18['fetches']} "
+          f"fetches, 0 syncs; stage 1 {w18['stage_s'][s1]:.4f}s (main run, "
+          f"materialized {stage_s[s1]:.4f}s), its own peak "
+          f"{w18['s1_peak'] / 2**30:.3f} GiB (main "
+          f"{main_peaks['s1'] / 2**30:.3f}), K1 {k1_stream[s1]} (main "
+          f"{k1_main[s1]}); prove {w18['s']:.3f}s (main {t_prove:.3f}s), "
+          f"peak {w18['peak'] / 2**30:.3f} GiB (main {peak / 2**30:.3f})",
+          flush=True)
+    del w18["proof"]
+    t0 = time.perf_counter()
+    tr20 = sha2_chain_trace(SHA2_CHAIN_2_20)
+    t_trace20 = time.perf_counter() - t0
+    check(tr20.length == SHA2_CHAIN_2_20_CYCLES
+          and tr20.padded_length == 1 << 20,
+          f"chain={SHA2_CHAIN_2_20}: {tr20.length} cycles, padded "
+          f"{tr20.padded_length}")
+    w20 = watched_prove(lambda: prove(tr20, device="cuda"), kernels, fused,
+                        prover_mod, so)
+    check(w20["chunks"] == [so.STREAM_CHUNK],
+          f"2^20 did not stream stage 1: {w20['chunks']}")
+    check(not w20["syncs"], f"the 2^20 run synchronized at "
+          f"{collections.Counter(w20['syncs'])}")
+    t0 = time.perf_counter()
+    check(verify(w20["proof"], PublicIO.from_trace(tr20)) is True,
+          "verify rejected the 2^20 proof")
+    t_verify20 = time.perf_counter() - t0
+    k1_20 = k1_by_stage(w20["launches"])
+    print(f"[stream] 2^20: sha2-chain chain={SHA2_CHAIN_2_20}, "
+          f"{tr20.length} cycles (traced in {t_trace20:.2f}s), prove("
+          f"setup=None) {w20['s']:.3f}s = {tr20.length / w20['s']:.1f} "
+          f"cycles/s, streamed unforced ({(1 << 20) // so.STREAM_CHUNK} "
+          f"chunks), peak {w20['peak'] / 2**30:.3f} GiB, stage 1's own "
+          f"{w20['s1_peak'] / 2**30:.3f} GiB; {w20['fetches']} fetches, "
+          f"K4 {w20['k4']}, K1 {w20['k1']}, 0 syncs; verify "
+          f"{t_verify20:.3f}s accepted", flush=True)
+    for label, sec in w20["stage_s"].items():
+        print(f"[stream] 2^20 {label}: {sec:.4f}s, K1 {k1_20.get(label, 0)}",
+              flush=True)
+    stream_entry = {
+        "forced_2_18": {"stage1_s": w18["stage_s"][s1],
+                        "main_stage1_s": stage_s[s1],
+                        "stage1_peak_bytes": w18["s1_peak"],
+                        "main_stage1_peak_bytes": main_peaks["s1"],
+                        "prove_s": w18["s"], "peak_bytes": w18["peak"],
+                        "k1_stage1": k1_stream[s1]},
+        "unforced_2_20": {"cycles": tr20.length, "prove_s": w20["s"],
+                          "verify_s": t_verify20, "stage_s": w20["stage_s"],
+                          "k1_by_stage": k1_20, "peak_bytes": w20["peak"],
+                          "stage1_peak_bytes": w20["s1_peak"],
+                          "k4": w20["k4"], "fetches": w20["fetches"]}}
+    del w20, tr20
+
     # ---- 7. card vs CPU on the fib trace ---------------------------------
+    print(f"[phase] 7 starts at {time.perf_counter() - t_start:.1f}s",
+          flush=True)
     fib_layout = MemoryLayout(**FIB_LAYOUT)
     fib = trace_program(FIB.format(output_start=fib_layout.output_start,
                                    termination=fib_layout.termination),
@@ -2272,7 +2551,21 @@ def main():
           f"transcript; K2 launches on the card {runs['cuda'][4]}",
           flush=True)
 
+    # ---- 7b. the alternative tiers, card vs host engine vs CPU -----------
+    print(f"[phase] 7b starts at {time.perf_counter() - t_start:.1f}s",
+          flush=True)
+    a19_entry = a19_phase([("fib", fib), ("sha2-chain chain=1",
+                                          sha2_chain_trace(1))],
+                          dev, kernels, fused)
+    # ---- 7c. the CLI on the card -----------------------------------------
+    print(f"[phase] 7c starts at {time.perf_counter() - t_start:.1f}s",
+          flush=True)
+    cli_entry = cli_phase(prove, serialize_proof, trace_program,
+                          MemoryLayout)
+
     # ---- 8. stage 7's largest group, card vs CPU --------------------------
+    print(f"[phase] 8 starts at {time.perf_counter() - t_start:.1f}s",
+          flush=True)
     # booleanity (K1) and Hamming weight (K2 cycle rounds) on seeded
     # streams; the claims are any values, since only card == CPU is checked
     streams = rng.integers(0, ONEHOT_K, (ONEHOT_M, 1 << ONEHOT_LOG_T))
@@ -2328,6 +2621,8 @@ def main():
           flush=True)
 
     # ---- 8b. K3, HyperKZG end to end, Dory's device one-hot tier ---------
+    print(f"[phase] 8b starts at {time.perf_counter() - t_start:.1f}s",
+          flush=True)
     g1_entry = g1_kzg_phase(dev, gen, setup, small, onehot_positions,
                             card_vs_cpu)
     # K3's launches on the main path: the Dory prove's, by stage
@@ -2348,6 +2643,8 @@ def main():
                 "dory_native_route_spans_s": nat_spans}
 
     # ---- 9. results -------------------------------------------------------
+    print(f"[phase] 9 starts at {time.perf_counter() - t_start:.1f}s",
+          flush=True)
     print(f"[total] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(card)
     # K2's headline: the main path's round (stage 1s: two factors, bind then
@@ -2363,6 +2660,7 @@ def main():
         "library_ms": None, "form": head["form"],
         "shape": head["heaviest"]["key"],
         "forms": list(k1_forms.values()), "reference_shapes": k1_ref,
+        "stage1_stream": stream_entry, "cli": cli_entry,
         "spill_bytes": k1_spills,
         "other_device_kernels": n_other}, {
         "name": "product_round", "route": "cuda",
@@ -2405,7 +2703,8 @@ def main():
         "spill_bytes": k4_spills,
         "tier_stage_s": {k: {"device_tier": stage_s[k],
                              "host_engine": nat_s[k]} for k in tier_stages},
-        "tier_profiled": tier_busy, "device_tier_spans_s": fused_spans}]}))
+        "tier_profiled": tier_busy, "device_tier_spans_s": fused_spans,
+        "a19_tiers": a19_entry}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

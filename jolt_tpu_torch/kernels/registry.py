@@ -11,11 +11,10 @@ transcript and the same proof (`tests/test_torch_backend.py`).
 `SLOTS` is the JAX package's table, key for key and row for row: each slot's
 reference module, and the class of this package that carries it (a
 'module:Class' target under `jolt_tpu_torch`) or a note naming the slot or
-stage that carries it here.  Two class targets are not ported yet (ROADMAP
-A19): `relations.opening_reduction:SparseOneHotOpening` ("opening") and
-`claims.naive:NaiveExprProver` ("naive").  Their factories raise
-`NotImplementedError` naming A19 when called; no path of `prove` calls
-them.
+stage that carries it here.  Every class target resolves; no path of
+`prove` makes the "opening" (`SparseOneHotOpening`) or "naive"
+(`NaiveExprProver`, host work on Python ints) slots, as in the JAX
+package.
 
 Tiers.  `with_tier(slot, "host")` sets `force_host` on the slot's
 instances, which sends their whole batched stage to the host engine;
@@ -33,10 +32,10 @@ the stage.  `with_tier` is the one way to force a tier: the JAX package's
 the slot that names its class here ("bytecode_read_raf",
 "ram_ra_virtualization" and "hamming_weight_claim_reduction"), exactly as
 `make` gives its own.  `with_every_slot(tier)` is `with_tier` on every
-slot that can take the tier: with "device" it runs every batched stage's
-loop on the device tier but stage 5i's (`InstructionReadRaf`, whose
-address rounds are host work in the JAX package too), with "host" it
-sends every stage to the host engine.
+slot that can take the tier: with "device" every slot whose class is a
+`FusedInstance` -- every batched stage's loop on the device tier but stage
+5i's (`InstructionReadRaf`, whose address rounds are host work in the JAX
+package too), and "opening" -- with "host" every slot.
 """
 
 from __future__ import annotations
@@ -61,16 +60,6 @@ def _lazy(path: str) -> Callable:
     """Import-on-first-use factory for a 'module:Class' target."""
     def make(*args, **kwargs):
         return _class(path)(*args, **kwargs)
-    make.target = path
-    return make
-
-
-def _not_ported(path: str, item: str) -> Callable:
-    """The factory of a class target this package does not have yet."""
-    def make(*args, **kwargs):
-        raise NotImplementedError(
-            f"{path} is not ported yet (ROADMAP {item}); no path of prove "
-            "calls it")
     make.target = path
     return make
 
@@ -146,15 +135,14 @@ SLOTS: Dict[str, tuple] = {
         "precommitted_reduction.rs",
         "relations.program_image:ProgramImageReduction"),
     "commitment": ("commitment.rs", "pcs.scheme:DoryScheme"),
-    # not ported yet (ROADMAP A19): its factory raises NotImplementedError
     "opening": ("opening.rs",
                 "relations.opening_reduction:SparseOneHotOpening"),
-    # not ported yet (ROADMAP A19): its factory raises NotImplementedError
     "naive": ("naive.rs", "claims.naive:NaiveExprProver"),
 }
 
 #: class targets this package does not have yet, and the ROADMAP item
-NOT_PORTED = {"opening": "A19", "naive": "A19"}
+#: (none since A19)
+NOT_PORTED: Dict[str, str] = {}
 
 #: slots that resolve to an instantiable class (the rest are folded into
 #: a carrying slot, documented above)
@@ -175,9 +163,7 @@ class JoltBackend:
 
     @classmethod
     def default(cls) -> "JoltBackend":
-        return cls({name: (_not_ported(t, NOT_PORTED[name])
-                           if name in NOT_PORTED else _lazy(t))
-                    for name, t in _CLASS_SLOTS.items()})
+        return cls({name: _lazy(t) for name, t in _CLASS_SLOTS.items()})
 
     def with_slot(self, slot: str, factory: Callable) -> "JoltBackend":
         f = dict(self.factories)
@@ -195,11 +181,11 @@ class JoltBackend:
         """Every slot whose instances can take `tier` forced to it: every
         slot to "host"; to "device", each slot whose class is a
         `FusedInstance` (all but stage 5i's `InstructionReadRaf`, the
-        commitment scheme and the classes not ported)."""
+        commitment scheme and the naive interpreter)."""
         b = self
         for slot, target in _CLASS_SLOTS.items():
-            if tier == "device" and (slot in NOT_PORTED or not issubclass(
-                    _class(target), FusedInstance)):
+            if tier == "device" and not issubclass(_class(target),
+                                                   FusedInstance):
                 continue
             b = b.with_tier(slot, tier)
         return b

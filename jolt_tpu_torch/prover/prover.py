@@ -415,14 +415,17 @@ class _StageTimer:
         self.t0 = now
 
 
-def prove_prefix(trace: Trace, device="cuda") -> PrefixProof:
+def prove_prefix(trace: Trace, device="cuda",
+                 _stream_stage1=None) -> PrefixProof:
     """Prove stages 1 through 6v of the trace on `device` (the card unless
-    the caller asks for the CPU)."""
-    return _prove(trace, resolve_device(device), full=False)
+    the caller asks for the CPU); `_stream_stage1` as `prove`'s."""
+    return _prove(trace, resolve_device(device), full=False,
+                  _stream_stage1=_stream_stage1)
 
 
 def prove(trace: Trace, setup=None, device="cuda", zk: bool = False,
-          zk_rng=None, committed_image: bool = False) -> JoltProof:
+          zk_rng=None, committed_image: bool = False,
+          _stream_stage1=None) -> JoltProof:
     """Prove the trace on `device` (the card unless the caller asks for the
     CPU), as the JAX package's `prove(trace, setup=setup, zk=zk,
     zk_rng=zk_rng, committed_image=committed_image)`: stages 1 through 8,
@@ -447,17 +450,24 @@ def prove(trace: Trace, setup=None, device="cuda", zk: bool = False,
     words and proves the image's Init contribution through a stage-7
     claim reduction instead of the verifier evaluating it; the image must
     lie in the trace's RAM address space (ROADMAP C2), and zk with the
-    committed image is refused (ROADMAP C1)."""
+    committed image is refused (ROADMAP C1).
+
+    Stage 1 streams its columns from `spartan_outer.STREAM_THRESHOLD`
+    cycles on; the private `_stream_stage1` forces the tier (True, or a
+    power-of-two chunk length, to stream; False not to), as the JAX
+    package's `JOLT_TPU_STREAM_STAGE1=1` does; the bytes are the same."""
     if zk and committed_image:
         raise NotImplementedError(
             "zk=True with committed_image=True is refused: the JAX "
             "package's own verifier rejects such a proof (ROADMAP C1)")
     return _prove(trace, resolve_device(device), full=True, setup=setup,
-                  zk=zk, zk_rng=zk_rng, committed_image=committed_image)
+                  zk=zk, zk_rng=zk_rng, committed_image=committed_image,
+                  _stream_stage1=_stream_stage1)
 
 
 def _prove(trace: Trace, device: torch.device, full: bool, setup=None,
-           zk: bool = False, zk_rng=None, committed_image: bool = False):
+           zk: bool = False, zk_rng=None, committed_image: bool = False,
+           _stream_stage1=None):
     """The prover's stages in `prove`'s order: through stage 6v (a
     `PrefixProof`), or with `full` through stage 8 (a `JoltProof`), with
     the Dory commitments and joint opening when `setup` is given, the
@@ -625,7 +635,7 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None,
     # tau = [tau_high (Lagrange kernel), tau_g (group bit), *tau_cyc]
     tau = transcript.challenge_vector(1 + num_stage1_rounds(log_T))
     cols_dev, s1_coeffs, r0_skip, claim1, l_scale = prove_uniskip(
-        inputs, tau, transcript, device)
+        inputs, tau, transcript, device, _stream_stage1)
     outer = _bk.make("spartan_outer", inputs, tau[1:], r0_skip, claim1,
                      l_scale, cols_dev)
     del cols_dev

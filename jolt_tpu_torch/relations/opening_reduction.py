@@ -16,8 +16,10 @@ address-major (index = k*T + j).
 `DenseOpening`'s round is the JAX package's `booleanity._ham_cycle_kernel`
 (eq times P at degree 2, both bound HighToLow), which is K2's 2-factor
 product round: `DenseOpening` is a `sumcheck.product.ProductSumcheck` of
-[eq(q, .), P].  `SparseOneHotOpening` (ROADMAP A19) and the `scan_*` /
-`fused_*` hooks (A16) are not ported.
+[eq(q, .), P], a `FusedInstance` that takes the device tier in stage 8.
+`SparseOneHotOpening` opens a one-hot matrix from its index stream with
+the address and cycle rounds of `booleanity._OneHotRounds` (the Hamming
+kind's, times the point's address factor), also a `FusedInstance`.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from ..field import FR, ops
 from ..poly import eq
 from ..sumcheck.engine import OpeningAccumulator, SumcheckInstance
 from ..sumcheck.product import ProductSumcheck
+from .booleanity import _OneHotRounds
 
 P = FR.modulus
 
@@ -49,6 +52,32 @@ def cycle_major_to_address_major_point(point: Sequence[int],
     cycle-major arrays; the same evaluation over the address-major committed
     layout is at (r_addr ++ r_cycle)."""
     return list(point[log_T:]) + list(point[:log_T])
+
+
+class SparseOneHotOpening(_OneHotRounds):
+    """v = sum_{k,j} eq(q, (k,j)) * M(k,j) for a one-hot M given by its
+    per-cycle index stream; q in address-major var order."""
+
+    degree = 2
+    _final_name = "p"
+
+    def __init__(self, indices: Sequence[int], K: int, point: Sequence[int],
+                 claim: int, label: str, device="cuda"):
+        log_K = K.bit_length() - 1
+        assert len(point) == log_K + len(indices).bit_length() - 1
+        self.q_addr = [x % P for x in point[:log_K]]
+        self.q_cyc = [x % P for x in point[log_K:]]
+        self.claim = claim % P
+        self.label = label
+        self._setup(indices, K, self.q_addr, self.q_cyc, device)
+
+    def input_claim(self, accumulator: OpeningAccumulator) -> int:
+        return self.claim
+
+    def cache_openings(self, accumulator: OpeningAccumulator,
+                       r_slice: Sequence[int]) -> None:
+        accumulator.insert(("joint_opening", self.label), list(r_slice),
+                           self.final_openings["p"])
 
 
 class DenseOpening(ProductSumcheck):

@@ -1,11 +1,15 @@
-"""Twist RAM relations: the verifier twins and the public host helpers.
+"""Twist RAM relations: read/write checking, raf evaluation, Val evaluation,
+output check -- the dense provers, their verifier twins and the public
+host helpers.
 
-Torch-package counterpart of the part of the JAX package's
-`relations/ram.py` that the sparse Twist tier (`ram_sparse.py`) imports:
-the verifier instances and the closed-form evaluations of the public
-polynomials.  All of it is host work on Python ints.  The dense K x T
-provers of that file are not ported (the sparse tier replaces them on the
-main path).
+Torch counterpart of the JAX package's `relations/ram.py`.  The main path
+takes the sparse Twist tier (`ram_sparse.py`), which imports the verifier
+twins and the closed-form evaluations of the public polynomials here (host
+work on Python ints).  The dense K x T provers are the JAX package's
+round-1 tier, kept as its oracle; they run on `registers_rw._DenseTwist`,
+whose tables broadcast the cycle and address columns in place (the JAX
+package's `_broadcast_cycle` / `_broadcast_addr` copies), cycle-major
+(index j*K + k), HighToLow: cycle phase, then address phase.
 
 Relations (reference `zkvm/ram/{read_write_checking,raf_evaluation,
 val_check,output_check}.rs`):
@@ -35,10 +39,14 @@ from __future__ import annotations
 
 from typing import Dict, Sequence
 
-from ..field import FR
+import torch
+
+from ..field import FR, ops
 from ..poly import eq, lt
-from ..sumcheck.engine import OpeningAccumulator, SumcheckInstance
-from ..witness.ram import remap_address
+from ..sumcheck.engine import OpeningAccumulator
+from ..witness.ram import RamWitness, address_of_index, remap_address
+from .registers_rw import (_DenseTwist, _Verifier, addr_column, cycle_column,
+                           matrix)
 
 P = FR.modulus
 
@@ -91,14 +99,40 @@ def outputs_as_words(outputs: bytes, layout) -> Dict[int, int]:
     return out
 
 
-class _Verifier(SumcheckInstance):
-    """Verifier instances run no rounds: only the terminal check."""
+class RamReadWriteChecking(_DenseTwist):
+    opened = ("ra", "val", "inc")
 
-    def message_evals_dev(self, round):  # pragma: no cover
-        raise NotImplementedError("verifier instance")
+    def __init__(self, wit: RamWitness, gamma: int, r_cycle: Sequence[int],
+                 rv_claim: int, wv_claim: int, device="cuda"):
+        self.wit = wit
+        self.T, self.K = wit.T, wit.K
+        self.gamma = gamma % P
+        self.r_cycle = list(r_cycle)
+        self.rv_claim, self.wv_claim = rv_claim, wv_claim
+        device = torch.device(device)
+        self._start({"e": cycle_column(eq.evals(self.r_cycle, device),
+                                       device),
+                     "ra": matrix(wit.ra, self.K, device),
+                     "val": matrix(wit.val, self.K, device),
+                     "inc": cycle_column(wit.inc, device)},
+                    self.T.bit_length() - 1, wit.log_K)
 
-    def ingest_challenge(self, r, round):  # pragma: no cover
-        raise NotImplementedError("verifier instance")
+    def input_claim(self, accumulator: OpeningAccumulator) -> int:
+        return (self.rv_claim + self.gamma * self.wv_claim) % P
+
+    def _summand(self, v):
+        """E*RA*((1+g)*VAL + g*INC)."""
+        term = ops.add(ops.mont_mul(v["val"], (1 + self.gamma) % P),
+                       ops.mont_mul(v["inc"], self.gamma))
+        return ops.mont_mul(v["e"], ops.mont_mul(v["ra"], term))
+
+    def cache_openings(self, accumulator: OpeningAccumulator,
+                       r_slice: Sequence[int]) -> None:
+        r_cyc = list(r_slice[:self.log_T])
+        for name in ("ra", "val"):
+            accumulator.insert(("ram", name), list(r_slice),
+                               self.final_openings[name])
+        accumulator.insert(("ram", "inc"), r_cyc, self.final_openings["inc"])
 
 
 class RamReadWriteCheckingVerifier(_Verifier):
@@ -127,6 +161,37 @@ class RamReadWriteCheckingVerifier(_Verifier):
         return eq.eq_int(self.r_cycle, r_cyc) * o["ra"] % P * term % P
 
 
+class RamRafEvaluation(_DenseTwist):
+    """Proves the RamAddress opening: address = <ra, A> per cycle."""
+
+    opened = ("ra",)
+
+    def __init__(self, wit: RamWitness, r_cycle: Sequence[int],
+                 addr_claim: int, device="cuda"):
+        self.wit = wit
+        self.T, self.K = wit.T, wit.K
+        self.r_cycle = list(r_cycle)
+        self.addr_claim = addr_claim
+        device = torch.device(device)
+        addrs = [address_of_index(k, wit.witness_base) for k in range(self.K)]
+        self._start({"e": cycle_column(eq.evals(self.r_cycle, device),
+                                       device),
+                     "ra": matrix(wit.ra, self.K, device),
+                     "a": addr_column(addrs, device)},
+                    self.T.bit_length() - 1, wit.log_K)
+
+    def input_claim(self, accumulator: OpeningAccumulator) -> int:
+        return self.addr_claim % P
+
+    def _summand(self, v):
+        return ops.mont_mul(v["e"], ops.mont_mul(v["ra"], v["a"]))
+
+    def cache_openings(self, accumulator: OpeningAccumulator,
+                       r_slice: Sequence[int]) -> None:
+        accumulator.insert(("ram_raf", "ra"), list(r_slice),
+                           self.final_openings["ra"])
+
+
 class RamRafEvaluationVerifier(_Verifier):
     def __init__(self, log_T: int, log_K: int, r_cycle: Sequence[int],
                  addr_claim: int, witness_base: int, openings: dict):
@@ -150,6 +215,43 @@ class RamRafEvaluationVerifier(_Verifier):
         a_eval = addr_mle_eval(r_addr, self.witness_base)
         return (eq.eq_int(self.r_cycle, r_cyc) * self.openings["ra"] % P
                 * a_eval % P)
+
+
+class RamValEvaluation(_DenseTwist):
+    """Proves Val(r) - Val_init(r_addr) = prefix-sum of increments."""
+
+    opened = ("ra", "inc")
+
+    def __init__(self, wit: RamWitness, r_addr: Sequence[int],
+                 r_cyc: Sequence[int], val_claim: int, device="cuda"):
+        self.wit = wit
+        self.T, self.K = wit.T, wit.K
+        init_eval = init_mle_eval(wit.init_vals, r_addr)
+        self._input_claim = (val_claim - init_eval) % P
+        device = torch.device(device)
+        # LT(j, r_cyc) * eq(r_addr, k): two factors, cycle and address
+        self._start({"lt": cycle_column(lt.evals(list(r_cyc), device),
+                                        device),
+                     "eq": addr_column(eq.evals(list(r_addr), device),
+                                       device),
+                     "ra": matrix(wit.ra, self.K, device),
+                     "inc": cycle_column(wit.inc, device)},
+                    self.T.bit_length() - 1, wit.log_K)
+
+    def input_claim(self, accumulator: OpeningAccumulator) -> int:
+        return self._input_claim
+
+    def _summand(self, v):
+        return ops.mont_mul(ops.mont_mul(v["lt"], v["eq"]),
+                            ops.mont_mul(v["ra"], v["inc"]))
+
+    def cache_openings(self, accumulator: OpeningAccumulator,
+                       r_slice: Sequence[int]) -> None:
+        r_cyc = list(r_slice[:self.log_T])
+        accumulator.insert(("ram_val_eval", "ra"), list(r_slice),
+                           self.final_openings["ra"])
+        accumulator.insert(("ram_val_eval", "inc"), r_cyc,
+                           self.final_openings["inc"])
 
 
 class RamValEvaluationVerifier(_Verifier):
@@ -181,6 +283,60 @@ class RamValEvaluationVerifier(_Verifier):
         lt_eval = lt.lt_point_int(r_cyc_new, self.r_cyc)
         eq_addr = eq.eq_int(self.r_addr, r_addr_new)
         return lt_eval * eq_addr % P * o["ra"] % P * o["inc"] % P
+
+
+class RamOutputCheck(_DenseTwist):
+    """Proves the public outputs equal the final RAM state in the output
+    region (`zkvm/ram/output_check.rs` analog).
+
+    For a transcript challenge z, with W(k) = z^i for the i-th output-region
+    cell (else 0) -- a sparse PUBLIC polynomial:
+
+        sum_i z^i*out_i - sum_k W(k)*Val_init(k)
+            = sum_{k,j} W(k) * ra(k,j) * inc(j)
+
+    (final value = initial value + all increments; contracting with W
+    isolates the output region).  Degree-3; batches with RamValEvaluation.
+    """
+
+    opened = ("ra", "inc")
+
+    def __init__(self, wit: RamWitness, layout, z: int, outputs: bytes,
+                 device="cuda"):
+        self.wit = wit
+        self.T, self.K = wit.T, wit.K
+        self.z = z
+        self.out_cells = output_region_cells(layout, wit.witness_base, wit.K)
+        out_words = outputs_as_words(outputs, layout)
+        lhs = 0
+        zp = 1
+        init_term = 0
+        W = [0] * self.K
+        for k in self.out_cells:
+            W[k] = zp
+            lhs = (lhs + zp * out_words.get(k, 0)) % P
+            init_term = (init_term + zp * wit.init_vals.get(k, 0)) % P
+            zp = zp * self.z % P
+        self._input_claim = (lhs - init_term) % P
+        device = torch.device(device)
+        self._start({"w": addr_column(W, device),
+                     "ra": matrix(wit.ra, self.K, device),
+                     "inc": cycle_column(wit.inc, device)},
+                    self.T.bit_length() - 1, wit.log_K)
+
+    def input_claim(self, accumulator: OpeningAccumulator) -> int:
+        return self._input_claim
+
+    def _summand(self, v):
+        return ops.mont_mul(v["w"], ops.mont_mul(v["ra"], v["inc"]))
+
+    def cache_openings(self, accumulator: OpeningAccumulator,
+                       r_slice: Sequence[int]) -> None:
+        accumulator.insert(("ram_output", "ra"), list(r_slice),
+                           self.final_openings["ra"])
+        accumulator.insert(("ram_output", "inc"),
+                           list(r_slice[:self.log_T]),
+                           self.final_openings["inc"])
 
 
 class RamOutputCheckVerifier(_Verifier):

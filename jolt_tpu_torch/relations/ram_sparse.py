@@ -71,6 +71,7 @@ from .ram import (RamOutputCheckVerifier, RamRafEvaluationVerifier,
                   RamReadWriteCheckingVerifier, RamValEvaluationVerifier,
                   addr_mle_eval, init_mle_eval, output_region_cells,
                   outputs_as_words)
+from .registers_rw import index_mle_eval
 
 P = FR.modulus
 _M32 = np.uint64(0xFFFFFFFF)
@@ -928,15 +929,6 @@ class SparseRegistersValEvaluationVerifier(_SparseVerifier):
         lt_eval = lt.lt_point_int(r_cyc_new, self.r_cyc)
         eq_addr = eq.eq_int(self.r_addr, r_addr_new)
         return lt_eval * eq_addr % P * o["wa"] % P * o["inc"] % P
-
-
-def index_mle_eval(r_addr) -> int:
-    """B(r) for B(k) = k over the register space (big-endian)."""
-    n = len(r_addr)
-    acc = 0
-    for i, rb in enumerate(r_addr):
-        acc = (acc + (1 << (n - 1 - i)) * rb) % P
-    return acc
 
 
 class SparseRegistersRafVerifier(_SparseVerifier):

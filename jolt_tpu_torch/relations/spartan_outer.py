@@ -1,8 +1,7 @@
 """Spartan outer sumcheck over the uniform RV64 R1CS, with univariate skip.
 
-Torch counterpart of the JAX package's `relations/spartan_outer.py`, the
-materialized tier (the bench's 2^18 trace stays below its streaming
-threshold of 2^19 cycles).  Proves
+Torch counterpart of the JAX package's `relations/spartan_outer.py`.
+Proves
 
     0 = sum_{k,j} weight(k) * eq(tau, j) * (Az(k,j)*Bz(k,j) - Cz(k,j))
 
@@ -22,6 +21,15 @@ Device work: the 38 input columns lift to Montgomery form, and Az/Bz/Cz
 row combos are sparse linear combinations of them, summed exactly in int64
 limb planes (`ops.reduce_cols`).  Host work: transcript, Lagrange algebra,
 verifier algebra.
+
+Two tiers hold the columns, as in the JAX package, with the same bytes:
+below `STREAM_THRESHOLD` cycles the whole Montgomery stack (8, 38, T)
+lives on the device (32 B a value); from it on, the streaming tier keeps
+only the witness words (4, 38, T) and the sign mask (38, T) there (17 B a
+value, `StreamedColumns`) and lifts one `STREAM_CHUNK` of cycles at a time
+for each of its three consumers: the uni-skip extended sums, the matrices
+bound at Y=r0 and the 38 input openings.  `prove` / `prove_uniskip` force
+a tier with the private `_stream_stage1`.
 """
 
 from __future__ import annotations
@@ -53,6 +61,11 @@ assert C.NUM_CONSTRAINTS == NUM_GROUPS * UNISKIP_DOMAIN
 # gathered-column and product scratch to 2^24 elements (~0.5 GB at 8 limbs)
 _COMBO_CHUNK = 1 << 24
 
+# the streaming tier: cycles lifted at a time (a power of two), and the
+# trace length from which `prove` streams (the JAX package's `>=`)
+STREAM_CHUNK = 1 << 16
+STREAM_THRESHOLD = 1 << 19
+
 
 def num_stage1_rounds(log_T: int) -> int:
     """Remaining-sumcheck rounds after the uni-skip first round."""
@@ -63,13 +76,10 @@ def num_stage1_rounds(log_T: int) -> int:
 # device evaluation of sparse row combos
 # ---------------------------------------------------------------------------
 
-def pack_input_columns(inputs: R1CSCycleInputs, device) -> torch.Tensor:
-    """All 38 columns as one Montgomery limb tensor (8, 38, T).
-
-    The (lo, hi) u64 witness words are the low 128 bits of the plain value
-    hi*2^64 + lo; one mont_mul by R^2 lifts them, and signed columns with
-    the top bit of hi set subtract 2^128 (exact signed semantics, as the
-    reference's `_lift_body`)."""
+def _input_words(inputs: R1CSCycleInputs):
+    """The 38 columns' u64 (lo, hi) witness words as (4, 38, T) int32 (lo's
+    low and high word, then hi's) and the (38, T) mask of signed columns
+    whose value is negative (the top bit of hi set)."""
     lo, hi = inputs.lo, inputs.hi
     signed_rows = np.zeros(NUM_VARS, bool)
     for v in SIGNED_COLS:
@@ -78,10 +88,68 @@ def pack_input_columns(inputs: R1CSCycleInputs, device) -> torch.Tensor:
     words = np.stack([lo, hi]).view(np.uint32)              # (2, 38, 2T)
     words = words.reshape(2, NUM_VARS, -1, 2).transpose(0, 3, 1, 2)
     words = np.ascontiguousarray(words).reshape(4, NUM_VARS, -1)
-    val = ops.from_words(
-        torch.from_numpy(words.view(np.int32)).to(device))
-    mask = torch.from_numpy(sign_mask).to(device)
+    return words.view(np.int32), sign_mask
+
+
+def _lift(words: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Witness words (4, 38, n) and sign mask (38, n) -> Montgomery limbs
+    (8, 38, n).  The words are the low 128 bits of the plain value
+    hi*2^64 + lo; one mont_mul by R^2 lifts them, and signed columns with
+    the top bit of hi set subtract 2^128 (exact signed semantics, as the
+    reference's `_lift_body`)."""
+    val = ops.from_words(words)
     return ops.select(mask, ops.sub(val, 1 << 128), val)
+
+
+def pack_input_columns(inputs: R1CSCycleInputs, device) -> torch.Tensor:
+    """All 38 columns as one Montgomery limb tensor (8, 38, T): the
+    materialized tier."""
+    words, sign_mask = _input_words(inputs)
+    return _lift(torch.from_numpy(words).to(device),
+                 torch.from_numpy(sign_mask).to(device))
+
+
+class StreamedColumns:
+    """The streaming tier's handle on the 38 columns: the witness words
+    (4, 38, T) int32 and the sign mask (38, T), uploaded once and kept on
+    `device`; `chunks()` lifts `chunk` cycles at a time."""
+
+    def __init__(self, inputs: R1CSCycleInputs, device, chunk: int):
+        words, sign_mask = _input_words(inputs)
+        self.words = torch.from_numpy(words).to(device)
+        self.sign_mask = torch.from_numpy(sign_mask).to(device)
+        self.device = self.words.device
+        self.T = self.words.shape[-1]
+        self.chunk = chunk
+
+    def chunks(self):
+        """(start, Montgomery limbs (8, 38, chunk)) for each chunk."""
+        for s in range(0, self.T, self.chunk):
+            e = s + self.chunk
+            yield s, _lift(self.words[:, :, s:e], self.sign_mask[:, s:e])
+
+
+def _chunks(cols):
+    """(start, Montgomery limbs (8, 38, n)) over the columns: the
+    materialized stack as one chunk, or a `StreamedColumns`' chunks."""
+    return cols.chunks() if isinstance(cols, StreamedColumns) else [(0, cols)]
+
+
+def stream_chunk(T: int, stream=None) -> int:
+    """The streaming tier's chunk length for a trace of T cycles, or 0 for
+    the materialized tier.  `stream` is `prove`'s `_stream_stage1`: None
+    streams from `STREAM_THRESHOLD` cycles on, False never, True always at
+    `STREAM_CHUNK`, and a power of two always at that chunk length (the
+    tests' way to get several chunks from a small trace; the bytes do not
+    depend on it)."""
+    if stream is None:
+        stream = T >= STREAM_THRESHOLD
+    if stream is False:
+        return 0
+    chunk = STREAM_CHUNK if stream is True else int(stream)
+    if chunk < 1 or chunk & (chunk - 1):
+        raise ValueError(f"stream chunk {chunk} is not a power of two")
+    return min(chunk, T)
 
 
 def _combo_terms(w_rows: Sequence[Tuple[int, Dict[int, int]]], device):
@@ -121,6 +189,18 @@ def _combo(cols: torch.Tensor, terms, n_out: int) -> torch.Tensor:
     return ops.reduce_cols(acc)
 
 
+def _combo_streamed(cols: StreamedColumns, terms_list, n_out: int):
+    """`_combo` of each term set over the streamed columns, written chunk
+    by chunk into preallocated (8, n_out, T) outputs; each chunk's columns
+    are lifted once for every term set."""
+    outs = [torch.empty((ops.N_LIMBS, n_out, cols.T), dtype=torch.int32,
+                        device=cols.device) for _ in terms_list]
+    for s, chunk in cols.chunks():
+        for out, terms in zip(outs, terms_list):
+            out[:, :, s:s + chunk.shape[-1]] = _combo(chunk, terms, n_out)
+    return outs
+
+
 def _group_w_rows(y_basis: Sequence[int]):
     """For Lagrange weights [l_i(y)] over the 11-slot window, build the
     per-(group, matrix) combined LCs  W[g][m] : var -> sum_i l_i * coeff."""
@@ -141,11 +221,15 @@ def _group_w_rows(y_basis: Sequence[int]):
 # ---------------------------------------------------------------------------
 
 def prove_uniskip(inputs: R1CSCycleInputs, tau: Sequence[int], transcript,
-                  device="cuda"):
+                  device="cuda", _stream_stage1=None):
     """Compute + absorb the uni-skip first-round polynomial; returns
     (cols_dev, s1_coeffs, r0, claim1, l_scale).
 
-    tau = [tau_high, tau_g, *tau_cyc]  (1 + 1 + log_T challenges)."""
+    tau = [tau_high, tau_g, *tau_cyc]  (1 + 1 + log_T challenges).
+    `cols_dev` is the Montgomery stack (8, 38, T) on the materialized tier
+    and a `StreamedColumns` on the streaming tier (`stream_chunk` reads
+    `_stream_stage1`), where the extended sums accumulate chunk by chunk
+    in int64 limb planes."""
     tau_high, tau_g, tau_cyc = tau[0], tau[1], list(tau[2:])
     E_cyc = eq.evals(tau_cyc, device)                    # (L, T)
 
@@ -161,14 +245,22 @@ def prove_uniskip(inputs: R1CSCycleInputs, tau: Sequence[int], transcript,
             for m in range(3):
                 w_rows[m].append((zi * NUM_GROUPS + g, Wz[g][m]))
     n_out = UNISKIP_DEGREE * NUM_GROUPS
-    cols_dev = pack_input_columns(inputs, device)
-    AZ = _combo(cols_dev, _combo_terms(w_rows[0], device), n_out)
-    BZ = _combo(cols_dev, _combo_terms(w_rows[1], device), n_out)
-    CZ = _combo(cols_dev, _combo_terms(w_rows[2], device), n_out)
-    inner = ops.sub(ops.mont_mul(AZ, BZ), CZ)            # (L, n_out, T)
-    del AZ, BZ, CZ
-    sums = ops.dot(inner, E_cyc[:, None, :])             # (L, n_out, 1)
-    zg = ops.unpack_ints(sums.reshape(sums.shape[0], n_out))
+    terms = [_combo_terms(w_rows[m], device) for m in range(3)]
+    chunk = stream_chunk(inputs.T, _stream_stage1)
+    cols_dev = (StreamedColumns(inputs, device, chunk) if chunk
+                else pack_input_columns(inputs, device))
+    # sum_j E(j) (Az Bz - Cz)(out, j) as exact int64 limb planes: each
+    # term's 32-bit limbs summed over at most 2^31 cycles stay below 2^63
+    acc = torch.zeros((ops.N_LIMBS, n_out), dtype=torch.int64,
+                      device=E_cyc.device)
+    for s, cols in _chunks(cols_dev):
+        AZ, BZ, CZ = (_combo(cols, t, n_out) for t in terms)
+        inner = ops.sub(ops.mont_mul(AZ, BZ), CZ)        # (L, n_out, C)
+        del AZ, BZ, CZ
+        E = E_cyc[:, None, s:s + inner.shape[-1]]
+        acc += ops.u64_words(ops.mont_mul(inner, E)).sum(dim=-1)
+        del inner
+    zg = ops.unpack_ints(ops.reduce_cols(acc))
 
     eq_g = [(1 - tau_g) % P, tau_g % P]
     t1_ext = [(eq_g[0] * zg[zi * NUM_GROUPS] +
@@ -234,8 +326,7 @@ class SpartanOuterProver(FusedInstance):
     degree = 3
 
     def __init__(self, inputs: R1CSCycleInputs, tau: Sequence[int],
-                 r0: int, claim: int, l_scale: int,
-                 cols_dev: torch.Tensor):
+                 r0: int, claim: int, l_scale: int, cols_dev):
         T = inputs.T
         self.log_T = T.bit_length() - 1
         self._num_rounds = 1 + self.log_T
@@ -249,13 +340,14 @@ class SpartanOuterProver(FusedInstance):
         y_basis = lag.lagrange_basis_at(
             lag.symmetric_domain(UNISKIP_DOMAIN), r0)
         Wr = _group_w_rows(y_basis)
-        mats = []
-        for m in range(3):
-            rows = [(g, Wr[g][m]) for g in range(NUM_GROUPS)]
-            out = _combo(cols_dev, _combo_terms(rows, self.device),
-                         NUM_GROUPS)
-            mats.append(out.reshape(out.shape[0], NUM_GROUPS * T))
-        self.AZ, self.BZ, self.CZ = mats
+        terms = [_combo_terms([(g, Wr[g][m]) for g in range(NUM_GROUPS)],
+                              self.device) for m in range(3)]
+        if isinstance(cols_dev, StreamedColumns):
+            mats = _combo_streamed(cols_dev, terms, NUM_GROUPS)
+        else:
+            mats = [_combo(cols_dev, t, NUM_GROUPS) for t in terms]
+        self.AZ, self.BZ, self.CZ = (
+            out.reshape(out.shape[0], NUM_GROUPS * T) for out in mats)
 
         E_cyc = eq.evals(tau_cyc, self.device)
         e0 = ops.mont_mul(E_cyc, (1 - tau_g) % P * l_scale % P)
@@ -281,10 +373,17 @@ class SpartanOuterProver(FusedInstance):
 
     def fused_finals(self) -> List[torch.Tensor]:
         """All 38 R1CS input MLEs at r_cycle (the cycle rounds' challenges,
-        ints or device scalars): one eq table and one dot, (L, 38)."""
+        ints or device scalars): one eq table and one dot, (L, 38).  The
+        dot's int64 limb planes accumulate chunk by chunk on the device
+        (exact, as the uni-skip sums) and reduce once: no value leaves the
+        card, on either tier."""
         Ecyc = eq.evals(self._r[1:], self.device)
-        sums = ops.dot(self.cols_dev, Ecyc[:, None, :])   # (L, 38, 1)
-        return [sums.reshape(sums.shape[0], NUM_VARS)]
+        acc = torch.zeros((ops.N_LIMBS, NUM_VARS), dtype=torch.int64,
+                          device=self.device)
+        for s, cols in _chunks(self.cols_dev):
+            E = Ecyc[:, None, s:s + cols.shape[-1]]
+            acc += ops.u64_words(ops.mont_mul(cols, E)).sum(dim=-1)
+        return [ops.reduce_cols(acc)]
 
     def fused_store(self, values: List[int]) -> None:
         self.input_openings = list(values)

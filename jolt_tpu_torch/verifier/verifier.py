@@ -110,6 +110,11 @@ class PublicIO:
 _PI_COMMIT_CACHE: Dict[tuple, object] = {}
 
 
+
+def expected_bytecode_log_K(program) -> int:
+    """log2 of the bytecode space `verify` expects for the program."""
+    return bytecode_K(program).bit_length() - 1
+
 def _program_image_commitment(pcs, code: bytes):
     """Recompute (and cache per program+scheme shape) the commitment to
     the program-image words polynomial."""
@@ -234,7 +239,7 @@ def _verify_through_6v(proof, io: PublicIO, pcs=None) -> _Run:
     they share), after the commitments' absorption when `pcs` is given;
     returns the verification's state."""
     program = expand_program(io.code, io.entry, io.start)
-    if proof.bytecode_log_K != bytecode_K(program).bit_length() - 1:
+    if proof.bytecode_log_K != expected_bytecode_log_K(program):
         raise VerificationError("bytecode_log_K inconsistent with program")
     log_T = io.padded_length.bit_length() - 1
     try:

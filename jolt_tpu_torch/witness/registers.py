@@ -1,11 +1,12 @@
 """Register-file witness for the Twist read/write-checking argument.
 
 Copied from the JAX package's `witness/registers.py` (host code, logic
-unchanged); the port keeps the sparse access log that the sparse Twist tier
-reads (`RegisterLog`, `extract_register_log`), not the dense K x T witness.
+unchanged): the sparse access log that the sparse Twist tier reads
+(`RegisterLog`, `extract_register_log`) and the dense K x T witness of
+the dense tier (`relations/registers_rw.py`).
 
-The log describes the (K x T) one-hot access matrices and the value table
-of the register file (reference: `crates/jolt-witness/src/witnesses/{one_hot,registers,increments}.rs`,
+Builds the (K x T) one-hot access matrices and value table from the trace
+(reference: `crates/jolt-witness/src/witnesses/{one_hot,registers,increments}.rs`,
 relation spec in `zkvm/registers/read_write_checking.rs:51-68`):
 
   * wa(k,j)  = 1 iff register k is written at cycle j (rd == k); rows with
@@ -34,6 +35,19 @@ P = FR.modulus
 K = 128          # REGISTER_COUNT (common/src/constants.rs:2-5)
 LOG_K = 7
 M64 = (1 << 64) - 1
+
+
+@dataclasses.dataclass
+class RegisterWitness:
+    wa: List[int]     # [K*T] 0/1
+    ra1: List[int]
+    ra2: List[int]
+    val: List[int]    # [K*T] u64 register values
+    inc: List[int]    # [T] field ints (rd_post - rd_pre mod p)
+    rd_write: List[int]   # [T] RdWriteValue(j) (u64)
+    rs1_read: List[int]   # [T]
+    rs2_read: List[int]   # [T]
+    T: int
 
 
 @dataclasses.dataclass
@@ -126,3 +140,57 @@ def extract_register_log(trace: Trace) -> RegisterLog:
         post=np.asarray(post, dtype=np.uint64),
         inc=inc, rd_eff=rd_eff, rs1_eff=rs1_eff, rs2_eff=rs2_eff,
         wa_pre=wa_pre, wa_post=wa_post, T=T)
+
+
+def extract_register_witness(trace: Trace) -> RegisterWitness:
+    T = trace.padded_length
+    kinds = trace.col("kind").tolist()
+    rd = trace.col("rd").tolist()
+    rs1 = trace.col("rs1").tolist()
+    rs2 = trace.col("rs2").tolist()
+
+    def u64(name):
+        import numpy as np
+        lo, hi = trace.u64_col(name)
+        return (lo.astype(np.uint64) | (hi.astype(np.uint64) << np.uint64(32))).tolist()
+
+    rs1_val = u64("rs1_val")
+    rs2_val = u64("rs2_val")
+    rd_pre = u64("rd_pre")
+    rd_post = u64("rd_post")
+
+    wa = [0] * (K * T)
+    ra1 = [0] * (K * T)
+    ra2 = [0] * (K * T)
+    val = [0] * (K * T)
+    inc = [0] * T
+
+    regs = [0] * K
+    noop = isa.KIND_ID["NOOP"]
+    for j in range(T):
+        base = j * K
+        for k in range(K):
+            val[base + k] = regs[k]
+        if kinds[j] != noop:
+            ra1[base + rs1[j]] = 1
+            ra2[base + rs2[j]] = 1
+            assert regs[rs1[j]] == rs1_val[j], f"rs1 mismatch at {j}"
+            assert regs[rs2[j]] == rs2_val[j], f"rs2 mismatch at {j}"
+        else:
+            ra1[base] = 1  # x0 sink: reads 0
+            ra2[base] = 1
+        if rd[j] != 255:
+            k = rd[j]
+            wa[base + k] = 1
+            assert regs[k] == rd_pre[j], f"rd_pre mismatch at {j}"
+            inc[j] = (rd_post[j] - rd_pre[j]) % P
+            regs[k] = rd_post[j]
+        else:
+            wa[base] = 1  # x0 sink: writes increment 0
+
+    rd_write = [rd_post[j] if rd[j] != 255 else 0 for j in range(T)]
+    rs1_read = [rs1_val[j] if kinds[j] != noop else 0 for j in range(T)]
+    rs2_read = [rs2_val[j] if kinds[j] != noop else 0 for j in range(T)]
+    return RegisterWitness(wa=wa, ra1=ra1, ra2=ra2, val=val, inc=inc,
+                           rd_write=rd_write, rs1_read=rs1_read,
+                           rs2_read=rs2_read, T=T)

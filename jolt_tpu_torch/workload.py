@@ -5,7 +5,8 @@ The workload is `bench.py`'s: the sha2-chain guest
 (`examples/gen_sha256.py:emit_inline`, ~2.3k cycles per SHA-256
 compression), hashing `SHA2_INPUT` `SHA2_CHAIN` times, which lands the trace
 at ~2^18 cycles.  `chip_smoke.py` and `profile_prefix.py` run it at that
-size; the tests run it at chain=1.
+size, and `chip_smoke.py` at `SHA2_CHAIN_2_20` (2^20, stage 1's streaming
+tier); the tests run it at chain=1.
 """
 
 from __future__ import annotations
@@ -28,6 +29,10 @@ from .tracer.native import trace_program_native
 from .tracer.trace import Trace
 
 SHA2_CHAIN = 114          # ~2^18 cycles, the bench's size
+# the streaming tier's size: 1,028,514 cycles, padded to 2^20 (stage 1
+# streams from `spartan_outer.STREAM_THRESHOLD`, 2^19)
+SHA2_CHAIN_2_20 = 450
+SHA2_CHAIN_2_20_CYCLES = 1_028_514
 SHA2_INPUT = bytes(range(32))
 _GEN_SHA256 = (pathlib.Path(__file__).resolve().parent.parent / "examples"
                / "gen_sha256.py")

@@ -2,8 +2,8 @@
 CPU.
 
 Its slot table is the JAX package's, key for key; every class slot
-resolves to a class of the port but the two the port does not have yet
-(ROADMAP A19), whose factories raise.  `prove` builds each relation
+resolves to a class of the port, and the two slots no `prove` path makes
+("opening", "naive") build through the seam.  `prove` builds each relation
 through the seam at the JAX package's slot sites, and proof bytes are
 backend-invariant: on the small guest of the JAX package's
 `tests/test_backend_registry.py` at `setup=None`, slots forced to the host
@@ -27,7 +27,7 @@ from jolt_tpu.kernels import SLOTS as JAX_SLOTS
 
 import jolt_tpu_torch as jt
 from jolt_tpu_torch.kernels import JoltBackend, SLOTS, get_backend, set_backend
-from jolt_tpu_torch.kernels.registry import NOT_PORTED
+from jolt_tpu_torch.kernels.registry import _CLASS_SLOTS, NOT_PORTED
 from jolt_tpu_torch.proof_io import serialize_proof
 from jolt_tpu_torch.riscv.emulator import MemoryLayout
 from jolt_tpu_torch.sumcheck import fused
@@ -79,19 +79,32 @@ def test_slots_equal_the_jax_packages():
     assert SLOTS == JAX_SLOTS
 
 
-def test_class_slots_resolve_but_the_unported_raise():
-    factories = JoltBackend.default().factories
-    assert set(NOT_PORTED) == {"opening", "naive"}
-    assert set(NOT_PORTED) <= set(factories)
-    for name, factory in factories.items():
-        if name in NOT_PORTED:
-            with pytest.raises(NotImplementedError, match="A19"):
-                factory()
-            continue
-        mod_name, cls_name = factory.target.split(":")
-        cls = getattr(importlib.import_module(f"jolt_tpu_torch.{mod_name}"),
-                      cls_name)
-        assert isinstance(cls, type), name
+def _build_args(slot):
+    """Small constructor arguments for the slots no `prove` path makes."""
+    if slot == "opening":
+        return ([1, 0, 3, 2], 4, [5, 6, 7, 8], 1, "m"), {"device": "cpu"}
+    if slot == "naive":
+        from jolt_tpu_torch.claims import Poly
+        return (Poly("a") * Poly("b"), {"a": [1, 2], "b": [3, 4]}), {}
+    return None
+
+
+@pytest.mark.parametrize("slot", sorted(_CLASS_SLOTS))
+def test_every_class_slot_resolves_and_builds(slot):
+    """Every class slot's factory resolves to a class of the port (none is
+    left unported), and the two slots no `prove` path makes build their
+    instances through the seam."""
+    assert not NOT_PORTED
+    factory = JoltBackend.default().factories[slot]
+    mod_name, cls_name = factory.target.split(":")
+    cls = getattr(importlib.import_module(f"jolt_tpu_torch.{mod_name}"),
+                  cls_name)
+    assert isinstance(cls, type)
+    args = _build_args(slot)
+    if args is not None:
+        inst = JoltBackend.default().with_tier(slot, "host").make(
+            slot, *args[0], **args[1])
+        assert type(inst) is cls and inst.force_host
 
 
 def test_tiers_are_host_or_device():
@@ -106,10 +119,10 @@ def test_tiers_are_host_or_device():
 
 
 def test_with_every_slot_forces_each_slot_that_can_take_the_tier():
-    from jolt_tpu_torch.kernels.registry import _CLASS_SLOTS
     device = JoltBackend.default().with_every_slot("device").tiers
-    assert set(device) == (set(_CLASS_SLOTS) - set(NOT_PORTED)
-                           - {"instruction_read_raf", "commitment"})
+    assert set(device) == (set(_CLASS_SLOTS)
+                           - {"instruction_read_raf", "commitment", "naive"})
+    assert "opening" in device
     assert set(device.values()) == {"device"}
     host = JoltBackend.default().with_every_slot("host").tiers
     assert set(host) == set(_CLASS_SLOTS)

@@ -10,7 +10,12 @@ stacked product message of stage 5i, the ra virtualization of stage 6v and
 the grouped one-hot and dense-opening instances of stages 7 and 8 on
 "cuda" against "cpu", and the prover on "cuda" against the prover on "cpu"
 (stages 1-6v, with and without stage-6v instances; the whole proof's bytes,
-with and without advice regions, and with a Dory setup).
+with and without advice regions, and with a Dory setup); stage 1 streamed
+on the card (the materialized bytes, no synchronizing call in the loops),
+and the alternative tiers: the one-hot relations (`Booleanity`,
+`HammingWeight`, `SparseOneHotOpening`) on the device tier == the host
+engine == "cpu", the dense Twist provers "cuda" == "cpu", the naive
+interpreter == a `DenseOpening` on the card.
 
 These tests need an NVIDIA GPU; without one they skip.  The machine with
 the card has no JAX, so this module imports none, and there it runs
@@ -431,6 +436,132 @@ def test_prove_device_tier_on_card_equals_host_forced(card):
     assert serialize_proof(dev) == serialize_proof(host)
     assert dev.fs_tape == host.fs_tape
     assert verify(dev, PublicIO.from_trace(trace))
+
+
+def test_streamed_stage1_on_card(card):
+    """fib's whole proof on the card with stage 1 streamed in four chunks
+    (`_stream_stage1`) has the materialized proof's bytes and FS tape,
+    with one fetch a device-tier stage and no synchronizing call from a
+    stage's first message to its fetch (the streamed openings included)."""
+    trace = _fib20()
+    chunk = trace.padded_length // 4
+    streamed, k4, fetches = _on_device_tier(
+        lambda: prove(trace, device=card, _stream_stage1=chunk))
+    materialized, k4_m, fetches_m = _on_device_tier(
+        lambda: prove(trace, device=card))
+    assert serialize_proof(streamed) == serialize_proof(materialized)
+    assert streamed.fs_tape == materialized.fs_tape
+    assert (k4, fetches) == (k4_m, fetches_m)
+
+
+def onehot_stage(trace, device):
+    """A19's one-hot relations on a trace's index streams (the rd register
+    stream, K = 128; the bytecode's, K = 2^log K; the RAM's, K = 2^log K):
+    a `Booleanity`, a `HammingWeight` and a `SparseOneHotOpening` each,
+    with seeded points and claims."""
+    from jolt_tpu_torch.relations.booleanity import Booleanity, HammingWeight
+    from jolt_tpu_torch.relations.opening_reduction import \
+        SparseOneHotOpening
+    from jolt_tpu_torch.witness.bytecode import extract_bytecode_witness
+    from jolt_tpu_torch.witness.ram import extract_ram_log
+    from jolt_tpu_torch.witness.registers import extract_register_log
+    log_t = trace.log_T
+    bc = extract_bytecode_witness(trace)
+    ram = extract_ram_log(trace)
+    streams = [(extract_register_log(trace).rd_eff, 128),
+               (bc.pc_idx, 1 << bc.log_K), (ram.cols, 1 << ram.log_K)]
+    rng = np.random.default_rng(31)
+    insts = []
+    for i, (idx, K) in enumerate(streams):
+        lk = K.bit_length() - 1
+        r_addr, r_cyc, point, claim = (
+            _field_ints(rng, lk), _field_ints(rng, log_t),
+            _field_ints(rng, lk + log_t), _field_ints(rng, 1)[0])
+        idx = np.asarray(idx, dtype=np.int64)
+        insts += [Booleanity(idx, K, r_addr, r_cyc, f"b{i}", device=device),
+                  HammingWeight(idx, K, r_cyc, f"h{i}", device=device),
+                  SparseOneHotOpening(idx, K, point, claim, f"o{i}",
+                                      device=device)]
+    return insts
+
+
+def run_stage(insts, tier):
+    """The stage on a fresh transcript on its instances' device: the
+    device tier (forced) or the host engine; (round polynomials, openings,
+    transcript state) and its K4 launches."""
+    from jolt_tpu_torch.sumcheck.fused import prove_fused
+    acc, transcript = OpeningAccumulator(), Blake2bTranscript(b"a19")
+    k4 = kernels.k4_launches()
+    if tier == "device":
+        for inst in insts:
+            inst.force_device = True
+        polys, _ = prove_fused(insts, acc, transcript)
+    else:
+        polys, _ = BatchedSumcheck.prove(insts, acc, transcript)
+    return (polys, acc.openings, transcript.state), kernels.k4_launches() - k4
+
+
+def test_onehot_relations_card_equal_host_and_cpu(card):
+    """Booleanity, HammingWeight and SparseOneHotOpening on fib's streams:
+    the card's device tier (one K4 launch a round, no synchronizing call
+    in the loop) == the card's host engine == the CPU."""
+    trace = _fib20()
+    (dev, k4), _, _ = _on_device_tier(
+        lambda: run_stage(onehot_stage(trace, card), "device"))
+    host, k4_h = run_stage(onehot_stage(trace, card), "host")
+    cpu, _ = run_stage(onehot_stage(trace, "cpu"), "host")
+    assert dev == host == cpu
+    insts = onehot_stage(trace, "cpu")
+    assert k4 == max(i.num_rounds for i in insts) and k4_h == 0
+
+
+def dense_stages(trace, device):
+    """The dense Twist provers of `registers_rw.py` and of `ram.py` on the
+    trace's dense witnesses, with seeded points and claims: one stage a
+    module."""
+    from jolt_tpu_torch.relations import ram as ram_mod, registers_rw
+    from jolt_tpu_torch.witness.ram import extract_ram_witness
+    from jolt_tpu_torch.witness.registers import extract_register_witness
+    reg = extract_register_witness(trace)
+    rng = np.random.default_rng(32)
+    log_t = trace.log_T
+    r_cyc = _field_ints(rng, log_t)
+    g, c1, c2, c3, c4, z = _field_ints(rng, 6)
+    stages = [[registers_rw.RegistersReadWriteChecking(
+                   reg, g, r_cyc, [c1, c2, c3], device),
+               registers_rw.RegistersValEvaluation(
+                   reg, _field_ints(rng, 7), r_cyc, c4, device),
+               registers_rw.RegistersRaf(reg.wa, None, r_cyc, c1, "rd",
+                                         device)]]
+    rw = extract_ram_witness(trace)
+    stages.append([
+        ram_mod.RamReadWriteChecking(rw, g, r_cyc, c1, c2, device),
+        ram_mod.RamRafEvaluation(rw, r_cyc, c3, device),
+        ram_mod.RamValEvaluation(rw, _field_ints(rng, rw.log_K), r_cyc, c4,
+                                 device),
+        ram_mod.RamOutputCheck(rw, trace.memory_layout, z,
+                               bytes(trace.device.outputs), device)])
+    return stages
+
+
+def test_dense_twist_card_equals_cpu(card):
+    trace = _fib20()
+    for on_card, on_cpu in zip(dense_stages(trace, card),
+                               dense_stages(trace, "cpu")):
+        assert run_stage(on_card, "host") == run_stage(on_cpu, "host")
+
+
+def test_naive_expr_equals_dense_opening_on_card(card):
+    """The naive interpreter (host ints) and a `DenseOpening` on the card
+    prove sum_x eq(q, x) P(x) with the same round polynomials."""
+    from jolt_tpu_torch.claims import NaiveExprProver, Poly
+    rng = np.random.default_rng(33)
+    q, vals = _field_ints(rng, 6), _field_ints(rng, 64)
+    naive = NaiveExprProver(Poly("e") * Poly("p"), {
+        "e": ops.unpack_ints(eq.evals(q, "cpu")), "p": vals})
+    dense = DenseOpening(vals, q, naive.input_claim(None), "p",
+                         device=card)
+    assert run_stage([naive], "host")[0][0] == run_stage([dense], "host")[0][0]
 
 
 @pytest.mark.parametrize("nf", [2, 3])

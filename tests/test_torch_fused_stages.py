@@ -22,6 +22,8 @@ already paid the JAX package's compiles of those shapes.)  The stages:
     kind with three members and with one) at T = 2^6, a `DenseOpening`
     and a `ProgramImageReduction`, of 5 to 11 rounds.
 
+fib's whole `prove` with stage 1 streamed (four chunks), on the host
+engine and on the device tier, gives the default's bytes.
 fib's whole `prove` with every slot that has the device tier forced to
 it (`with_every_slot("device")`; `apply_tier` for the instances `prove`
 builds directly) gives the default run's bytes, with one fetch for each of its
@@ -267,6 +269,33 @@ def test_all_device_proof_verifies_in_jax(fib, fib_proofs):
     proof, statement = jproof_io.deserialize_proof(
         serialize_proof(fib_proofs[1]))
     assert j_verify(proof, JPublicIO.from_trace(fib[0]))
+
+
+@pytest.fixture(scope="module")
+def streamed_proofs(fib):
+    """fib's proof with stage 1 streamed in four chunks of 64 cycles
+    (`_stream_stage1`), on the host engine and with every device-tier slot
+    forced to the device tier, with the latter's fetches."""
+    chunk = fib[1].padded_length // 4
+    host = jt.prove(fib[1], device=CPU, _stream_stage1=chunk)
+    set_backend(JoltBackend.default().with_every_slot("device"))
+    f0 = fused.fetches
+    try:
+        forced = jt.prove(fib[1], device=CPU, _stream_stage1=chunk)
+    finally:
+        set_backend(None)
+    return host, forced, fused.fetches - f0
+
+
+@pytest.mark.parametrize("tier", ["host", "device"])
+def test_streamed_stage1_gives_the_materialized_bytes(fib_proofs,
+                                                      streamed_proofs, tier):
+    default = fib_proofs[0]
+    proof = streamed_proofs[0 if tier == "host" else 1]
+    assert serialize_proof(proof) == serialize_proof(default)
+    assert proof.fs_tape == default.fs_tape
+    if tier == "device":
+        assert streamed_proofs[2] == fib_proofs[2] == 9
 
 
 # ---- wide stages ---------------------------------------------------------

@@ -79,6 +79,35 @@ def test_proof_format_modules_import_no_jax(proof_format_imports, module):
     assert proof_format_imports[module] == []
 
 
+# the modules of the alternative tiers and the host entry points (ROADMAP
+# A17, A19), each imported alone in one interpreter
+ENTRY_AND_TIER_MODULES = [
+    "jolt_tpu_torch.cli", "jolt_tpu_torch.sdk", "jolt_tpu_torch.eval",
+    "jolt_tpu_torch.claims", "jolt_tpu_torch.tracer.trace_io",
+    "jolt_tpu_torch.transcript.keccak", "jolt_tpu_torch.transcript.poseidon",
+    "jolt_tpu_torch.relations.booleanity",
+    "jolt_tpu_torch.relations.registers_rw",
+    "jolt_tpu_torch.relations.ram", "jolt_tpu_torch.relations.spartan_outer"]
+
+
+@pytest.fixture(scope="module")
+def entry_and_tier_imports():
+    res = subprocess.run([sys.executable, "-c", _IMPORT_EACH,
+                          *ENTRY_AND_TIER_MODULES], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    return json.loads(res.stdout)
+
+
+@pytest.mark.parametrize("module", ENTRY_AND_TIER_MODULES)
+def test_entry_and_tier_modules_import_no_jax(entry_and_tier_imports,
+                                              module):
+    """The CLI, the SDK, the eval harnesses, the claims layer, the trace
+    files, the Keccak and Poseidon transcripts and the alternative
+    relation tiers import with no JAX and nothing of the JAX package."""
+    assert entry_and_tier_imports[module] == []
+
+
 def _sources():
     """The package's sources; `_build/` holds build output, not source."""
     return [p for p in PKG.rglob("*")
