@@ -123,6 +123,19 @@ Phases:
      padded 2^20) through `prove(setup=None, device="cuda")`, which
      streams unforced (16 chunks), and `verify`: each stage's seconds and
      K1 launches, stage 1's peak and the whole `prove`'s;
+  6d. the cycle mesh (`[mesh]` lines, `parallel/mesh.py`): (a) the main
+     path's `prove` again under `use_mesh(cycle_mesh(1))`, one rank over
+     NCCL in this process, its launch counts set to 0 just before it and
+     read just after: the main run's bytes and FS tape, K4 0 and every
+     stage on the host engine, K1 / K2 per stage, its seconds and peak;
+     the chain=1 trace at D = 1 under `CommDebugMode`, the collectives by
+     kind and stage; (b) two ranks on this one card over gloo (spawned): which
+     of DTensor's collectives gloo carries on CUDA tensors (all-gather,
+     all-reduce, all-to-all, each on ranks of its own), then, where it
+     carries the prove's, the chain=1 trace's proof on each rank == the
+     D = 1 proof, K1 launched on both; the one refusal seen (the
+     all-gather ending a rank with SIGSEGV, the all-reduce right) is
+     named on a `[mesh] (b) REFUSED` line, any other result fails;
   7. card vs CPU: `prove` on the small fib trace gives the same
      `proof_io.serialize_proof` bytes on "cuda" and on "cpu" (stages 1-8;
      fib's RAM and bytecode spaces fit one chunk, so it has no stage-6v
@@ -191,6 +204,7 @@ with JOLT_TPU_NO_NATIVE_PAIRING set the script fails.
 import argparse
 import collections
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -580,19 +594,24 @@ def cold_copies(args):
     return sets
 
 
-def kernel_ms(fn, arg_sets, names, reps=20, tries=3):
+class ProfilerLost(SmokeFailure):
+    """The profiler's traces kept fewer than 3 launches of a kernel."""
+
+
+def kernel_ms(fn, arg_sets, names, reps=20, tries=4):
     """Mean device time of each kernel whose name holds one of `names`
     (each launched once a call), kernel-only: torch.profiler over `reps`
     calls fn(*args), cycling through `arg_sets` (`cold_copies`), after a
     warm-up, so neither the host's cost of the calls nor cached inputs are
-    in it.  The mean is over the launches the trace holds (the profiler
-    may lose launches of a run of long kernels): a trace with fewer than
-    half is taken again, and after `tries` the fullest trace counts if it
-    holds at least 3 of each (said in a line), else the run fails."""
+    in it.  The profiler may lose launches: a trace with fewer than half of
+    each is taken again, and after `tries` the mean is over the launches
+    all the traces held if they hold at least 3 of each (said in a line).
+    Else one name is timed by `k4_parts.queued_ms` (the call's whole device
+    time, said in a line), and more than one raise `ProfilerLost`."""
     for args in arg_sets:
         fn(*args)
     torch.cuda.synchronize()
-    best = None
+    pooled = {name: [] for name in names}
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -605,19 +624,29 @@ def kernel_ms(fn, arg_sets, names, reps=20, tries=3):
                 for name in names:
                     if name in e.name:
                         seen[name].append(e.time_range.elapsed_us())
-        least = min(len(us) for us in seen.values())
-        if 2 * least >= reps:
+        if 2 * min(len(us) for us in seen.values()) >= reps:
             return {name: sum(us) / len(us) / 1e3
                     for name, us in seen.items()}
-        if best is None or least > min(len(us) for us in best.values()):
-            best = seen
-    counts = {n: len(us) for n, us in best.items()}
-    if min(counts.values()) < 3:
-        raise SmokeFailure(f"the profiler lost launches of {names}: "
-                           f"{counts} of {reps}")
-    print(f"[timing] the profiler kept {counts} of {reps} launches in its "
-          f"fullest of {tries} traces; the mean is over those", flush=True)
-    return {name: sum(us) / len(us) / 1e3 for name, us in best.items()}
+        for name, us in seen.items():
+            pooled[name] += us
+    counts = {n: len(us) for n, us in pooled.items()}
+    if min(counts.values()) >= 3:
+        print(f"[timing] the profiler kept {counts} of {tries * reps} "
+              f"launches in {tries} traces; the mean is over those",
+              flush=True)
+        return {name: sum(us) / len(us) / 1e3 for name, us in pooled.items()}
+    if len(names) > 1:
+        raise ProfilerLost(f"the profiler lost launches of {names}: "
+                           f"{counts} of {tries * reps}")
+    import k4_parts
+    step = itertools.count()
+    ms = k4_parts.queued_ms(lambda: fn(*arg_sets[next(step) % len(arg_sets)]),
+                            reps)
+    print(f"[timing] the profiler kept {counts} of {tries * reps} launches "
+          f"in {tries} traces; timed instead by CUDA events over {reps} "
+          "calls queued behind a sleep kernel (the call's whole device time)",
+          flush=True)
+    return {names[0]: ms}
 
 
 def events_ms(fn, arg_sets, reps):
@@ -758,8 +787,24 @@ def time_k2(kernels, ops, polys, r, order):
     r_int = ops.unpack_ints(r)[0]
     names = ("round_kernel",) + (("finish_kernel",) if order != "bind"
                                  else ())
-    dev_ms = kernel_ms(lambda *ps: kernels.product_round(ps, r_int, order),
-                       cold_copies(polys), names)
+    sets = cold_copies(polys)
+    try:
+        dev_ms = kernel_ms(lambda *ps: kernels.product_round(ps, r_int,
+                                                             order),
+                           sets, names)
+    except ProfilerLost as lost:
+        # the pass alone (finish=False) and the whole round, each queued
+        # behind a sleep kernel: the finish is their difference
+        import k4_parts
+        step, step2 = itertools.count(), itertools.count()
+        whole = k4_parts.queued_ms(lambda: kernels.product_round(
+            sets[next(step) % len(sets)], r_int, order))
+        alone = k4_parts.queued_ms(lambda: kernels.launch_product_round(
+            sets[next(step2) % len(sets)], r_int, order, finish=False))
+        dev_ms = {"round_kernel": alone, "finish_kernel": whole - alone}
+        print(f"[timing] {lost}; K2 {order} timed instead by CUDA events "
+              "over calls queued behind a sleep kernel (pass alone, and "
+              "the finish as the whole round less the pass)", flush=True)
     wrapper = cuda_ms(lambda: kernels.product_round(polys, r_int, order), 20)
     wrapper_dev = cuda_ms(lambda: kernels.product_round(polys, r, order), 20)
     plain = cuda_ms(lambda: kernels.product_round_plain(polys, r, order), 3)
@@ -1443,6 +1488,172 @@ def a19_phase(traces, dev, kernels, fused):
     return out
 
 
+def mesh_phase(tr, setup, proof, stage_launches, t_prove, peak, dev):
+    """Phase 6d: the cycle mesh (`jolt_tpu_torch/parallel/mesh.py`).
+
+    (a) D = 1 over NCCL in this process: the main run's trace and setup
+    under `use_mesh(cycle_mesh(1))` -- bytes and FS tape == the main
+    run's, K4 0 and every stage on the host engine, K1 / K2 per stage,
+    seconds and peak; then the D = 1 proof of the chain=1 trace under
+    `CommDebugMode`, the collectives by kind and stage.
+    (b) D = 2, both ranks on this card, over gloo (NCCL takes one card a
+    rank): first which of DTensor's collectives gloo carries on CUDA
+    tensors, each on a pair of ranks of its own; where it carries those
+    the prove issues (`spawn.REQUIRED`), each rank's chain=1 proof ==
+    D = 1's, with K1 launched on both ranks.  The one refusal accepted is
+    the one seen (ROADMAP C4: the all-gather ending a rank with SIGSEGV,
+    the all-reduce right): the `[mesh] (b) REFUSED` line names it and no
+    D = 2 proof runs here; any other probe result fails the run."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from jolt_tpu_torch import prove
+    from jolt_tpu_torch.field import kernels, ops
+    from jolt_tpu_torch.parallel import cycle_mesh, use_mesh
+    from jolt_tpu_torch.parallel.spawn import (REQUIRED, comm_by_stage,
+                                               probe_collectives, probe_ranks,
+                                               prove_rank, run_ranks)
+    from jolt_tpu_torch.proof_io import serialize_proof
+    from jolt_tpu_torch.prover import prover as prover_mod
+    from jolt_tpu_torch.sumcheck import fused
+    from jolt_tpu_torch.workload import sha2_chain_trace, timed_stages
+
+    main_bytes = serialize_proof(proof)
+    tmp = tempfile.TemporaryDirectory(prefix="jolt_mesh_")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp.name, "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = cycle_mesh(1)
+        probe1 = probe_collectives(mesh)
+        check(all(probe1[c] == "ok" for c in REQUIRED),
+              f"NCCL at D = 1 refused a collective: {probe1}")
+        tiers = []
+        real_tier = fused.device_tier
+
+        def watched(instances):
+            tiers.append(real_tier(instances))
+            return tiers[-1]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        fused.device_tier, fused.fetches = watched, 0
+        try:
+            t0 = time.perf_counter()
+            with use_mesh(mesh):
+                p1, stage_s1, _, launches1 = timed_stages(
+                    lambda: prove(tr, setup=setup, device="cuda"))
+            t1 = time.perf_counter() - t0
+        finally:
+            fused.device_tier = real_tier
+        peak1 = torch.cuda.max_memory_allocated(dev)
+        k4, fetches = kernels.k4_launches(), fused.fetches
+        check(serialize_proof(p1) == main_bytes
+              and p1.fs_tape == proof.fs_tape,
+              "the D = 1 mesh proof differs from the main run's")
+        check(k4 == 0 and fetches == 0 and tiers and not any(tiers),
+              f"under the mesh: K4 {k4}, {fetches} fetches, device tier by "
+              f"stage {tiers} (want 0, 0, all host engine)")
+        k1_1 = {k: sum(v["k1"].values()) for k, v in launches1.items()}
+        k2_1 = {k: v["k2"] for k, v in launches1.items()}
+        k3_1 = {k: sum(v["k3"].values()) for k, v in launches1.items()}
+        check(sum(k1_1.values()) > 0 and sum(k2_1.values()) > 0,
+              f"K1 / K2 did not launch under the mesh: {k1_1} {k2_1}")
+        del p1
+        # the chain=1 trace at D = 1, (b)'s reference, under CommDebugMode:
+        # its collectives by kind and stage (a one-rank mesh issues none)
+        tr1 = sha2_chain_trace(1)
+        comm = CommDebugMode()
+        comm_stages = comm_by_stage(comm)
+        try:
+            t0 = time.perf_counter()
+            with comm, use_mesh(mesh):
+                ref1 = prove(tr1, device="cuda")
+            t2 = time.perf_counter() - t0
+        finally:
+            prover_mod.stage_hooks.pop()
+        ref1_bytes, ref1_tape = serialize_proof(ref1), ref1.fs_tape
+        del ref1
+    finally:
+        ops._replicated.cache_clear()
+        dist.destroy_process_group()
+        tmp.cleanup()
+    print(f"[mesh] (a) D = 1 over NCCL, the main run's trace and setup: "
+          f"bytes and FS tape == the main run's; K4 0, {len(tiers)} stages "
+          f"all on the host engine, 0 fetches; prove {t1:.3f}s (main run "
+          f"{t_prove:.3f}s), peak {peak1 / 2**30:.3f} GiB (main "
+          f"{peak / 2**30:.3f}); K1 {sum(k1_1.values())}, K2 "
+          f"{sum(k2_1.values())}, K3 {sum(k3_1.values())}; NCCL carries "
+          f"{probe1}", flush=True)
+    for label in stage_s1:
+        print(f"[mesh] (a) {label}: {stage_s1[label]:.4f}s, K1 "
+              f"{k1_1[label]}, K2 {k2_1[label]}, K3 {k3_1[label]}",
+              flush=True)
+    print(f"[mesh] (a) chain=1 ({tr1.length} cycles, padded "
+          f"{tr1.padded_length}) at D = 1 under CommDebugMode: {t2:.3f}s, "
+          f"collectives by stage {comm_stages}", flush=True)
+    # (b) two ranks on this card over gloo, chain=1 at setup=None: first
+    # each collective on a pair of ranks of its own (a backend that kills
+    # its process still names the collective), then the proof
+    t0 = time.perf_counter()
+    probe2 = probe_ranks(2, "gloo", "cuda")
+    print(f"[mesh] (b) gloo, two ranks on this card, DTensor's collectives "
+          f"on CUDA tensors: {probe2}", flush=True)
+    refused = [c for c in REQUIRED if probe2[c] != "ok"]
+    outs = []
+    if refused:
+        # the finding (PERF.md, ROADMAP C4): gloo's funcol all-gather of
+        # CUDA tensors ends its rank with SIGSEGV, and NCCL refuses a second
+        # rank on a card; the port does not stage a collective through the
+        # host.  That one refusal is accepted; anything else fails the run
+        # (a wrong result, a failed all-reduce, another error)
+        gather = probe2["all_gather_into_tensor"]
+        check(refused == ["all_gather_into_tensor"]
+              and probe2["all_reduce"] == "ok"
+              and gather.startswith("a rank died") and "SIGSEGV" in gather,
+              f"gloo on CUDA tensors: {probe2} (the one refusal accepted is "
+              "all_gather_into_tensor ending a rank with SIGSEGV, with "
+              "all_reduce ok)")
+        print(f"[mesh] (b) REFUSED: gloo does not carry {refused} on CUDA "
+              f"tensors (torch {torch.__version__}); the D = 2 proof on "
+              "this card is not run (D = 2-8 are held on the CPU, "
+              "tests/test_torch_mesh*.py)", flush=True)
+    else:
+        outs = run_ranks(prove_rank, 2, tr1, None, "cuda", None, True,
+                         backend="gloo", threads=None)
+    for rank, o in enumerate(outs):
+        used = {c for st in o["comm"].values() for c in st}
+        check(used <= set(REQUIRED), f"rank {rank}'s prove issued "
+              f"{sorted(used)} (the probe covers {REQUIRED})")
+        check(o["bytes"] == ref1_bytes and o["fs_tape"] == ref1_tape,
+              f"rank {rank}'s D = 2 proof differs from D = 1's")
+        check(sum(o["k1"].values()) > 0 and o["k4"] == 0
+              and o["fetches"] == 0,
+              f"rank {rank}: K1 {o['k1']}, K4 {o['k4']}, fetches "
+              f"{o['fetches']}")
+        print(f"[mesh] (b) rank {rank}: chain=1 ({tr1.length} cycles, padded "
+              f"{tr1.padded_length}) bytes and FS tape == D = 1's; prove "
+              f"{o['seconds']:.3f}s under CommDebugMode; K1 "
+              f"{sum(o['k1'].values())} {o['k1']}, K2 {o['k2']}, K4 0",
+              flush=True)
+        for label, c in o["comm"].items():
+            print(f"[mesh] (b) rank {rank} {label}: collectives {c}",
+                  flush=True)
+    t_b = time.perf_counter() - t0
+    print(f"[mesh] (b) {t_b:.1f}s", flush=True)
+    return {"d1": {"prove_s": t1, "main_prove_s": t_prove,
+                   "chain1_counted_prove_s": t2, "peak_bytes": peak1,
+                   "k1_by_stage": k1_1, "k2_by_stage": k2_1,
+                   "k3_by_stage": k3_1, "k4": 0,
+                   "stage_s": stage_s1, "collectives_by_stage": comm_stages,
+                   "probe": probe1},
+            "d2_gloo": {"probe": probe2, "refused": refused,
+                        "ranks": [{"prove_s": o["seconds"], "k1": o["k1"],
+                                   "k2": o["k2"],
+                                   "collectives_by_stage": o["comm"]}
+                                  for o in outs]},
+            "d2_s": t_b}
+
+
 def cli_phase(prove, serialize_proof, trace_program, MemoryLayout):
     """Phase 7c: the CLI's prove (default device) and verify in
     subprocesses; the proof file's bytes == `prove` in this process."""
@@ -1831,7 +2042,10 @@ def main():
 
         def runs(rs):
             return (", ".join(f"{r['ms']:.5f}" for r in rs)
-                    + " ms kernel-only, wrapper "
+                    + " ms kernel-only, queued "
+                    + ", ".join(f"{r['queued_ms']:.5f}" for r in rs
+                                if "queued_ms" in r)
+                    + " ms, wrapper "
                     + ", ".join(f"{r['wrapper_ms']:.5f}" for r in rs))
         print(f"[kernel] K4 round tail at {name} ({len(t['degrees'])} "
               f"instance(s) of degree {degs}, n_c {t['n_c']}): "
@@ -2471,6 +2685,12 @@ def main():
                           "k4": w20["k4"], "fetches": w20["fetches"]}}
     del w20, tr20
 
+    # ---- 6d. the cycle mesh: D = 1 over NCCL, D = 2 over gloo ------------
+    print(f"[phase] 6d starts at {time.perf_counter() - t_start:.1f}s",
+          flush=True)
+    mesh_entry = mesh_phase(tr, setup, proof, stage_launches, t_prove, peak,
+                            dev)
+
     # ---- 7. card vs CPU on the fib trace ---------------------------------
     print(f"[phase] 7 starts at {time.perf_counter() - t_start:.1f}s",
           flush=True)
@@ -2661,6 +2881,7 @@ def main():
         "shape": head["heaviest"]["key"],
         "forms": list(k1_forms.values()), "reference_shapes": k1_ref,
         "stage1_stream": stream_entry, "cli": cli_entry,
+        "mesh": mesh_entry,
         "spill_bytes": k1_spills,
         "other_device_kernels": n_other}, {
         "name": "product_round", "route": "cuda",

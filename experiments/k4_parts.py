@@ -176,15 +176,17 @@ def old_round_tail(lib):
 # timing helpers
 # ---------------------------------------------------------------------------
 
-def kernel_only_ms(fn, name, reps=30, tries=3):
+def kernel_only_ms(fn, name, reps=30, tries=4):
     """Mean device time of the kernels named `name` over `reps` calls of
-    fn() (torch.profiler, after a warm-up); a trace that holds fewer than
-    half of the launches is taken again, and after `tries` the fullest
-    counts if it holds at least 3 (said in a line)."""
+    fn() (torch.profiler, after a warm-up).  A trace that holds fewer than
+    half of the launches is taken again; after `tries` the mean is over the
+    launches all the traces held, if they hold at least 3, and else
+    `queued_ms` times the calls (fn launches that one kernel and nothing
+    else); each way is said in a line."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    best = []
+    pooled = []
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -195,13 +197,44 @@ def kernel_only_ms(fn, name, reps=30, tries=3):
               if e.device_type == DeviceType.CUDA and name in e.name]
         if 2 * len(us) >= reps:
             return sum(us) / len(us) / 1e3
-        best = max(best, us, key=len)
-    if len(best) < 3:
-        raise RuntimeError(f"the profiler lost launches of {name}: "
-                           f"{len(best)} of {reps}")
-    print(f"[timing] the profiler kept {len(best)} of {reps} launches of "
-          f"{name} in its fullest of {tries} traces", flush=True)
-    return sum(best) / len(best) / 1e3
+        pooled += us
+    if len(pooled) >= 3:
+        print(f"[timing] the profiler kept {len(pooled)} of {tries * reps} "
+              f"launches of {name} in {tries} traces; the mean is over "
+              "those", flush=True)
+        return sum(pooled) / len(pooled) / 1e3
+    ms = queued_ms(fn, reps)
+    print(f"[timing] the profiler kept {len(pooled)} of {tries * reps} "
+          f"launches of {name} in {tries} traces; timed instead by CUDA "
+          f"events over {reps} calls queued behind a sleep kernel",
+          flush=True)
+    return ms
+
+
+def queued_ms(fn, reps=30):
+    """Mean device ms a call of fn() over `reps` calls queued behind a
+    sleep kernel (CUDA events, after a warm-up): the host enqueues every
+    call while the card sleeps, so the calls run back to back and the
+    host's cost of a call is not in the time.  The sleep doubles until the
+    last call is enqueued before it ends; fn must not wait for the card."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    cycles = 1 << 24
+    for _ in range(8):
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued = not start.query()
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / reps
+        cycles *= 2
+    raise RuntimeError(f"{reps} calls outlasted a sleep of {cycles // 2} "
+                       "cycles")
 
 
 def events_ms(fn, reps=100):
@@ -248,7 +281,9 @@ def shape_case(degrees, dev, seed=0, rounds=256):
 
 
 def time_shape(tail, degrees, dev, rounds=256):
-    """`tail` (a round_tail) at `degrees`: kernel-only ms a launch and the
+    """`tail` (a round_tail) at `degrees`: kernel-only ms a launch
+    (`kernel_only_ms`), ms a launch queued behind a sleep kernel
+    (`queued_ms`, a check on the first that needs no profiler) and the
     wrapper's ms a launch back to back."""
     evals, degs, fresh, n_c = shape_case(degrees, dev, rounds=rounds)
     bufs, step = fresh(), itertools.count()
@@ -256,7 +291,7 @@ def time_shape(tail, degrees, dev, rounds=256):
     def one():
         tail(evals, degs, bufs, next(step) % rounds, n_c)
     return {"ms": kernel_only_ms(one, "k4_round_tail"),
-            "wrapper_ms": events_ms(one)}
+            "queued_ms": queued_ms(one), "wrapper_ms": events_ms(one)}
 
 
 def compare(old_lib, dev, shapes=SHAPES):

@@ -32,6 +32,9 @@
 On CPU tensors each wrapper calls its plain version (`mont_mul_plain`,
 `add_plain`, `sub_plain`, `bind_plain`, `evals_plain`, `reduce_plain`,
 `product_round_plain`); on CUDA tensors it launches its kernel or raises.
+DTensors (the cycle mesh, `parallel/mesh.py`) reach a wrapper through one
+rule (`_on_mesh`): K1's forms run on each rank's local shard, K2 on each
+rank's own pairs; a DTensor that reaches a launch raises.
 Each wrapper counts its launches in ``.launches`` (`k1_launches()` gives
 K1's per form); with `record` set to a list, every K1 launch also appends
 (form, key), key the operands' shapes (`_key`).
@@ -51,9 +54,11 @@ import math
 import os
 import shutil
 import subprocess
+import sys
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils import _pytree as pytree
 
 from .params import FR_MODULUS
 
@@ -409,6 +414,208 @@ def _load(name: str) -> ctypes.CDLL:
 
 
 # ---------------------------------------------------------------------------
+# the cycle mesh: one rule for DTensor operands (`parallel/mesh.py`)
+# ---------------------------------------------------------------------------
+
+def is_dtensor(x) -> bool:
+    """Whether x is a DTensor.  Until `torch.distributed.tensor` is
+    imported (a cycle mesh imports it) there is none, so the one-device
+    path never pays for that import (~1.3 s)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def _placed(x, mesh):
+    """A tensor operand as a DTensor on `mesh` with no `Partial` left: a
+    plain tensor is `Replicate` (every rank holds it whole), a `Partial`
+    one (exact int64 limb-plane sums over a sharded axis) is all-reduced."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    if not isinstance(x, DTensor):
+        return DTensor.from_local(x, mesh, [Replicate()], run_check=False)
+    if any(isinstance(p, Partial) for p in x.placements):
+        return x.redistribute(mesh, [Replicate()])
+    return x
+
+
+def _gathered(x):
+    """A DTensor whole on this rank, as a plain tensor (`full_tensor`, its
+    all-gather waited for)."""
+    x = x.full_tensor()
+    return x.wait() if hasattr(x, "wait") else x
+
+
+def pair_halves(a, axis: int = -1, low: bool = False):
+    """The two tensors a sumcheck pass pairs up along `axis`: the halves
+    (a[:h], a[h:]) of a HighToLow pass, or with `low` the interleaved
+    (a[0::2], a[1::2]) of a LowToHigh one; a bind or the evals of them
+    take them as they are.
+
+    Under a cycle mesh the pairs keep the cycle shard.  Interleaved pairs
+    of a tensor `Shard`-ed in blocks of even length lie on their rank,
+    which slices its own block; HighToLow pairs (i, i + h) lie on two
+    ranks, so the tensor is gathered (one all-gather, where GSPMD inserts
+    a collective too) and each rank keeps its own block of both halves.
+    A `Replicate` tensor whose `axis` is the last keeps its blocks the
+    same way, with no collective (`maybe_shard`'s rule).  Where h is not a
+    multiple of D, or is 1, the halves are whole on every rank
+    (`Replicate`)."""
+    axis %= a.dim()
+
+    def halves(x):
+        if low:
+            pre = (slice(None),) * axis
+            return x[pre + (slice(0, None, 2),)], x[pre + (slice(1, None, 2),)]
+        h = x.shape[axis] // 2
+        return x.narrow(axis, 0, h), x.narrow(axis, h, h)
+    if not is_dtensor(a):
+        return halves(a)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh, p = a.device_mesh, a.placements[0]
+    sharded = isinstance(p, Shard) and p.dim == axis
+    if not sharded and not (isinstance(p, Replicate) and axis == a.dim() - 1):
+        return halves(a)          # `axis` is not split: DTensor's own slices
+    D, d = mesh.size(), mesh.get_local_rank()
+    h = a.shape[axis] // 2
+
+    def placed(parts, pl):
+        return tuple(DTensor.from_local(x, mesh, [pl], run_check=False)
+                     for x in parts)
+    if h % D or h == 1:
+        return placed(halves(_gathered(a) if sharded else a.to_local()),
+                      Replicate())
+    b = h // D
+    if low:                       # the rank's block of a holds its pairs
+        local = a.to_local() if sharded else a.to_local().narrow(
+            axis, 2 * b * d, 2 * b)
+        return placed(halves(local), Shard(axis))
+    whole = _gathered(a) if sharded else a.to_local()
+    return placed((whole.narrow(axis, b * d, b),
+                   whole.narrow(axis, h + b * d, b)), Shard(axis))
+
+
+def _shard_axis(xs, shape, D: int) -> Optional[int]:
+    """The batch axis, counted from the right, that an elementwise form
+    keeps sharded: the `Shard` axis of the largest operand whose axis is
+    not broadcast in the output and splits evenly (the other operands
+    move, and they are the smaller); None when there is none."""
+    from torch.distributed.tensor import Shard
+    for x in sorted(xs, key=lambda x: -x.numel()):
+        p = x.placements[0]
+        if isinstance(p, Shard) and p.dim > 0:
+            k = p.dim - x.dim()
+            if -k < len(shape) and x.shape[k] == shape[k] \
+                    and shape[k] % D == 0:
+                return k
+    return None
+
+
+def _on_mesh(kind: str):
+    """One rule for DTensor operands, on every wrapper (K1's forms, K2):
+
+      * kind "local" (K1's forms, elementwise over the broadcast batch):
+        every rank runs the wrapper on its own shard and the output takes
+        the operands' placement.  The shard axis is `_shard_axis`'s; an
+        operand sharded elsewhere is redistributed to it, one broadcast
+        along it stays `Replicate`;
+      * kind "pairs" (K2, a HighToLow round of (8, T) factors, whose
+        pairs (i, i + T/2) lie on two ranks of a block-sharded axis):
+        each rank runs the wrapper on its own pairs, its blocks of the
+        factors' halves (`pair_halves`: one all-gather a factor) side by
+        side, so the bound factors stay `Shard`-ed; its message, the sum
+        over its pairs, is one term of a sum over ranks, added exactly as
+        int64 limb planes (`Partial`, all-reduced by K1's reduce form).
+        "bind_message" pairs the bound factors anew, so on more than one
+        rank it is a "bind" and a "message" (`_pairs`).
+
+    `Partial` operands are all-reduced first and plain tensors count as
+    `Replicate` (`_placed`).  The wrapper then runs on the local tensors
+    and its outputs are wrapped back, as `local_map` does (written out
+    here for K2's nested arguments and outputs), so the kernel on the card
+    and the plain version on the CPU see the same shards.  Without a
+    DTensor operand it is the wrapper itself."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            # the main path's launches take plain tensors: one cheap look
+            # at the arguments (and K2's tuple of factors) before any work
+            mod = sys.modules.get("torch.distributed.tensor")
+            if mod is None or not any(
+                    isinstance(x, mod.DTensor) or isinstance(x, tuple)
+                    and any(isinstance(y, mod.DTensor) for y in x)
+                    for x in (*args, *kwargs.values())):
+                return fn(*args, **kwargs)
+            DTensor, Replicate, Shard = mod.DTensor, mod.Replicate, mod.Shard
+            flat, spec = pytree.tree_flatten((args, kwargs))
+            mesh = next(x for x in flat if isinstance(x, DTensor)).device_mesh
+            flat = [_placed(x, mesh) if isinstance(x, torch.Tensor) else x
+                    for x in flat]
+            if kind == "pairs":
+                a, k = pytree.tree_unflatten(flat, spec)
+                return _pairs(fn, mesh, *a, **k)
+            tensors = [x for x in flat if isinstance(x, DTensor)]
+            rep = (Replicate(),)
+            axis = None
+            if kind == "local":
+                shape = torch.broadcast_shapes(*(x.shape for x in tensors))
+                axis = _shard_axis(tensors, shape, mesh.size())
+            local = []
+            for x in flat:
+                if isinstance(x, DTensor):
+                    want = rep if axis is None or x.dim() < -axis \
+                        or x.shape[axis] == 1 else (Shard(x.dim() + axis),)
+                    x = x.redistribute(mesh, want).to_local()
+                    if hasattr(x, "wait"):     # an async collective's result
+                        x = x.wait()
+                local.append(x)
+            a, k = pytree.tree_unflatten(local, spec)
+            out = fn(*a, **k)
+
+            def place(t):
+                pl = rep if axis is None else (Shard(t.dim() + axis),)
+                return DTensor.from_local(t, mesh, pl, run_check=False)
+            return pytree.tree_map_only(torch.Tensor, place, out)
+        return wrapper
+    return wrap
+
+
+def _pairs(fn, mesh, polys, r=None, order: str = "message_bind"):
+    """K2's rule on a mesh (`_on_mesh`, kind "pairs"): `polys` are
+    DTensors, r an int or a `Replicate` one."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    r = r.to_local() if isinstance(r, DTensor) else r
+
+    def placed(t, pl):
+        return None if t is None else DTensor.from_local(
+            t, mesh, [pl], run_check=False)
+    if mesh.size() == 1:                    # one rank holds every pair
+        msg, bound = fn(tuple(_gathered(p) for p in polys), r, order)
+        return placed(msg, Replicate()), None if bound is None else tuple(
+            placed(b, Shard(b.dim() - 1) if b.shape[-1] > 1 else Replicate())
+            for b in bound)
+    if order == "bind_message":
+        _, bound = product_round(polys, r, "bind")
+        return product_round(bound, None, "message")[0], bound
+    halves = [pair_halves(p) for p in polys]
+    if not isinstance(halves[0][0].placements[0], Shard):   # T/2 % D
+        msg, bound = fn(tuple(_gathered(p) for p in polys), r, order)
+        return placed(msg, Replicate()), None if bound is None else tuple(
+            placed(b, Replicate()) for b in bound)
+    msg, bound = fn(tuple(torch.cat((lo.to_local(), hi.to_local()), -1)
+                          for lo, hi in halves), r, order)
+    if msg is not None:
+        msg = reduce(placed(u64_words(msg), Partial()))
+    return msg, None if bound is None else tuple(
+        placed(b, Shard(b.dim() - 1)) for b in bound)
+
+
+def _no_dtensor(form: str, *xs) -> None:
+    """A launch takes plain tensors: a DTensor here bypassed `_on_mesh`."""
+    if any(is_dtensor(x) for x in xs):
+        raise TypeError(f"{form}: a DTensor reached the kernel launch "
+                        "(DTensors go through the wrappers' mesh rule)")
+
+
+# ---------------------------------------------------------------------------
 # K1: the elementwise Fr kernel
 # ---------------------------------------------------------------------------
 
@@ -535,6 +742,7 @@ def _describe(form: str, out: torch.Tensor, n0: int, n1: int, a, b=None,
 
 def _go(form: str, out: torch.Tensor, L: _Launch) -> None:
     """Launch K1 on out's card's current stream and count it."""
+    _no_dtensor(form, out)
     lib = _load("K1")
     dev = out.device
     with torch.cuda.device(dev):          # launch on the operands' card
@@ -554,6 +762,7 @@ def _k1(form: str, xs, shape, out_shape, key, deg: int = 0) -> torch.Tensor:
     """K1's `form` on the operands xs = (a, b, c) (tensors, ints or None)
     over the batch of their broadcast shape `shape`, into a new tensor of
     `out_shape`; `key` is the launch's record (`record`)."""
+    _no_dtensor(form, *xs)
     dev = next(x.device for x in xs if isinstance(x, torch.Tensor))
     out = torch.empty(out_shape, dtype=_I32, device=dev)
     n0, n1 = _grid(tuple(shape[1:]))
@@ -585,6 +794,7 @@ def _binary(form: str, plain, a, b) -> torch.Tensor:
     return _k1(form, (a, b, None), shape, shape, (_key(a), _key(b)))
 
 
+@_on_mesh("local")
 def mont_mul(a, b) -> torch.Tensor:
     """Elementwise Montgomery product a * b * 2^-256 mod p of (8, *batch)
     int32 limb tensors that broadcast together (a < 2^256, b < p), or of a
@@ -598,18 +808,21 @@ def mont_mul(a, b) -> torch.Tensor:
     return _binary("mul", mont_mul_plain, a, b)
 
 
+@_on_mesh("local")
 def add(a, b) -> torch.Tensor:
     """(a + b) mod p: K1's "add" form on the card, `add_plain` on the CPU
     (operands as `mont_mul`'s)."""
     return _binary("add", add_plain, a, b)
 
 
+@_on_mesh("local")
 def sub(a, b) -> torch.Tensor:
     """(a - b) mod p: K1's "sub" form on the card, `sub_plain` on the CPU
     (operands as `mont_mul`'s)."""
     return _binary("sub", sub_plain, a, b)
 
 
+@_on_mesh("local")
 def bind(lo: torch.Tensor, hi: torch.Tensor, r) -> torch.Tensor:
     """lo + r (hi - lo) mod p for lo, hi (8, *batch) and the challenge r (a
     canonical int, by value, or one element of Montgomery limbs): K1's
@@ -631,6 +844,7 @@ def bind(lo: torch.Tensor, hi: torch.Tensor, r) -> torch.Tensor:
                (_key(lo), _layout(lo, hi), _key(r)))
 
 
+@_on_mesh("local")
 def evals(lo: torch.Tensor, hi: torch.Tensor, degree: int) -> torch.Tensor:
     """The pairs' values lo + X (hi - lo) at X = 0, 2, 3, .., degree as
     (8, degree, *batch): K1's "evals" form on the card, `evals_plain` on
@@ -647,6 +861,7 @@ def evals(lo: torch.Tensor, hi: torch.Tensor, degree: int) -> torch.Tensor:
                (_key(lo), degree, _layout(lo, hi)), deg=degree)
 
 
+@_on_mesh("local")
 def reduce(cols: torch.Tensor, scale=None) -> torch.Tensor:
     """Exact int64 limb-plane sums (8, *batch) -> their value mod p in
     Montgomery form (`reduce_plain`), times `scale` if given (an int, by
@@ -772,6 +987,7 @@ def product_round_plain(polys, r, order: str):
     return msg, bound
 
 
+@_on_mesh("pairs")
 def product_round(polys, r=None, order: str = "message_bind"):
     """One HighToLow round of the product sumcheck of 2 or 3 factors: see
     `product_round_plain` for the orders and the result (msg, bound).
@@ -808,6 +1024,7 @@ def launch_product_round(polys, r, order: str, finish: bool = True):
     point (for timing the pass alone).  Counts one launch on
     `product_round.launches`."""
     polys = tuple(polys)
+    _no_dtensor("product_round", *_tensors(polys, r))
     _check_round(polys, order)
     dev = polys[0].device
     if dev.type != "cuda" or any(t.device != dev

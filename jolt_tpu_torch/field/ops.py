@@ -32,17 +32,29 @@ Overflow bounds of the plain path (int64 working words):
     and folds back as h * 2^256 mod p.  Sums are exact mod p and
     order-free, so no lazy chunking like the reference's 2^18-term bound
     (which exists only because of 13-bit limbs) is needed.
+
+Under a cycle mesh (`parallel/mesh.py`) field tensors are DTensors:
+`from_words` places them, K1's wrappers take them by their rule
+(`kernels._on_mesh`), limb-plane sums over a sharded axis are `Partial`
+and `reduce_cols` all-reduces them exactly before mod p (`sum_mod`,
+`index_add_planes`, `scatter_add_planes`), a pass's pairs keep the shard
+(`pair_halves`), and `unsharded`, `whole`, `index_copy` and `host` are the
+explicit gathers where DTensor cannot place an op (`maybe_shard` gives a
+gathered table its blocks back).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import List, Sequence
 
 import numpy as np
 import torch
 
+from ..parallel.mesh import active_mesh, maybe_shard
 from . import kernels
-from .kernels import MASK32, N_LIMBS, P, R, R_MOD_P, _scalar, u64_words
+from .kernels import (MASK32, N_LIMBS, P, R, R_MOD_P, is_dtensor,
+                      pair_halves, u64_words)
 
 R_INV = pow(R, -1, P)
 _I32 = torch.int32
@@ -64,6 +76,24 @@ reduce_cols = kernels.reduce
 
 def neg(a: torch.Tensor) -> torch.Tensor:
     return sub(0, a)
+
+
+@functools.lru_cache(maxsize=1024)
+def _replicated(x: int, device: torch.device, nbatch: int, mesh):
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(kernels._scalar(x, device, nbatch), mesh,
+                              [Replicate()], run_check=False)
+
+
+def _scalar(x: int, device, nbatch: int) -> torch.Tensor:
+    """A canonical int as Montgomery limbs (8, 1, .., 1), uploaded once per
+    (value, device) and, under a cycle mesh, once per mesh as a
+    `Replicate` DTensor (the JAX package keys its scalar cache on the
+    mesh too)."""
+    mesh = active_mesh()
+    if mesh is None:
+        return kernels._scalar(x, device, nbatch)
+    return _replicated(int(x), torch.device(device), nbatch, mesh)
 
 
 def const_mont(c: int, batch_shape=(), device="cuda") -> torch.Tensor:
@@ -92,12 +122,14 @@ def ones(batch_shape, device="cuda") -> torch.Tensor:
 def from_words(words: torch.Tensor) -> torch.Tensor:
     """Plain little-endian 32-bit words (k <= 8, *batch) of a value < p ->
     Montgomery form: one mont_mul by R^2 (the Montgomery words of the
-    canonical scalar R mod p)."""
+    canonical scalar R mod p).  Under a cycle mesh this is where field
+    tensors are placed (`maybe_shard`): the words are split first, so each
+    rank converts only its own block."""
     k = words.shape[0]
     plain = torch.zeros((N_LIMBS,) + tuple(words.shape[1:]), dtype=_I32,
                         device=words.device)
     plain[:k] = words.to(_I32)
-    return mont_mul(plain, R_MOD_P)
+    return mont_mul(maybe_shard(plain), R_MOD_P)
 
 
 def from_u64(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
@@ -223,10 +255,56 @@ def segment_sum_mod(a: torch.Tensor, ids: torch.Tensor,
     if a.shape[-1] >= 1 << 31:
         raise ValueError("segment_sum_mod: more than 2^31 terms overflow "
                          "int64 limbs")
-    cols = torch.zeros(a.shape[:-1] + (num_segments,), dtype=torch.int64,
-                       device=a.device)
-    cols.index_add_(a.dim() - 1, ids.to(a.device), u64_words(a))
-    return reduce_cols(cols)
+    return reduce_cols(index_add_planes(u64_words(a), a.dim() - 1, ids,
+                                        num_segments))
+
+
+def index_add_planes(src: torch.Tensor, dim: int, ids: torch.Tensor,
+                     n: int, into=None) -> torch.Tensor:
+    """Exact int64 limb planes: zeros of src's shape with `n` along `dim`
+    (or `into`, planes an earlier call returned, added to in place),
+    `index_add_`-ed by src at the 1-D `ids` along `dim`."""
+    return _planes(src, dim, ids, n, scatter=False, into=into)
+
+
+def scatter_add_planes(src: torch.Tensor, dim: int, index: torch.Tensor,
+                       n: int) -> torch.Tensor:
+    """Exact int64 limb planes: zeros of src's shape with `n` along `dim`,
+    `scatter_add_`-ed by src at `index` (src's shape) along `dim`."""
+    return _planes(src, dim, index, n, scatter=True)
+
+
+def _planes(src, dim: int, ids, n: int, scatter: bool, into=None):
+    """`index_add_` and `scatter_add_` have no DTensor rule, so for a
+    DTensor src each rank adds its own shard, with its slice of the
+    indices.  Sharded on `dim`, the planes are then `Partial`, and
+    `reduce_cols` all-reduces them exactly (each plane a sum of < 2^31
+    words of 32 bits, < 2^63 over all ranks); sharded elsewhere they keep
+    src's shard."""
+    dim %= src.dim()
+    if not is_dtensor(src):
+        cols = into if into is not None else torch.zeros(
+            src.shape[:dim] + (n,) + src.shape[dim + 1:], dtype=torch.int64,
+            device=src.device)
+        add = cols.scatter_add_ if scatter else cols.index_add_
+        return add(dim, ids.to(src.device), src)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh, p = src.device_mesh, src.placements[0]
+    if isinstance(p, Partial):
+        src, p = src.redistribute(mesh, [Replicate()]), Replicate()
+    on_dim = isinstance(p, Shard) and p.dim == dim
+    ids_pl = p if scatter else Shard(0) if on_dim else Replicate()
+    ids = ids.full_tensor() if isinstance(ids, DTensor) else ids
+    ids = DTensor.from_local(ids, mesh, [Replicate()], run_check=False
+                             ).redistribute(mesh, [ids_pl]).to_local()
+    out_pl = Partial() if on_dim else p
+    if into is not None and tuple(into.placements) != (out_pl,):
+        raise ValueError(f"index_add_planes: into is {into.placements}, "
+                         f"the planes {out_pl}")
+    return DTensor.from_local(
+        _planes(src.to_local(), dim, ids, n, scatter,
+                None if into is None else into.to_local()), mesh,
+        [out_pl], run_check=False)
 
 
 # ---------------------------------------------------------------------------
@@ -266,6 +344,54 @@ def np_unpack_ints(arr: np.ndarray) -> List[int]:
             for i in range(flat.shape[0])]
 
 
+def unsharded(a: torch.Tensor) -> torch.Tensor:
+    """`a` with its last axis whole on every rank: a DTensor sharded on it
+    is redistributed to `Replicate` (one all-gather), anything else is
+    returned as it is.  Called before a gather by a schedule's indices,
+    which reach across the ranks' blocks (`maybe_shard` gives the
+    gathered lanes their blocks back); a pass's pairs take
+    `pair_halves`."""
+    if is_dtensor(a):
+        from torch.distributed.tensor import Replicate, Shard
+        p = a.placements[0]
+        if isinstance(p, Shard) and p.dim == a.dim() - 1:
+            return a.redistribute(a.device_mesh, [Replicate()])
+    return a
+
+
+def index_copy(base: torch.Tensor, dim: int, index: torch.Tensor,
+               vals: torch.Tensor) -> torch.Tensor:
+    """`base.index_copy(dim, index, vals)`.  `index_copy` has no DTensor
+    rule in every torch release, so on a mesh both tables are gathered
+    (`Replicate`) and every rank writes the whole result."""
+    mesh = next((x.device_mesh for x in (base, vals) if is_dtensor(x)),
+                None)
+    if mesh is None:
+        return base.index_copy(dim, index, vals)
+    from torch.distributed.tensor import DTensor, Replicate
+    base, vals = (x.redistribute(mesh, [Replicate()]).to_local()
+                  if isinstance(x, DTensor) else x for x in (base, vals))
+    return DTensor.from_local(base.index_copy(dim, index, vals), mesh,
+                              [Replicate()], run_check=False)
+
+
+def whole(a: torch.Tensor) -> torch.Tensor:
+    """A field tensor as a plain tensor holding all of it (a DTensor is
+    all-gathered; a plain tensor is returned as it is): for writes into a
+    plain buffer, which DTensor cannot place."""
+    return a.full_tensor() if is_dtensor(a) else a
+
+
+def host(a: torch.Tensor) -> np.ndarray:
+    """A tensor's values on the host: a DTensor is gathered whole first
+    (`full_tensor`, the same on every rank)."""
+    if is_dtensor(a) and a.dtype == _I32 and any(
+            p.is_partial() for p in a.placements):
+        raise TypeError("host: a Partial field tensor (limb sums are int64 "
+                        "planes, reduced by reduce_cols)")
+    return whole(a).cpu().numpy()
+
+
 def unpack_ints(a: torch.Tensor) -> List[int]:
     """Montgomery limbs (8, N) -> list of canonical Python ints."""
-    return np_unpack_ints(a.cpu().numpy())
+    return np_unpack_ints(host(a))

@@ -4,7 +4,8 @@ Torch counterpart of the JAX package's `poly/dense.py` (analog of the
 reference's `DensePolynomial`, `crates/jolt-prover-legacy/src/poly/
 dense_mlpoly.rs`).  An n-variable MLE over Fr is a tensor (8, 2**n) of
 evaluations over the boolean hypercube, index bits big-endian: variable 0 is
-the MSB of the index.  Binding orders:
+the MSB of the index.  A pass takes its pairs through `ops.pair_halves`,
+which under a cycle mesh keeps them sharded.  Binding orders:
   * HighToLow: bind the MSB variable; P'[i] = P[i] + r*(P[i+T/2]-P[i]);
   * LowToHigh: bind the LSB variable; P'[i] = P[2i] + r*(P[2i+1]-P[2i]).
 """
@@ -21,14 +22,13 @@ from ..field import ops
 def bind_high(P: torch.Tensor, r) -> torch.Tensor:
     """Bind the MSB variable to challenge r (a canonical int, or a
     Montgomery scalar (L, 1)): K1's bind of the two halves."""
-    half = P.shape[-1] // 2
-    return ops.bind(P[..., :half], P[..., half:], r)
+    return ops.bind(*ops.pair_halves(P), r)
 
 
 def bind_low(P: torch.Tensor, r) -> torch.Tensor:
     """Bind the LSB variable to challenge r (a canonical int, or a
     Montgomery scalar (L, 1)): K1's bind of the interleaved pairs."""
-    return ops.bind(P[..., 0::2], P[..., 1::2], r)
+    return ops.bind(*ops.pair_halves(P, low=True), r)
 
 
 def evaluate(P: torch.Tensor, point: Sequence[int]) -> int:
@@ -46,8 +46,7 @@ def sumcheck_eval_points_high(P: torch.Tensor, degree: int) -> torch.Tensor:
     variable: (L, degree, T/2); entry [:, 0] is X=0, entry [:, j>=1] is
     X=j+1 (eval(X) = lo + X*(hi-lo), by repeated addition of the slope):
     K1's evals form, written straight into the output."""
-    half = P.shape[-1] // 2
-    return ops.evals(P[..., :half], P[..., half:], degree)
+    return ops.evals(*ops.pair_halves(P), degree)
 
 
 def from_ints(vals: Sequence[int], device="cuda") -> torch.Tensor:

@@ -51,7 +51,7 @@ import hashlib
 import os
 import random
 import time
-from typing import ClassVar, Dict, List, Optional
+from typing import Callable, ClassVar, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -372,6 +372,13 @@ def _tape_entry(label: str, transcript: Blake2bTranscript) -> dict:
             "state": transcript.state.hex()}
 
 
+# callables run with the label at the end of each stage of `prove` (after
+# the stage's fetch): how a caller reads a counter stage by stage, such as
+# the collectives of `torch.distributed.tensor.debug.CommDebugMode` under
+# a cycle mesh (`chip_smoke.py`)
+stage_hooks: List[Callable[[str], None]] = []
+
+
 class _StageTimer:
     """JOLT_TPU_STAGE_TIMING=1 prints one line per finished stage, as the
     JAX package's prover does: `[prove] <label>: <seconds>s`, plus the
@@ -397,6 +404,8 @@ class _StageTimer:
                 "k4": kernels.k4_launches()}
 
     def mark(self, label: str) -> None:
+        for hook in stage_hooks:
+            hook(label)
         now = time.perf_counter()
         if self.on:
             with torch.profiler.record_function(f"[prove] {label}"):

@@ -150,12 +150,10 @@ class GroupedOneHot(FusedInstance):
         # H_q(k) = sum_{j: c_q(j) = k} w(j): exact int64 limb sums of
         # < 2^32 words over at most 2^31 cycles, then one K1 reduce
         L = kernels.N_LIMBS
-        cols = torch.zeros((L, self.M, K), dtype=torch.int64,
-                           device=self.device)
-        cols.scatter_add_(
-            2, self.idx[None].expand(L, self.M, self.T),
+        cols = ops.scatter_add_planes(
             kernels.u64_words(w_table)[:, None, :].expand(L, self.M,
-                                                           self.T))
+                                                           self.T),
+            2, self.idx[None].expand(L, self.M, self.T), K)
         HS = ops.reduce_cols(cols)                           # (L, M, K)
         # times the initial suffix weights S_0 = prod_{i>0} chi(q_i, bit_i)
         if self._has_points:

@@ -50,6 +50,7 @@ from ..field import FR, ops
 from ..field.kernels import R_MOD_P
 from ..lookups import tables as LT
 from ..lookups.suffix_vec import eval_suffix
+from ..parallel.mesh import maybe_shard
 from ..poly import dense, eq
 from ..poly.univariate import UniPoly
 from ..sumcheck.engine import OpeningAccumulator, SumcheckInstance
@@ -398,15 +399,18 @@ class InstructionReadRaf(SumcheckInstance):
         code = (np.where(tid >= 0, tid, LT.NUM_TABLES) * 2
                 + self.wit.inter_np.astype(np.int64))
         code_dev = torch.from_numpy(code).to(self.device)
+        # one plain buffer: under a cycle mesh the eq column and the small
+        # tables are gathered whole first (`ops.whole`), and each rank
+        # keeps its block of the cycles (`maybe_shard`)
         S = torch.empty((val_tab.shape[0], D + 2, self.T), dtype=torch.int32,
                         device=self.device)
-        S[:, 0] = eq.evals(self.r_cycle, self.device)
-        S[:, 1] = val_tab[:, code_dev]
+        S[:, 0] = ops.whole(eq.evals(self.r_cycle, self.device))
+        S[:, 1] = ops.whole(val_tab)[:, code_dev]
         # ra_i columns: device gathers from the 256-entry expanding tables
         for i in range(D):
             v_tab = ops.pack_ints(self.v_done[i], self.device)
-            S[:, 2 + i] = v_tab[:, self._chunks[i]]
-        self.S = S                                   # (L, D+2, T)
+            S[:, 2 + i] = ops.whole(v_tab)[:, self._chunks[i]]
+        self.S = maybe_shard(S)                      # (L, D+2, T)
         self.u_dev = None
 
     def finalize(self) -> None:

@@ -63,6 +63,7 @@ import numpy as np
 import torch
 
 from ..field import FR, ops
+from ..parallel.mesh import maybe_shard
 from ..poly import dense, eq, lt
 from ..sumcheck.engine import OpeningAccumulator, SumcheckInstance
 from ..sumcheck.fused import FusedInstance
@@ -223,15 +224,22 @@ def _evals3(e: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
 
 def _gather_pairs(X, src_e, src_o, has_e, has_o, fill_e, fill_o):
     """Pairwise gather with implicit fills: (L,E'),(L,E') even/odd lanes.
-    A fill is an (L, E') tensor or the field zero 0."""
+    A fill is an (L, E') tensor or the field zero 0.  Under a cycle mesh
+    X is gathered first (`ops.unsharded`): a schedule's pairs cross the
+    ranks' blocks; each rank then keeps its block of the lanes
+    (`maybe_shard`)."""
+    X = ops.unsharded(X)
     xe = torch.where(has_e[None, :], X[:, src_e], fill_e)
     xo = torch.where(has_o[None, :], X[:, src_o], fill_o)
-    return xe, xo
+    return maybe_shard(xe), maybe_shard(xo)
 
 
 def _cycle_pairs(X: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-    """Evals at {0,2,3} of a dense cycle tensor at the merged rows."""
-    return _evals3(X[:, 2 * rows], X[:, 2 * rows + 1])
+    """Evals at {0,2,3} of a dense cycle tensor at the merged rows (X
+    gathered first under a cycle mesh, as in `_gather_pairs`)."""
+    X = ops.unsharded(X)
+    return _evals3(maybe_shard(X[:, 2 * rows]),
+                   maybe_shard(X[:, 2 * rows + 1]))
 
 
 def _rw_cycle_message(RA, VAL, EQ, INC, src_e, src_o, has_e, has_o,
@@ -279,7 +287,7 @@ def _prod_addr_message(RA_K, TAB_K, scale):
 def _materialize(vals: torch.Tensor, cols: torch.Tensor,
                  base: torch.Tensor) -> torch.Tensor:
     """Scatter (L,E) entry values into a copy of the (L,K) base table."""
-    return base.index_copy(1, cols, vals)
+    return ops.index_copy(base, 1, cols, vals)
 
 
 def _reg_rw_cycle_message(WA, RA1, RA2, VAL, EQ, INC, src_e, src_o, has_e,
@@ -389,13 +397,16 @@ class _SparseRamBase(FusedInstance):
 
     def _col_consts(self, TAB_K: torch.Tensor) -> List[torch.Tensor]:
         """Per cycle round, the public table's value at each pair's column
-        (0 at padding pairs)."""
+        (0 at padding pairs); the table gathered first under a cycle
+        mesh, each rank keeping its block of the pairs."""
+        TAB_K = ops.unsharded(TAB_K)
         out = []
         for rnd in self.sched.rounds:
             cols = torch.from_numpy(np.minimum(rnd.cols, self.K - 1)).to(
                 self.device)
             live = torch.from_numpy(rnd.cols < self.K).to(self.device)
-            out.append(torch.where(live[None, :], TAB_K[:, cols], 0))
+            out.append(maybe_shard(torch.where(live[None, :],
+                                               TAB_K[:, cols], 0)))
         return out
 
     def normalize_opening_point(self, r: Sequence[int]) -> List[int]:
@@ -600,8 +611,8 @@ class SparseRamOutputCheck(_SparseRamBase):
         if w_sparse:
             cells = torch.tensor(sorted(w_sparse), dtype=torch.int64,
                                  device=self.device)
-            W_K[:, cells] = ops.pack_ints(
-                [w_sparse[k] for k in sorted(w_sparse)], self.device)
+            W_K[:, cells] = ops.whole(ops.pack_ints(
+                [w_sparse[k] for k in sorted(w_sparse)], self.device))
         self.W_K = W_K
         self._percol = self._col_consts(self.W_K)
 

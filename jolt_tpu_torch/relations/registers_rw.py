@@ -69,8 +69,7 @@ def matrix(vals, K_: int, device) -> torch.Tensor:
 
 def _bind_axis(X: torch.Tensor, r, axis: int) -> torch.Tensor:
     """Bind the MSB variable of `axis` at r (HighToLow on that axis)."""
-    h = X.shape[axis] // 2
-    return ops.bind(X.narrow(axis, 0, h), X.narrow(axis, h, h), r)
+    return ops.bind(*ops.pair_halves(X, axis), r)
 
 
 class _DenseTwist(SumcheckInstance):
@@ -103,9 +102,7 @@ class _DenseTwist(SumcheckInstance):
             if X.shape[axis] == 1:                   # not the round's variable
                 v[name] = X[:, None]
             else:
-                h = X.shape[axis] // 2
-                v[name] = ops.evals(X.narrow(axis, 0, h),
-                                    X.narrow(axis, h, h), 3)
+                v[name] = ops.evals(*ops.pair_halves(X, axis), 3)
         s = self._summand(v)
         return ops.sum_mod(s.reshape(s.shape[0], 3, -1))    # (8, 3, 1)
 

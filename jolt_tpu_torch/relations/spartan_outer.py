@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..field import FR, ops
+from ..parallel.mesh import maybe_shard
 from ..poly import dense, eq
 from ..poly import lagrange as lag
 from ..r1cs import constraints as C
@@ -179,13 +180,13 @@ def _combo(cols: torch.Tensor, terms, n_out: int) -> torch.Tensor:
     end (<= a few hundred terms per output, far below the 2^31 bound)."""
     W, v_idx, out_idx = terms
     T = cols.shape[-1]
-    acc = torch.zeros((ops.N_LIMBS, n_out, T), dtype=torch.int64,
-                      device=cols.device)
     step = max(1, _COMBO_CHUNK // T)
+    acc = None
     for s in range(0, W.shape[1], step):
         e = s + step
         prod = ops.mont_mul(W[:, s:e, None], cols[:, v_idx[s:e], :])
-        acc.index_add_(1, out_idx[s:e], ops.u64_words(prod))
+        acc = ops.index_add_planes(ops.u64_words(prod), 1, out_idx[s:e],
+                                   n_out, acc)
     return ops.reduce_cols(acc)
 
 
@@ -197,8 +198,11 @@ def _combo_streamed(cols: StreamedColumns, terms_list, n_out: int):
                         device=cols.device) for _ in terms_list]
     for s, chunk in cols.chunks():
         for out, terms in zip(outs, terms_list):
-            out[:, :, s:s + chunk.shape[-1]] = _combo(chunk, terms, n_out)
-    return outs
+            # under a cycle mesh the chunk's combos are gathered into the
+            # plain outputs, of which each rank then keeps its block
+            out[:, :, s:s + chunk.shape[-1]] = ops.whole(
+                _combo(chunk, terms, n_out))
+    return [maybe_shard(out) for out in outs]
 
 
 def _group_w_rows(y_basis: Sequence[int]):
@@ -251,14 +255,14 @@ def prove_uniskip(inputs: R1CSCycleInputs, tau: Sequence[int], transcript,
                 else pack_input_columns(inputs, device))
     # sum_j E(j) (Az Bz - Cz)(out, j) as exact int64 limb planes: each
     # term's 32-bit limbs summed over at most 2^31 cycles stay below 2^63
-    acc = torch.zeros((ops.N_LIMBS, n_out), dtype=torch.int64,
-                      device=E_cyc.device)
+    acc = None
     for s, cols in _chunks(cols_dev):
         AZ, BZ, CZ = (_combo(cols, t, n_out) for t in terms)
         inner = ops.sub(ops.mont_mul(AZ, BZ), CZ)        # (L, n_out, C)
         del AZ, BZ, CZ
         E = E_cyc[:, None, s:s + inner.shape[-1]]
-        acc += ops.u64_words(ops.mont_mul(inner, E)).sum(dim=-1)
+        part = ops.u64_words(ops.mont_mul(inner, E)).sum(dim=-1)
+        acc = part if acc is None else acc.add_(part)
         del inner
     zg = ops.unpack_ints(ops.reduce_cols(acc))
 
@@ -378,11 +382,11 @@ class SpartanOuterProver(FusedInstance):
         (exact, as the uni-skip sums) and reduce once: no value leaves the
         card, on either tier."""
         Ecyc = eq.evals(self._r[1:], self.device)
-        acc = torch.zeros((ops.N_LIMBS, NUM_VARS), dtype=torch.int64,
-                          device=self.device)
+        acc = None
         for s, cols in _chunks(self.cols_dev):
             E = Ecyc[:, None, s:s + cols.shape[-1]]
-            acc += ops.u64_words(ops.mont_mul(cols, E)).sum(dim=-1)
+            part = ops.u64_words(ops.mont_mul(cols, E)).sum(dim=-1)
+            acc = part if acc is None else acc.add_(part)
         return [ops.reduce_cols(acc)]
 
     def fused_store(self, values: List[int]) -> None:

@@ -203,8 +203,9 @@ class BatchedSumcheck:
                 else:
                     polys[i] = UniPoly([claim * two_inv % P])
             if arrays:
-                flat = [a.reshape(a.shape[0], -1) for a in arrays]
-                host = torch.cat(flat, dim=1).cpu().numpy()
+                # under a cycle mesh each message is gathered whole first
+                flat = [ops.whole(a).reshape(a.shape[0], -1) for a in arrays]
+                host = ops.host(torch.cat(flat, dim=1))
                 bounds = np.cumsum([0] + [f.shape[1] for f in flat])
                 for k, i in enumerate(active):
                     evals = ops.np_unpack_ints(

@@ -40,9 +40,11 @@ Tier choice, in one place (`device_tier`), as the JAX package's
 instances (`kernels.K4_MAX_INSTANCES`), no instance was forced to the host
 tier through the backend seam (`kernels/registry.py`), and the stage's
 tensors are on CUDA or its slots were forced to the device tier (how the
-CPU tests run this loop on the plain versions).  Otherwise the stage takes
-the host engine.  The rule reads only the instances, before any launch;
-on the device tier a kernel that fails to build or launch raises.
+CPU tests run this loop on the plain versions), and no cycle mesh is
+active (`parallel/mesh.py`; the JAX package's scan tier is off under a
+mesh too).  Otherwise the stage takes the host engine.  The rule reads
+only the instances, before any launch; on the device tier a kernel that
+fails to build or launch raises.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ import torch
 
 from ..field import kernels, ops
 from ..field.params import FR
+from ..parallel.mesh import active_mesh
 from ..transcript import Blake2bTranscript
 from ..transcript import device as dt
 from ..utils import profiling
@@ -105,7 +108,11 @@ class FusedInstance(SumcheckInstance):
 
 def device_tier(instances: Sequence[SumcheckInstance]) -> bool:
     """Whether a stage of these instances takes the device tier (module
-    docstring)."""
+    docstring).  Never under a cycle mesh (`parallel/mesh.py`), even when
+    forced: every stage then takes the host engine, as in the JAX
+    package."""
+    if active_mesh() is not None:
+        return False
     if not all(isinstance(i, FusedInstance) and 1 <= i.degree <= 3
                for i in instances):
         return False

@@ -1053,3 +1053,37 @@ def test_kzg_setup_on_card_equals_cpu(card, tmp_path):
     pos = np.array([0, 3, 3, 17, 1000], dtype=np.int64)
     assert (HyperKZG(on_card).commit_positions(pos)
             == HyperKZG(on_cpu).commit_positions(pos))
+
+
+@pytest.mark.parametrize("npoly,degree", [(2, 2), (3, 3)])
+def test_sharded_round_step_on_card_equals_cpu(card, tmp_path, npoly,
+                                               degree):
+    """`sumcheck/sharded.py:sharded_round_step` at D = 1 on the card (a
+    one-rank NCCL mesh, K1's evals, mul, bind and reduce forms on the
+    rank's shard) equals its result on plain CPU tensors, message and
+    bound polys, bit for bit."""
+    import torch.distributed as dist
+    from jolt_tpu_torch.parallel import cycle_mesh, shard_mle, unshard_mle
+    from jolt_tpu_torch.sumcheck.sharded import sharded_round_step
+    rng = np.random.default_rng(npoly * 10 + degree)
+    T = 1 << 12
+    polys = [ops.pack_ints(_field_ints(rng, T), "cpu") for _ in range(npoly)]
+    r = _field_ints(rng, 1)[0]
+    # plain tensors in the layout at D = 1: (8, T, 1)
+    msg_cpu, bound_cpu = sharded_round_step([p[..., None] for p in polys],
+                                            r, degree)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = cycle_mesh(1)
+        before = kernels.k1_launches()
+        msg, bound = sharded_round_step(
+            [shard_mle(p.to(card), mesh) for p in polys], r, degree)
+        after = kernels.k1_launches()
+        assert torch.equal(msg.full_tensor().cpu(), msg_cpu)
+        for b, want in zip(bound, bound_cpu):
+            assert torch.equal(unshard_mle(b).cpu(), want[..., 0])
+    finally:
+        dist.destroy_process_group()
+    assert all(after[f] > before[f] for f in ("evals", "mul", "bind",
+                                              "reduce"))

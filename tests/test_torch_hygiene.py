@@ -145,6 +145,10 @@ def test_default_device_raises_without_cuda():
         jolt_tpu_torch.prove_prefix(trace)
     with pytest.raises(RuntimeError, match="CUDA"):
         jolt_tpu_torch.prove(trace)
+    # a rank's prove under the cycle mesh, as `spawn.run_ranks` runs it
+    from jolt_tpu_torch.parallel.spawn import prove_rank
+    with pytest.raises(RuntimeError, match="CUDA"):
+        prove_rank(0, 1, trace)
 
 
 def test_kernel_wrapper_refuses_mixed_devices():
