@@ -158,6 +158,23 @@ Phases:
      examples/fibonacci.s` in a subprocess with the default device (the
      card), then `cli verify` prints its accept line, and the proof file's
      bytes equal `prove(trace, device="cuda")`'s in this process;
+  7d. the JAX package's last surface (`[surface]` lines): (a) the main
+     path's Dory `prove` of phase 6 ran under a profiler: its root spans
+     are the JAX package's stage labels in order (`Profiler.stage`, the
+     spans opened in a stage its children), they sum to the `prove`'s
+     wall time within 2 %, `to_json()` parses and every span carries the
+     card's live bytes, and the report prints; (b) `python -m
+     jolt_tpu_torch.cli prove examples/fibonacci.s --profile --device
+     cuda` with JOLT_TPU_FS_TRACE set: its `.profile.json` holds the JAX
+     package's stage spans, its tape file is `prove`'s FS tape in this
+     process with the JAX package's `witness-extraction`,
+     `stage0-commit` and `stage8-openings` entries, `cli verify` accepts;
+     (c) `GruenSplitEq` at 18 variables (the main path's padded 2^18
+     cycles), split at the middle and at 6: `full_table()` and `outer(j)`
+     for every j == `eq.evals(w[j:])` on the card == the CPU's plain
+     path, an 18-round HighToLow Gruen loop over a 2^18 column on the
+     card == the dense message every round, `eq_plus_one_evals` == the
+     shifted eq table; K1's launches and the phase's seconds;
   8. card vs CPU: one seeded booleanity and one Hamming-weight
      `GroupedOneHot` of 18 members at K = 256 and T = 2^14 (stage 7's
      largest group) give identical round polynomials, openings and
@@ -1352,10 +1369,10 @@ def stage1_peaks(prover_mod, out):
         torch.cuda.reset_peak_memory_stats()
         return real_uniskip(*args, **kwargs)
 
-    def mark(self, label):
+    def mark(self, label, *rest):
         if label == "stage1-spartan":
             out["s1"] = torch.cuda.max_memory_allocated()
-        return real_mark(self, label)
+        return real_mark(self, label, *rest)
     prover_mod.prove_uniskip, prover_mod._StageTimer.mark = uniskip, mark
     try:
         yield out
@@ -1690,6 +1707,151 @@ def cli_phase(prove, serialize_proof, trace_program, MemoryLayout):
           f"[{accept[0]}]; proof file ({len(blob)} B) == prove(trace, "
           "device='cuda')", flush=True)
     return {"cli_prove_s": t_prove, "proof_bytes": len(blob)}
+
+
+def _spans(tree):
+    """Every span of a `Profiler.to_json()` tree, depth first."""
+    for node in tree:
+        yield node
+        yield from _spans(node.get("children", []))
+
+
+def main_stage_spans(prof, t_prove):
+    """Phase 7d (a): the main Dory `prove`'s profiler holds one root span
+    a stage, the JAX package's labels in order, covering the `prove`'s
+    wall time within 2 %; every span carries the card's live bytes."""
+    tree = json.loads(prof.to_json())
+    names = [s.name for s in prof.roots]
+    check(names == DORY_STAGES, f"the main prove's root spans: {names}")
+    covered = sum(s.wall_s for s in prof.roots)
+    check(abs(covered - t_prove) <= 0.02 * t_prove,
+          f"the stage spans cover {covered:.3f}s of prove {t_prove:.3f}s")
+    spans = list(_spans(tree))
+    check(all("hbm_bytes" in s for s in spans),
+          f"spans without the card's bytes: "
+          f"{[s['name'] for s in spans if 'hbm_bytes' not in s][:5]}")
+    print(prof.report(), flush=True)
+    print(f"[surface] (a) main prove: {len(names)} stage spans in the JAX "
+          f"package's order cover {covered:.3f}s of {t_prove:.3f}s "
+          f"({covered / t_prove:.2%}); {len(spans)} spans, each with the "
+          f"card's live bytes (last {prof.roots[-1].hbm_exit / 2**30:.3f} "
+          "GiB)", flush=True)
+    return {"stage_s": {s.name: s.wall_s for s in prof.roots},
+            "covered_s": covered, "prove_s": t_prove, "spans": len(spans)}
+
+
+def surface_phase(prove, trace_program, MemoryLayout, dev, gen, kernels):
+    """Phase 7d (b) and (c): the CLI's `--profile` and FS tape file on the
+    card; `GruenSplitEq`, the Gruen loop and `eq_plus_one_evals` at 18
+    variables on K1, card == CPU."""
+    from jolt_tpu_torch.field import ops
+    from jolt_tpu_torch.poly import dense, eq
+    from jolt_tpu_torch.poly.split_eq import (GruenSplitEq,
+                                              eq_plus_one_evals,
+                                              eq_plus_one_int)
+    P = kernels.P
+    t_phase = time.perf_counter()
+    # (b) the CLI, profiled, with the FS tape file
+    guest, inputs = "examples/fibonacci.s", "0a00000000000000"
+    cmd = [sys.executable, "-m", "jolt_tpu_torch.cli"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fib.proof")
+        env = {**os.environ, "JOLT_TPU_FS_TRACE": path + ".tape"}
+        t0 = time.perf_counter()
+        p = subprocess.run(cmd + ["prove", guest, "--input", inputs,
+                                  "--profile", "-o", path, "--device",
+                                  "cuda"], cwd=ROOT, env=env,
+                           capture_output=True, text=True, timeout=900)
+        t_cli = time.perf_counter() - t0
+        check(p.returncode == 0, f"cli prove --profile failed: "
+              f"{p.stderr[-2000:]}")
+        tree = json.loads(open(path + ".profile.json").read())
+        tape = json.loads(open(path + ".tape").read())
+        v = subprocess.run(cmd + ["verify", guest, path, "--input", inputs],
+                           cwd=ROOT, capture_output=True, text=True,
+                           timeout=900)
+        accept = [ln for ln in v.stdout.splitlines() if "verified in" in ln]
+        check(v.returncode == 0 and accept and accept[0].endswith(": True"),
+              f"cli verify: {v.stdout[-2000:]} {v.stderr[-2000:]}")
+    check([s["name"] for s in tree] == DORY_STAGES
+          and "witness-extraction: " in p.stdout,
+          f"the CLI's profile: {[s['name'] for s in tree]}")
+    # the card is first used after stage 0 at setup=None
+    late = [s for s in _spans(tree)
+            if s["name"] not in ("witness-extraction", "stage0-commit")]
+    check(all("hbm_bytes" in s for s in late),
+          f"the CLI's spans without the card's bytes: {late}")
+    layout = MemoryLayout(max_input_size=64, max_output_size=64)
+    tr = trace_program((ROOT / guest).read_text(),
+                       inputs=bytes.fromhex(inputs), layout=layout)
+    proof = prove(tr, device="cuda")
+    listed = {e["stage"] for e in proof.fs_tape}
+    check(tape[0] == {"stage": "witness-extraction"}
+          and [e["stage"] for e in tape] == DORY_STAGES
+          and [e for e in tape if e["stage"] in listed] == proof.fs_tape,
+          f"the CLI's tape file: {[e['stage'] for e in tape]}")
+    print(f"[surface] (b) cli prove --profile --device cuda: "
+          f"{t_cli:.2f}s with the process's start; {len(tree)} stage spans "
+          f"in the JAX package's order, {len(late)} with the card's bytes; "
+          f"tape file ({len(tape)} entries) == prove's FS tape + the JAX "
+          f"package's witness-extraction / stage0-commit / stage8-openings "
+          f"entries; [{accept[0]}]", flush=True)
+
+    # (c) the split eq at 18 variables, on K1
+    n = 18
+    rng = random.Random(SEED + n)
+    w = [rng.randrange(P) for _ in range(n)]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for split in (None, 6):
+        on_card = GruenSplitEq(w, split=split, device=dev)
+        on_cpu = GruenSplitEq(w, split=split, device="cpu")
+        check(torch.equal(on_card.full_table(), eq.evals(w, dev)),
+              f"full_table (split {split}) != eq.evals on the card")
+        for j in range(n + 1):
+            got = on_card.outer(j)
+            check(torch.equal(got, eq.evals(w[j:], dev))
+                  and torch.equal(got.cpu(), on_cpu.outer(j)),
+                  f"outer({j}) (split {split}): card != eq.evals or CPU")
+    t_outer = time.perf_counter() - t0
+    # the Gruen loop: sum_x eq(w, x) g(x), HighToLow over a 2^n column
+    se = GruenSplitEq(w, device=dev)
+    g = rand_field((8, 1 << n), gen, dev)
+    rs = []
+    for rnd in range(n):
+        gx = ops.evals(*ops.pair_halves(g), 2)               # X = 0, 2
+        E = eq.evals(w[rnd:], dev)
+        want = ops.unpack_ints(ops.sum_mod(ops.mont_mul(
+            ops.evals(*ops.pair_halves(E), 2), gx)))
+        tail = (se.outer(rnd + 1) if rnd + 1 < n
+                else ops.pack_ints([1], dev))
+        t = ops.unpack_ints(ops.sum_mod(ops.mont_mul(tail[:, None, :], gx)))
+        check(se.gruen_evals(t, 1) == [se.scalar * x % P for x in want],
+              f"Gruen round {rnd} != the dense message")
+        rs.append(rng.randrange(P))
+        se.bind(rs[-1])
+        g = dense.bind_high(g, rs[-1])
+    check(se.scalar == eq.eq_int(w, rs), "the Gruen loop's final scalar")
+    E = eq.evals(w, dev)
+    plus = eq_plus_one_evals(w, device=dev)
+    bits = [[rng.randrange(2) for _ in range(n)] for _ in range(4)]
+    idx = [int("".join(map(str, b)), 2) for b in bits]
+    check(torch.equal(plus[:, :-1], E[:, 1:]) and not plus[:, -1].any()
+          and ops.unpack_ints(plus[:, idx]) == [eq_plus_one_int(w, b)
+                                                for b in bits],
+          "eq_plus_one_evals != the shifted eq table")
+    k1 = kernels.k1_launches()
+    check(k1["mul"] > 0, f"the split eq launched no K1 mul: {k1}")
+    t_split = time.perf_counter() - t0
+    t_all = time.perf_counter() - t_phase
+    print(f"[surface] (c) GruenSplitEq n={n}, split {n // 2} and 6: "
+          f"full_table and outer(0..{n}) == eq.evals on the card == the "
+          f"CPU ({t_outer:.2f}s, CPU included); {n}-round Gruen loop over "
+          f"2^{n} == the dense message; eq_plus_one_evals == the shifted "
+          f"table; K1 launches {k1}; (c) {t_split:.2f}s, phase 7d "
+          f"{t_all:.2f}s", flush=True)
+    return {"cli_prove_s": t_cli, "tape_entries": len(tape),
+            "split_eq_s": t_split, "split_eq_k1": k1, "phase_s": t_all}
 
 
 def main():
@@ -2365,6 +2527,7 @@ def main():
         "included)", flush=True)
     print(f"[dory] K3 launches by Dory stage: {dory_k3} (K3 on the whole "
           f"prove: {sum(k3_counts.values())})", flush=True)
+    surface_a = main_stage_spans(dory_prof, t_prove)
 
     # the same prove with Dory's G1 work on the native library (the route
     # argument) and every stage on the host engine (every slot forced
@@ -2782,6 +2945,12 @@ def main():
           flush=True)
     cli_entry = cli_phase(prove, serialize_proof, trace_program,
                           MemoryLayout)
+    # ---- 7d. the JAX package's last surface: spans, tape file, split eq --
+    print(f"[phase] 7d starts at {time.perf_counter() - t_start:.1f}s",
+          flush=True)
+    surface_entry = {"main_prove_spans": surface_a,
+                     **surface_phase(prove, trace_program, MemoryLayout,
+                                     dev, gen, kernels)}
 
     # ---- 8. stage 7's largest group, card vs CPU --------------------------
     print(f"[phase] 8 starts at {time.perf_counter() - t_start:.1f}s",
@@ -2881,6 +3050,7 @@ def main():
         "shape": head["heaviest"]["key"],
         "forms": list(k1_forms.values()), "reference_shapes": k1_ref,
         "stage1_stream": stream_entry, "cli": cli_entry,
+        "surface": surface_entry,
         "mesh": mesh_entry,
         "spill_bytes": k1_spills,
         "other_device_kernels": n_other}, {

@@ -1,7 +1,6 @@
 """Nova folding of the BlindFold verifier R1CS (phase 3).
 
-Copied from the JAX package's `blindfold/fold.py`, logic unchanged
-(its uncalled `grid_dims` left out).
+Copied from the JAX package's `blindfold/fold.py`, logic unchanged.
 
 The real witness Z1 (u=1, E=0) folds with a RANDOM satisfying relaxed
 instance (Z2, u2, E2 := Az2 o Bz2 - u2 Cz2): the random instance is a
@@ -17,7 +16,7 @@ commitments.  Reference: `crates/jolt-blindfold/src/relaxed.rs`,
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 from ..field.params import FR
 from .pedersen import PedersenBasis, pedersen_commit
@@ -55,6 +54,14 @@ def commit_grid(basis: PedersenBasis, values: Sequence[int], rows: int,
         comms.append(comm)
     return CommittedGrid(values=list(values), blinds=blinds, comms=comms,
                          rows=rows, cols=cols)
+
+
+def grid_dims(m: int, cols: int) -> Tuple[int, int]:
+    rows = (m + cols - 1) // cols
+    r = 1
+    while r < rows:
+        r *= 2
+    return r, cols
 
 
 def cross_term(r1cs: VerifierR1CS, z1: Sequence[int], u1: int,

@@ -84,6 +84,19 @@ def msm(points: Sequence[host.Point], scalars: Sequence[int]) -> host.Point:
     return host.g1_msm(points, scalars) if fast is None else fast[0]
 
 
+def commit_add(a: host.Point, b: host.Point) -> host.Point:
+    return host.g1_add(a, b)
+
+
+def commit_scale(a: host.Point, k: int) -> host.Point:
+    return host.g1_mul(a, k % P)
+
+
+def commit_fold(a: host.Point, b: host.Point, r: int) -> host.Point:
+    """a + r * b (homomorphic fold of commitments)."""
+    return host.g1_add(a, host.g1_mul(b, r % P))
+
+
 def point_bytes(p: Optional[host.Point]) -> bytes:
     """64-byte BE affine encoding (infinity = all-zero), the transcript
     absorb format used by the rest of the codebase."""

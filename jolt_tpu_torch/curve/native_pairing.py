@@ -128,6 +128,10 @@ def load():
         lib.jolt_g1_msm.argtypes = [
             ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p,
             ctypes.c_uint64, ctypes.c_char_p, ctypes.c_char_p]
+        lib.jolt_g1_fold_batch.argtypes = [
+            ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p,
+            ctypes.c_char_p, ctypes.c_char_p, ctypes.c_uint64,
+            ctypes.c_char_p, ctypes.c_char_p]
         lib.jolt_g1_segment_sums.argtypes = [
             ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p,
             ctypes.c_uint64, ctypes.c_char_p, ctypes.c_char_p]
@@ -365,6 +369,11 @@ def g1_dec_many(buf, inf):
             for i in range(len(inf))]
 
 
+def g2_dec_many(buf, inf):
+    return [_g2_dec(buf[128 * i:128 * (i + 1)], inf[i])
+            for i in range(len(inf))]
+
+
 def g2_enc_many(points) -> Tuple[bytes, bytes]:
     n = len(points)
     buf = bytearray(128 * n)
@@ -472,6 +481,67 @@ def fr_dot_buf(a, b, n: int):
 
 def fr_enc(vals) -> bytes:
     return _fr_bytes(vals)
+
+
+# ---- list forms ------------------------------------------------------------
+# The JAX package's point-list and int-list API over the buffer forms
+# above: the same native calls, encoded and decoded at this boundary.
+# Each returns None when the library is unavailable.
+
+def _fr_ints(buf: bytes):
+    return [int.from_bytes(buf[32 * i:32 * (i + 1)], "little")
+            for i in range(len(buf) // 32)]
+
+
+def g1_fold_batch(a, b, scalars):
+    """[a_i + s_i * b_i] over G1 lanes.  Shared-scalar calls (every Dory
+    fold site) take the GLV fast path (`g1_fold_buf`); per-lane scalars
+    a double-and-add ladder a lane."""
+    lib = load()
+    if lib is None:
+        return None
+    n = len(a)
+    ab, ai = _g1_enc_many(a)
+    bb, bi = _g1_enc_many(b)
+    s0 = scalars[0] % R
+    if all(s % R == s0 for s in scalars):
+        out, oinf = g1_fold_buf(ab, ai, bb, bi, n, s0)
+    else:
+        sc = b"".join((s % R).to_bytes(32, "little") for s in scalars)
+        buf = ctypes.create_string_buffer(64 * n)
+        inf = ctypes.create_string_buffer(n)
+        lib.jolt_g1_fold_batch(ab, ai, bb, bi, sc, n, buf, inf)
+        out, oinf = buf.raw, inf.raw
+    return g1_dec_many(out, oinf)
+
+
+def g2_mul_batch(points: List, scalars: List[int]) -> Optional[List]:
+    """[s_i * Q_i] (threaded native lanes)."""
+    res = g2_mul_buf(*g2_enc_many(points), scalars)
+    return None if res is None else g2_dec_many(*res)
+
+
+def g2_fold_batch(a: List, b: List, s: int) -> Optional[List]:
+    """[a_i + s * b_i] with one shared scalar."""
+    res = g2_fold_buf(*g2_enc_many(a), *g2_enc_many(b), len(a), s)
+    return None if res is None else g2_dec_many(*res)
+
+
+def fr_fold(a, b, alpha: int):
+    """[alpha * a_i + b_i] mod r."""
+    out = fr_fold_buf(_fr_bytes(a), _fr_bytes(b), alpha, len(a))
+    return None if out is None else _fr_ints(out)
+
+
+def fr_dot(a, b):
+    """sum_i a_i * b_i mod r."""
+    return fr_dot_buf(_fr_bytes(a), _fr_bytes(b), len(a))
+
+
+def fr_combined_row(parts, L, ncols: int, sigma: int):
+    """`fr_combined_row_buf` as the length-ncols int list."""
+    out = fr_combined_row_buf(parts, L, ncols, sigma)
+    return None if out is None else _fr_ints(out)
 
 
 def fr_combined_row_buf(parts, L, ncols: int, sigma: int):

@@ -209,8 +209,9 @@ def run_point(name: str, target_log2: int, pcs: Optional[str] = None,
               device="cuda") -> dict:
     """Trace + prove one calibrated workload point on `device`; returns
     the record."""
+    import torch
+
     from ..prover.prover import prove, resolve_device
-    from ..utils.profiling import _device_mem_bytes
 
     device = resolve_device(device)
     builder = WORKLOADS[name][0]
@@ -230,7 +231,8 @@ def run_point(name: str, target_log2: int, pcs: Optional[str] = None,
         proof_bytes = len(serialize_proof(proof))
     except Exception:
         proof_bytes = None
-    hbm = _device_mem_bytes()
+    hbm = (int(torch.cuda.max_memory_allocated(device)) or None
+           if device.type == "cuda" else None)
     return {
         "workload": name,
         "target_log2": target_log2,

@@ -78,6 +78,10 @@ def neg(a: torch.Tensor) -> torch.Tensor:
     return sub(0, a)
 
 
+def mont_sqr(a: torch.Tensor) -> torch.Tensor:
+    return mont_mul(a, a)
+
+
 @functools.lru_cache(maxsize=1024)
 def _replicated(x: int, device: torch.device, nbatch: int, mesh):
     from torch.distributed.tensor import DTensor, Replicate
@@ -113,6 +117,16 @@ def ones(batch_shape, device="cuda") -> torch.Tensor:
     read-only expanded view: (8, *batch_shape)."""
     one = _scalar(1, device, len(batch_shape))
     return one.expand((N_LIMBS,) + tuple(batch_shape))
+
+
+def resolve_device(device) -> torch.device:
+    """The device a caller asked for; a CUDA device must exist (no silent
+    fall-back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not "
+                           "available (pass device='cpu' to run on the CPU)")
+    return device
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from ..field import ops
@@ -29,6 +30,12 @@ def bind_low(P: torch.Tensor, r) -> torch.Tensor:
     """Bind the LSB variable to challenge r (a canonical int, or a
     Montgomery scalar (L, 1)): K1's bind of the interleaved pairs."""
     return ops.bind(*ops.pair_halves(P, low=True), r)
+
+
+def bind(P: torch.Tensor, r, order: str) -> torch.Tensor:
+    """Bind the MSB variable (order "high") or the LSB variable (any other
+    order) to challenge r."""
+    return (bind_high if order == "high" else bind_low)(P, r)
 
 
 def evaluate(P: torch.Tensor, point: Sequence[int]) -> int:
@@ -49,5 +56,23 @@ def sumcheck_eval_points_high(P: torch.Tensor, degree: int) -> torch.Tensor:
     return ops.evals(*ops.pair_halves(P), degree)
 
 
+def sumcheck_eval_points_low(P: torch.Tensor, degree: int) -> torch.Tensor:
+    """`sumcheck_eval_points_high` for the LSB variable: the interleaved
+    pairs (P[2i], P[2i+1]), (L, degree, T/2)."""
+    return ops.evals(*ops.pair_halves(P, low=True), degree)
+
+
 def from_ints(vals: Sequence[int], device="cuda") -> torch.Tensor:
     return ops.pack_ints(vals, device)
+
+
+def from_u64_column(lo, hi, device="cuda") -> torch.Tensor:
+    """Unsigned 64-bit values given as their low and high 32-bit words
+    (numpy or torch, uint32 or any integer type holding those bits) ->
+    Montgomery form (8, n) on `device`."""
+    device = ops.resolve_device(device)
+
+    def words(x) -> torch.Tensor:
+        x = np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
+        return torch.from_numpy(x.astype(np.uint32).view(np.int32)).to(device)
+    return ops.from_u64(words(lo), words(hi))

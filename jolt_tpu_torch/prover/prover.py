@@ -42,12 +42,23 @@ K4, one fetch a stage), stage 5i the host engine (its address rounds are
 host work, as in the JAX package), and the zk mode's stages the host
 engine's committed rounds.  Forcing a slot's tier or swapping its
 implementation leaves the proof's bytes unchanged.
+
+Each stage ends, after its fetch, at the JAX package's label
+(`witness-extraction`, `stage0-commit` .. `stage8-openings`,
+`blindfold`), as the JAX package's `_mark`: a retroactive span on the
+active profiler (`utils/profiling.py`; the CLI's `--profile`,
+JOLT_TPU_PROFILE=1), a line with JOLT_TPU_STAGE_TIMING=1, and the
+transcript's checkpoint.  `prove` writes the checkpoints as JSON to the
+file JOLT_TPU_FS_TRACE names, the JAX package's tape file entry for entry;
+the proof's `fs_tape` keeps them without `witness-extraction`, and at
+`setup=None` without stage 0 and the opening, whose spans are ~0 s.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import json
 import os
 import random
 import time
@@ -62,6 +73,7 @@ from ..blindfold.prove import blindfold_prove
 from ..blindfold.zk_sumcheck import zk_prove_stage
 from ..config import LOG_K_CHUNK, ProofConfig
 from ..field import kernels, ops
+from ..field.ops import resolve_device
 from ..field.params import FR
 from ..kernels import get_backend
 from ..lookups import tables as LT
@@ -357,16 +369,6 @@ def _resolve_setup(setup, padded_length, ram_log_K, bytecode_log_K,
     return setup
 
 
-def resolve_device(device) -> torch.device:
-    """The device a caller asked for; a CUDA device must exist (no silent
-    fall-back to the CPU)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but CUDA is not "
-                           "available (pass device='cpu' to run on the CPU)")
-    return device
-
-
 def _tape_entry(label: str, transcript: Blake2bTranscript) -> dict:
     return {"stage": label, "n_rounds": transcript.n_rounds,
             "state": transcript.state.hex()}
@@ -380,8 +382,12 @@ stage_hooks: List[Callable[[str], None]] = []
 
 
 class _StageTimer:
-    """JOLT_TPU_STAGE_TIMING=1 prints one line per finished stage, as the
-    JAX package's prover does: `[prove] <label>: <seconds>s`, plus the
+    """Each finished stage's span on the profiler active when `prove`
+    started (`Profiler.stage`: host wall time from the last stage's end,
+    the card's live allocated bytes, the spans opened during the stage as
+    its children).  JOLT_TPU_STAGE_TIMING=1 also prints one line per
+    finished stage, as the JAX package's prover does: `[prove] <label>:
+    <seconds>s`, plus the
     device's peak allocated memory on CUDA and the stage's kernel launches
     (`k1=<form>:<n>,..` for each K1 form, `k2=<n>` K2 calls,
     `k3=<form>:<n>,..` for each K3 form, `k4=<n>` K4 launches).  Each
@@ -395,6 +401,7 @@ class _StageTimer:
         self.on = bool(os.environ.get("JOLT_TPU_STAGE_TIMING"))
         self.device = device
         self.launches = self._launches()
+        self.prof = profiling.active()
         self.t0 = time.perf_counter()
 
     @staticmethod
@@ -403,11 +410,16 @@ class _StageTimer:
                 **{f"k3_{f}": n for f, n in kernels.k3_launches().items()},
                 "k4": kernels.k4_launches()}
 
-    def mark(self, label: str) -> None:
-        for hook in stage_hooks:
-            hook(label)
+    def mark(self, label: str, listed: bool = True) -> None:
+        """End the stage `label`; `listed=False` records its span only (no
+        hook, no line): a stage the JAX package marks where the port does
+        no work (stage 0 and the opening at setup=None)."""
+        if listed:
+            for hook in stage_hooks:
+                hook(label)
         now = time.perf_counter()
-        if self.on:
+        self.prof.stage(label, self.t0, now)
+        if self.on and listed:
             with torch.profiler.record_function(f"[prove] {label}"):
                 pass
             mem = ""
@@ -562,10 +574,16 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None,
         config=proof_config)
     accumulator = OpeningAccumulator()
     fs_tape: List[dict] = []
+    # the JAX package's tape file: witness extraction precedes the
+    # transcript, so its entry carries no transcript fields
+    file_tape: List[dict] = [{"stage": "witness-extraction"}]
 
-    def finish(label: str) -> None:
-        fs_tape.append(_tape_entry(label, transcript))
-        timer.mark(label)
+    def finish(label: str, listed: bool = True) -> None:
+        entry = _tape_entry(label, transcript)
+        file_tape.append(entry)
+        if listed:
+            fs_tape.append(entry)
+        timer.mark(label, listed)
 
     # the zk seam: every batched stage runs through `_stage`, which in zk
     # mode gives the engine the committed-round sink and records the
@@ -638,7 +656,7 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None,
                         name, committed_sparse[name][1], bits=254)
         for name in names:
             pcs.absorb(transcript, commitments[name])
-        finish("stage0-commit")
+    finish("stage0-commit", listed=pcs is not None)
 
     # ---- Stage 1: Spartan outer (uni-skip + remaining sumcheck) ---------
     # tau = [tau_high (Lagrange kernel), tau_g (group bit), *tau_cyc]
@@ -1038,12 +1056,16 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None,
                      for cname, w in weights.items()]
         opening_proofs["joint"] = pcs.open_rlc(weights, rlc_parts, r8,
                                                value, transcript)
-        finish("stage8-openings")
+    finish("stage8-openings", listed=pcs is not None)
     zk_blindfold = None
     if zk:
         zk_blindfold = blindfold_prove(zk_stages, zk_basis, transcript,
                                        zk_rng)
         finish("blindfold")
+    fs_trace = os.environ.get("JOLT_TPU_FS_TRACE")
+    if fs_trace:
+        with open(fs_trace, "w") as f:
+            json.dump(file_tape, f, indent=1)
 
     proof = JoltProof(
         **{k: v for k, v in prefix.items()

@@ -68,6 +68,20 @@ _ALL_PREFIXES = sorted(set(
     + ["left", "right", "id", "one"]))
 
 
+def host_eq_evals(point: Sequence[int]) -> List[int]:
+    """eq table over 2^n as host ints (doubling; O(2^n) mults)."""
+    tab = [1]
+    for r in point:
+        r = r % P
+        nxt = []
+        for w in tab:
+            wr = w * r % P
+            nxt.append((w - wr) % P)
+            nxt.append(wr)
+        tab = nxt
+    return tab
+
+
 def _suffix_tables(u: torch.Tensor, v_tab: Optional[torch.Tensor],
                    chunk_prev: Optional[torch.Tensor], u_idx: torch.Tensor,
                    sv: torch.Tensor, seg_ids: torch.Tensor, n_streams: int,

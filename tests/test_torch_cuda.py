@@ -15,7 +15,9 @@ on the card (the materialized bytes, no synchronizing call in the loops),
 and the alternative tiers: the one-hot relations (`Booleanity`,
 `HammingWeight`, `SparseOneHotOpening`) on the device tier == the host
 engine == "cpu", the dense Twist provers "cuda" == "cpu", the naive
-interpreter == a `DenseOpening` on the card.
+interpreter == a `DenseOpening` on the card; `GruenSplitEq`,
+`eq_plus_one_evals` and the dense surface (`bind`, `sumcheck_eval_points_low`,
+`from_u64_column`) on the card == "cpu".
 
 These tests need an NVIDIA GPU; without one they skip.  The machine with
 the card has no JAX, so this module imports none, and there it runs
@@ -1087,3 +1089,58 @@ def test_sharded_round_step_on_card_equals_cpu(card, tmp_path, npoly,
         dist.destroy_process_group()
     assert all(after[f] > before[f] for f in ("evals", "mul", "bind",
                                               "reduce"))
+
+
+@pytest.mark.parametrize("split", [None, 3])
+def test_split_eq_card_equals_cpu(card, split):
+    """`GruenSplitEq` on the card: every `outer(j)` one K1 broadcast mul
+    (or `eq.evals` past the split) equal to the CPU's plain path and to
+    `eq.evals(w[j:])`, the Gruen loop's host scalars the CPU's, and
+    `eq_plus_one_evals` the shifted table."""
+    from jolt_tpu_torch.poly.split_eq import GruenSplitEq, eq_plus_one_evals
+    rng = np.random.default_rng(7 if split is None else 8)
+    n = 10
+    w = _field_ints(rng, n)
+    on_card, on_cpu = (GruenSplitEq(w, split=split, device=d)
+                       for d in (card, "cpu"))
+    for j in range(n + 1):
+        before = kernels.k1_launches()["mul"]
+        got = on_card.outer(j)
+        assert torch.equal(got.cpu(), on_cpu.outer(j))
+        assert torch.equal(got, eq.evals(w[j:], card))
+        if j < on_card.m:
+            assert kernels.k1_launches()["mul"] > before
+    rs = _field_ints(rng, n)
+    for r in rs:
+        t = _field_ints(rng, 2)
+        assert on_card.gruen_evals(t, 1) == on_cpu.gruen_evals(t, 1)
+        on_card.bind(r)
+        on_cpu.bind(r)
+    assert on_card.scalar == on_cpu.scalar == eq.eq_int(w, rs)
+    E = eq.evals(w, card)
+    plus = eq_plus_one_evals(w, device=card)
+    assert torch.equal(plus[:, :-1], E[:, 1:]) and not plus[:, -1].any()
+    assert torch.equal(plus.cpu(), eq_plus_one_evals(w, device="cpu"))
+
+
+@pytest.mark.parametrize("order", ["high", "low"])
+def test_dense_surface_card_equals_cpu(card, order):
+    """`dense.bind`, `sumcheck_eval_points_low` (degrees 1-3) and
+    `from_u64_column` on the card (K1's bind, evals and mul forms) equal
+    the CPU's plain path bit for bit."""
+    from jolt_tpu_torch.poly import dense
+    rng = np.random.default_rng(9)
+    vals = _field_ints(rng, 1 << 12)
+    P_cpu = ops.pack_ints(vals, "cpu")
+    P_card = P_cpu.to(card)
+    r = _field_ints(rng, 1)[0]
+    assert torch.equal(dense.bind(P_card, r, order).cpu(),
+                       dense.bind(P_cpu, r, order))
+    for degree in (1, 2, 3):
+        assert torch.equal(dense.sumcheck_eval_points_low(P_card,
+                                                          degree).cpu(),
+                           dense.sumcheck_eval_points_low(P_cpu, degree))
+    lo = rng.integers(0, 1 << 32, size=1 << 12, dtype=np.uint64)
+    hi = rng.integers(0, 1 << 32, size=1 << 12, dtype=np.uint64)
+    assert torch.equal(dense.from_u64_column(lo, hi, device=card).cpu(),
+                       dense.from_u64_column(lo, hi, device="cpu"))

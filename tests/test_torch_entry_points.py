@@ -5,14 +5,20 @@ calibration and invariants.
 The host values (a guest's run and analysis, its preprocessing digest,
 `cli run` / `trace` output, fuzz guests, sweep calibration and the
 workload table) equal the JAX package's.  One fib proof on the CPU is
-shared by the module: `cli prove --device cpu` writes it, and the port's
-`cli verify`, the JAX package's `cli verify` and the SDK's verifier
-closure accept it; a wrong claimed output is refused.  `--device cuda`
+shared by the module: `cli prove --device cpu --profile` writes it with
+JOLT_TPU_FS_TRACE set, and the port's `cli verify`, the JAX package's
+`cli verify` and the SDK's verifier closure accept it; a wrong claimed
+output is refused.  Its `.profile.json` holds the JAX package's stage
+spans, and its tape file equals the one the JAX package's `cli prove`
+writes on the same trace (`FIB_JAX_TAPE`; the slow
+tests/test_torch_entry_points_slow.py holds that file to a live run).  `--device cuda`
 (the default) raises on a host without a card.  The proofs of the sweep,
 fuzz's prove-and-tamper and the JAX package's own proof bytes are in the
 slow tests/test_torch_entry_points_slow.py.
 """
 
+import json
+import pathlib
 import random
 
 import pytest
@@ -29,12 +35,17 @@ from jolt_tpu_torch import cli, sdk
 from jolt_tpu_torch.eval import fuzz, sweep
 from jolt_tpu_torch.riscv.emulator import MemoryLayout
 from jolt_tpu_torch.tracer import trace_program
+from jolt_tpu_torch.utils import profiling
 from test_sdk import FIB as SDK_FIB
+from test_torch_profiling import jax_stage_labels
 
 torch.set_num_threads(1)
 
 FIB_S = "examples/fibonacci.s"
 FIB_INPUT = "0a00000000000000"
+# the FS tape file of `python -m jolt_tpu.cli prove examples/fibonacci.s
+# --input 0a00000000000000 --platform cpu` with JOLT_TPU_FS_TRACE set
+FIB_JAX_TAPE = pathlib.Path(__file__).parent / "data" / "fib_jax_fs_tape.json"
 
 
 @pytest.fixture(autouse=True)
@@ -82,10 +93,29 @@ def test_cli_host_commands_print_the_jax_packages_lines(cmd, capsys):
 
 @pytest.fixture(scope="module")
 def fib_proof(tmp_path_factory):
+    """The CLI's fib proof on the CPU, with `--profile` (its report and
+    `<proof>.profile.json`) and its FS tape file (`<proof>.tape.json`)."""
     path = str(tmp_path_factory.mktemp("cli") / "fib.proof")
-    assert cli.main(["prove", FIB_S, "--input", FIB_INPUT, "-o", path,
-                     "--device", "cpu"]) == 0
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(profiling, "PROFILER", profiling._NULL)   # restored after
+        mp.setenv("JOLT_TPU_FS_TRACE", path + ".tape.json")
+        assert cli.main(["prove", FIB_S, "--input", FIB_INPUT, "-o", path,
+                         "--device", "cpu", "--profile"]) == 0
     return path
+
+
+def test_cli_profile_holds_the_jax_stage_spans(fib_proof):
+    tree = json.loads(open(fib_proof + ".profile.json").read())
+    assert [s["name"] for s in tree] == jax_stage_labels()
+    assert all(s["wall_s"] >= 0 and "hbm_bytes" not in s for s in tree)
+    assert sum(s["wall_s"] for s in tree) > 0
+
+
+def test_cli_tape_file_equals_the_jax_packages(fib_proof):
+    tape = json.loads(open(fib_proof + ".tape.json").read())
+    assert tape[0] == {"stage": "witness-extraction"}
+    assert [e["stage"] for e in tape] == jax_stage_labels()
+    assert tape == json.loads(FIB_JAX_TAPE.read_text())
 
 
 def test_cli_proof_verifies_in_both_packages(fib_proof, capsys):

@@ -6,9 +6,11 @@ tests/test_fuzz.py are slow modules there).
     directory's records and summary;
   * `eval.fuzz.run_fuzz_case` on the CPU: a random guest's proof verifies
     and a tampered copy is refused;
-  * `cli prove` on the CPU writes the JAX package's `cli prove` file, byte
-    for byte (the JAX prove of fib takes minutes with a cold compile
-    cache).
+  * `cli prove --profile` on the CPU writes the JAX package's `cli prove`
+    file, byte for byte, the same root spans in its `.profile.json`, and
+    with JOLT_TPU_FS_TRACE the same tape file, which is also the file
+    tests/test_torch_entry_points.py holds the port's to (the JAX prove of
+    fib takes minutes with a cold compile cache).
 """
 
 import json
@@ -18,9 +20,12 @@ import pytest
 import torch
 
 from jolt_tpu import cli as jcli
+from jolt_tpu.utils import profiling as jprofiling
 
 from jolt_tpu_torch import cli
 from jolt_tpu_torch.eval import fuzz, sweep
+from jolt_tpu_torch.utils import profiling
+from test_torch_entry_points import FIB_JAX_TAPE
 
 pytestmark = pytest.mark.slow
 
@@ -50,11 +55,22 @@ def test_cli_proof_file_equals_the_jax_packages(tmp_path, monkeypatch):
     # the JAX package's `cli.main` may raise the host's vm.max_map_count
     # (an XLA:CPU guard); this test changes no host setting
     monkeypatch.setattr("jolt_tpu.utils.env.ensure_map_count", lambda: None)
+    monkeypatch.setattr(profiling, "PROFILER", profiling._NULL)
+    monkeypatch.setattr(jprofiling, "PROFILER", jprofiling._NULL)
     args = ["prove", "examples/fibonacci.s", "--input", "0a00000000000000",
-            "-o"]
+            "--profile", "-o"]
+    monkeypatch.setenv("JOLT_TPU_FS_TRACE", str(tmp_path / "port.tape"))
     assert cli.main(args + [str(tmp_path / "port.proof"), "--device",
                             "cpu"]) == 0
+    monkeypatch.setenv("JOLT_TPU_FS_TRACE", str(tmp_path / "jax.tape"))
     assert jcli.main(args + [str(tmp_path / "jax.proof"), "--platform",
                              "cpu"]) == 0
     assert ((tmp_path / "port.proof").read_bytes()
             == (tmp_path / "jax.proof").read_bytes())
+    tapes = [json.loads((tmp_path / f"{n}.tape").read_text())
+             for n in ("port", "jax")]
+    assert tapes[0] == tapes[1] == json.loads(FIB_JAX_TAPE.read_text())
+    roots = [[s["name"] for s in json.loads(
+        (tmp_path / f"{n}.proof.profile.json").read_text())]
+        for n in ("port", "jax")]
+    assert roots[0] == roots[1]

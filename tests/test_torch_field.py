@@ -430,6 +430,10 @@ _LAYOUTS = {
     "mul unaligned view": (lambda: (_field((8, 12), 7)[:, 1:9],
                                     _field((8, 8), 8)),
                            _K.mont_mul, ("STRIDED", "VEC", "NONE")),
+    # `GruenSplitEq.outer`: E_out[:, :, None] * E_in[:, None, :]
+    "mul outer product": (lambda: (_field((8, 4, 1), 35),
+                                   _field((8, 1, 8), 36)),
+                          _K.mont_mul, ("ROW", "VEC", "NONE")),
     "mul broadcast copy": (lambda: (_field((8, 2, 1, 4), 9),
                                     _field((8, 2, 3, 4), 10)),
                            _K.mont_mul, ("VEC", "VEC", "NONE")),
