@@ -1408,11 +1408,14 @@ def watch_loop_syncs(fused, syncs):
 
 
 def watched_prove(fn, kernels, fused, prover_mod, so):
-    """fn() (a `prove`) with the launch counts and fetches set to 0 just
-    before and read just after, every device-tier stage's loop and finals
+    """fn() (a `prove`) with the launch counts set to 0 just before and
+    read just after, the device tier's fetches counted on a profiler of its
+    own (`d2h` in the spans `fused.fetch`), every device-tier stage's loop
+    and finals
     under the sync debug mode (each synchronizing call's file:line kept),
     stage 1's tier (`stream_chunk`'s answers), and the card's peaks over
     the run and over stage 1 (`stage1_peaks`)."""
+    from jolt_tpu_torch.utils import profiling
     from jolt_tpu_torch.workload import timed_stages
     out = {"syncs": [], "chunks": []}
     real_chunk = so.stream_chunk
@@ -1423,19 +1426,20 @@ def watched_prove(fn, kernels, fused, prover_mod, so):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    fused.fetches = 0
     so.stream_chunk = chunk
     peaks = {}
     try:
         with stage1_peaks(prover_mod, peaks), \
-                watch_loop_syncs(fused, out["syncs"]):
+                watch_loop_syncs(fused, out["syncs"]), \
+                profiling.recording() as fprof:
             t0 = time.perf_counter()
             out["proof"], out["stage_s"], _, out["launches"] = \
                 timed_stages(fn)
             out["s"] = time.perf_counter() - t0
     finally:
         so.stream_chunk = real_chunk
-    out["fetches"], out["k4"] = fused.fetches, kernels.k4_launches()
+    out["fetches"] = fprof.tally("d2h", within="fused.fetch")
+    out["k4"] = kernels.k4_launches()
     out["k1"] = sum(kernels.k1_launches().values())
     out["peak"] = max(peaks["before_s1"], torch.cuda.max_memory_allocated())
     out["s1_peak"] = peaks["s1"]
@@ -1452,15 +1456,17 @@ def a19_phase(traces, dev, kernels, fused):
     dense Twist provers on fib only."""
     from test_torch_cuda import (dense_stages, onehot_stage, run_stage,
                                  test_naive_expr_equals_dense_opening_on_card)
+
+    from jolt_tpu_torch.utils import profiling
     out = {}
     for name, trace in traces:
         syncs = []
-        f0 = fused.fetches
-        with watch_loop_syncs(fused, syncs):
+        with watch_loop_syncs(fused, syncs), \
+                profiling.recording() as fprof:
             t0 = time.perf_counter()
             on_tier, k4 = run_stage(onehot_stage(trace, dev), "device")
             t_tier = time.perf_counter() - t0
-        fetches = fused.fetches - f0
+        fetches = fprof.tally("d2h", within="fused.fetch")
         t0 = time.perf_counter()
         on_host, k4_host = run_stage(onehot_stage(trace, dev), "host")
         t_host = time.perf_counter() - t0
@@ -1533,6 +1539,7 @@ def mesh_phase(tr, setup, proof, stage_launches, t_prove, peak, dev):
     from jolt_tpu_torch.proof_io import serialize_proof
     from jolt_tpu_torch.prover import prover as prover_mod
     from jolt_tpu_torch.sumcheck import fused
+    from jolt_tpu_torch.utils import profiling
     from jolt_tpu_torch.workload import sha2_chain_trace, timed_stages
 
     main_bytes = serialize_proof(proof)
@@ -1553,17 +1560,18 @@ def mesh_phase(tr, setup, proof, stage_launches, t_prove, peak, dev):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         kernels.reset_launches()
-        fused.device_tier, fused.fetches = watched, 0
+        fused.device_tier = watched
         try:
             t0 = time.perf_counter()
-            with use_mesh(mesh):
+            with use_mesh(mesh), profiling.recording() as fprof:
                 p1, stage_s1, _, launches1 = timed_stages(
                     lambda: prove(tr, setup=setup, device="cuda"))
             t1 = time.perf_counter() - t0
         finally:
             fused.device_tier = real_tier
         peak1 = torch.cuda.max_memory_allocated(dev)
-        k4, fetches = kernels.k4_launches(), fused.fetches
+        k4 = kernels.k4_launches()
+        fetches = fprof.tally("d2h", within="fused.fetch")
         check(serialize_proof(p1) == main_bytes
               and p1.fs_tape == proof.fs_tape,
               "the D = 1 mesh proof differs from the main run's")
@@ -2379,7 +2387,6 @@ def main():
                            {n: dory_prof.total(n) for n in FUSED_SPANS}))
         return on
     fused.device_tier = watched_tier
-    fused.fetches = 0
     main_peaks = {}
     try:
         with stage1_peaks(prover_mod, main_peaks), \
@@ -2393,7 +2400,7 @@ def main():
         k2_launches = kernels.product_round.launches
         k3_counts = kernels.k3_launches()
         k4_launches = kernels.k4_launches()
-        tier_fetches = fused.fetches
+        tier_fetches = dory_prof.tally("d2h", within="fused.fetch")
         fused.device_tier = real_tier
         tier_spans_end = {n: dory_prof.total(n) for n in FUSED_SPANS}
         records, kernels.record = kernels.record, None
@@ -2407,7 +2414,8 @@ def main():
     log_t = tr.padded_length.bit_length() - 1
     check(all(k1_counts.values()),
           f"a K1 form was not launched on the main path: {k1_counts}")
-    check(len(records) == launches, "K1's launch record missed launches")
+    check(sum(f in kernels.FORMS for f, _ in records) == launches,
+          "K1's launch record missed launches")
     check(not plain_calls, "torch limb arithmetic ran on the card's path: "
           f"{dict(plain_calls)}")
     # stage 1s and each ra-virtualization instance of stage 6v (one per
@@ -2553,7 +2561,7 @@ def main():
           "the main run's proof (K3 route, the device tier) differs from "
           "the native route's (every stage on the host engine) at 2^18")
     check(not any(nat_k3.values()), f"the native route launched K3: {nat_k3}")
-    check(nat_k4 == 0 and fused.fetches == tier_fetches,
+    check(nat_k4 == 0 and nprof.tally("d2h", within="fused.fetch") == 0,
           f"the host-tier run launched K4 {nat_k4} times")
     check(all(nat_launches[k]["k1"] == stage_launches[k]["k1"]
               and nat_launches[k]["k2"] == stage_launches[k]["k2"]

@@ -32,12 +32,13 @@ add of opposite points gives (0, 0, 0) -- the JAX package's select order.
 from __future__ import annotations
 
 import ctypes
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..field import fq, kernels
+from ..field import fq, kernels, ops
 from ..field.kernels import N_LIMBS
 from . import bn254_host as host
 
@@ -265,11 +266,23 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _done(form: str, rc: int) -> None:
-    """Raise on a failed launch; count a good one."""
+def _stamp() -> int:
+    """A launch's enqueue instant, read only while launches are recorded
+    (`kernels.record`)."""
+    return time.perf_counter_ns() if kernels.record is not None else 0
+
+
+def _done(form: str, rc: int, key=None, t_ns: int = 0) -> None:
+    """Raise on a failed launch; count a good one, and record it as
+    "k3_<form>" with `key` (`kernels.note`): (lanes,) for "add", "double"
+    and "normalize", (lanes, bits, words) for "scalar_mul", (bases,
+    entries, non-empty segments, segments) for a bucket sum's first level
+    and None for its later ones, (windows, c) for "bucket_reduce"."""
     if rc != 0:
         raise RuntimeError(f"{form}: K3 launch failed, CUDA error {rc}")
     kernels.k3_counts[form] += 1
+    if kernels.record is not None:
+        kernels.note(f"k3_{form}", key, t_ns)
 
 
 def _check(form: str, *pts) -> torch.device:
@@ -329,8 +342,10 @@ def _launch(form: str, batch, a: Point3, b: Optional[Point3] = None,
         L.words, L.ws = words.data_ptr(), words.stride(0)
     L.ox, L.oy, L.oz = (o.data_ptr() for o in outs)
     lib = _lib()
+    key = (n, bits, words.shape[0]) if form == "scalar_mul" else (n,)
     with torch.cuda.device(dev):
-        _done(form, lib.jolt_k3(ctypes.byref(L), _stream(dev)))
+        t = _stamp()
+        _done(form, lib.jolt_k3(ctypes.byref(L), _stream(dev)), key, t)
     return outs
 
 
@@ -409,14 +424,20 @@ _CHUNK0 = 32
 _CHUNK = 8
 
 
-def _chunk_table(starts: torch.Tensor, counts: torch.Tensor, size: int):
+def _chunk_table(starts: torch.Tensor, counts: torch.Tensor, size: int,
+                 tally: Optional[list] = None):
     """Each segment's [start, start + count) cut into chunks of `size`:
     (beg, end) int64 per chunk in segment order, the chunks a segment, and
-    the most any segment has (one sync)."""
+    the most any segment has (one sync).  With `tally` a list, the same
+    sync also reads the entries and the non-empty segments into it."""
     dev = starts.device
     nch = (counts + size - 1) // size
-    total, longest = (int(v) for v in torch.stack([nch.sum(), nch.max()])
-                      .tolist())
+    sums = [nch.sum(), nch.max()]
+    if tally is not None:
+        sums += [counts.sum(), (counts > 0).sum()]
+    total, longest, *more = (int(v) for v in ops.host(torch.stack(sums)))
+    if tally is not None:
+        tally.extend(more)
     seg = torch.repeat_interleave(torch.arange(nch.numel(), device=dev), nch,
                                   output_size=total)
     first = torch.cumsum(nch, 0) - nch
@@ -425,14 +446,16 @@ def _chunk_table(starts: torch.Tensor, counts: torch.Tensor, size: int):
     return beg, end, nch, longest
 
 
-def bucket_levels(starts: torch.Tensor, counts: torch.Tensor):
+def bucket_levels(starts: torch.Tensor, counts: torch.Tensor,
+                  tally: Optional[list] = None):
     """The chunk tables of every level of a bucket sum over segments
     [start, start + count): level 0's chunks of <= _CHUNK0 lanes, then
     levels of <= _CHUNK partials until one partial is left a segment, as
     (beg, end) pairs (one host sync a level; [] when every segment is
     empty).  All of them are made before the first launch, so the levels'
-    launches follow each other with no sync between."""
-    beg, end, nch, longest = _chunk_table(starts, counts, _CHUNK0)
+    launches follow each other with no sync between.  `tally` as
+    `_chunk_table`'s, in level 0's sync."""
+    beg, end, nch, longest = _chunk_table(starts, counts, _CHUNK0, tally)
     if beg.numel() == 0:
         return []
     levels = [(beg, end)]
@@ -462,9 +485,9 @@ def _bucket_source(P: Point3, plain: bool):
     return affine_bases(P) if plain else _base_rows(P)
 
 
-def _sum_level_k3(src, affine: bool, lanes, beg, end) -> Point3:
+def _sum_level_k3(src, affine: bool, lanes, beg, end, key=None) -> Point3:
     """One level on K3 (one launch): `src` the base rows (level 0) or the
-    level before's partials."""
+    level before's partials; `key` its launch record's."""
     dev = beg.device
     n = beg.numel()
     outs = tuple(torch.empty((N_LIMBS, n), dtype=_I32, device=dev)
@@ -479,12 +502,14 @@ def _sum_level_k3(src, affine: bool, lanes, beg, end) -> Point3:
     L.beg, L.end, L.n = beg.data_ptr(), end.data_ptr(), n
     L.ox, L.oy, L.oz = (o.data_ptr() for o in outs)
     with torch.cuda.device(dev):
+        t = _stamp()
         _done("bucket_sum", _lib().jolt_k3_bucket_sum(
-            ctypes.byref(L), int(affine), _stream(dev)))
+            ctypes.byref(L), int(affine), _stream(dev)), key, t)
     return outs
 
 
-def _sum_level_plain(src, affine: bool, lanes, beg, end) -> Point3:
+def _sum_level_plain(src, affine: bool, lanes, beg, end,
+                     key=None) -> Point3:
     """One level in plain Fq: step i adds each chunk's i-th entry where
     the chunk has one (mixed adds of `affine_bases` at level 0)."""
     acc = tuple(torch.zeros((N_LIMBS, beg.numel()), dtype=_I32,
@@ -507,20 +532,23 @@ def _sum_level_plain(src, affine: bool, lanes, beg, end) -> Point3:
 def _bucket_sum(src, lanes, starts, ends, plain: bool) -> Point3:
     """`bucket_sum` over the bases as `_bucket_source` gave them."""
     dev = lanes.device
-    starts = starts.to(dev, torch.int64).reshape(-1)
+    starts = ops.upload(starts, dev, torch.int64).reshape(-1)
     if ends is None:
         starts, ends = starts[:-1], starts[1:]
-    counts = (ends.to(dev, torch.int64).reshape(-1) - starts).clamp_min(0)
+    counts = (ops.upload(ends, dev, torch.int64).reshape(-1)
+              - starts).clamp_min(0)
     out = tuple(torch.zeros((N_LIMBS, starts.numel()), dtype=_I32,
                             device=dev) for _ in range(3))
     if starts.numel() == 0:
         return out
-    lanes = lanes.to(dev, _I32).contiguous()
-    levels = bucket_levels(starts, counts)
+    lanes = ops.upload(lanes, dev, _I32).contiguous()
+    tally = [] if kernels.record is not None and not plain else None
+    levels = bucket_levels(starts, counts, tally)
     if not levels:
         return out
     level = _sum_level_plain if plain else _sum_level_k3
-    parts = level(src, True, lanes, *levels[0])
+    key = None if tally is None else (src.shape[0], *tally, starts.numel())
+    parts = level(src, True, lanes, *levels[0], key)
     for beg, end in levels[1:]:
         parts = level(parts, False, None, beg, end)
     live = torch.nonzero(counts > 0).squeeze(1)
@@ -533,8 +561,8 @@ def bucket_sum_plain(P: Point3, lanes: torch.Tensor, starts: torch.Tensor,
                      ends: Optional[torch.Tensor] = None) -> Point3:
     """`bucket_sum` in plain Fq on any device: the same chunks, the same
     additions in the same order."""
-    return _bucket_sum(affine_bases(P), lanes.to(P[0].device), starts,
-                       ends, plain=True)
+    return _bucket_sum(affine_bases(P), ops.upload(lanes, P[0].device),
+                       starts, ends, plain=True)
 
 
 def bucket_sum(P: Point3, lanes: torch.Tensor, starts: torch.Tensor,
@@ -550,8 +578,8 @@ def bucket_sum(P: Point3, lanes: torch.Tensor, starts: torch.Tensor,
         raise ValueError(f"bucket_sum: bases {tuple(P[0].shape)} (want "
                          "(8, N))")
     plain = dev.type == "cpu"
-    return _bucket_sum(_bucket_source(P, plain), lanes.to(dev), starts,
-                       ends, plain)
+    return _bucket_sum(_bucket_source(P, plain), ops.upload(lanes, dev),
+                       starts, ends, plain)
 
 
 # the most bucket-reduce threads a window (`kReduceThreads`, csrc/g1.cu)
@@ -649,8 +677,9 @@ def _reduce_k3(B: Point3, c: int, W: Point3, out: Point3,
     L.counter = counter.data_ptr()
     L.n_win, L.c, L.m, L.log_s = W[0].shape[1], c, m, log_s
     with torch.cuda.device(dev):
+        t = _stamp()
         _done("bucket_reduce", _lib().jolt_k3_bucket_reduce(
-            ctypes.byref(L), _stream(dev)))
+            ctypes.byref(L), _stream(dev)), (L.n_win, c), t)
 
 
 # ---------------------------------------------------------------------------
@@ -697,7 +726,7 @@ def segmented_scan_points(P: Point3, heads: torch.Tensor) -> Point3:
     group elements in other Jacobian coordinates."""
     X, Y, Z = P
     n = X.shape[-1]
-    flag = heads.reshape(-1).to(X.device).bool()
+    flag = ops.upload(heads.reshape(-1), X.device).bool()
     d = 1
     while d < n:
         s = jacobian_add((X[:, :-d], Y[:, :-d], Z[:, :-d]),
@@ -758,9 +787,8 @@ def msm_rows(P: Point3, scalar_words: torch.Tensor, bits: int) -> Point3:
 def _on(words, P: Point3) -> torch.Tensor:
     """Scalar words as a tensor on the points' device."""
     if isinstance(words, np.ndarray):
-        words = torch.from_numpy(np.array(words, dtype=np.uint32)
-                                 .view(np.int32))
-    return words.to(P[0].device)
+        words = np.array(words, dtype=np.uint32).view(np.int32)
+    return ops.upload(words, P[0].device)
 
 
 # ---------------------------------------------------------------------------

@@ -20,7 +20,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from . import kernels
+from . import kernels, ops
 from .kernels import N_LIMBS
 from .params import FQ_MODULUS
 
@@ -111,7 +111,7 @@ def mont_words(vals: Sequence[int]) -> np.ndarray:
 def pack_ints(vals: Sequence[int], device="cuda") -> torch.Tensor:
     """Canonical ints -> Montgomery limbs (8, len(vals)) on `device`."""
     words = np.array(mont_words(vals), dtype=np.uint32).view(np.int32)
-    return torch.from_numpy(words).to(device)
+    return ops.upload(words, device)
 
 
 def np_unpack_ints(arr: np.ndarray) -> List[int]:
@@ -125,4 +125,4 @@ def np_unpack_ints(arr: np.ndarray) -> List[int]:
 
 def unpack_ints(a: torch.Tensor) -> List[int]:
     """Montgomery limbs (8, N) -> canonical ints."""
-    return np_unpack_ints(a.cpu().numpy())
+    return np_unpack_ints(ops.host(a))

@@ -36,8 +36,11 @@ DTensors (the cycle mesh, `parallel/mesh.py`) reach a wrapper through one
 rule (`_on_mesh`): K1's forms run on each rank's local shard, K2 on each
 rank's own pairs; a DTensor that reaches a launch raises.
 Each wrapper counts its launches in ``.launches`` (`k1_launches()` gives
-K1's per form); with `record` set to a list, every K1 launch also appends
-(form, key), key the operands' shapes (`_key`).
+K1's per form); with `record` set to a list, every launch of K1-K4 also
+appends (form, key) and its enqueue instant (`note`): K1's forms (`FORMS`)
+with the operands' shapes (`_key`), "k2" with (factors, order, T, blocks),
+"k3_<form>" with its sizes (`curve/g1.py`) and "k4" with (degrees, active,
+n_c) -- each what `workload.k1_bound_ms` .. `k4_bound_ms` take.
 
 The kernels build at first use from the sources in this package, one
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` per source, all started
@@ -55,6 +58,7 @@ import os
 import shutil
 import subprocess
 import sys
+import time
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -88,9 +92,10 @@ def _limbs_of(x: int) -> List[int]:
 @functools.lru_cache(maxsize=4096)
 def _limbs_on(x: int, device: torch.device) -> torch.Tensor:
     """The 8 limbs of x as an int32 tensor on `device`, uploaded once per
-    (value, device).  Callers never write into the result (every op
-    returns a new tensor)."""
-    return torch.tensor(_limbs_of(x), dtype=_I32, device=device)
+    (value, device) (`ops.upload`).  Callers never write into the result
+    (every op returns a new tensor)."""
+    from .ops import upload
+    return upload(_limbs_of(x), device, _I32)
 
 
 @functools.lru_cache(maxsize=4096)
@@ -626,8 +631,24 @@ _OP = {form: i for i, form in enumerate(FORMS)}
 _NONE, _SCALAR, _ROW, _VEC, _STRIDED = range(5)
 _LIMIT = 1 << 31            # K1's offsets are 32-bit
 
-# None, or a list to which every K1 launch appends (form, key) (`_key`)
+# None, or a list to which every launch of K1-K4 appends (form, key)
+# (`note`); no cost while None
 record: Optional[list] = None
+# the enqueue instant (`time.perf_counter_ns()`, read before the launch) of
+# each entry of the list `record` last was, in order; the profiler's anchor
+# (`utils/profiling.py`) puts it on the device trace's clock
+record_ns: List[int] = []
+_record_of: Optional[list] = None
+
+
+def note(form: str, key, t_ns: int) -> None:
+    """Append a launch of `form` with `key`, enqueued at `t_ns`, to
+    `record` (which the caller has seen is a list) and `record_ns`."""
+    global record_ns, _record_of
+    if record is not _record_of:
+        record_ns, _record_of = [], record
+    record.append((form, key))
+    record_ns.append(t_ns)
 
 
 def force_k1_columns(v: int) -> None:
@@ -768,9 +789,10 @@ def _k1(form: str, xs, shape, out_shape, key, deg: int = 0) -> torch.Tensor:
     n0, n1 = _grid(tuple(shape[1:]))
     if n0 * n1:
         ops, n0, n1 = _views(xs, shape, n0, n1)
+        t = time.perf_counter_ns() if record is not None else 0
         _go(form, out, _describe(form, out, n0, n1, *ops, deg=deg))
         if record is not None:
-            record.append((form, key))
+            note(form, key, t)
     return out
 
 
@@ -1071,6 +1093,7 @@ def launch_product_round(polys, r, order: str, finish: bool = True):
             bound = tuple(b.unbind(0))
             outs[:nf] = [x.data_ptr() for x in bound]
         stream = torch.cuda.current_stream(dev).cuda_stream
+        t = time.perf_counter_ns() if record is not None else 0
         rc = lib.jolt_product_round(
             nf, code, T, *ptrs, *outs, words, r_dev,
             None if partial is None else partial.data_ptr(),
@@ -1078,6 +1101,8 @@ def launch_product_round(polys, r, order: str, finish: bool = True):
     if rc != 0:
         raise RuntimeError(f"product_round: K2 launch failed, CUDA error {rc}")
     product_round.launches += 1
+    if record is not None:
+        note("k2", (nf, order, T, blocks), t)
     if order != "bind" and not finish:
         msg = partial
     return msg, bound
@@ -1118,6 +1143,7 @@ def launch_round_tail(tail: RoundTail, device: torch.device) -> None:
     # the H100's host, more than the kernel
     index = torch.cuda.current_device() if device.index is None \
         else device.index
+    t = time.perf_counter_ns() if record is not None else 0
     with (contextlib.nullcontext() if torch.cuda.current_device() == index
           else torch.cuda.device(index)):
         rc = lib.jolt_k4(ctypes.byref(tail),
@@ -1125,6 +1151,10 @@ def launch_round_tail(tail: RoundTail, device: torch.device) -> None:
     if rc != 0:
         raise RuntimeError(f"round_tail: K4 launch failed, CUDA error {rc}")
     launch_round_tail.launches += 1
+    if record is not None:
+        n = tail.n_inst
+        note("k4", (tuple(tail.degree[:n]),
+                    tuple(bool(p) for p in tail.evals[:n]), tail.n_c), t)
 
 
 launch_round_tail.launches = 0

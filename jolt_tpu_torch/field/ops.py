@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import active_mesh, maybe_shard
+from ..utils import profiling
 from . import kernels
 from .kernels import (MASK32, N_LIMBS, P, R, R_MOD_P, is_dtensor,
                       pair_halves, u64_words)
@@ -301,7 +302,7 @@ def _planes(src, dim: int, ids, n: int, scatter: bool, into=None):
             src.shape[:dim] + (n,) + src.shape[dim + 1:], dtype=torch.int64,
             device=src.device)
         add = cols.scatter_add_ if scatter else cols.index_add_
-        return add(dim, ids.to(src.device), src)
+        return add(dim, upload(ids, src.device), src)
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     mesh, p = src.device_mesh, src.placements[0]
     if isinstance(p, Partial):
@@ -338,15 +339,14 @@ def pack_ints(vals: Sequence[int], device="cuda") -> torch.Tensor:
     R^2 on the device."""
     if len(vals) == 1:
         return _scalar(int(vals[0]), device, 1)
-    words = torch.from_numpy(words_of_ints(vals).astype(np.int32))
-    return from_words(words.to(device))
+    return from_words(upload(words_of_ints(vals).astype(np.int32), device))
 
 
 def pack_ints_host(vals: Sequence[int], device="cuda") -> torch.Tensor:
     """Python ints -> Montgomery limbs (8, len(vals)), converted on the
     host: one upload and no launch, for the few constants of a round."""
     words = words_of_ints([int(v) % P * R % P for v in vals])
-    return torch.from_numpy(words.astype(np.int32)).to(device)
+    return upload(words.astype(np.int32), device)
 
 
 def np_unpack_ints(arr: np.ndarray) -> List[int]:
@@ -398,12 +398,40 @@ def whole(a: torch.Tensor) -> torch.Tensor:
 
 def host(a: torch.Tensor) -> np.ndarray:
     """A tensor's values on the host: a DTensor is gathered whole first
-    (`full_tensor`, the same on every rank)."""
+    (`full_tensor`, the same on every rank).  One of the two places the
+    prove path copies between host and card (`upload` the other): counts
+    `d2h` and `d2h_bytes` on the active profiler (`utils/profiling.py`),
+    as the copy the card would make (on the CPU too)."""
     if is_dtensor(a) and a.dtype == _I32 and any(
             p.is_partial() for p in a.placements):
         raise TypeError("host: a Partial field tensor (limb sums are int64 "
                         "planes, reduced by reduce_cols)")
-    return whole(a).cpu().numpy()
+    out = whole(a).cpu().numpy()
+    prof = profiling.active()
+    prof.count("d2h")
+    prof.count("d2h_bytes", out.nbytes)
+    return out
+
+
+def upload(x, device, dtype=None) -> torch.Tensor:
+    """`x` on `device`, of `dtype` when given: host data (a numpy array, a
+    list of ints, default int64, or a CPU tensor) is cast on the host and
+    copied; a tensor already on a card is only moved or cast.  The other
+    place the prove path copies between host and card (`host`): host data
+    counts `h2d` and `h2d_bytes` on the active profiler, as the copy the
+    card would make (on the CPU too)."""
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(x)
+    elif not isinstance(x, torch.Tensor):
+        x = torch.tensor(x, dtype=dtype or torch.int64)
+    elif x.device.type != "cpu":
+        return x.to(device=device, dtype=dtype)
+    if dtype is not None and x.dtype != dtype:
+        x = x.to(dtype)
+    prof = profiling.active()
+    prof.count("h2d")
+    prof.count("h2d_bytes", x.numel() * x.element_size())
+    return x.to(device)
 
 
 def unpack_ints(a: torch.Tensor) -> List[int]:

@@ -175,7 +175,8 @@ def prove_rank(rank: int, world: int, trace, setup=None, device="cuda",
                **prove_kwargs) -> dict:
     """One rank's `prove` of `trace` under `use_mesh(cycle_mesh(world))`:
     its `serialize_proof` bytes, FS tape, seconds, the device tier's
-    fetches (0 under a mesh) and the K1 / K2 / K4 launches.  `every_slot`
+    fetches (the `d2h` counts of its `fused.fetch` spans; 0 under a mesh)
+    and the K1 / K2 / K4 launches.  `every_slot`
     forces every slot's tier through the backend seam ("device" or
     "host"); `count_comm` counts the collectives by kind and stage
     (`CommDebugMode`, through `prover.stage_hooks`); `prove_kwargs` go to
@@ -187,7 +188,7 @@ def prove_rank(rank: int, world: int, trace, setup=None, device="cuda",
     from ..kernels.registry import JoltBackend, set_backend
     from ..proof_io import serialize_proof
     from ..prover import prover
-    from ..sumcheck import fused
+    from ..utils import profiling
     from .mesh import cycle_mesh, use_mesh
     device = prover.resolve_device(device)
     if every_slot is not None:
@@ -196,10 +197,9 @@ def prove_rank(rank: int, world: int, trace, setup=None, device="cuda",
     comm = CommDebugMode() if count_comm else contextlib.nullcontext()
     stages = comm_by_stage(comm) if count_comm else {}
     kernels.reset_launches()
-    fetches = fused.fetches
     t0 = time.perf_counter()
     try:
-        with comm, use_mesh(mesh):
+        with comm, use_mesh(mesh), profiling.recording() as prof:
             proof = prover.prove(trace, setup=setup, device=device,
                                  **prove_kwargs)
     finally:
@@ -207,7 +207,8 @@ def prove_rank(rank: int, world: int, trace, setup=None, device="cuda",
             prover.stage_hooks.pop()
     return dict(seconds=time.perf_counter() - t0,
                 bytes=serialize_proof(proof), fs_tape=proof.fs_tape,
-                fetches=fused.fetches - fetches, k1=kernels.k1_launches(),
+                fetches=prof.tally("d2h", within="fused.fetch"),
+                k1=kernels.k1_launches(),
                 k2=kernels.product_round.launches, k4=kernels.k4_launches(),
                 comm=stages)
 

@@ -68,6 +68,7 @@ from ..curve import bn254_host as host
 from ..curve.fq_tower import Fq2, Fq12
 from ..curve.pairing import (G2Point, g2_add, g2_in_subgroup, g2_mul,
                              g2_mul_unreduced, pairing_product, tate_pairing)
+from ..field import ops
 from ..field.kernels import N_LIMBS
 from ..field.params import FQ_MODULUS as Q
 from ..field.params import FR_MODULUS as P
@@ -402,7 +403,7 @@ class Dory:
         cols = 1 << self.setup.sigma
         words = np.zeros((N_LIMBS, n_rows * cols), np.uint32)
         words[:, :len(coeffs)] = words_of_ints(coeffs)
-        w = torch.from_numpy(words.view(np.int32)).to(self.device)
+        w = ops.upload(words.view(np.int32), self.device)
         gam = self.setup.gamma1_on(self.device)
         sums = g1dev.msm_rows(tuple(c[:, None] for c in gam),
                               w.reshape(N_LIMBS, n_rows, cols), FR_BITS)
@@ -511,8 +512,8 @@ class Dory:
         from ..curve import g1 as g1dev
         sums = g1dev.bucket_sum(
             self.setup.gamma1_on(self.device),
-            torch.from_numpy(cols.astype(np.int32)),
-            torch.from_numpy(seg_off.astype(np.int64)))
+            ops.upload(cols.astype(np.int32), self.device),
+            ops.upload(seg_off.astype(np.int64), self.device))
         return g1dev.unpack_points(g1dev.normalize(sums))
 
     def commit_onehot(self, positions) -> Tuple[DoryCommitment, DoryHint]:
@@ -914,7 +915,7 @@ def _words_on(buf: bytes, device) -> torch.Tensor:
     `device` (no Python ints)."""
     import numpy as np
     lanes = np.frombuffer(buf, "<u4").view(np.int32).reshape(-1, N_LIMBS)
-    return torch.from_numpy(lanes.copy()).to(device).t()
+    return ops.upload(lanes.copy(), device).t()
 
 
 def _b_msms_k3(gam, svb: bytes, h: int):

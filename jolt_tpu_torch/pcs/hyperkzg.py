@@ -55,6 +55,7 @@ import torch
 from ..curve import bn254_host as host
 from ..curve import g1 as g1dev
 from ..curve.pairing import G2_GEN, G2Point, g2_mul, pairing_product_is_one
+from ..field import ops
 from ..field.ops import words_of_ints
 from ..field.params import FR_MODULUS as P
 from ..transcript import Blake2bTranscript
@@ -92,7 +93,7 @@ class KZGSetup:
         if self.device == device:
             return self
         return KZGSetup(g1_powers=self.g1_powers,
-                        g1_powers_dev=tuple(c.to(device)
+                        g1_powers_dev=tuple(ops.upload(c, device)
                                             for c in self.g1_powers_dev),
                         tau_g2=self.tau_g2)
 
@@ -119,7 +120,7 @@ class KZGSetup:
         tau_g2 = g2_mul(G2_GEN, tau)
         if os.path.exists(cache):
             with np.load(cache) as data:
-                powers = tuple(torch.from_numpy(data[k]).to(device)
+                powers = tuple(ops.upload(data[k], device)
                                for k in ("x", "y", "z"))
             g1dev.check_affine(powers, cache)
             return cls(g1_powers=None, g1_powers_dev=powers, tau_g2=tau_g2)
@@ -132,8 +133,8 @@ class KZGSetup:
         if device.type == "cuda":
             base = tuple(c.expand(-1, max_len) for c in
                          g1dev.pack_points([host.G1_GEN], device))
-            words = torch.from_numpy(np.array(
-                words_of_ints(scalars)).view(np.int32)).to(device)
+            words = ops.upload(np.array(
+                words_of_ints(scalars)).view(np.int32), device)
             powers = g1dev.normalize(g1dev.batch_scalar_mul(base, words,
                                                             254))
         else:
@@ -143,7 +144,7 @@ class KZGSetup:
         fd, tmp = tempfile.mkstemp(suffix=".npz", dir=cache_dir)
         try:
             with os.fdopen(fd, "wb") as f:
-                np.savez(f, **{k: c.cpu().numpy()
+                np.savez(f, **{k: ops.host(c)
                                for k, c in zip(("x", "y", "z"), powers)})
             os.replace(tmp, cache)
         finally:
@@ -248,9 +249,9 @@ class HyperKZG:
                                              [1] * len(pos))
             if len(pos) == 0:
                 return None
-            lanes = torch.from_numpy(pos.astype(np.int32))
+            lanes = ops.upload(pos.astype(np.int32), s.device)
             total = g1dev.bucket_sum(s.g1_powers_dev, lanes,
-                                     torch.tensor([0, len(pos)]))
+                                     ops.upload([0, len(pos)], s.device))
             return g1dev.unpack_points(total)[0]
 
     # ---- open ----------------------------------------------------------

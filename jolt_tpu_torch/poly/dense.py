@@ -73,6 +73,6 @@ def from_u64_column(lo, hi, device="cuda") -> torch.Tensor:
     device = ops.resolve_device(device)
 
     def words(x) -> torch.Tensor:
-        x = np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
-        return torch.from_numpy(x.astype(np.uint32).view(np.int32)).to(device)
+        x = ops.host(x) if isinstance(x, torch.Tensor) else np.asarray(x)
+        return ops.upload(x.astype(np.uint32).view(np.int32), device)
     return ops.from_u64(words(lo), words(hi))

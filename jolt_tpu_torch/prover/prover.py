@@ -52,6 +52,11 @@ transcript's checkpoint.  `prove` writes the checkpoints as JSON to the
 file JOLT_TPU_FS_TRACE names, the JAX package's tape file entry for entry;
 the proof's `fs_tape` keeps them without `witness-extraction`, and at
 `setup=None` without stage 0 and the opening, whose spans are ~0 s.
+Inside a stage's span: witness extraction's steps (`witness.r1cs_inputs`,
+`.registers`, `.ram`, `.bytecode`, `.lookups`, `.chunks`, `.advice`),
+each batched stage's `stage.setup` (everything before its rounds, stage
+0's before its commits), stage 1's `s1.uniskip`, then the tier's spans
+(`sumcheck/fused.py`, `sumcheck/engine.py`) and Dory's (`pcs/dory.py`).
 """
 
 from __future__ import annotations
@@ -385,7 +390,10 @@ class _StageTimer:
     """Each finished stage's span on the profiler active when `prove`
     started (`Profiler.stage`: host wall time from the last stage's end,
     the card's live allocated bytes, the spans opened during the stage as
-    its children).  JOLT_TPU_STAGE_TIMING=1 also prints one line per
+    its children), kept for the call in `Profiler.proves`; and the parts
+    of a stage (`part`: witness extraction's steps, a batched stage's
+    set-up), retroactive spans the stage's span adopts as children.
+    JOLT_TPU_STAGE_TIMING=1 also prints one line per
     finished stage, as the JAX package's prover does: `[prove] <label>:
     <seconds>s`, plus the
     device's peak allocated memory on CUDA and the stage's kernel launches
@@ -402,13 +410,27 @@ class _StageTimer:
         self.device = device
         self.launches = self._launches()
         self.prof = profiling.active()
-        self.t0 = time.perf_counter()
+        self.t0 = self.t_part = time.perf_counter()
+        self.spans: List[profiling.Span] = []
+        if self.prof.enabled:
+            self.prof.proves.append(self.spans)
 
     @staticmethod
     def _launches() -> Dict[str, int]:
         return {**kernels.k1_launches(), "k2": kernels.product_round.launches,
                 **{f"k3_{f}": n for f, n in kernels.k3_launches().items()},
                 "k4": kernels.k4_launches()}
+
+    def part(self, name: str) -> None:
+        """End a part of the current stage: a retroactive span `name` from
+        the stage's start, or the last part's end, to now."""
+        now = time.perf_counter()
+        self.prof.stage(name, self.t_part, now)
+        self.t_part = now
+
+    def resume(self) -> None:
+        """The next part starts now (after work with spans of its own)."""
+        self.t_part = time.perf_counter()
 
     def mark(self, label: str, listed: bool = True) -> None:
         """End the stage `label`; `listed=False` records its span only (no
@@ -418,7 +440,9 @@ class _StageTimer:
             for hook in stage_hooks:
                 hook(label)
         now = time.perf_counter()
-        self.prof.stage(label, self.t0, now)
+        span = self.prof.stage(label, self.t0, now)
+        if span is not None:
+            self.spans.append(span)
         if self.on and listed:
             with torch.profiler.record_function(f"[prove] {label}"):
                 pass
@@ -433,7 +457,7 @@ class _StageTimer:
             k3 = ",".join(f"{f}:{d['k3_' + f]}" for f in kernels.K3_FORMS)
             print(f"[prove] {label}: {now - self.t0:.4f}s{mem} k1={k1} "
                   f"k2={d['k2']} k3={k3} k4={d['k4']}", flush=True)
-        self.t0 = now
+        self.t0 = self.t_part = now
 
 
 def prove_prefix(trace: Trace, device="cuda",
@@ -495,18 +519,24 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None,
     committed rounds and the BlindFold proof with `zk`, and the program
     image with `committed_image`."""
     timer = _StageTimer(device)
-    # ---- witness extraction (host) --------------------------------------
+    # ---- witness extraction (host), one part a step ----------------------
     inputs = extract_r1cs_inputs(trace)
+    timer.part("witness.r1cs_inputs")
     reg_wit = extract_register_log(trace)
+    timer.part("witness.registers")
     ram_wit = extract_ram_log(trace)
+    timer.part("witness.ram")
     bc_wit = extract_bytecode_witness(trace)
+    timer.part("witness.bytecode")
     lk_wit = extract_instruction_lookup_witness(trace, inputs)
+    timer.part("witness.lookups")
     log_T = trace.log_T
     T_pad = trace.padded_length
     # RAM/bytecode matrices commit as d 8-bit chunk selectors (ra_virtual);
     # stages 6v, 7 and 8 read the chunk streams
     ram_chunks = chunk_streams(ram_wit.cols, ram_wit.log_K)
     bc_chunks = chunk_streams(np.asarray(bc_wit.pc_idx), bc_wit.log_K)
+    timer.part("witness.chunks")
     # advice polynomials (zkvm/prover.rs:806-860): dense dword vectors over
     # the full advice regions, opened in stage 5 and reduced in stage 8
     layout = trace.memory_layout
@@ -561,6 +591,7 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None,
         for rname, r0, nwords in regions:
             assert pi_end <= r0 or r0 + nwords <= pi_start, \
                 f"committed image overlaps the {rname} region"
+    timer.part("witness.advice")       # the advice, the layouts, the image
     timer.mark("witness-extraction")
 
     transcript = Blake2bTranscript(b"Jolt")
@@ -601,15 +632,22 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None,
     # engine's committed rounds
     _bk = get_backend()
 
+    # the work before it is the stage's set-up (instances, schedules,
+    # tables, input claims): the part `stage.setup`
     def _stage(insts, label):
+        timer.part("stage.setup")
         if not zk:
-            return prove_fused(insts, accumulator, transcript)
-        data, rs = zk_prove_stage(insts, accumulator, transcript, zk_basis,
-                                  zk_rng, label)
-        data.final_expected = data.claims[-1]
-        zk_stages.append(data)
-        zk_commit_bytes[label] = [point_bytes(c) for c in data.commitments]
-        return [], rs
+            out = prove_fused(insts, accumulator, transcript)
+        else:
+            data, rs = zk_prove_stage(insts, accumulator, transcript,
+                                      zk_basis, zk_rng, label)
+            data.final_expected = data.claims[-1]
+            zk_stages.append(data)
+            zk_commit_bytes[label] = [point_bytes(c)
+                                      for c in data.commitments]
+            out = [], rs
+        timer.resume()
+        return out
 
     # ---- Stage 0: commit the witness polynomials -------------------------
     # (zkvm/prover.rs:689-800 generate_and_commit_witness_polynomials --
@@ -641,6 +679,7 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None,
                                      advice_kinds, committed_image)
         onehot_names = [n for n in names if committed_sparse[n][1] is None]
         prof = profiling.active()
+        timer.part("stage.setup")
         with prof.span("commit.onehot"):
             if hasattr(pcs, "commit_sparse_many"):
                 commitments.update(pcs.commit_sparse_many(
@@ -661,8 +700,9 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None,
     # ---- Stage 1: Spartan outer (uni-skip + remaining sumcheck) ---------
     # tau = [tau_high (Lagrange kernel), tau_g (group bit), *tau_cyc]
     tau = transcript.challenge_vector(1 + num_stage1_rounds(log_T))
-    cols_dev, s1_coeffs, r0_skip, claim1, l_scale = prove_uniskip(
-        inputs, tau, transcript, device, _stream_stage1)
+    with timer.prof.span("s1.uniskip"):
+        cols_dev, s1_coeffs, r0_skip, claim1, l_scale = prove_uniskip(
+            inputs, tau, transcript, device, _stream_stage1)
     outer = _bk.make("spartan_outer", inputs, tau[1:], r0_skip, claim1,
                      l_scale, cols_dev)
     del cols_dev
@@ -792,9 +832,9 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None,
     # instance proves the lookup-table / raf flag claims of stage 5i, a
     # third the shift sumcheck's output claim.
     gamma_bc = transcript.challenge_scalar()
-    idx_cols = ops.from_u32(torch.from_numpy(np.asarray(
+    idx_cols = ops.from_u32(ops.upload(np.asarray(
         [reg_wit.rd_eff, reg_wit.rs1_eff, reg_wit.rs2_eff],
-        dtype=np.int32)).to(device))                            # (8, 3, T)
+        dtype=np.int32), device))                               # (8, 3, T)
     idx_claims = ops.unpack_ints(ops.dot(
         eq.evals(r_cycle, device)[:, None, :], idx_cols).reshape(8, -1))
     del idx_cols
@@ -867,7 +907,7 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None,
     for prefix, streams, log_Kv, sources in (
             ("ram_ra", ram_chunks, ram_wit.log_K, RAM_RA_SOURCES),
             ("bc_ra", bc_chunks, bc_wit.log_K, BC_RA_SOURCES)):
-        chunks = [torch.from_numpy(c).to(device) for c in streams]
+        chunks = [ops.upload(c, device) for c in streams]
         for t, oid in enumerate(sources):
             pt, cl = accumulator.openings[oid]
             r_cyc_v, r_addr_v = list(pt[:log_T]), list(pt[log_T:])
@@ -940,8 +980,8 @@ def _prove(trace: Trace, device: torch.device, full: bool, setup=None,
         log_Km = K.bit_length() - 1
         r_addr = r_b[max_log_K - log_Km:max_log_K]
         labs = [lab for lab, _ in members]
-        idx = torch.from_numpy(np.stack(
-            [np.asarray(s, dtype=np.int64) for _, s in members])).to(device)
+        idx = ops.upload(np.stack(
+            [np.asarray(s, dtype=np.int64) for _, s in members]), device)
         m7 = len(members)
         insts7.append(_bk.make(
             "booleanity", idx, K, E_bcyc, [r_addr] * m7, [0] * m7, gamma7,

@@ -59,7 +59,7 @@ P = FR.modulus
 
 def _bit_masks(indices, log_K: int, device) -> torch.Tensor:
     """(log_K, T) bool: bit b of each cycle's index (b = 0 the MSB)."""
-    idx = torch.from_numpy(np.asarray(indices, dtype=np.int64)).to(device)
+    idx = ops.upload(np.asarray(indices, dtype=np.int64), device)
     shifts = torch.arange(log_K - 1, -1, -1, device=idx.device)
     return ((idx[None, :] >> shifts[:, None]) & 1).bool()
 

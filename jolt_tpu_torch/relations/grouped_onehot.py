@@ -85,9 +85,9 @@ def _index_tensor(streams, device) -> torch.Tensor:
     """The m index streams as one int64 (M, T) tensor on `device` (a
     tensor passes through)."""
     if isinstance(streams, torch.Tensor):
-        return streams.to(device=device, dtype=torch.int64)
-    return torch.from_numpy(np.stack(
-        [np.asarray(s, dtype=np.int64) for s in streams])).to(device)
+        return ops.upload(streams, device, torch.int64)
+    return ops.upload(np.stack(
+        [np.asarray(s, dtype=np.int64) for s in streams]), device)
 
 
 class GroupedOneHot(FusedInstance):

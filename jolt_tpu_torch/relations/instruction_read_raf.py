@@ -33,6 +33,12 @@ Prover structure:
     `sumcheck.product.stack_message` of degree 18, its bind one
     `dense.bind_high` of the stack (one K1 launch).
 
+The three parts are spans (`utils/profiling.py`), one or two a round:
+`s5i.address` (an address round's message, then its binds),
+`s5i.rebuild` (a phase rebuild, the last of them building the cycle
+rounds' stack) and `s5i.cycle` (a cycle round's message launches, then
+its bind).
+
 Output claims: InstructionRa(i) openings (committed chunk polys),
 LookupTableFlag(t) and raf-flag virtual openings at the cycle point
 (proven against the public bytecode by the stage-6 flags instance).
@@ -55,6 +61,7 @@ from ..poly import dense, eq
 from ..poly.univariate import UniPoly
 from ..sumcheck.engine import OpeningAccumulator, SumcheckInstance
 from ..sumcheck.product import stack_message
+from ..utils import profiling
 from ..witness.instruction_lookups import D, LOG_M, M, InstructionLookupWitness
 
 P = FR.modulus
@@ -154,8 +161,7 @@ class InstructionReadRaf(SumcheckInstance):
         # = eq(j; r_cycle) * prod of finished-phase expanding tables at j's
         # chunks)
         self.u_dev = eq.evals(self.r_cycle, self.device)
-        self._chunks = torch.from_numpy(wit.chunks.astype(np.int64)).to(
-            self.device)
+        self._chunks = ops.upload(wit.chunks.astype(np.int64), self.device)
         tid = wit.table_ids_np
         inter = wit.inter_np
         self.table_masks = {int(t): tid == t for t in np.unique(tid)
@@ -203,19 +209,15 @@ class InstructionReadRaf(SumcheckInstance):
               for si, c in enumerate(row) if c]
         self._coef = ops.pack_ints([c * R_MOD_P % P for _, _, c in nz],
                                    self.device)
-        self._coef_prefix = torch.tensor([pi for pi, _, _ in nz],
-                                         dtype=torch.int64,
-                                         device=self.device)
-        self._coef_stream = torch.tensor([si for _, si, _ in nz],
-                                         dtype=torch.int64,
-                                         device=self.device)
+        self._coef_prefix = ops.upload([pi for pi, _, _ in nz], self.device)
+        self._coef_stream = ops.upload([si for _, si, _ in nz], self.device)
         self._u_idx_np = np.concatenate([js for js, _ in self._streams])
         stream_of = np.concatenate(
             [np.full(js.size, si, np.int64)
              for si, (js, _) in enumerate(self._streams)])
-        self._u_idx = torch.from_numpy(self._u_idx_np.astype(np.int64)).to(
-            self.device)
-        self._seg_base = torch.from_numpy(stream_of * M).to(self.device)
+        self._u_idx = ops.upload(self._u_idx_np.astype(np.int64),
+                                 self.device)
+        self._seg_base = ops.upload(stream_of * M, self.device)
 
         # prefix checkpoint states (completed pairs folded in)
         self.pstates = {n: LT.PREFIXES[n].init() for n in _ALL_PREFIXES}
@@ -224,7 +226,8 @@ class InstructionReadRaf(SumcheckInstance):
         self.v_done: List[List[int]] = []   # finished phase tables
         self.cur_v: List[int] = [1]
         self.QP: Dict[str, List[int]] = {}
-        self._init_phase(0)
+        with profiling.active().span("s5i.rebuild"):
+            self._init_phase(0)
 
         # cycle-round state
         self.S: Optional[torch.Tensor] = None
@@ -289,7 +292,7 @@ class InstructionReadRaf(SumcheckInstance):
         words = np.stack([lo & _M32, lo >> _U64(32), hi & _M32,
                           hi >> _U64(32)]).astype(np.uint32).view(np.int32)
         sv = ops.zeros((len(lo),), self.device)
-        sv[:4] = torch.from_numpy(words).to(self.device)
+        sv[:4] = ops.upload(words, self.device)
         seg_ids = self._seg_base + self._chunks[phase][self._u_idx]
         self.u_dev, q = _suffix_tables(
             self.u_dev, v_tab, chunk_prev, self._u_idx, sv, seg_ids,
@@ -328,11 +331,16 @@ class InstructionReadRaf(SumcheckInstance):
         # cycle rounds run on the device; the 128 address rounds are
         # host-side prefix-suffix algebra (tiny) and use compute_message
         if round >= LOG_K:
-            return stack_message(self.S, self.degree)
+            with profiling.active().span("s5i.cycle"):
+                return stack_message(self.S, self.degree)
         return None
 
     def compute_message(self, round: int, previous_claim: int) -> UniPoly:
         # an address round (the cycle rounds' messages are device work)
+        with profiling.active().span("s5i.address"):
+            return self._address_message(round, previous_claim)
+
+    def _address_message(self, round: int, previous_claim: int) -> UniPoly:
         rip = round % LOG_M
         length = M >> rip
         half = length // 2
@@ -359,10 +367,26 @@ class InstructionReadRaf(SumcheckInstance):
         return UniPoly.from_evals_and_hint(previous_claim, [s0, s2], P)
 
     def ingest_challenge(self, r: int, round: int) -> None:
+        prof = profiling.active()
         if round >= LOG_K:
-            self.S = dense.bind_high(self.S, r)
+            with prof.span("s5i.cycle"):
+                self.S = dense.bind_high(self.S, r)
             return
+        with prof.span("s5i.address"):
+            self._bind_address(r, round)
+        # phase boundary
+        if round % LOG_M == LOG_M - 1:
+            self.v_done.append(self.cur_v)
+            phase = round // LOG_M
+            with prof.span("s5i.rebuild"):
+                if phase + 1 < D:
+                    self._init_phase(phase + 1)
+                else:
+                    self._init_cycle_rounds()
 
+    def _bind_address(self, r: int, round: int) -> None:
+        """An address round's binds at r: the suffix tables, the expanding
+        table and, every two rounds, the prefix checkpoints."""
         r = r % P
         self.r_hist.append(r)
         rip = round % LOG_M
@@ -384,14 +408,6 @@ class InstructionReadRaf(SumcheckInstance):
             for n in _ALL_PREFIXES:
                 self.pstates[n] = LT.PREFIXES[n].update(
                     self.pstates[n], rx, ry, pair_t)
-        # phase boundary
-        if rip == LOG_M - 1:
-            self.v_done.append(self.cur_v)
-            phase = round // LOG_M
-            if phase + 1 < D:
-                self._init_phase(phase + 1)
-            else:
-                self._init_cycle_rounds()
 
     def _init_cycle_rounds(self) -> None:
         pvals = {n: LT.PREFIXES[n].value(s) for n, s in self.pstates.items()}
@@ -412,7 +428,7 @@ class InstructionReadRaf(SumcheckInstance):
         tid = self.wit.table_ids_np.astype(np.int64)
         code = (np.where(tid >= 0, tid, LT.NUM_TABLES) * 2
                 + self.wit.inter_np.astype(np.int64))
-        code_dev = torch.from_numpy(code).to(self.device)
+        code_dev = ops.upload(code, self.device)
         # one plain buffer: under a cycle mesh the eq column and the small
         # tables are gathered whole first (`ops.whole`), and each rank
         # keeps its block of the cycles (`maybe_shard`)
@@ -440,10 +456,9 @@ class InstructionReadRaf(SumcheckInstance):
         # flag claims at the new cycle point (verified by the stage-6
         # bytecode flags instance): device segment-sums of the eq column
         e2 = eq.evals(r_cyc2, self.device)
-        tid1 = torch.from_numpy(
-            (self.wit.table_ids_np + 1).astype(np.int64)).to(self.device)
-        inter01 = torch.from_numpy(
-            self.wit.inter_np.astype(np.int64)).to(self.device)
+        tid1 = ops.upload((self.wit.table_ids_np + 1).astype(np.int64),
+                          self.device)
+        inter01 = ops.upload(self.wit.inter_np.astype(np.int64), self.device)
         claims = ops.unpack_ints(_flag_claims(e2, tid1, inter01))
         self.flag_claims = [claims[t + 1] for t in range(LT.NUM_TABLES)]
         self.raf_flag_claim = claims[LT.NUM_TABLES + 1]

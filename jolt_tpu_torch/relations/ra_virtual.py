@@ -95,7 +95,7 @@ class RaVirtual(ProductSumcheck):
             blk = self.r_addr[off:off + ws[i]]
             off += ws[i]
             v_tab = eq.evals(blk, device)             # (L, 2^w)
-            col = torch.as_tensor(chunks[i], dtype=torch.int64, device=device)
+            col = ops.upload(chunks[i], device, torch.int64)
             factors.append(v_tab[:, col])
         super().__init__(factors)
         self._claim = claim % P

@@ -81,10 +81,9 @@ _M32 = np.uint64(0xFFFFFFFF)
 def _u64_field(a: np.ndarray, device) -> torch.Tensor:
     """Host uint64 values -> Montgomery limbs (8, n) on `device`."""
     a = np.asarray(a, dtype=np.uint64)
-    lo = torch.from_numpy((a & _M32).astype(np.uint32).view(np.int32))
-    hi = torch.from_numpy((a >> np.uint64(32)).astype(np.uint32)
-                          .view(np.int32))
-    return ops.from_u64(lo.to(device), hi.to(device))
+    lo = (a & _M32).astype(np.uint32).view(np.int32)
+    hi = (a >> np.uint64(32)).astype(np.uint32).view(np.int32)
+    return ops.from_u64(ops.upload(lo, device), ops.upload(hi, device))
 
 
 # ---------------------------------------------------------------------------
@@ -137,8 +136,7 @@ class RamPairSchedule:
         self.rounds: List[_Round] = []
 
         def dev(a, dtype):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(
-                device=self.device, dtype=dtype)
+            return ops.upload(np.ascontiguousarray(a), self.device, dtype)
 
         col = np.asarray(cols, dtype=np.int64)
         row = (np.arange(T, dtype=np.int64) if rows is None
@@ -402,9 +400,8 @@ class _SparseRamBase(FusedInstance):
         TAB_K = ops.unsharded(TAB_K)
         out = []
         for rnd in self.sched.rounds:
-            cols = torch.from_numpy(np.minimum(rnd.cols, self.K - 1)).to(
-                self.device)
-            live = torch.from_numpy(rnd.cols < self.K).to(self.device)
+            cols = ops.upload(np.minimum(rnd.cols, self.K - 1), self.device)
+            live = ops.upload(rnd.cols < self.K, self.device)
             out.append(maybe_shard(torch.where(live[None, :],
                                                TAB_K[:, cols], 0)))
         return out
@@ -609,8 +606,7 @@ class SparseRamOutputCheck(_SparseRamBase):
         self.INC = ops.pack_ints(inc, self.device)
         W_K = ops.zeros((self.K,), self.device)
         if w_sparse:
-            cells = torch.tensor(sorted(w_sparse), dtype=torch.int64,
-                                 device=self.device)
+            cells = ops.upload(sorted(w_sparse), self.device)
             W_K[:, cells] = ops.whole(ops.pack_ints(
                 [w_sparse[k] for k in sorted(w_sparse)], self.device))
         self.W_K = W_K

@@ -106,8 +106,7 @@ def pack_input_columns(inputs: R1CSCycleInputs, device) -> torch.Tensor:
     """All 38 columns as one Montgomery limb tensor (8, 38, T): the
     materialized tier."""
     words, sign_mask = _input_words(inputs)
-    return _lift(torch.from_numpy(words).to(device),
-                 torch.from_numpy(sign_mask).to(device))
+    return _lift(ops.upload(words, device), ops.upload(sign_mask, device))
 
 
 class StreamedColumns:
@@ -117,8 +116,8 @@ class StreamedColumns:
 
     def __init__(self, inputs: R1CSCycleInputs, device, chunk: int):
         words, sign_mask = _input_words(inputs)
-        self.words = torch.from_numpy(words).to(device)
-        self.sign_mask = torch.from_numpy(sign_mask).to(device)
+        self.words = ops.upload(words, device)
+        self.sign_mask = ops.upload(sign_mask, device)
         self.device = self.words.device
         self.T = self.words.shape[-1]
         self.chunk = chunk
@@ -166,9 +165,8 @@ def _combo_terms(w_rows: Sequence[Tuple[int, Dict[int, int]]], device):
             oi.append(out_idx)
     if not Wv:
         Wv, vi, oi = [0], [0], [0]
-    return (ops.pack_ints(Wv, device),
-            torch.tensor(vi, dtype=torch.int64, device=device),
-            torch.tensor(oi, dtype=torch.int64, device=device))
+    return (ops.pack_ints(Wv, device), ops.upload(vi, device),
+            ops.upload(oi, device))
 
 
 def _combo(cols: torch.Tensor, terms, n_out: int) -> torch.Tensor:

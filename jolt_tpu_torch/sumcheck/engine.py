@@ -30,6 +30,9 @@ This is the host tier.  `prove` runs a stage through
 `fused.prove_fused`, which takes the device tier instead (the transcript
 on the card, one fetch a stage) when `fused.device_tier` says so, and
 this engine otherwise; both give the same bytes.
+
+Spans (`utils/profiling.py`): steps 1-4 run in `engine.rounds`, step 5 in
+`stage.openings`; each round's copy counts one `d2h` there.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from ..field import ops
 from ..field.params import FR
 from ..poly.univariate import UniPoly
 from ..transcript import Blake2bTranscript
+from ..utils import profiling
 
 P = FR.modulus
 
@@ -170,71 +174,81 @@ class BatchedSumcheck:
         rounds = ClearRounds() if rounds is None else rounds
         max_rounds = max(i.num_rounds for i in instances)
 
-        for inst in instances:
-            transcript.append_scalar(b"sumcheck_claim", inst.input_claim(accumulator))
-        coeffs = transcript.challenge_vector(len(instances))
+        prof = profiling.active()
+        with prof.span("engine.rounds"):
+            for inst in instances:
+                transcript.append_scalar(b"sumcheck_claim",
+                                         inst.input_claim(accumulator))
+            coeffs = transcript.challenge_vector(len(instances))
 
-        claims = [
-            (inst.input_claim(accumulator) << (max_rounds - inst.num_rounds)) % P
-            for inst in instances
-        ]
-        rounds.start(instances, coeffs, claims)
+            claims = [
+                (inst.input_claim(accumulator)
+                 << (max_rounds - inst.num_rounds)) % P
+                for inst in instances
+            ]
+            rounds.start(instances, coeffs, claims)
 
-        two_inv = pow(2, -1, P)
-        r_sumcheck: List[int] = []
+            two_inv = pow(2, -1, P)
+            r_sumcheck: List[int] = []
 
-        for rnd in range(max_rounds):
-            # 1: launch every active instance's message (async); an
-            # instance whose message is host work this round computes it,
-            # 2: ONE blocking device-to-host copy for the device messages,
-            # 3: interpolate on the host.
-            polys: List[Optional[UniPoly]] = [None] * len(instances)
-            active: List[int] = []
-            arrays = []
-            for i, (inst, claim) in enumerate(zip(instances, claims)):
-                off = inst.round_offset(max_rounds)
-                if off <= rnd < off + inst.num_rounds:
-                    arr = inst.message_evals_dev(rnd - off)
-                    if arr is None:
-                        polys[i] = inst.compute_message(rnd - off, claim)
+            for rnd in range(max_rounds):
+                # 1: launch every active instance's message (async); an
+                # instance whose message is host work this round computes
+                # it, 2: ONE blocking device-to-host copy for the device
+                # messages (`ops.host`: the round's `d2h`), 3: interpolate
+                # on the host.
+                polys: List[Optional[UniPoly]] = [None] * len(instances)
+                active: List[int] = []
+                arrays = []
+                for i, (inst, claim) in enumerate(zip(instances, claims)):
+                    off = inst.round_offset(max_rounds)
+                    if off <= rnd < off + inst.num_rounds:
+                        arr = inst.message_evals_dev(rnd - off)
+                        if arr is None:
+                            polys[i] = inst.compute_message(rnd - off,
+                                                            claim)
+                        else:
+                            active.append(i)
+                            arrays.append(arr)
                     else:
-                        active.append(i)
-                        arrays.append(arr)
-                else:
-                    polys[i] = UniPoly([claim * two_inv % P])
-            if arrays:
-                # under a cycle mesh each message is gathered whole first
-                flat = [ops.whole(a).reshape(a.shape[0], -1) for a in arrays]
-                host = ops.host(torch.cat(flat, dim=1))
-                bounds = np.cumsum([0] + [f.shape[1] for f in flat])
-                for k, i in enumerate(active):
-                    evals = ops.np_unpack_ints(
-                        host[:, bounds[k]:bounds[k + 1]])
-                    polys[i] = UniPoly.from_evals_and_hint(claims[i], evals,
-                                                           P)
+                        polys[i] = UniPoly([claim * two_inv % P])
+                if arrays:
+                    # under a cycle mesh each message is gathered whole
+                    # first
+                    flat = [ops.whole(a).reshape(a.shape[0], -1)
+                            for a in arrays]
+                    host = ops.host(torch.cat(flat, dim=1))
+                    bounds = np.cumsum([0] + [f.shape[1] for f in flat])
+                    for k, i in enumerate(active):
+                        evals = ops.np_unpack_ints(
+                            host[:, bounds[k]:bounds[k + 1]])
+                        polys[i] = UniPoly.from_evals_and_hint(
+                            claims[i], evals, P)
 
-            batched = UniPoly([0])
-            for poly, c in zip(polys, coeffs):
-                batched = batched.add(poly.scale(c))
+                batched = UniPoly([0])
+                for poly, c in zip(polys, coeffs):
+                    batched = batched.add(poly.scale(c))
 
-            rounds.send(batched, transcript)
-            r_j = transcript.challenge_scalar_optimized()
-            r_sumcheck.append(r_j)
+                rounds.send(batched, transcript)
+                r_j = transcript.challenge_scalar_optimized()
+                r_sumcheck.append(r_j)
 
-            claims = [poly.evaluate(r_j) for poly in polys]
-            rounds.bound(r_j, claims)
+                claims = [poly.evaluate(r_j) for poly in polys]
+                rounds.bound(r_j, claims)
 
+                for inst in instances:
+                    off = inst.round_offset(max_rounds)
+                    if off <= rnd < off + inst.num_rounds:
+                        inst.ingest_challenge(r_j, rnd - off)
+
+        with prof.span("stage.openings"):
+            for inst in instances:
+                inst.finalize()
             for inst in instances:
                 off = inst.round_offset(max_rounds)
-                if off <= rnd < off + inst.num_rounds:
-                    inst.ingest_challenge(r_j, rnd - off)
-
-        for inst in instances:
-            inst.finalize()
-        for inst in instances:
-            off = inst.round_offset(max_rounds)
-            inst.cache_openings(accumulator, r_sumcheck[off:off + inst.num_rounds])
-        accumulator.flush_to_transcript(transcript)
+                inst.cache_openings(accumulator,
+                                    r_sumcheck[off:off + inst.num_rounds])
+            accumulator.flush_to_transcript(transcript)
 
         return rounds.polys, r_sumcheck
 

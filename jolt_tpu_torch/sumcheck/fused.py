@@ -26,7 +26,9 @@ device's, and the final state too, or `TranscriptDivergence` names the
 round.  So the proof's bytes are the host engine's by construction.  Each
 instance takes its fetched finals (`fused_store`, in place of the
 engine's `finalize`, which copies them itself), then `cache_openings` and
-`flush_to_transcript` run as in the engine.
+`flush_to_transcript` run as in the engine.  Spans (`utils/profiling.py`):
+`fused.rounds` from the input claims through the enqueued rounds,
+`fused.fetch` (its one `d2h`), `fused.replay`, then `stage.openings`.
 
 PyTorch runs eagerly, so the stage is a Python loop over rounds; the JAX
 scan tier's pair order, shrink plans and segments exist only to keep XLA's
@@ -63,10 +65,6 @@ from ..utils import profiling
 from .engine import BatchedSumcheck, OpeningAccumulator, SumcheckInstance
 
 P = FR.modulus
-
-# device-to-host fetches made by the device tier's stages (one a stage)
-fetches = 0
-
 
 class TranscriptDivergence(RuntimeError):
     """The host's replay of a device-tier stage drew another challenge, or
@@ -151,10 +149,9 @@ def _flat(finals: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 def _fetch(buffers: torch.Tensor) -> np.ndarray:
-    """The stage's one device-to-host copy."""
-    global fetches
-    fetches += 1
-    return buffers.cpu().numpy()
+    """The stage's one device-to-host copy (`ops.host`: the `d2h` count of
+    the span `fused.fetch`)."""
+    return ops.host(buffers)
 
 
 def _unpack(rows: np.ndarray) -> List[int]:
@@ -176,20 +173,20 @@ def prove_fused(instances: Sequence[SumcheckInstance],
         raise ValueError(f"a stage's instances on {sorted(map(str, devices))}")
     prof = profiling.active()
     max_rounds = max(i.num_rounds for i in instances)
-    for inst in instances:
-        transcript.append_scalar(b"sumcheck_claim",
-                                 inst.input_claim(accumulator))
-    coeffs = transcript.challenge_vector(len(instances))
-    claims = [(inst.input_claim(accumulator)
-               << (max_rounds - inst.num_rounds)) % P for inst in instances]
-    offs = [inst.round_offset(max_rounds) for inst in instances]
-    degrees = [inst.degree for inst in instances]
-    active = [[off <= rnd < off + inst.num_rounds
-               for inst, off in zip(instances, offs)]
-              for rnd in range(max_rounds)]
-    n_c = [dt.compressed_len(row, degrees) for row in active]
-
     with prof.span("fused.rounds"):
+        for inst in instances:
+            transcript.append_scalar(b"sumcheck_claim",
+                                     inst.input_claim(accumulator))
+        coeffs = transcript.challenge_vector(len(instances))
+        claims = [(inst.input_claim(accumulator)
+                   << (max_rounds - inst.num_rounds)) % P
+                  for inst in instances]
+        offs = [inst.round_offset(max_rounds) for inst in instances]
+        degrees = [inst.degree for inst in instances]
+        active = [[off <= rnd < off + inst.num_rounds
+                   for inst, off in zip(instances, offs)]
+                  for rnd in range(max_rounds)]
+        n_c = [dt.compressed_len(row, degrees) for row in active]
         bufs = dt.stage_buffers(devices.pop(), transcript.state,
                                 transcript.n_rounds, claims, coeffs,
                                 max_rounds, max(degrees))
@@ -197,10 +194,10 @@ def prove_fused(instances: Sequence[SumcheckInstance],
     with prof.span("fused.fetch"):
         host = _fetch(torch.cat([bufs.all, flat.reshape(-1)]))
     n_all = bufs.all.numel()
-    final_ints = ops.np_unpack_ints(host[n_all:].reshape(8, -1))
-    host = host[:n_all]
 
     with prof.span("fused.replay"):
+        final_ints = ops.np_unpack_ints(host[n_all:].reshape(8, -1))
+        host = host[:n_all]
         sizes = [t.numel() for t in (bufs.state, bufs.claims, bufs.coeffs,
                                      bufs.comp)]
         at = np.cumsum([0] + sizes)
@@ -227,11 +224,12 @@ def prove_fused(instances: Sequence[SumcheckInstance],
                 f"{max_rounds}: final state or n_rounds differs from the "
                 "host's")
 
-    at = np.cumsum([0] + counts)
-    for k, inst in enumerate(instances):
-        inst.fused_store(final_ints[at[k]:at[k + 1]])
-    for inst, off in zip(instances, offs):
-        inst.cache_openings(accumulator,
-                            r_sumcheck[off:off + inst.num_rounds])
-    accumulator.flush_to_transcript(transcript)
+    with prof.span("stage.openings"):
+        at = np.cumsum([0] + counts)
+        for k, inst in enumerate(instances):
+            inst.fused_store(final_ints[at[k]:at[k + 1]])
+        for inst, off in zip(instances, offs):
+            inst.cache_openings(accumulator,
+                                r_sumcheck[off:off + inst.num_rounds])
+        accumulator.flush_to_transcript(transcript)
     return polys, r_sumcheck

@@ -55,7 +55,7 @@ from ..field import kernels
 from ..field.kernels import (MASK32, N_LIMBS, P, R, R_MOD_P, _pack_limbs,
                              _scalar, add_plain, mont_mul_plain, reduce_plain,
                              sub_plain, u64_words)
-from ..field.ops import words_of_ints
+from ..field.ops import upload, words_of_ints
 
 INV2 = pow(2, -1, P)
 INV6 = pow(6, -1, P)
@@ -360,7 +360,7 @@ def stage_buffers(device, state32: bytes, n_rounds: int,
     host[9:9 + 16 * n] = words_of_ints(mont).T.reshape(-1)
     if k4:
         host[total:] = words_of_ints(k4_weights(coeffs)).T.reshape(-1)
-    flat = torch.from_numpy(host.view(np.int32)).to(device)
+    flat = upload(host.view(np.int32), device)
     parts = torch.split(flat[:total], sizes)
     bufs = StageBuffers(flat[:total], parts[0], parts[1].view(n, 8),
                         parts[2].view(n, 8),

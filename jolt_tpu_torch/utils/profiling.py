@@ -19,9 +19,25 @@ kept from there:
 stage's end (`Profiler.stage`), after the stage's fetch, with the spans
 opened during the stage (Dory's, the device tier's) as its children.
 
-Output: a tree of spans with {name, wall_s, hbm_bytes?} -- `report()`
-renders an indented text profile, `to_json()` a machine-readable dump
-(the CLI writes it next to the proof with --profile).
+Counters live in the same tree: `count(name, n)` adds n to the innermost
+open span's `counts` (the copies between host and card, `d2h` / `d2h_bytes`
+and `h2d` / `h2d_bytes`, counted by `field/ops.py`'s `host` and `upload`);
+a count made while no span is open waits for the next retroactive span
+at that level (`stage`), which takes it.  The null profiler returns after
+one attribute check.
+
+One clock with the device trace: the profiler takes an anchor when it is
+made, `time.perf_counter_ns()` beside `time.time_ns()` (the Unix clock
+that Kineto stamps device events on).  Spans keep `start` in
+`perf_counter` seconds; `as_dict` adds `start_ns` on the Unix clock, and
+`unix_ns` maps any `perf_counter_ns` instant (a launch record's enqueue
+stamp, `field/kernels.py`) the same way.
+
+Output: a tree of spans with {name, start_ns, wall_s, hbm_bytes?,
+counts?} -- `report()` renders an indented text profile, `to_json()` a
+machine-readable dump (the CLI writes it next to the proof with
+--profile).  `proves` keeps each `prove` call's stage spans, one list a
+call, whatever a caller does to `roots` between calls.
 """
 
 from __future__ import annotations
@@ -29,9 +45,12 @@ from __future__ import annotations
 import json
 import os
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Dict, List, Optional
+
+
+_NO_SPAN = nullcontext()
 
 
 def _device_mem_bytes() -> Optional[int]:
@@ -53,14 +72,44 @@ class Span:
     hbm_enter: Optional[int] = None
     hbm_exit: Optional[int] = None
     children: List["Span"] = field(default_factory=list)
+    counts: Dict[str, int] = field(default_factory=dict)
 
-    def as_dict(self) -> dict:
-        d = {"name": self.name, "wall_s": round(self.wall_s, 4)}
+    def as_dict(self, anchor: Optional["Anchor"] = None) -> dict:
+        """The span and its children as plain data; with the profiler's
+        `anchor`, each span's start on the Unix clock (`start_ns`)."""
+        d = {"name": self.name}
+        if anchor is not None:
+            d["start_ns"] = anchor.unix_ns(round(self.start * 1e9))
+        d["wall_s"] = round(self.wall_s, 4)
         if self.hbm_exit is not None:
             d["hbm_bytes"] = self.hbm_exit
+        if self.counts:
+            d["counts"] = dict(self.counts)
         if self.children:
-            d["children"] = [c.as_dict() for c in self.children]
+            d["children"] = [c.as_dict(anchor) for c in self.children]
         return d
+
+    def walk(self):
+        """This span and every span below it, depth first."""
+        yield self
+        for c in self.children:
+            yield from c.walk()
+
+
+@dataclass(frozen=True)
+class Anchor:
+    """One instant read on both clocks: `time.perf_counter_ns()` (spans,
+    launch stamps) and `time.time_ns()` (the device trace's)."""
+    perf_ns: int
+    time_ns: int
+
+    @staticmethod
+    def now() -> "Anchor":
+        return Anchor(time.perf_counter_ns(), time.time_ns())
+
+    def unix_ns(self, perf_ns: int) -> int:
+        """A `perf_counter_ns` instant on the Unix clock."""
+        return perf_ns - self.perf_ns + self.time_ns
 
 
 class Profiler:
@@ -76,14 +125,27 @@ class Profiler:
     def __init__(self, enabled: bool = True, track_memory: bool = True):
         self.enabled = enabled
         self.track_memory = track_memory
+        self.anchor = Anchor.now()
         self.roots: List[Span] = []
+        self.proves: List[List[Span]] = []
         self._stack: List[Span] = []
+        self._loose: Dict[str, int] = {}
+
+    def count(self, name: str, n: int = 1) -> None:
+        """Add n to the counter `name` of the innermost open span (with no
+        span open, of the next retroactive span, `stage`)."""
+        if not self.enabled:
+            return
+        counts = self._stack[-1].counts if self._stack else self._loose
+        counts[name] = counts.get(name, 0) + n
+
+    def span(self, name: str):
+        """A context manager: the span `name`, open for the block (on a
+        disabled profiler, one shared object that does nothing)."""
+        return self._span(name) if self.enabled else _NO_SPAN
 
     @contextmanager
-    def span(self, name: str):
-        if not self.enabled:
-            yield
-            return
+    def _span(self, name: str):
         s = Span(name, time.perf_counter())
         if self.track_memory:
             s.hbm_enter = _device_mem_bytes()
@@ -97,22 +159,27 @@ class Profiler:
             if self.track_memory:
                 s.hbm_exit = _device_mem_bytes()
 
-    def stage(self, name: str, start: float, end: float) -> None:
+    def stage(self, name: str, start: float, end: float) -> Optional[Span]:
         """A retroactive span from `start` to `end` (`time.perf_counter`)
         at the current level (`prove` is a linear pipeline: one per
-        stage, as the JAX package's prover adds them), with the spans
-        opened at that level since `start` as its children."""
+        stage, as the JAX package's prover adds them, and one per part of
+        a stage), with the spans opened at that level since `start` as its
+        children; at the top level it takes the counts made with no span
+        open.  Returns the span (None when disabled)."""
         if not self.enabled:
-            return
+            return None
         level = self._stack[-1].children if self._stack else self.roots
         k = len(level)
         while k and level[k - 1].start >= start:
             k -= 1
         s = Span(name, start, end - start, children=level[k:])
+        if not self._stack:
+            s.counts, self._loose = self._loose, {}
         if self.track_memory:
             s.hbm_exit = _device_mem_bytes()
         del level[k:]
         level.append(s)
+        return s
 
     # ---- reporting -------------------------------------------------------
 
@@ -125,7 +192,9 @@ class Profiler:
                 mem = f"  hbm={s.hbm_exit / 2**20:.0f}MB"
                 if s.hbm_enter is not None:
                     mem += f" (+{(s.hbm_exit - s.hbm_enter) / 2**20:.0f})"
-            lines.append(f"{'  ' * depth}{s.name}: {s.wall_s:.3f}s{mem}")
+            counts = "".join(f"  {k}={v}" for k, v in s.counts.items())
+            lines.append(f"{'  ' * depth}{s.name}: {s.wall_s:.3f}s{mem}"
+                         f"{counts}")
             for c in s.children:
                 walk(c, depth + 1)
 
@@ -134,7 +203,8 @@ class Profiler:
         return "\n".join(lines)
 
     def to_json(self) -> str:
-        return json.dumps([r.as_dict() for r in self.roots], indent=1)
+        return json.dumps([r.as_dict(self.anchor) for r in self.roots],
+                          indent=1)
 
     def dump(self, path: str) -> None:
         with open(path, "w") as f:
@@ -142,18 +212,17 @@ class Profiler:
 
     def total(self, name: str) -> float:
         """Sum of wall_s over all spans with this name (any depth)."""
-        acc = 0.0
+        return sum(s.wall_s for r in self.roots for s in r.walk()
+                   if s.name == name)
 
-        def walk(s: Span):
-            nonlocal acc
-            if s.name == name:
-                acc += s.wall_s
-            for c in s.children:
-                walk(c)
-
-        for r in self.roots:
-            walk(r)
-        return acc
+    def tally(self, name: str, within: Optional[str] = None,
+              roots: Optional[List[Span]] = None) -> int:
+        """Sum of the counter `name` over every span of `roots` (default
+        the profiler's), at any depth, or only over the spans named
+        `within`."""
+        return sum(s.counts.get(name, 0)
+                   for r in (self.roots if roots is None else roots)
+                   for s in r.walk() if within is None or s.name == within)
 
 
 _NULL = Profiler(enabled=False)
@@ -172,3 +241,17 @@ def enable() -> Profiler:
     if not PROFILER.enabled:
         PROFILER = Profiler()
     return PROFILER
+
+
+@contextmanager
+def recording(track_memory: bool = False):
+    """A fresh profiler as the process-wide one for the block, the one
+    before it restored after: how a caller reads the counts of one call
+    (`parallel/spawn.py`: the device tier's fetches, `d2h` in the spans
+    `fused.fetch`)."""
+    global PROFILER
+    prev, PROFILER = PROFILER, Profiler(track_memory=track_memory)
+    try:
+        yield PROFILER
+    finally:
+        PROFILER = prev

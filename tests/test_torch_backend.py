@@ -30,9 +30,9 @@ from jolt_tpu_torch.kernels import JoltBackend, SLOTS, get_backend, set_backend
 from jolt_tpu_torch.kernels.registry import _CLASS_SLOTS, NOT_PORTED
 from jolt_tpu_torch.proof_io import serialize_proof
 from jolt_tpu_torch.riscv.emulator import MemoryLayout
-from jolt_tpu_torch.sumcheck import fused
 from jolt_tpu_torch.sumcheck.fused import FusedInstance
 from jolt_tpu_torch.tracer import trace_program
+from jolt_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -203,10 +203,10 @@ def test_prove_forces_the_directly_built_classes(guest):
                  "inc_claim_reduction"):
         backend = backend.with_tier(slot, "device")
     set_backend(backend)
-    f0 = fused.fetches
     try:
-        proof = jt.prove(guest[0], device="cpu")
+        with profiling.recording() as prof:
+            proof = jt.prove(guest[0], device="cpu")
     finally:
         set_backend(None)
-    assert fused.fetches - f0 == 2
+    assert prof.tally("d2h", within="fused.fetch") == 2
     assert serialize_proof(proof) == serialize_proof(guest[1])

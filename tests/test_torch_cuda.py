@@ -28,6 +28,7 @@ without the suite's JAX conftest:
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -371,7 +372,8 @@ def _on_device_tier(fn):
     sync debug mode "error" (a synchronizing CUDA call raises); returns its
     result, the K4 launches and the fetches it made."""
     from jolt_tpu_torch.sumcheck import fused
-    k4, f0 = kernels.k4_launches(), fused.fetches
+    from jolt_tpu_torch.utils import profiling
+    k4 = kernels.k4_launches()
     real = fused._device_rounds
 
     def no_sync(*args):
@@ -382,10 +384,12 @@ def _on_device_tier(fn):
             torch.cuda.set_sync_debug_mode("default")
     fused._device_rounds = no_sync
     try:
-        out = fn()
+        with profiling.recording() as prof:
+            out = fn()
     finally:
         fused._device_rounds = real
-    return out, kernels.k4_launches() - k4, fused.fetches - f0
+    return (out, kernels.k4_launches() - k4,
+            prof.tally("d2h", within="fused.fetch"))
 
 
 def _rounds(proof, fields):
@@ -1144,3 +1148,123 @@ def test_dense_surface_card_equals_cpu(card, order):
     hi = rng.integers(0, 1 << 32, size=1 << 12, dtype=np.uint64)
     assert torch.equal(dense.from_u64_column(lo, hi, device=card).cpu(),
                        dense.from_u64_column(lo, hi, device="cpu"))
+
+
+# ---- launch records of K2, K3 and K4, and their enqueue stamps -----------
+
+def _launch_mix(card):
+    """A K1 mul, a K2 round, K3's add, scalar_mul, a two-level bucket sum
+    and a bucket reduction, and a K4 stage, made ready; returns (run, the
+    records its launches must give, K1 forms aside)."""
+    from jolt_tpu_torch.curve import g1
+    rng = np.random.default_rng(21)
+    T = 1 << 10
+    polys = [ops.pack_ints(_field_ints(rng, T), card) for _ in range(3)]
+    P = g1.pack_points(_g1_points(64, 1), card)
+    Q = g1.pack_points(_g1_points(64, 2), card)
+    affine = g1.normalize(P)
+    words = torch.from_numpy(rng.integers(0, 1 << 32, (8, 64), np.int64)
+                             .astype(np.uint32).view(np.int32)).to(card)
+    lanes = torch.arange(64, dtype=torch.int32)
+    # segments of 10, 0, 10 and 44 lanes: 64 entries, 3 not empty; the
+    # last takes two chunks of 32, so a second level
+    starts, ends = torch.tensor([0, 10, 10, 20]), torch.tensor([10, 10, 20,
+                                                                64])
+    case = k4_case(1)
+
+    def run():
+        ops.mont_mul(polys[0], polys[1])
+        kernels.product_round(polys, 7, "message_bind")
+        g1.jacobian_add(P, Q)
+        g1.batch_scalar_mul(Q, words, 254)
+        g1.bucket_reduce(g1.bucket_sum(affine, lanes, starts, ends), 2)
+        run_k4_case(case, card)
+    blocks = kernels._load("K2").jolt_product_round_blocks(
+        kernels.ORDERS.index("message_bind"), T)
+    k4 = []
+    for row in case["evals"]:
+        active = [v is not None for v in row]
+        k4.append(("k4", (tuple(case["degrees"]), tuple(active),
+                          dt.compressed_len(active, case["degrees"]))))
+    want = [("k2", (3, "message_bind", T, blocks)),
+            ("k3_add", (64,)), ("k3_scalar_mul", (64, 254, 8)),
+            ("k3_bucket_sum", (64, 64, 3, 4)), ("k3_bucket_sum", None),
+            ("k3_bucket_reduce", (1, 2))] + k4
+    return run, want
+
+
+def _recorded(run):
+    """run() with `kernels.record` a list: its records and stamps."""
+    kernels.record = []
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        records, kernels.record = kernels.record, None
+    return records, list(kernels.record_ns)
+
+
+def test_launch_records_of_k2_k3_k4_on_card(card):
+    """With `kernels.record` a list, each K2, K3 and K4 launch appends its
+    form and the key its bound takes (`workload.k2_bound_ms`,
+    `k3_bound_ms`, `k4_bound_ms`), K1's entries stay (form, shapes), and
+    each entry has its enqueue stamp, in order."""
+    from jolt_tpu_torch import workload
+    run, want = _launch_mix(card)
+    t0 = time.perf_counter_ns()
+    records, stamps = _recorded(run)
+    assert [r for r in records if r[0] not in kernels.FORMS] == want
+    k1 = [r for r in records if r[0] in kernels.FORMS]
+    assert k1 and all(workload.k1_bound_ms(f, k)[0] > 0 for f, k in k1)
+    assert workload.k2_bound_ms(*want[0][1])[0] > 0
+    assert all(workload.k4_bound_ms(*k)[0] > 0 for f, k in want
+               if f == "k4")
+    assert len(stamps) == len(records)
+    assert t0 <= stamps[0] and stamps == sorted(stamps)
+    assert stamps[-1] <= time.perf_counter_ns()
+
+
+def _traced_kind(name: str):
+    """A traced kernel's launch kind: "k1", "k2" (its pass kernel),
+    "k3_<form>", "k4", or None for any other operation."""
+    import re
+    if "round_kernel" in name:
+        return "k2"
+    if "k4_round_tail" in name:
+        return "k4"
+    m = re.search(r"k3_(add|double|scalar_mul|normalize|bucket_sum|"
+                  r"bucket_reduce)\b", name)
+    if m:
+        return f"k3_{m.group(1)}"
+    return "k1" if re.search(r"(?:^|\W)k1_", name) else None
+
+
+def test_launch_stamps_precede_their_traced_starts_on_card(card):
+    """Under `torch.profiler`, each recorded launch of K1-K4 is one traced
+    kernel of its kind, and through the profiler's anchor
+    (`utils/profiling.py`) each starts no earlier than 50 us before its
+    enqueue stamp: the program's clock is the device trace's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from jolt_tpu_torch.utils.profiling import Anchor
+    run, _ = _launch_mix(card)
+    run()                               # every kernel loaded and warm
+    torch.cuda.synchronize()
+    anchor = Anchor.now()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        records, stamps = _recorded(run)
+    traced = {}
+    for e in prof.profiler.kineto_results.events():
+        kind = _traced_kind(e.name())
+        if e.device_type() == DeviceType.CUDA and kind is not None:
+            traced.setdefault(kind, []).append(e.start_ns())
+    enqueued = {}
+    for (form, _), t in zip(records, stamps):
+        kind = "k1" if form in kernels.FORMS else form
+        enqueued.setdefault(kind, []).append(anchor.unix_ns(t))
+    assert {k: len(v) for k, v in traced.items()} == {
+        k: len(v) for k, v in enqueued.items()}
+    lags = [s - t for k in enqueued
+            for s, t in zip(sorted(traced[k]), enqueued[k])]
+    assert min(lags) >= -50_000, sorted(lags)[:5]

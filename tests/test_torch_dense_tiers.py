@@ -40,12 +40,12 @@ from jolt_tpu_torch.relations import opening_reduction as tor
 from jolt_tpu_torch.relations import ram as tram
 from jolt_tpu_torch.relations import registers_rw as treg
 from jolt_tpu_torch.riscv.emulator import MemoryLayout
-from jolt_tpu_torch.sumcheck import fused
 from jolt_tpu_torch.sumcheck.engine import BatchedSumcheck as TBatched
 from jolt_tpu_torch.sumcheck.engine import OpeningAccumulator as TAcc
 from jolt_tpu_torch.sumcheck.fused import device_tier, prove_fused
 from jolt_tpu_torch.tracer import trace_program as t_trace_program
 from jolt_tpu_torch.transcript import Blake2bTranscript as TTranscript
+from jolt_tpu_torch.utils import profiling
 from jolt_tpu_torch.witness.ram import (address_of_index,
                                         extract_ram_witness as t_ram_witness)
 from jolt_tpu_torch.witness.registers import \
@@ -109,9 +109,10 @@ def _prove(pkg, insts, tier=None):
             assert device_tier(insts)
             prover = prove_fused
     tr.append_scalar(b"prior", 4242)
-    f0 = fused.fetches
-    polys, r = prover(insts, acc, tr)
-    return polys, r, acc.openings, tr.state, fused.fetches - f0
+    with profiling.recording() as prof:
+        polys, r = prover(insts, acc, tr)
+    return (polys, r, acc.openings, tr.state,
+            prof.tally("d2h", within="fused.fetch"))
 
 
 @pytest.fixture(scope="module")

@@ -66,6 +66,7 @@ from jolt_tpu_torch.sumcheck.engine import OpeningAccumulator as TAcc
 from jolt_tpu_torch.sumcheck.fused import (FusedInstance, TranscriptDivergence,
                                            device_tier, prove_fused)
 from jolt_tpu_torch.transcript import Blake2bTranscript as TTranscript
+from jolt_tpu_torch.utils import profiling
 from jolt_tpu_torch.witness.bytecode import \
     extract_bytecode_witness as t_extract_bytecode_witness
 from jolt_tpu_torch.witness.ram import extract_ram_log as t_extract_ram_log
@@ -201,6 +202,12 @@ STAGES = {"s2": _s2, "s3": _s3, "s4": _s4, "s5": _s5, "s6": _s6,
           "s6v": _s6v, "s78": _s78}
 
 
+def _fetches(prof) -> int:
+    """The device tier's fetches a recording saw: the `d2h` counts of its
+    `fused.fetch` spans (one a stage)."""
+    return prof.tally("d2h", within="fused.fetch")
+
+
 def _run(pkg, tier, build, fib):
     """One stage on a copied transcript: (polys, challenges, openings,
     transcript state, fetches made)."""
@@ -215,9 +222,9 @@ def _run(pkg, tier, build, fib):
             inst.force_device = tier == "device"
         assert device_tier(insts) == (tier == "device")
     tr.append_scalar(b"prior", 4242)
-    f0 = fused.fetches
-    polys, r = prover(insts, acc, tr)
-    return polys, r, acc.openings, tr.state, fused.fetches - f0
+    with profiling.recording() as prof:
+        polys, r = prover(insts, acc, tr)
+    return polys, r, acc.openings, tr.state, _fetches(prof)
 
 
 @pytest.mark.parametrize("stage", list(STAGES))
@@ -247,12 +254,12 @@ def fib_proofs(fib):
     latter's fetches."""
     default = jt.prove(fib[1], device=CPU)
     set_backend(JoltBackend.default().with_every_slot("device"))
-    f0 = fused.fetches
     try:
-        forced = jt.prove(fib[1], device=CPU)
+        with profiling.recording() as prof:
+            forced = jt.prove(fib[1], device=CPU)
     finally:
         set_backend(None)
-    return default, forced, fused.fetches - f0
+    return default, forced, _fetches(prof)
 
 
 def test_all_device_prove_gives_the_default_bytes(fib_proofs):
@@ -279,12 +286,12 @@ def streamed_proofs(fib):
     chunk = fib[1].padded_length // 4
     host = jt.prove(fib[1], device=CPU, _stream_stage1=chunk)
     set_backend(JoltBackend.default().with_every_slot("device"))
-    f0 = fused.fetches
     try:
-        forced = jt.prove(fib[1], device=CPU, _stream_stage1=chunk)
+        with profiling.recording() as prof:
+            forced = jt.prove(fib[1], device=CPU, _stream_stage1=chunk)
     finally:
         set_backend(None)
-    return host, forced, fused.fetches - f0
+    return host, forced, _fetches(prof)
 
 
 @pytest.mark.parametrize("tier", ["host", "device"])
@@ -332,10 +339,10 @@ def test_tampered_fetch_of_a_wide_stage_raises(monkeypatch, rnd):
 def test_more_than_64_instances_take_the_host_engine():
     insts = _dense_stage(65, 8)
     assert not device_tier(insts) and device_tier(insts[:64])
-    f0 = fused.fetches
     acc, tr = TAcc(), TTranscript(b"wide")
-    got = prove_fused(insts, acc, tr)
-    assert fused.fetches == f0
+    with profiling.recording() as prof:
+        got = prove_fused(insts, acc, tr)
+    assert _fetches(prof) == 0 and prof.tally("d2h") >= 5
     acc2, tr2 = TAcc(), TTranscript(b"wide")
     want = TBatched.prove(_dense_stage(65, 8, force=False), acc2, tr2)
     assert got == want and tr.state == tr2.state

@@ -130,6 +130,112 @@ def test_sources_name_nothing_of_the_jax_package(pattern):
     assert not hits, "\n".join(hits)
 
 
+# ---- host <-> card copies ------------------------------------------------
+
+# modules off the prove path, whose copies no counter sees
+COPIES_OFF_PATH = {
+    "verifier": "the verifier: host work on the proof",
+    "eval": "the eval harnesses drive `prove`; their own reads are "
+            "results",
+    "tracer": "the tracer runs before `prove` and makes host arrays",
+    "riscv": "the emulator and assembler: host work",
+    "interop.py": "conversions to and from the JAX package's limbs, for "
+                  "the tests",
+    "sdk.py": "the SDK's analysis of a trace (host numpy)",
+    "cli.py": "the command line",
+    "bench.py": "a timing script around `prove`",
+    "profile_prefix.py": "a profiling script around `prove_prefix`",
+    "workload.py": "workload builders and bounds for the chip scripts",
+    "parallel/spawn.py": "the ranks' launcher and collective probes of "
+                         "the tests and chip checks",
+}
+# (module, function): the copy-like calls on the prove path that are not
+# copies between host and card, each with the reason
+COPIES_EXEMPT = {
+    ("field/ops.py", "host"): "the counted device-to-host helper",
+    ("field/ops.py", "upload"): "the counted host-to-device helper",
+    ("field/fq.py", "_flat_ints"): "plain Fq's int path: CPU tensors only",
+    ("field/fq.py", "_from_ints"): "plain Fq's int path: CPU tensors only",
+    ("field/kernels.py", "_p_words"): "a plain version's constant, on the "
+                                      "CPU tensors' device",
+    ("field/kernels.py", "_p16"): "a plain version's constant, on the CPU "
+                                  "tensors' device",
+    ("field/kernels.py", "_r_tensor"): "a challenge already on a card, "
+                                       "moved to the factors' card",
+    ("field/params.py", "limbs_to_int"): "numpy limbs (host)",
+    ("pcs/dory.py", "onehot_rows"): "numpy row indices (host)",
+    ("pcs/dory.py", "_sv_python"): "numpy positions (host, the Python "
+                                   "tier)",
+    ("pcs/scheme.py", "open_rlc"): "numpy positions (host)",
+    ("pcs/hyperkzg.py", "commit_positions"): "numpy positions (host, the "
+                                             "CPU route)",
+    ("pcs/hyperkzg.py", "_powers_setup"): "`KZGSetup.to`, whose copies "
+                                          "are `ops.upload`'s",
+    ("transcript/device.py", "_words64"): "K4's plain version: the CPU "
+                                          "only",
+    ("transcript/device.py", "idx"): "K4's plain version's constants: the "
+                                     "CPU only",
+    ("transcript/device.py", "round_tail_plain"): "K4's plain version: the "
+                                                  "CPU only",
+    ("transcript/device.py", "_stage_record"): "numpy label words into "
+                                               "K4's launch record",
+    ("witness/*", "*"): "witness extraction: numpy arrays of the trace "
+                        "(host)",
+}
+_D2H = ("cpu", "item", "tolist", "numpy")
+
+
+def _copy_calls(node, fn="<module>"):
+    """(line, function, call) for each call that may copy between host and
+    card: `.cpu()`, `.item()`, `.tolist()`, `.numpy()`, `.cuda()`,
+    `torch.from_numpy(...)`, `torch.tensor` / `torch.as_tensor` with a
+    device, and `.to(...)` with a device argument."""
+    import ast
+    if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+        fn = node.name
+    if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute):
+        f, kw = node.func, {k.arg for k in node.keywords}
+
+        def devish(a):
+            name = getattr(a, "id", None) or getattr(a, "attr", "")
+            return "dev" in name
+        torch_call = isinstance(f.value, ast.Name) and f.value.id == "torch"
+        if (f.attr in _D2H + ("cuda",) and not node.args
+                or torch_call and f.attr == "from_numpy"
+                or torch_call and f.attr in ("tensor", "as_tensor")
+                and "device" in kw
+                or f.attr == "to" and (node.args and devish(node.args[0])
+                                       or "device" in kw)):
+            yield node.lineno, fn, f.attr
+    for c in ast.iter_child_nodes(node):
+        yield from _copy_calls(c, fn)
+
+
+def test_copies_between_host_and_card_go_through_the_counted_helpers():
+    """On the prove path every copy between host and card is
+    `ops.host` (counts `d2h`, `d2h_bytes`) or `ops.upload` (`h2d`,
+    `h2d_bytes`); the exceptions are in COPIES_EXEMPT with their
+    reasons."""
+    import ast
+    hits, used = [], set()
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(PKG).as_posix()
+        if "_build" in rel or any(rel == m or rel.startswith(m + "/")
+                                  for m in COPIES_OFF_PATH):
+            continue
+        tree = ast.parse(path.read_text())
+        for line, fn, what in _copy_calls(tree):
+            key = next((k for k in ((rel, fn),
+                                    (rel.split("/")[0] + "/*", "*"))
+                        if k in COPIES_EXEMPT), None)
+            if key is None:
+                hits.append(f"{rel}:{line} {fn}: .{what}(...)")
+            used.add(key)
+    assert not hits, "\n".join(hits)
+    assert used - {None} == set(COPIES_EXEMPT), \
+        f"exemptions that match nothing: {set(COPIES_EXEMPT) - used}"
+
+
 def test_default_device_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")

@@ -82,13 +82,13 @@ from jolt_tpu_torch.relations import instruction_read_raf as tir
 from jolt_tpu_torch.relations import ra_virtual as trv
 from jolt_tpu_torch.relations import ram_sparse as trs
 from jolt_tpu_torch.riscv.emulator import MemoryLayout
-from jolt_tpu_torch.sumcheck import fused
 from jolt_tpu_torch.sumcheck import product as tproduct
 from jolt_tpu_torch.sumcheck.engine import BatchedSumcheck as TBatched
 from jolt_tpu_torch.sumcheck.engine import OpeningAccumulator as TAcc
 from jolt_tpu_torch.sumcheck.engine import SumcheckError
 from jolt_tpu_torch.tracer import trace_program as t_trace_program
 from jolt_tpu_torch.transcript import Blake2bTranscript as TTranscript
+from jolt_tpu_torch.utils import profiling
 from jolt_tpu_torch.witness.bytecode import \
     extract_bytecode_witness as t_extract_bytecode_witness
 from jolt_tpu_torch.witness.instruction_lookups import \
@@ -172,12 +172,12 @@ def device_prefix(fib):
     """fib's prefix with every slot whose class has the device tier forced
     to it, and the fetches it made."""
     set_backend(JoltBackend.default().with_every_slot("device"))
-    f0 = fused.fetches
     try:
-        proof = jt.prove_prefix(fib[1], device=CPU)
+        with profiling.recording() as prof:
+            proof = jt.prove_prefix(fib[1], device=CPU)
     finally:
         set_backend(None)
-    return proof, fused.fetches - f0
+    return proof, prof.tally("d2h", within="fused.fetch")
 
 
 @pytest.mark.parametrize("stage", STAGES)

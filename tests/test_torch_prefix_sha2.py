@@ -33,6 +33,7 @@ from jolt_tpu.verifier.verifier import PublicIO as JPublicIO
 
 import jolt_tpu_torch as jt
 from jolt_tpu_torch import proof_io, workload
+from jolt_tpu_torch.utils import profiling
 from test_torch_stage1 import _jax_prefix, _jax_proof
 
 pytestmark = pytest.mark.slow
@@ -76,14 +77,13 @@ def device_proof(traces):
     """The whole proof with every slot whose class has the device tier
     forced there, and the fetches it made."""
     from jolt_tpu_torch.kernels import JoltBackend, set_backend
-    from jolt_tpu_torch.sumcheck import fused
     set_backend(JoltBackend.default().with_every_slot("device"))
-    f0 = fused.fetches
     try:
-        proof = jt.prove(traces[1], device="cpu")
+        with profiling.recording() as prof:
+            proof = jt.prove(traces[1], device="cpu")
     finally:
         set_backend(None)
-    return proof, fused.fetches - f0
+    return proof, prof.tally("d2h", within="fused.fetch")
 
 
 def test_sha2_device_tier_proof_matches_jax(device_proof, jax_prefix,

@@ -88,11 +88,14 @@ def test_report_json_and_dump_round_trip(tmp_path):
     path = tmp_path / "p.json"
     prof.dump(str(path))
     tree = json.loads(path.read_text())
-    assert tree == json.loads(prof.to_json()) == [r.as_dict()
+    assert tree == json.loads(prof.to_json()) == [r.as_dict(prof.anchor)
                                                   for r in prof.roots]
     assert tree[0]["hbm_bytes"] == 5 << 20
-    assert tree[0]["children"] == [{"name": "b", "wall_s": round(
-        prof.roots[0].children[0].wall_s, 4)}]
+    b = prof.roots[0].children[0]
+    assert tree[0]["children"] == [{
+        "name": "b", "start_ns": prof.anchor.unix_ns(round(b.start * 1e9)),
+        "wall_s": round(b.wall_s, 4)}]
+    assert "start_ns" not in prof.roots[0].as_dict()
 
 
 def test_stage_spans_adopt_the_spans_opened_in_the_stage():
@@ -185,3 +188,148 @@ def test_fs_trace_file_is_the_tape_with_the_jax_entries(profiled_prove):
     assert ({k: v for k, v in by["stage8-openings"].items() if k != "stage"}
             == {k: v for k, v in by["stage8-reduction"].items()
                 if k != "stage"})
+
+
+# ---- counters, the clock anchor, and the spans inside each stage ---------
+
+# each batched stage's root and its proof fields of round polynomials (one
+# `stage.setup` a batched sumcheck: stage 4-5 has two)
+BATCHED = {"stage1-spartan": ["stage1_polys"],
+           "stage1s-shift": ["shift_polys"],
+           "stage2-reg-rw": ["stage2_polys"],
+           "stage3-reg-val": ["stage3_polys"],
+           "stage4-5-ram": ["stage4_polys", "stage5_polys"],
+           "stage5i-instr-lookups": ["stage5i_polys"],
+           "stage6-bytecode": ["stage6_polys"],
+           "stage6v-ra-virtual": ["stage6v_polys"],
+           "stage7-booleanity": ["stage7_polys"],
+           "stage8-reduction": ["stage8_polys"]}
+
+
+def test_counts_add_to_the_innermost_span_or_the_next_stage():
+    prof = Profiler(track_memory=False)
+    prof.count("d2h")                       # no span open: waits
+    t0 = time.perf_counter()
+    with prof.span("a"):
+        prof.count("d2h", 2)
+        with prof.span("b"):
+            prof.count("h2d_bytes", 96)
+    prof.count("d2h", 4)
+    prof.stage("stage-a", t0, time.perf_counter())
+    stage = prof.roots[0]
+    assert stage.counts == {"d2h": 5} and stage.children[0].counts == {
+        "d2h": 2}
+    assert stage.children[0].children[0].counts == {"h2d_bytes": 96}
+    assert prof.tally("d2h") == 7 and prof.tally("d2h", within="a") == 2
+    assert "d2h=5" in prof.report().splitlines()[0]
+    tree = json.loads(prof.to_json())
+    assert tree[0]["counts"] == {"d2h": 5}
+    assert tree[0]["children"][0]["children"][0]["counts"] == {
+        "h2d_bytes": 96}
+
+
+def test_null_profiler_records_nothing():
+    prof = Profiler(enabled=False)
+    prof.count("d2h")
+    with prof.span("x"):
+        prof.count("d2h", 3)
+    assert prof.stage("y", 0.0, 1.0) is None
+    assert prof.roots == [] and prof.proves == [] and prof._loose == {}
+    assert prof.tally("d2h") == 0 and json.loads(prof.to_json()) == []
+    # the process-wide null object, whatever ran under it in this process
+    assert not profiling._NULL.roots and not profiling._NULL.proves
+    assert not profiling._NULL._loose
+
+
+def test_recording_restores_the_profiler_before_it():
+    before = profiling.active()
+    with profiling.recording() as prof:
+        assert profiling.active() is prof and prof.enabled
+        prof.count("d2h")
+    assert profiling.active() is before
+
+
+def test_start_ns_follows_the_anchor(profiled_prove):
+    _, prof, _, _ = profiled_prove
+    a = prof.anchor
+    assert abs((a.time_ns - time.time_ns())
+               - (a.perf_ns - time.perf_counter_ns())) < 50_000_000
+    tree = json.loads(prof.to_json())
+
+    def pairs(spans, dicts):
+        for s, d in zip(spans, dicts):
+            yield s, d
+            yield from pairs(s.children, d.get("children", []))
+    seen = list(pairs(prof.roots, tree))
+    assert len(seen) == sum(1 for r in prof.roots for _ in r.walk())
+    for s, d in seen:
+        assert d["start_ns"] == a.time_ns + round(s.start * 1e9) - a.perf_ns
+    assert a.time_ns <= tree[0]["start_ns"] <= time.time_ns()
+
+
+def test_proves_keep_each_calls_stage_spans(profiled_prove):
+    _, prof, _, _ = profiled_prove
+    assert len(prof.proves) == 1 and prof.proves[0] == prof.roots
+    assert prof.proves[0] is not prof.roots
+
+
+def test_witness_steps_cover_its_wall_time(profiled_prove):
+    _, prof, _, _ = profiled_prove
+    w = prof.roots[0]
+    assert [c.name for c in w.children] == [
+        "witness.r1cs_inputs", "witness.registers", "witness.ram",
+        "witness.bytecode", "witness.lookups", "witness.chunks",
+        "witness.advice"]
+    assert sum(c.wall_s for c in w.children) >= 0.95 * w.wall_s
+
+
+def test_every_batched_stage_has_its_setup_then_rounds(profiled_prove):
+    proof, prof, _, _ = profiled_prove
+    by = {r.name: r for r in prof.roots}
+    for label, fields in BATCHED.items():
+        ran = [f for f in fields if getattr(proof, f)]
+        names = [c.name for c in by[label].children]
+        # on the CPU every stage takes the host engine
+        assert names == ["stage.setup", "engine.rounds",
+                         "stage.openings"] * len(ran), (label, names)
+        kids = by[label].children
+        assert sum(c.wall_s for c in kids) >= 0.9 * by[label].wall_s or \
+            by[label].wall_s < 0.01, label
+    assert [c.name for c in by["stage1-spartan"].children[0].children] == [
+        "s1.uniskip"]
+    assert [c.name for c in by["stage0-commit"].children] == []
+
+
+def test_s5i_parts(profiled_prove):
+    proof, prof, _, _ = profiled_prove
+    s5i = next(r for r in prof.roots if r.name == "stage5i-instr-lookups")
+    setup, rounds, _ = s5i.children
+    log_t = len(proof.stage5i_polys) - 128
+    parts = [c.name for c in rounds.children]
+    # a message and a bind span a round; 16 phase tables, the first in
+    # the set-up, the last rebuild the cycle rounds' stack
+    assert parts.count("s5i.address") == 2 * 128
+    assert parts.count("s5i.cycle") == 2 * log_t
+    assert parts.count("s5i.rebuild") == 16
+    assert [c.name for c in setup.children] == ["s5i.rebuild"]
+
+
+def test_copies_are_counted_in_the_tree(profiled_prove):
+    proof, prof, _, _ = profiled_prove
+    by = {r.name: r for r in prof.roots}
+    # the host engine fetches each round's messages once
+    for label in ("stage2-reg-rw", "stage3-reg-val", "stage6-bytecode"):
+        rounds = by[label].children[1]
+        n = len(getattr(proof, BATCHED[label][0]))
+        assert rounds.counts["d2h"] == n, label
+        assert rounds.counts["d2h_bytes"] > 0
+    assert prof.tally("d2h") == sum(prof.tally("d2h", roots=[r])
+                                    for r in prof.roots)
+    assert prof.tally("h2d") > 0 and prof.tally("h2d_bytes") > 0
+    tree = json.loads(prof.to_json())
+
+    def total(d, key):
+        return d.get("counts", {}).get(key, 0) + sum(
+            total(c, key) for c in d.get("children", []))
+    for key in ("d2h", "d2h_bytes", "h2d", "h2d_bytes"):
+        assert sum(total(d, key) for d in tree) == prof.tally(key)

@@ -30,6 +30,7 @@ from jolt_tpu_torch.sumcheck import fused
 from jolt_tpu_torch.sumcheck.engine import BatchedSumcheck as TBatched
 from jolt_tpu_torch.sumcheck.engine import OpeningAccumulator as TAcc
 from jolt_tpu_torch.transcript import Blake2bTranscript as TTranscript
+from jolt_tpu_torch.utils import profiling
 from jolt_tpu_torch.witness.r1cs_inputs import \
     extract_r1cs_inputs as t_extract_r1cs_inputs
 from test_prove_verify import FIB, L
@@ -80,9 +81,10 @@ def _port_stage1(trace, stream, tier="host"):
     if tier == "device":
         outer.force_device = True
         prover = fused.prove_fused
-    f0 = fused.fetches
-    polys, _ = prover([outer], TAcc(), t)
-    return s1, mats, polys, outer.input_openings, fused.fetches - f0
+    with profiling.recording() as prof:
+        polys, _ = prover([outer], TAcc(), t)
+    return (s1, mats, polys, outer.input_openings,
+            prof.tally("d2h", within="fused.fetch"))
 
 
 @pytest.fixture(scope="module")
